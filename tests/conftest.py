@@ -5,6 +5,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a card")
+
 
 @pytest.fixture(scope="session")
 def rng():
