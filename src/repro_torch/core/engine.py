@@ -18,12 +18,16 @@ table's patch log).  :meth:`RelationalMemoryEngine.execute_many` coalesces
 any mix of project / filter / aggregate / group-by ops per table: two or
 more requests on a table run one fused pass per resident chunk
 (``rm_scan_multi_kernel``), a lone request runs its single-op kernel.
+A join op alone on its table streams the hash-join probe
+(``rm_hash_join_kernel``) over the resident chunks; a join sharing its
+table's pass probes the packed block that pass produced.  The build side's
+hash buckets are built once per build-table version and live in the
+planner's join build cache.
 
 The engine runs on one device, chosen at construction: ``device=None`` means
 the card and raises without one; ``device="cpu"`` runs the kernels' plain
-PyTorch versions.  Not ported yet, each listed in ROADMAP.md: joins, the
-streaming projection the ``QueryServer`` uses, fault injection and the
-circuit breaker.
+PyTorch versions.  Not ported yet, each listed in ROADMAP.md: fault
+injection, the circuit breaker and the sharded backend.
 """
 
 from __future__ import annotations
@@ -41,13 +45,17 @@ from repro_torch.kernels import rme_scan_multi as KR
 
 from .descriptor import bytes_moved
 from .ephemeral import EphemeralView
-from .requests import (AggregateOp, FilterOp, GroupByOp, ProjectOp, ScanOp,
-                       finalize_scan_result)
+from .requests import (AggregateOp, FilterOp, GroupByOp, JoinOp, JoinResult,
+                       ProjectOp, ScanOp, finalize_scan_result)
 from .schema import WORD, TableGeometry
 from .table import RelationalTable
 
 # the fused-pass tile guard never shrinks below this (grid overhead dominates)
 MIN_FUSED_BLOCK_ROWS = 32
+
+# streamed projections never slice finer than this: below it the per-chunk
+# launch overhead dwarfs the chunk itself
+MIN_STREAM_CHUNK_ROWS = 32
 
 # tail chunks are coalesced (device-side, no host transfer) beyond this count
 # so per-chunk pass overhead stays bounded under sustained appends
@@ -75,12 +83,13 @@ class EngineStats:
       of every charged pass (``charge_scan`` is the single charge point).
     * ``decodes`` / ``decode_cache_hits`` — client-visible decodes of
       encoded packed results vs per-table-version cache hits.
+    * ``join_builds`` / ``bytes_join_build`` — hash-partition builds of a
+      join's build side and their bytes (also charged as an upload).
 
-    The join, collective and fault counters of the reference
-    (``join_builds``, ``bytes_join_build``, ``bytes_collective``,
-    ``collective_ops``, ``retries``, ``failovers``, ``bytes_failover``) are
-    kept so the two engines' stats line up field for field; this slice
-    never moves them.
+    The collective and fault counters of the reference
+    (``bytes_collective``, ``collective_ops``, ``retries``, ``failovers``,
+    ``bytes_failover``) are kept so the two engines' stats line up field for
+    field; the port never moves them yet.
     """
 
     hot_hits: int = 0
@@ -96,8 +105,8 @@ class EngineStats:
     delta_uploads: int = 0  # of uploads: delta-only transfer events
     delta_hits: int = 0  # cache entries served by tail-chunk delta scans
     last_block_rows: int = 0  # row-tile height the fused-pass VMEM guard chose
-    join_builds: int = 0  # not ported yet (join offload)
-    bytes_join_build: int = 0  # not ported yet (join offload)
+    join_builds: int = 0  # build-side hash partitionings
+    bytes_join_build: int = 0  # their partition-array bytes
     bytes_collective: int = 0  # not ported yet (sharded backend)
     collective_ops: int = 0  # not ported yet (sharded backend)
     retries: int = 0  # not ported yet (fault tolerance)
@@ -160,6 +169,17 @@ class ReorgCache:
     def reset(self) -> None:
         """Single-cycle SPM invalidation: bump the epoch; entries expire lazily."""
         self.epoch += 1
+
+    def peek(self, key: tuple, version) -> torch.Tensor | None:
+        """Exact-version probe without side effects (the planner costs
+        queries with it)."""
+        hit = self._entries.get(key)
+        if hit is None:
+            return None
+        epoch, ver, arr = hit
+        if epoch != self.epoch or ver != version:
+            return None
+        return arr
 
     def lookup(self, key: tuple) -> tuple[object, torch.Tensor] | None:
         """Epoch-valid entry *regardless of version*: ``(version, arr)`` —
@@ -444,6 +464,13 @@ class RelationalMemoryEngine:
         # outputs, keyed per table version/storage epoch (FIFO-capped)
         self._decode_cache: dict[tuple, object] = {}
 
+    @property
+    def backend(self) -> str:
+        """Execution-backend identity: ``"single"`` (the sharded backend is
+        not ported).  ``compile_plan(..., backend=...)`` validates against
+        it."""
+        return "single"
+
     # ---------------------------------------------------------------- config
     def register(
         self,
@@ -464,11 +491,14 @@ class RelationalMemoryEngine:
 
     def reset(self) -> None:
         """The configuration port's software reset SW (Table 1): invalidate
-        the reorg cache (epoch bump, O(1)).  The device row store is kept —
-        it mirrors the row store itself, not derived state.  (The reference
-        also clears its planner's join build cache; the port has no planner
-        yet.)"""
+        the reorg cache (epoch bump, O(1)) and the planner's module-global
+        join build cache (keyed by table version, not engine epoch, so it
+        needs an explicit clear).  The device row store is kept — it mirrors
+        the row store itself, not derived state."""
         self.cache.reset()
+        from .planner import clear_join_build_cache  # deferred: planner imports us
+
+        clear_join_build_cache()
 
     # --------------------------------------------------------------- engine
     def view_key(self, table: RelationalTable, geom: TableGeometry) -> tuple:
@@ -478,6 +508,26 @@ class RelationalMemoryEngine:
         codec re-fit rewrites stored code words in place)."""
         return (table.uid, geom.layout_key(), self.revision,
                 getattr(table, "storage_epoch", 0))
+
+    def peek_project(self, table: RelationalTable,
+                     geom: TableGeometry) -> torch.Tensor | None:
+        """Side-effect-free full-hot probe for planner/server costing: the
+        cached packed block iff it covers every current row."""
+        return self.cache.peek(self.view_key(table, geom), table.row_count)
+
+    def projection_is_cached(self, table: RelationalTable,
+                             geom: TableGeometry) -> bool:
+        """Side-effect-free: will :meth:`_project_from_cache` serve this
+        view without a full scan (a full hot hit, or in delta mode a
+        tail-only delta serve)?"""
+        ent = self.cache.lookup(self.view_key(table, geom))
+        if ent is None:
+            return False
+        rows_cached = ent[0]
+        if rows_cached == table.row_count:
+            return True
+        return (self.delta and isinstance(rows_cached, int)
+                and 0 < rows_cached < table.row_count)
 
     def device_words(self, table: RelationalTable) -> torch.Tensor:
         """The table's device-resident word buffer as one tensor (synced at
@@ -550,26 +600,75 @@ class RelationalMemoryEngine:
         self.cache.put(self.view_key(table, geom), table.row_count, packed)
         return packed
 
+    def stream_project(self, view: EphemeralView,
+                       chunk_rows: int | None = None):
+        """The view's packed projection as an iterator of chunks, one per
+        resident row-store chunk (re-sliced to at most ``chunk_rows`` rows,
+        never below ``MIN_STREAM_CHUNK_ROWS``).
+
+        Charging is per emitted chunk, with the rules of a cold
+        materialization of that many rows.  A view the reorg cache serves
+        arrives as one free chunk; a cold stream's concatenation lands in
+        the cache after the last chunk.  The *call* snapshots the resident
+        chunk list eagerly (uploading what is needed); only the per-chunk
+        scans are lazy, so writes applied after the call cannot leak into
+        the stream.
+        """
+        table, geom = view.table, view.geometry
+        served = self._project_from_cache(table, geom)
+        if served is not None:
+            return iter((served,))
+        self.stats.cold_misses += 1
+        if chunk_rows is not None:
+            chunk_rows = max(int(chunk_rows), MIN_STREAM_CHUNK_ROWS)
+        chunks = tuple(self.device_chunks(table))
+        return self._stream_chunks(table, geom, chunks, chunk_rows,
+                                   table.row_count)
+
+    def _stream_chunks(self, table: RelationalTable, geom, chunks,
+                       chunk_rows: int | None, row_count: int):
+        """The lazy half of :meth:`stream_project`: scan + charge + yield
+        per chunk, then cache the concatenation under the snapshotted
+        ``row_count``."""
+        parts = []
+        for chunk in chunks:
+            start = 0
+            while start < chunk.shape[0]:
+                stop = (chunk.shape[0] if chunk_rows is None
+                        else min(start + chunk_rows, chunk.shape[0]))
+                piece = chunk[start:stop]  # a row slice of a chunk is contiguous
+                start = stop
+                cg = dataclasses.replace(geom, row_count=piece.shape[0])
+                packed = K.project_any(piece, cg, revision=self.revision)
+                moved = bytes_moved(cg)
+                self.stats.rows_projected += cg.row_count
+                self.stats.bytes_from_dram += moved["rme"]
+                self.stats.bytes_to_cpu += moved["columnar"]
+                parts.append(packed)
+                yield packed
+        if parts:
+            full = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+            self.cache.put(self.view_key(table, geom), row_count, full)
+
     def execute_many(self, ops: Sequence[ScanOp]) -> list:
         """Serve a heterogeneous op batch with one shared scan per table.
 
-        Any mix of project / filter / aggregate / group-by ops is coalesced
-        per table: each table's cold work is lowered to kernel scan requests
-        (equal requests share one output slot; a request another covers is
-        derived from it), and two or more requests run one fused pass per
-        resident chunk, combined across chunks, with bus-beat bytes charged
-        once per chunk via the union geometry.  A lone request keeps its
-        single-op kernel.  Hot projections are served from the
-        reorganization cache (including delta serves over appended tails),
-        and every cold projection lands there.  Results are returned in
-        input order, each matching its op's single-op contract.
+        Any mix of project / filter / aggregate / group-by / join ops is
+        coalesced per table: each table's cold work is lowered to kernel
+        scan requests (equal requests share one output slot; a request
+        another covers is derived from it), and two or more requests run one
+        fused pass per resident chunk, combined across chunks, with bus-beat
+        bytes charged once per chunk via the union geometry.  A lone request
+        keeps its single-op kernel; a lone unpredicated join streams the
+        probe over the row-store chunks instead.  Hot projections are served
+        from the reorganization cache (including delta serves over appended
+        tails), and every cold projection lands there.  Results are returned
+        in input order, each matching its op's single-op contract.
         """
         for op in ops:
-            if not isinstance(op, (ProjectOp, FilterOp, AggregateOp, GroupByOp)):
-                raise NotImplementedError(
-                    f"{type(op).__name__} is not ported yet (ROADMAP queue 1: "
-                    "join offload)"
-                )
+            if not isinstance(op, (ProjectOp, FilterOp, AggregateOp, GroupByOp,
+                                   JoinOp)):
+                raise TypeError(f"not a scan op: {type(op).__name__}")
         results: list = [None] * len(ops)
         pending: dict[int, list[tuple[int, KR.ScanRequest]]] = {}
         tables: dict[int, RelationalTable] = {}
@@ -586,6 +685,13 @@ class RelationalMemoryEngine:
             uniq = dict.fromkeys(req for _, req in entries)
             reqs = tuple(uniq)
             self.stats.cold_misses += len(entries)
+            if (len(entries) == 1 and isinstance(ops[entries[0][0]], JoinOp)
+                    and ops[entries[0][0]].pred_op == "none"):
+                # a join alone on its table skips the packed materialization:
+                # the probe streams the row-store chunks, and nothing crosses
+                # toward the CPU but the join result
+                results[entries[0][0]] = self._join_direct(ops[entries[0][0]])
+                continue
             cover: dict = {}
             if self.subsume and len(reqs) > 1:
                 reqs, cover = _cover_requests(reqs)
@@ -594,15 +700,24 @@ class RelationalMemoryEngine:
             for req, rep in cover.items():
                 by_req[req] = self._derive_covered(rep, req, by_req[rep])
             self.stats.subsumed_requests += len(cover)
+            # a packed block consumed only by join probes stays on the
+            # device: bytes_to_cpu is charged only for a non-join consumer
+            cpu_reqs = {req for i, req in entries
+                        if not isinstance(ops[i], JoinOp)}
             for req, out in by_req.items():
                 if isinstance(req, KR.ProjectRequest):
                     geom = req.geom
-                    self.stats.bytes_to_cpu += geom.row_count * geom.out_bytes_per_row
+                    if req in cpu_reqs:
+                        self.stats.bytes_to_cpu += (
+                            geom.row_count * geom.out_bytes_per_row)
                     self.cache.put(
                         self.view_key(table, geom), table.row_count, out
                     )
             for i, req in entries:
-                results[i] = finalize_scan_result(ops[i], by_req[req])
+                out = by_req[req]
+                results[i] = (self._finish_join(ops[i], out)
+                              if isinstance(ops[i], JoinOp)
+                              else finalize_scan_result(ops[i], out))
         return results
 
     def execute_many_async(self, ops: Sequence[ScanOp]) -> PassHandle:
@@ -716,6 +831,97 @@ class RelationalMemoryEngine:
         if mask is not None:
             m = m & mask
         return torch.where(m[:, None], sliced, torch.zeros_like(sliced)), m
+
+    # ---------------------------------------------- device-resident join
+    def _build_join_partitions(self, table: RelationalTable, key: str,
+                               payload: str):
+        """Hash-partition the build side's {key, payload, ts} columns into
+        buckets on the engine's device and insert them into the planner's
+        join build cache (one build per build-table version).  The upload
+        is charged once here: ``bytes_uploaded``/``uploads`` plus the
+        ``join_builds``/``bytes_join_build`` split."""
+        from .planner import DEVICE_JOIN_PATH, _insert_build_index
+
+        words = table.words()
+        parts = K.build_partitions(
+            words[:, table.schema.word_offset(key)],
+            words[:, table.schema.word_offset(payload)],
+            words[:, table.ts_begin_word],
+            words[:, table.ts_end_word],
+            device=self.device,
+        )
+        self.stats.join_builds += 1
+        self.stats.bytes_join_build += parts.nbytes
+        self.stats.uploads += 1
+        self.stats.bytes_uploaded += parts.nbytes
+        _insert_build_index(parts, table, key, payload, DEVICE_JOIN_PATH)
+        return parts
+
+    def _op_partitions(self, op: JoinOp):
+        """The op's build partitions: the compile-time cache hit, or a fresh
+        build-and-insert."""
+        if op.partitions is not None:
+            return op.partitions
+        return self._build_join_partitions(op.right_table, op.key,
+                                           op.right_proj)
+
+    def _probe_join(self, words: torch.Tensor, partitions, key_word: int,
+                    val_word: int, ts_word: int, ts: int, build_ts: bool):
+        """One probe pass: the CUDA kernel on the card, its plain version on
+        the CPU — no fallback between them.  The reference's SPM guard is
+        kept as a model: the row tile is halved while the modeled working
+        set (row tile + resident buckets) exceeds ``vmem_bytes``, and the
+        choice lands in ``EngineStats.last_block_rows``."""
+        block_rows = self.block_rows
+        while (block_rows // 2 >= MIN_FUSED_BLOCK_ROWS
+               and K.probe_vmem_footprint_bytes(
+                   partitions, words.shape[1], block_rows) > self.vmem_bytes):
+            block_rows //= 2
+        self.stats.last_block_rows = block_rows
+        return K.hash_join(words, partitions, key_word, val_word,
+                           ts_word=ts_word, ts=ts, build_ts=build_ts)
+
+    def _join_direct(self, op: JoinOp) -> JoinResult:
+        """Solo join: stream the probe over the device row-store chunks (no
+        packed materialization).  Bus beats are charged per chunk via the
+        union geometry of the probe-side request."""
+        table = op.table
+        parts = self._op_partitions(op)
+        chunks = self.device_chunks(table)
+        key_word = table.schema.word_offset(op.key)
+        val_word = table.schema.word_offset(op.left_proj)
+        snap = op.snapshot_ts is not None
+        ts_word = table.ts_begin_word if snap else -1
+        outs = [
+            self._probe_join(chunk, parts, key_word, val_word, ts_word,
+                             op.snapshot_ts or 0, snap)
+            for chunk in chunks
+        ]
+        acc_req = op.lower()  # its intervals are exactly the probe footprint
+        self.stats.rows_projected += table.row_count
+        for chunk in chunks:
+            self.charge_scan(table, (acc_req,), row_count=chunk.shape[0])
+        return JoinResult.concat([JoinResult(*o) for o in outs])
+
+    def _finish_join(self, op: JoinOp, out) -> JoinResult:
+        """Probe a shared-scan output: the op's probe-side scan rode the
+        fused pass (a packed block, or ``(packed, mask)`` under a snapshot
+        or predicate); the bucket probe runs on that block, so the join
+        costs the tick no extra row-store pass."""
+        parts = self._op_partitions(op)
+        packed, mask = out if isinstance(out, tuple) else (out, None)
+        key_word, _ = op.view.column_words(op.key)
+        val_word, _ = op.view.column_words(op.left_proj)
+        s, r, m = self._probe_join(
+            packed, parts, key_word, val_word, ts_word=-1,
+            ts=op.snapshot_ts or 0, build_ts=op.snapshot_ts is not None,
+        )
+        if mask is not None:  # packed blocks carry no ts words: mask outside
+            zero = torch.zeros((), dtype=s.dtype, device=s.device)
+            s = torch.where(mask, s, zero)
+            r = torch.where(mask, r, zero)
+            m = m & mask
+        return JoinResult(s_proj=s, r_proj=r, matched=m)
 
     def scan_bytes(self, table: RelationalTable,
                    reqs: Sequence["KR.ScanRequest"],

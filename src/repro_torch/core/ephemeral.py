@@ -99,6 +99,10 @@ class EphemeralView:
         # 8-byte types occupy two words little-endian
         return live.contiguous().view(_TORCH_DTYPES[col.dtype]).reshape(-1)
 
+    def column_words(self, name: str) -> tuple[int, int]:
+        """(word offset, word width) of ``name`` inside the packed view."""
+        return self._packed_slice[name]
+
     def __getitem__(self, idx) -> torch.Tensor:
         return self.packed()[idx]
 

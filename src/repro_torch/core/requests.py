@@ -11,15 +11,15 @@ lone op to its single-op kernel).
 
 Ops use identity equality (two clients asking the same aggregate are two
 ops); de-duplication happens at the kernel-request level.  Every op also
-knows its result size (:meth:`result_bytes`).
-
-The join op and its results are not ported yet (ROADMAP queue 1, join
-offload).
+knows its result size (:meth:`result_bytes`).  A :class:`JoinOp` lowers to
+its probe-side scan request only; the bucket probe runs on that scan's
+output (or straight on the row-store chunks when the join is alone).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -30,6 +30,33 @@ from repro_torch.kernels import rme_scan_multi as KR
 from .compression import DeltaCodec, DictCodec
 from .ephemeral import EphemeralView
 from .table import RelationalTable
+
+
+@dataclasses.dataclass
+class JoinResult:
+    """Static-shape join output: one slot per probe row + match validity.
+
+    Every join route — host sort-probe, flipped sort-probe, device hash
+    probe — emits exactly this contract, so routes are interchangeable.
+    Under a ``snapshot_ts``, probe rows invisible at the snapshot carry
+    zeros and ``matched=False``.
+    """
+
+    s_proj: torch.Tensor  # projected column from the probe side S
+    r_proj: torch.Tensor  # matched column from the build side R (0 where no match)
+    matched: torch.Tensor  # bool mask
+
+    @classmethod
+    def concat(cls, parts: Sequence["JoinResult"]) -> "JoinResult":
+        """Row-wise concatenation of per-chunk join outputs back into
+        probe-table row order (join outputs are row-local)."""
+        if len(parts) == 1:
+            return parts[0]
+        return cls(
+            s_proj=torch.cat([p.s_proj for p in parts]),
+            r_proj=torch.cat([p.r_proj for p in parts]),
+            matched=torch.cat([p.matched for p in parts]),
+        )
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -187,7 +214,74 @@ class GroupByOp:
         return self.num_groups * 8  # (G, 2) float partials
 
 
-ScanOp = ProjectOp | FilterOp | AggregateOp | GroupByOp
+@dataclasses.dataclass(frozen=True, eq=False)
+class JoinOp:
+    """Device-resident equi-join: probe-side scan + bucketed build probe.
+
+    The op names the registered probe-side ``{left_proj, key}`` view, the
+    build table, and (optionally) the hash partitions the planner found in
+    the build cache at compile time (``None`` means build-and-insert at
+    execution).
+
+    :meth:`lower` emits only the **probe-side scan request** — a plain
+    ``ProjectRequest`` (or, snapshot-pinned or predicated, a
+    ``FilterRequest`` whose mask is the predicate AND the MVCC visibility) —
+    so a join in a mixed tick coalesces into the same one-pass scan as
+    co-tick ops on the probe table; the bucket probe then runs on the packed
+    output (``RelationalMemoryEngine._finish_join``).  A join alone on its
+    table skips the packed materialization: the engine streams the probe
+    kernel over the device row-store chunks (``_join_direct``).
+    """
+
+    view: EphemeralView  # probe-side {left_proj, key} registered view
+    left_proj: str
+    key: str
+    right_table: RelationalTable
+    right_proj: str
+    snapshot_ts: int | None = None
+    partitions: object | None = None  # JoinPartitions from the build cache
+    # probe-side predicate pushed below the join (optimizer), fused into the
+    # probe scan like a FilterOp's
+    pred_col: str | None = None
+    pred_op: str = "none"
+    pred_k: int | float = 0
+
+    @property
+    def table(self) -> RelationalTable:
+        return self.view.table
+
+    def lower(self) -> KR.ProjectRequest | KR.FilterRequest:
+        check_join_encoding(self.table, self.right_table, self.key,
+                            self.left_proj, self.right_proj)
+        if self.snapshot_ts is None and self.pred_op == "none":
+            return KR.ProjectRequest(self.view.geometry)
+        # with no real predicate this is the inert spelling over the (int32)
+        # key column, whose mask is visibility alone
+        pred_col = self.pred_col if self.pred_op != "none" else self.key
+        return KR.FilterRequest(
+            self.view.geometry,
+            **_pred_fields(self.table, pred_col, self.pred_op, self.pred_k,
+                           self.snapshot_ts, 0, "int32"),
+        )
+
+    def result_bytes(self) -> int:
+        # JoinResult: s_proj (4B) + r_proj (4B) + matched (1B) per probe row
+        return self.view.geometry.row_count * 9
+
+
+@dataclasses.dataclass
+class MultiJoinResult:
+    """A left-deep join chain's output: the shared probe projection, one
+    build-side column per join (in the client's spelling order), and the
+    conjunction of the per-join match masks.  Rows failing any join (or the
+    probe-side predicate/snapshot) carry zeros and ``matched=False``."""
+
+    s_proj: torch.Tensor
+    r_projs: tuple[torch.Tensor, ...]
+    matched: torch.Tensor
+
+
+ScanOp = ProjectOp | FilterOp | AggregateOp | GroupByOp | JoinOp
 
 
 def _agg_lower_dtype(table: RelationalTable, agg_col: str) -> str:
@@ -205,6 +299,40 @@ def _agg_lower_dtype(table: RelationalTable, agg_col: str) -> str:
             "addends — aggregate a FOR-encoded or plain column instead"
         )
     return "int32"  # FOR deltas are plain int32 words
+
+
+def check_join_encoding(left: RelationalTable, right: RelationalTable,
+                        key: str, left_proj: str, right_proj: str) -> None:
+    """Execute-time guard for the device join route on encoded tables.
+
+    Raw code words are join identities only when *both* key columns encode
+    through one table-level dictionary — a re-fit on either side between
+    compile and execute breaks that, which is why :meth:`JoinOp.lower`
+    re-checks on every execution.  Projected payloads must be plain
+    numeric: the probe emits zeros for unmatched rows, and zero is a valid
+    code word."""
+    for table, col in ((left, left_proj), (right, right_proj)):
+        if col in table.codecs:
+            raise ValueError(
+                f"join payload column {col!r} must be plain numeric "
+                "(unmatched rows emit 0, which is a valid code word)"
+            )
+    a, b = left.codecs.get(key), right.codecs.get(key)
+    if a is None and b is None:
+        return
+    if a is None or b is None:
+        raise ValueError(
+            f"join key {key!r} is encoded on one side only — codes cannot "
+            "compare against plain values"
+        )
+    if not (isinstance(a, DictCodec) and isinstance(b, DictCodec)):
+        raise ValueError("join keys need dict codecs (FOR deltas are not "
+                         "join identities)")
+    if a is not b and not np.array_equal(a.dictionary, b.dictionary):
+        raise ValueError(
+            f"join key {key!r} needs one shared table-level dictionary "
+            "(fit both tables with the same DictCodec)"
+        )
 
 
 def _remap_group_partials(codec: DictCodec, num_groups: int, sums, counts):

@@ -320,6 +320,26 @@ def geometry_from_intervals(
     )
 
 
+def merge_geometries(geoms: Sequence[TableGeometry]) -> TableGeometry:
+    """Union geometry of several views over one row layout (the shared scan).
+
+    When the engine serves a batch of ephemeral views from a single Fetch-Unit
+    stream, the bytes it pulls from the row store are governed by the *union*
+    of the enabled-column byte intervals (see :func:`geometry_from_intervals`),
+    so co-planned views are charged for the shared scan exactly once.
+    """
+    if not geoms:
+        raise ValueError("merge_geometries needs at least one geometry")
+    row_bytes = geoms[0].row_bytes
+    if any(g.row_bytes != row_bytes for g in geoms):
+        raise ValueError("cannot merge geometries over different row layouts")
+    return geometry_from_intervals(
+        [(o, w) for g in geoms for o, w in zip(g.abs_offsets, g.col_widths)],
+        row_bytes=row_bytes,
+        row_count=max(g.row_count for g in geoms),
+    )
+
+
 def benchmark_schema(row_bytes: int = 64, col_bytes: int = 4) -> TableSchema:
     """The synthetic benchmark table (§6.2): n equal-width numeric columns."""
     if row_bytes % col_bytes:

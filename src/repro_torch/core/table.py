@@ -462,3 +462,14 @@ class RelationalTable:
         t._clock = int(state["clock"])
         t.storage_epoch = int(state.get("storage_epoch", 0))
         return t
+
+
+def columnar_copy(table: RelationalTable, names: Sequence[str]) -> dict[str, np.ndarray]:
+    """A materialized column-store copy — the paper's 'direct columnar' baseline.
+
+    This is what adaptive-layout systems maintain (and must invalidate); the RME
+    makes it unnecessary.  Used only as a comparison point in the benchmarks.
+    """
+    mask = table.snapshot_mask()
+    idx = np.nonzero(mask)[0]
+    return {n: table.read_column_at(n, idx) for n in names}

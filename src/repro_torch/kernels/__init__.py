@@ -4,8 +4,9 @@
 ``rme_filter``     — fused selection + projection
 ``rme_aggregate``  — fused selection + aggregation, and group-by
 ``rme_scan_multi`` — the heterogeneous one-pass scan and its requests
+``rme_join``       — the device hash-join build and probe
 ``ops``            — the engine's import surface
-``_cuda``          — builds, loads and launches ``csrc/rm_scan.cu``
+``_cuda``          — builds, loads and launches ``csrc/*.cu``
 """
 
 # The kernel modules import the core's schema and the core's engine imports

@@ -1,4 +1,5 @@
-"""Build, load and launch the CUDA scan kernels (``csrc/rm_scan.cu``).
+"""Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
+``csrc/rm_join.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -6,11 +7,13 @@ in this checkout only, into ``build/repro_torch/`` at the repository root,
 under a name keyed by a hash of the sources and flags — and only at the
 first CUDA call, so importing this module needs neither ``nvcc`` nor a card.
 
-Every launch goes through :func:`run`: it plans the launch (tile height,
-shared-memory layout, per-block partial rows), allocates the outputs with
-``torch.empty``, launches on the current stream without synchronising, and
-raises if the launch reports a CUDA error.  ``LAUNCHES`` counts the launches
-of each kernel; nothing else adds to it.
+Every scan launch goes through :func:`run`: it plans the launch (tile
+height, shared-memory layout, per-block partial rows), allocates the outputs
+with ``torch.empty``, launches on the current stream without synchronising,
+and raises if the launch reports a CUDA error.  The hash-join probe has its
+own parameter block and launcher, :func:`run_hash_join`, under the same
+rules.  ``LAUNCHES`` counts the launches of each kernel; nothing else adds
+to it.
 """
 
 from __future__ import annotations
@@ -31,9 +34,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the kernels, in the order of kKernels in rm_scan.cu
-KERNELS = ("project", "filter_project", "aggregate", "groupby_sum", "scan_multi")
+# the scan kernels, in the order of kKernels in rm_scan.cu (the index
+# rm_max_blocks takes), then the hash-join probe of rm_join.cu
+SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
+                "scan_multi")
+KERNELS = SCAN_KERNELS + ("hash_join",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
+JOIN_MAX_BLOCKS = 1 << 20  # the probe's grid-stride loop covers any rest
 
 # must match rm_common.cuh
 THREADS = 256
@@ -70,6 +78,14 @@ class _Params(ctypes.Structure):
         "row_words", "tile_rows", "n_req", "map_len", "part_w", "n_slots",
         "map_smem", "slot_smem")] + [
         ("req", _Req * MAX_REQ), ("map", ctypes.c_int32 * MAX_MAP)]
+
+
+class _JoinParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "words", "keys", "vals", "begin", "end", "s_out", "r_out", "m_out")] + [
+        ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
+            "row_words", "key_word", "val_word", "ts_word", "ts", "build_ts",
+            "shift", "cap")]
 
 
 # ---------------------------------------------------------------- requests
@@ -217,7 +233,7 @@ def library_path() -> Path:
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"librm_scan_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librm_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -250,7 +266,7 @@ def load() -> ctypes.CDLL:
     lib.rm_max_blocks.argtypes = [ctypes.c_int, ctypes.c_longlong,
                                   ctypes.POINTER(ctypes.c_int)]
     lib.rm_max_blocks.restype = ctypes.c_int
-    for name in KERNELS:
+    for name in SCAN_KERNELS:
         fn = getattr(lib, f"rm_{name}")
         fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_void_p]
@@ -258,11 +274,17 @@ def load() -> ctypes.CDLL:
     lib.rm_reduce_partials.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p, ctypes.c_void_p]
     lib.rm_reduce_partials.restype = ctypes.c_int
-    if lib.rm_params_size() != ctypes.sizeof(_Params):
-        raise RuntimeError(
-            f"Params layout differs: C {lib.rm_params_size()} bytes, ctypes "
-            f"{ctypes.sizeof(_Params)} bytes"
-        )
+    lib.rm_hash_join.argtypes = [ctypes.POINTER(_JoinParams), ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.rm_hash_join.restype = ctypes.c_int
+    lib.rm_join_params_size.restype = ctypes.c_int
+    for c_size, struct in ((lib.rm_params_size(), _Params),
+                           (lib.rm_join_params_size(), _JoinParams)):
+        if c_size != ctypes.sizeof(struct):
+            raise RuntimeError(
+                f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
+                f"{ctypes.sizeof(struct)} bytes"
+            )
     _LIB = lib
     return lib
 
@@ -379,3 +401,40 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
                     pairs = reduced[off: off + 2 * r.num_groups].view(-1, 2)
                     results[i] = (pairs[:, 0], pairs[:, 1])
     return results
+
+
+def run_hash_join(words: torch.Tensor, partitions, key_word: int,
+                  val_word: int, ts_word: int, ts: int,
+                  build_ts: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the hash-join probe over ``words`` against ``partitions``
+    (four ``(P, C)`` int32 tensors: keys, vals, begin, end); returns
+    ``(s_proj int32, r_proj int32, matched bool)`` of ``N`` rows.  The
+    caller has checked words, offsets and bucket shapes
+    (``rme_join.check_probe``); a zero-row input launches nothing."""
+    check_words(words)
+    parts = [t.contiguous() for t in partitions]
+    n, row_words = words.shape
+    device = words.device
+    s_out = torch.empty(n, dtype=torch.int32, device=device)
+    r_out = torch.empty(n, dtype=torch.int32, device=device)
+    m_out = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return s_out, r_out, m_out
+    p, cap = parts[0].shape
+    lib = load()
+    params = _JoinParams(
+        words=words.data_ptr(), keys=parts[0].data_ptr(),
+        vals=parts[1].data_ptr(), begin=parts[2].data_ptr(),
+        end=parts[3].data_ptr(), s_out=s_out.data_ptr(),
+        r_out=r_out.data_ptr(), m_out=m_out.data_ptr(), n=n,
+        row_words=row_words, key_word=key_word, val_word=val_word,
+        ts_word=ts_word, ts=ts, build_ts=int(build_ts),
+        shift=32 - (p.bit_length() - 1), cap=cap,
+    )
+    n_blocks = min(-(-n // JOIN_THREADS), JOIN_MAX_BLOCKS)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib, lib.rm_hash_join(ctypes.byref(params), n_blocks, stream),
+               "hash_join launch")
+    LAUNCHES["hash_join"] += 1
+    return s_out, r_out, m_out

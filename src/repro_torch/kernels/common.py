@@ -39,6 +39,10 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; want 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # name the card as its tensors do ("cuda:0", not "cuda"), so a
+        # device kept as a cache key equals the device of what it caches
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -2,7 +2,8 @@
 
 One import surface for the engine.  Every function dispatches on the
 tensor's device: a CUDA tensor launches the hand-written Hopper kernel
-(``csrc/rm_scan.cu``), a CPU tensor runs the plain PyTorch version beside it.
+(``csrc/rm_scan.cu``, ``csrc/rm_join.cu``), a CPU tensor runs the plain
+PyTorch version beside it.
 Only the paper's production revision, ``"mlp"``, is ported; the BSL and PCK
 revisions are still to port (ROADMAP queue 2), and the reference's ``"xla"``
 revision has no counterpart — the plain versions play its part on the CPU.
@@ -16,6 +17,15 @@ from repro_torch.core.schema import TableGeometry
 
 from .rme_aggregate import aggregate, aggregate_torch, groupby_sum, groupby_sum_torch
 from .rme_filter import filter_project, filter_project_torch
+from .rme_join import (
+    JoinPartitions,
+    build_partitions,
+    estimated_partition_bytes,
+    hash_join,
+    hash_join_torch,
+    partitions_from_numpy,
+    probe_vmem_footprint_bytes,
+)
 from .rme_project import DEFAULT_BLOCK_ROWS, project, project_torch, vmem_footprint_bytes
 from .rme_scan_multi import (
     AggregateRequest,
@@ -58,15 +68,22 @@ __all__ = [
     "AggregateRequest",
     "FilterRequest",
     "GroupByRequest",
+    "JoinPartitions",
     "ProjectRequest",
     "aggregate",
     "aggregate_torch",
+    "build_partitions",
     "check_revision",
     "combine_chunk_outputs",
+    "estimated_partition_bytes",
     "filter_project",
     "filter_project_torch",
     "groupby_sum",
     "groupby_sum_torch",
+    "hash_join",
+    "hash_join_torch",
+    "partitions_from_numpy",
+    "probe_vmem_footprint_bytes",
     "project",
     "project_any",
     "project_torch",

@@ -212,3 +212,124 @@ def test_engine_on_card_matches_cpu(dev):
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x.cpu(), y), (x, y)
     assert stats[0] == stats[1]
+
+
+# ------------------------------------------------------------ hash join
+def join_build(n, seed, dup_rounds=0, skew=0):
+    """Build keys/vals/timestamps: unique keys, ``dup_rounds`` extra copies
+    of the first quarter (MVCC version pairs), ``skew`` copies of one key
+    (a bucket of capacity > skew)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(np.arange(-n, n, dtype=np.int32))[:n]
+    keys[:3] = [I32.min, -1, I32.max]
+    extra = [keys[: n // 4]] * dup_rounds + [np.full(skew, keys[n // 2], np.int32)]
+    keys = np.concatenate([keys, *extra])
+    m = keys.size
+    vals = rng.integers(I32.min, I32.max, m, dtype=np.int64).astype(np.int32)
+    begin = rng.integers(0, 6, m).astype(np.int32)
+    end = np.where(rng.random(m) < 0.3, rng.integers(2, 9, m), I32.max).astype(np.int32)
+    return keys, vals, begin, end
+
+
+def join_probe(n, row_words, key_word, keys, seed):
+    rng = np.random.default_rng(seed)
+    w = make_words(n, seed) if row_words == ROW_WORDS else \
+        rng.integers(-1000, 1000, (n, row_words)).astype(np.int32)
+    hit = rng.random(n) < 0.5
+    w[:, key_word] = np.where(hit, rng.choice(keys, n),
+                              rng.integers(I32.min, I32.max, n, dtype=np.int64))
+    return w
+
+
+JOIN_FORMS = [
+    # (row_words, key_word, val_word, ts_word, build_ts)
+    (ROW_WORDS, 1, 0, 16, True),
+    (ROW_WORDS, 1, 0, -1, False),
+    (ROW_WORDS, 5, 9, 16, False),
+    (2, 1, 0, -1, False),
+    (2, 1, 0, -1, True),
+    (3, 2, 0, -1, True),
+]
+
+
+@pytest.mark.parametrize("form", JOIN_FORMS)
+@pytest.mark.parametrize("build", [(500, 0, 0), (5, 0, 0), (3000, 2, 0), (800, 0, 700)])
+def test_hash_join_matches_plain(dev, form, build):
+    """Row-store chunks and packed blocks, with and without the MVCC tests,
+    on a tiny build (P = 2), duplicate keys (payload sums wrap) and a skewed
+    build whose capacity C passes 700."""
+    row_words, key_word, val_word, ts_word, build_ts = form
+    side = join_build(*build[:1], seed=build[0], dup_rounds=build[1], skew=build[2])
+    parts = K.build_partitions(*side, device=dev)
+    if build[2]:
+        assert parts.capacity > build[2]
+    words = torch.from_numpy(join_probe(4099, row_words, key_word, side[0], 3)).to(dev)
+    args = (key_word, val_word, ts_word, 4, build_ts)
+    before = _cuda.LAUNCHES["hash_join"]
+    got = K.hash_join(words, parts, *args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["hash_join"] == before + 1
+    want = K.hash_join_torch(words, parts, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_hash_join_unaligned_slice_and_empty(dev):
+    side = join_build(700, seed=1)
+    parts = K.build_partitions(*side, device=dev)
+    words = torch.from_numpy(join_probe(3001, ROW_WORDS, 1, side[0], 4)).to(dev)
+    for start in (1, 7):  # row slices start 8-byte, not 16-byte, aligned
+        got = K.hash_join(words[start:], parts, 1, 0, 16, 5, True)
+        want = K.hash_join_torch(words[start:], parts, 1, 0, 16, 5, True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    before = dict(_cuda.LAUNCHES)
+    out = K.hash_join(words[:0], parts, 1, 0, 16, 5, True)
+    assert dict(_cuda.LAUNCHES) == before
+    assert [t.shape for t in out] == [(0,), (0,), (0,)]
+    with pytest.raises(ValueError, match="partitions on"):
+        K.hash_join(words, K.build_partitions(*side, device="cpu"), 1, 0)
+
+
+def test_query_server_tick_launches_the_probe(dev):
+    """A solo join probes the row-store chunks, a join in a written table's
+    tick probes the shared pass's packed block; both launch the kernel and
+    equal the CPU server's results."""
+    from repro_torch.core import plan
+    from repro_torch.core import planner
+    from repro_torch.serve import QueryServer
+
+    schema = TableSchema.of(*[Column(f"A{i + 1}", "int32") for i in range(16)])
+    rng = np.random.default_rng(2)
+    s_cols = {c.name: rng.integers(-100, 100, 3000).astype(np.int32) for c in schema.columns}
+    s_cols["A2"] = rng.integers(0, 1200, 3000).astype(np.int32)
+    r_cols = {c.name: rng.integers(-100, 100, 600).astype(np.int32) for c in schema.columns}
+    r_cols["A2"] = np.arange(600, dtype=np.int32)
+    outs, launches, builds = [], [], []
+    for device in ("cuda", "cpu"):
+        planner.clear_join_build_cache()
+        s = RelationalTable.from_columns(schema, s_cols)
+        r = RelationalTable.from_columns(schema, r_cols)
+        server = QueryServer(RelationalMemoryEngine(device=device))
+        q = plan(s).join(r, key="A2", left_proj="A1", right_proj="A3")
+        got = []
+        for tick in range(2):
+            _cuda.reset_launches()
+            if tick:
+                server.submit_delete(s, np.arange(0, 3000, 11))
+            # tick 0: the join alone on S; tick 1: beside a read of S
+            tks = [server.submit(q), server.submit(plan(s if tick else r).sum("A4"))]
+            server.drain()
+            got += [tk.result(timeout=60) for tk in tks]
+            launches.append(_cuda.LAUNCHES["hash_join"])
+        outs.append(got)
+        builds.append(server.engine.stats.join_builds)
+    assert launches[:2] == [1, 1] and launches[2:] == [0, 0]
+    # R is never written: tick 1 reuses tick 0's partitions on both devices
+    assert builds == [1, 1]
+    for a, b in zip(*outs):
+        if isinstance(b, float):
+            assert a == b
+            continue
+        for f in ("s_proj", "r_proj", "matched"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f))

@@ -19,9 +19,9 @@ import repro.core as J  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
 
-# join offload, the sharded backend and fault tolerance are later slices
-OUT_OF_SLICE = {"join_builds", "bytes_join_build", "bytes_collective",
-                "collective_ops", "retries", "failovers", "bytes_failover"}
+# the sharded backend and fault tolerance are later slices
+OUT_OF_SLICE = {"bytes_collective", "collective_ops", "retries", "failovers",
+                "bytes_failover"}
 
 N = 600
 
@@ -212,5 +212,5 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
         T.RelationalMemoryEngine(revision="bsl", device="cpu")
     e = T.RelationalMemoryEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="join"):
+    with pytest.raises(TypeError, match="scan op"):
         e.execute_many([object()])
