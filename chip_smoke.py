@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's engine batch path and its QueryServer on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
+paper's three projection revisions and the selection entry points on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -15,12 +16,17 @@ probe rows matching — all made from ``--seed``:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
 2. times the kernel build;
-3. runs the tick script below at 5,000 rows on a card server and a CPU
-   server and holds their results equal;
+3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
+   engine batch and the tick script below on a card engine and server and a
+   CPU one and holds their results equal; then a WAL round: a card server
+   with a ``WriteAheadLog`` through tick C's writes, the table recovered
+   from the log, and tick C's reads served again from it on a fresh server,
+   with equal results;
 4. holds every kernel against its plain PyTorch version on the card at the
    path's shapes, and times both (CUDA events, median of ``--reps`` after a
    warm-up), beside the least time the card could take and one library
-   call where one computes the same (or, footnoted, less) work;
+   call where one computes the same (or, footnoted, less) work — the
+   selection at four selectivities (90/50/10/1 %), one line each;
 5. drives the engine through ``BatchExecutor`` / ``execute_many`` on the
    card — solo project, filter, aggregate and group-by, a mixed batch of 7
    ops, then 4,096 appends, 64 updates and 64 deletes and the same batch
@@ -35,7 +41,22 @@ probe rows matching — all made from ``--seed``:
    tick, all pinned to the tick's snapshot and riding one shared scan (the
    joins probe its packed block).  Every ticket is held against a numpy
    oracle, and the hash-join probe must have launched in ticks A and C;
-7. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+7. the paper's Fig. 6 revision study on the card: for each revision an
+   engine serves a solo projection of S for 1, 4 and 11 columns (11 is the
+   configuration port's cap, ``MAX_ENABLED_COLUMNS``), each held bit-equal
+   to numpy and to the ``mlp`` result, checks that the revision's kernel
+   launched, and times the engine call and the kernel alone;
+8. the selection entry points on S's device words: ``project_multi`` of
+   three views and ``select_compact`` + ``densify`` at the four
+   selectivities, every result against numpy;
+9. checks that no engine the script built ever tripped its circuit breaker
+   or rerouted a dispatch to a plain version (no fault plan is installed);
+10. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+
+Every kernel's ``launches`` is counted on its path alone (counts set to 0
+just before the path, read just after): the engine phase for the five scan
+kernels, the server phase for the probe, the revision phase for BSL and
+PCK, the selection phase for ``project_multi`` and ``select_compact``.
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device it exits non-zero
@@ -75,8 +96,26 @@ REPLACES = {
     "groupby_sum": "src/repro/kernels/rme_aggregate.py:120",
     "scan_multi": "src/repro/kernels/rme_scan_multi.py:217",
     "hash_join": "src/repro/kernels/rme_join.py:219",
+    "project_pck": "src/repro/kernels/rme_project.py:53",
+    "project_bsl": "src/repro/kernels/rme_project.py:68",
+    "project_multi": "src/repro/kernels/rme_project_multi.py:36",
+    "select_compact": "src/repro/kernels/rme_select.py:35",
 }
-SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu"}  # else rm_scan.cu
+SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
+           "project_pck": "src/repro_torch/csrc/rm_project.cu",
+           "project_bsl": "src/repro_torch/csrc/rm_project.cu",
+           "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
+ENGINE_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
+                  "scan_multi")
+REVISIONS = ("mlp", "bsl", "pck")  # mlp first: the others are held to it
+# the revision study's views of S: 1, 4 and 11 columns (the port's cap)
+REVISION_VIEWS = {1: ["A1"], 4: ["A1", "A5", "A9", "A13"],
+                  11: [f"A{i}" for i in range(1, 12)]}
+MULTI_VIEWS = (["A1"], ["A2", "A3"], ["A1", "A5", "A9", "A13"])
+# benchmarks/fig_selectivity.py: A1, A9 where A3 > k, A3 uniform in
+# [-1000, 1000), 512-row blocks
+SELECTIVITIES = ((90, -800), (50, 0), (10, 800), (1, 980))
+SELECT_BLOCK_ROWS = 512
 
 
 def emit(obj) -> None:
@@ -324,9 +363,73 @@ def kernels_phase(torch, table, dim, reps: int) -> dict:
         emit(line)
         results[name] = line
     results.update(join_kernel_phase(torch, words, dim, table.now(), reps))
+    results.update(slice3_kernel_phase(torch, words, table, p, reps))
     del words
     torch.cuda.empty_cache()
     return results
+
+
+def slice3_kernel_phase(torch, words, table, p, reps: int) -> dict:
+    """The BSL and PCK projections at the path's projection, the multi-view
+    projection of three views, and the selection at four selectivities,
+    each against its plain version."""
+    from repro_torch.core import TableGeometry
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.common import geometry_words
+
+    n, row_words = words.shape
+    row_bytes = row_words * 4
+    idx = torch.tensor(geometry_words(p.geom), dtype=torch.long, device="cuda")
+    proj_words = set(geometry_words(p.geom))
+    out = {}
+
+    def line(name, run, plain, same, read, outb, library, **extra):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        assert same(got, want), name
+        del got, want
+        bound_ms, bound_by = bound(read, outb, n, row_bytes, OPS_PER_ROW)
+        row = {"phase": "kernel", "name": name,
+               "kernel_ms": time_ms(torch, run, reps),
+               "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
+               "library_ms": time_ms(torch, library, reps) if library else None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
+               "rows": n, "row_bytes": row_bytes, **extra}
+        emit(row)
+        return row
+
+    for rev in ("bsl", "pck"):
+        out[f"project_{rev}"] = line(
+            f"project_{rev}", lambda: K.project(words, p.geom, rev),
+            lambda: K.project_torch(words, p.geom), torch.equal, proj_words,
+            n * p.geom.out_bytes_per_row, lambda: torch.index_select(words, 1, idx))
+    geoms = [TableGeometry.from_schema(table.schema, v, n) for v in MULTI_VIEWS]
+    out["project_multi"] = line(
+        "project_multi", lambda: K.project_multi(words, geoms),
+        lambda: K.project_multi_torch(words, geoms),
+        lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)),
+        {w for g in geoms for w in geometry_words(g)},
+        n * sum(g.out_bytes_per_row for g in geoms), None,
+        library_call="none: no one call writes several packed views")
+    sel = TableGeometry.from_schema(table.schema, ["A1", "A9"], n)
+    n_blocks = -(-n // SELECT_BLOCK_ROWS)
+    for pct, k in SELECTIVITIES:
+        kw = dict(pred_word=table.schema.word_offset("A3"), pred_op="gt", pred_k=k,
+                  block_rows=SELECT_BLOCK_ROWS)
+        counts = K.select_compact(words, sel, **kw)[1]
+        kept = int(counts.sum())
+        del counts
+        row = line(
+            "select_compact", lambda: K.select_compact(words, sel, **kw),
+            lambda: K.select_compact_torch(words, sel, **kw),
+            lambda a, b: torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+            set(geometry_words(sel)) | {kw["pred_word"]},
+            n_blocks * (SELECT_BLOCK_ROWS * sel.out_bytes_per_row + 4), None,
+            selectivity_pct=pct, pred_k=k, kept_rows=kept,
+            library_call="none: no one call compacts per block")
+        if pct == 50:
+            out["select_compact"] = row
+    return out
 
 
 def join_bound(torch, words, parts, key_word, val_word, ts_word,
@@ -396,6 +499,97 @@ def join_kernel_phase(torch, words, dim, ts: int, reps: int) -> dict:
     return out
 
 
+def revision_phase(torch, table, reps: int, breakers: list) -> dict:
+    """The paper's Fig. 6 study on the card: a solo projection of S for 1, 4
+    and 11 columns through an engine of each revision.  The ``mlp`` result
+    is held against numpy and the others against it on the card; each
+    revision's kernel must have launched.  Then each is timed: the engine
+    call (CUDA events around ``execute_many``, host work included) and the
+    kernel alone."""
+    from repro_torch.core import ProjectOp, RelationalMemoryEngine
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import ops as K
+
+    w = table.words()
+    want: dict = {}
+    ops: dict = {}
+    _cuda.reset_launches()
+    for rev in REVISIONS:
+        eng = RelationalMemoryEngine(revision=rev)  # on the card
+        breakers.append(eng.breaker)
+        for q, cols in REVISION_VIEWS.items():
+            op = ProjectOp(eng.register(table, cols))
+            got = eng.execute_many([op])[0]
+            if rev == "mlp":
+                idx = [table.schema.word_offset(c) for c in cols]
+                assert np.array_equal(got.cpu().numpy(), w[:, idx]), (rev, q)
+                want[q] = got
+            else:
+                assert torch.equal(got, want[q]), (rev, q)
+            ops[rev, q] = (eng, op)
+    torch.cuda.synchronize()
+    launches = {k: _cuda.LAUNCHES[k] for k in ("project", "project_bsl", "project_pck")}
+    assert launches == {"project": 3, "project_bsl": 3, "project_pck": 3}, launches
+    del want
+    table_ms = []
+    for (rev, q), (eng, op) in ops.items():
+        words = eng.device_words(table)
+        geom = op.view.geometry
+        table_ms.append({
+            "revision": rev, "q": q,
+            "engine_ms": time_ms(torch, lambda: eng.execute_many([op]), reps),
+            "kernel_ms": time_ms(torch, lambda: K.project(words, geom, rev), reps),
+        })
+    out = {"phase": "revisions", "rows": table.row_count, "launches": launches,
+           "fig6": table_ms}
+    emit(out)
+    del ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def selection_phase(torch, table, breakers: list) -> dict:
+    """The selection entry points on S's device words: three views in one
+    ``project_multi`` pass, then ``select_compact`` and ``densify`` at the
+    four selectivities — every result against numpy."""
+    from repro_torch.core import RelationalMemoryEngine, TableGeometry
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import ops as K
+
+    eng = RelationalMemoryEngine()  # on the card
+    breakers.append(eng.breaker)
+    words = eng.device_words(table)
+    w = table.words()
+    n = table.row_count
+    word = table.schema.word_offset
+    _cuda.reset_launches()
+    geoms = [TableGeometry.from_schema(table.schema, v, n) for v in MULTI_VIEWS]
+    for v, got in zip(MULTI_VIEWS, K.project_multi(words, geoms)):
+        assert np.array_equal(got.cpu().numpy(), w[:, [word(c) for c in v]]), v
+    sel = TableGeometry.from_schema(table.schema, ["A1", "A9"], n)
+    kept = {}
+    for pct, k in SELECTIVITIES:
+        blocks, counts = K.select_compact(words, sel, pred_word=word("A3"),
+                                          pred_op="gt", pred_k=k,
+                                          block_rows=SELECT_BLOCK_ROWS)
+        m = w[:, word("A3")] > k
+        want_counts = np.add.reduceat(m, np.arange(0, n, SELECT_BLOCK_ROWS))
+        assert np.array_equal(counts.cpu().numpy(), want_counts), pct
+        dense = K.densify(blocks, counts, int(m.sum()))
+        assert np.array_equal(dense.cpu().numpy(), w[m][:, [word("A1"), word("A9")]]), pct
+        kept[pct] = int(m.sum())
+        del blocks, counts, dense
+    torch.cuda.synchronize()
+    launches = {k: _cuda.LAUNCHES[k] for k in ("project_multi", "select_compact")}
+    assert launches == {"project_multi": 1, "select_compact": len(SELECTIVITIES)}, launches
+    out = {"phase": "selection", "rows": n, "launches": launches,
+           "kept_rows": kept}
+    emit(out)
+    del words
+    return out
+
+
 def oracle_batch(table, results, ts: int | None, chunks: int) -> None:
     """The mixed batch's results against numpy over the host table."""
     w = table.words()
@@ -442,7 +636,7 @@ def mixed_ops(eng, table, ts):
     ]
 
 
-def engine_phase(torch, table, seed: int) -> dict:
+def engine_phase(torch, table, seed: int, breakers: list) -> dict:
     """The engine batch path on the card, every result against numpy."""
     import dataclasses
 
@@ -450,6 +644,7 @@ def engine_phase(torch, table, seed: int) -> dict:
     from repro_torch.kernels import _cuda
 
     eng = RelationalMemoryEngine()  # on the card
+    breakers.append(eng.breaker)
     rng = np.random.default_rng(seed + 1)
     steps = []
 
@@ -525,7 +720,7 @@ def engine_phase(torch, table, seed: int) -> dict:
     assert chunks == 2, chunks  # the base and one tail of the written rows
     oracle_batch(table, res, ts, chunks)
     del res
-    launches = {k: _cuda.LAUNCHES[k] for k in _cuda.SCAN_KERNELS}
+    launches = {k: _cuda.LAUNCHES[k] for k in ENGINE_KERNELS}
     idle = [k for k, v in launches.items() if v == 0]
     assert not idle, f"kernels never launched on the engine path: {idle}"
     out = {"phase": "engine", "rows": table.row_count, "chunks": chunks,
@@ -586,14 +781,24 @@ def server_ticks(torch, server, S, R, seed: int, stream_chunk_rows: int):
         server.submit_update(S, rng.choice(n, 64, replace=False),
                              {"A1": rng.integers(-1000, 1000, 64, dtype=np.int32)})
         server.submit_delete(S, rng.choice(n, 64, replace=False))
-        return [server.submit(plan(S).filter("A3", "gt", 100).sum("A1")),
-                server.submit(plan(S).groupby("A4", "A1", "avg", 16)),
-                server.submit(plan(S).project("A1", "A5")),
-                server.submit(join()),
-                server.submit(join().join(R, key="A2", left_proj="A1",
-                                          right_proj="A5"))]
+        return [server.submit(q) for q in tick_c_reads(S, R)]
 
     yield ("C", *tick(tick_c))
+
+
+def tick_c_reads(S, R) -> list:
+    """Tick C's five reads of S: a filtered sum, a group-by average, a
+    projection, the join and a two-join chain."""
+    from repro_torch.core import plan
+
+    def join():
+        return plan(S).join(R, key="A2", left_proj="A1", right_proj="A3")
+
+    return [plan(S).filter("A3", "gt", 100).sum("A1"),
+            plan(S).groupby("A4", "A1", "avg", 16),
+            plan(S).project("A1", "A5"),
+            join(),
+            join().join(R, key="A2", left_proj="A1", right_proj="A5")]
 
 
 def join_oracle(w, R, ts: int | None, proj_word: int):
@@ -644,7 +849,7 @@ def server_oracle(torch, tick: str, results, S, R, ts: int | None) -> None:
     assert np.array_equal(chain.r_projs[1].cpu().numpy(), r5)
 
 
-def server_phase(torch, S, R, seed: int) -> dict:
+def server_phase(torch, S, R, seed: int, breakers: list) -> dict:
     """A QueryServer on the card, three ticks, every ticket against numpy."""
     import dataclasses
 
@@ -654,6 +859,7 @@ def server_phase(torch, S, R, seed: int) -> dict:
 
     planner.clear_join_build_cache()
     eng = RelationalMemoryEngine()  # on the card
+    breakers.append(eng.breaker)
     server = QueryServer(eng)
     _cuda.reset_launches()
     ticks = []
@@ -688,28 +894,36 @@ def server_phase(torch, S, R, seed: int) -> dict:
     return out
 
 
-def small_reference_check(torch, seed: int) -> None:
-    """The card against the CPU on small tables: the engine batch and the
-    server's tick script."""
+def small_reference_check(torch, seed: int, breakers: list) -> None:
+    """The card against the CPU on small tables, for every revision: the
+    engine batch and the server's tick script; then the WAL round."""
     from repro_torch.core import RelationalMemoryEngine, planner
     from repro_torch.serve import QueryServer
 
+    def engine(device, revision="mlp"):
+        eng = RelationalMemoryEngine(device=device, revision=revision)
+        breakers.append(eng.breaker)
+        return eng
+
     results = []
     for device in ("cuda", "cpu"):
-        table = build_table(5000, seed, 1024)
-        eng = RelationalMemoryEngine(device=device)
-        out = eng.execute_many(mixed_ops(eng, table, None))
-        table.append({c.name: np.arange(300, dtype=np.int32) - 150
-                      for c in table.schema.columns})
-        table.delete(np.arange(0, 5000, 9))
-        out += eng.execute_many(mixed_ops(eng, table, table.now()))
-        planner.clear_join_build_cache()
-        S, R = build_table(5000, seed, 1024), build_dimension(1024, seed)
-        server = QueryServer(RelationalMemoryEngine(device=device))
-        for name, res, _, _ in server_ticks(torch, server, S, R, seed, 1000):
-            server_oracle(torch, name, res, S, R,
-                          max(S.now(), R.now()) if name == "C" else None)
-            out += flatten(res)
+        out = []
+        for revision in REVISIONS:
+            table = build_table(5000, seed, 1024)
+            eng = engine(device, revision)
+            out += eng.execute_many(mixed_ops(eng, table, None))
+            table.append({c.name: np.arange(300, dtype=np.int32) - 150
+                          for c in table.schema.columns})
+            table.delete(np.arange(0, 5000, 9))
+            out += eng.execute_many(mixed_ops(eng, table, table.now()))
+            planner.clear_join_build_cache()
+            S, R = build_table(5000, seed, 1024), build_dimension(1024, seed)
+            server = QueryServer(engine(device, revision))
+            for name, res, _, _ in server_ticks(torch, server, S, R, seed, 1000):
+                server_oracle(torch, name, res, S, R,
+                              max(S.now(), R.now()) if name == "C" else None)
+                out += flatten(res)
+        out += wal_round(torch, seed, lambda: engine(device))
         results.append(out)
     assert len(results[0]) == len(results[1])
     for a, b in zip(*results):
@@ -720,7 +934,41 @@ def small_reference_check(torch, seed: int) -> None:
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x.cpu(), y), (x, y)
             assert torch.isfinite(y.float()).all()
-    emit({"phase": "small_reference", "rows": 5000, "ok": True})
+    emit({"phase": "small_reference", "rows": 5000, "revisions": list(REVISIONS),
+          "wal_round": True, "ok": True})
+
+
+def wal_round(torch, seed: int, engine) -> list:
+    """A server with a write-ahead log through the tick script (tick C
+    writes S); S recovered from the log; tick C's reads served again from
+    the recovered table by a fresh server pinned to the same snapshot.
+    Returns tick C's results followed by the recovered server's."""
+    from repro_torch.core import RelationalTable, WriteAheadLog, planner
+    from repro_torch.serve import QueryServer
+
+    planner.clear_join_build_cache()
+    S, R = build_table(5000, seed, 1024), build_dimension(1024, seed)
+    wal = WriteAheadLog()
+    server = QueryServer(engine(), wal=wal)
+    ticks = {name: res for name, res, _, _ in
+             server_ticks(torch, server, S, R, seed, 1000)}
+    assert server.snapshot()["wal_records"] == 4  # checkpoint + three writes
+    recovered = RelationalTable.recover(wal, S.uid)
+    assert np.array_equal(recovered.words(), S.words()) and recovered.now() == S.now()
+    fresh = QueryServer(engine(), snapshot_reads=True)
+    tickets = [fresh.submit(q) for q in tick_c_reads(recovered, R)]
+    fresh.drain()
+    again = [tk.result(timeout=900) for tk in tickets]
+    server_oracle(torch, "C", again, recovered, R, max(recovered.now(), R.now()))
+    first, second = flatten(ticks["C"]), flatten(again)
+    for a, b in zip(first, second):
+        if isinstance(a, float):
+            assert a == b, (a, b)
+        else:
+            for x, y in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                assert torch.equal(x, y)
+    return first + second
 
 
 def flatten(results) -> list:
@@ -746,13 +994,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _cuda
 
+    started = time.perf_counter()
     card(torch)
     t0 = time.perf_counter()
     _cuda.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_cuda.library_path().name)})
 
-    small_reference_check(torch, args.seed)
+    breakers: list = []  # every engine's breaker; the engines themselves are freed
+    small_reference_check(torch, args.seed, breakers)
     t0 = time.perf_counter()
     table = build_table(args.rows, args.seed, args.build_rows)
     dim = build_dimension(args.build_rows, args.seed)
@@ -762,11 +1012,27 @@ def main(argv=None) -> int:
           "build_rows": dim.row_count,
           "seconds": time.perf_counter() - t0})
     kernels = kernels_phase(torch, table, dim, args.reps)
-    engine = engine_phase(torch, table, args.seed)
+    # the main path first, then the revision study and the selection entry
+    # points, so the main path's phases see the card as they did before
+    engine = engine_phase(torch, table, args.seed, breakers)
     gc.collect()
     torch.cuda.empty_cache()
-    server = server_phase(torch, table, dim, args.seed)
-    launches = {**engine["launches"], "hash_join": server["launches"]["hash_join"]}
+    server = server_phase(torch, table, dim, args.seed, breakers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    revisions = revision_phase(torch, table, args.reps, breakers)
+    selection = selection_phase(torch, table, breakers)
+    # each kernel's launches on its own path; "project" is the engine phase's
+    # (the revision phase's mlp engines launch it too, counted in its line)
+    launches = {**revisions["launches"], **selection["launches"],
+                **engine["launches"], "hash_join": server["launches"]["hash_join"]}
+    breaker = {k: sum(b.snapshot()[k] for b in breakers)
+               for k in ("breaker_trips", "breaker_fallbacks", "breaker_probes",
+                         "breaker_open")}
+    emit({"phase": "breaker", "engines": len(breakers), **breaker})
+    assert not any(breaker.values()), breaker
+    assert set(kernels) == set(REPLACES) | {"hash_join_packed"}, sorted(kernels)
+    emit({"phase": "done", "seconds": time.perf_counter() - started})
 
     emit({"kernels": [{
         "name": name, "route": "cuda",

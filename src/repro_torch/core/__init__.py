@@ -14,10 +14,10 @@ Layers (bottom-up):
   optimizer   — logical rewrite passes (pushdown, pruning, pred normalization)
   planner     — byte-cost path selection + compile_plan: plan -> PhysicalQuery
   operators   — Q0-Q5 over interchangeable rme/row/col access paths
-  faults      — fault types and the (not yet wired) injection plan + breaker
+  faults      — deterministic fault injection + lowering circuit breaker
+  wal         — checksummed write-ahead log for crash-consistent writes
 
-Not ported yet (ROADMAP.md): the sharded backend (``distributed``) and the
-write-ahead log (``wal``).
+Not ported yet (ROADMAP.md): the sharded backend (``distributed``).
 """
 
 from .schema import (
@@ -43,7 +43,8 @@ from .faults import (
     CircuitBreaker, FaultError, FaultPlan, PermanentFault, TransientFault,
     fault_plan,
 )
-from . import compression, executor, faults, operators, optimizer, planner
+from .wal import WriteAheadLog
+from . import compression, executor, faults, operators, optimizer, planner, wal
 
 __all__ = [
     "BUS_WIDTH", "MAX_ENABLED_COLUMNS", "WORD", "TS_INF",
@@ -60,6 +61,7 @@ __all__ = [
     "PASSES", "Rewrite", "optimize", "optimize_trace", "pred_class",
     "CompileOptions", "PhysicalQuery", "compile_plan",
     "CircuitBreaker", "FaultError", "FaultPlan", "PermanentFault",
-    "TransientFault", "fault_plan",
+    "TransientFault", "fault_plan", "WriteAheadLog",
     "compression", "executor", "faults", "operators", "optimizer", "planner",
+    "wal",
 ]

@@ -26,8 +26,24 @@ planner's join build cache.
 
 The engine runs on one device, chosen at construction: ``device=None`` means
 the card and raises without one; ``device="cpu"`` runs the kernels' plain
-PyTorch versions.  Not ported yet, each listed in ROADMAP.md: fault
-injection, the circuit breaker and the sharded backend.
+PyTorch versions.  ``revision`` selects the paper's §5.2 projection datapath
+(``"bsl"``, ``"pck"``, ``"mlp"``): a lone projection and every streamed
+chunk reach that revision's kernel, while the fused pass and the join probe
+are the same kernels for every revision, as in the reference.
+
+The reference's fault-injection sites (:func:`faults.maybe_fault`: ``upload``,
+``stream_chunk``, ``scan_launch``, ``lowering``, ``join_build``) sit at the
+same places, and the same :class:`faults.CircuitBreaker` guards kernel
+dispatch per (table, request-shape) route.  Two deliberate differences.
+The breaker reroutes only on a CPU engine, where the plain version is the
+path anyway: there an *injected* ``lowering`` fault (or an open route)
+serves the dispatch with the plain version, counted in
+``breaker.snapshot()``.  On the card there is no fallback: the breaker is
+not consulted and an injected ``lowering`` fault propagates like the other
+sites' faults, to the server's retries.  And any other exception — a real
+build or launch error of a CUDA kernel included — propagates and is not
+recorded, so the plain version never stands in for a kernel on the card.
+Not ported yet (ROADMAP.md): the sharded backend.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import rme_scan_multi as KR
 
+from . import faults
 from .descriptor import bytes_moved
 from .ephemeral import EphemeralView
 from .requests import (AggregateOp, FilterOp, GroupByOp, JoinOp, JoinResult,
@@ -86,10 +103,12 @@ class EngineStats:
     * ``join_builds`` / ``bytes_join_build`` — hash-partition builds of a
       join's build side and their bytes (also charged as an upload).
 
-    The collective and fault counters of the reference
-    (``bytes_collective``, ``collective_ops``, ``retries``, ``failovers``,
+    The sharded backend's counters of the reference (``bytes_collective``,
+    ``collective_ops``, and the shard ``retries``, ``failovers``,
     ``bytes_failover``) are kept so the two engines' stats line up field for
-    field; the port never moves them yet.
+    field; the port never moves them yet.  The circuit breaker's reroutes (a
+    CPU engine's only) are counted in ``engine.breaker.snapshot()``, as in
+    the reference.
     """
 
     hot_hits: int = 0
@@ -109,9 +128,9 @@ class EngineStats:
     bytes_join_build: int = 0  # their partition-array bytes
     bytes_collective: int = 0  # not ported yet (sharded backend)
     collective_ops: int = 0  # not ported yet (sharded backend)
-    retries: int = 0  # not ported yet (fault tolerance)
-    failovers: int = 0  # not ported yet (fault tolerance)
-    bytes_failover: int = 0  # not ported yet (fault tolerance)
+    retries: int = 0  # not ported yet (sharded shard retries)
+    failovers: int = 0  # not ported yet (sharded failover)
+    bytes_failover: int = 0  # not ported yet (sharded failover)
     bytes_saved_compression: int = 0  # plain-minus-narrow bytes codecs kept off the bus
     decodes: int = 0  # client-read decodes of encoded packed results
     decode_cache_hits: int = 0  # decode results served from the per-version cache
@@ -264,6 +283,7 @@ class DeviceRowStore:
             self.device, copy=True)
 
     def _full_upload(self, table: RelationalTable) -> _StoreEntry:
+        faults.maybe_fault("upload", table=table.uid, delta=False)
         host = table.words()
         ent = _StoreEntry([self._upload(host)], table.row_count,
                           table.mutation_version)
@@ -317,6 +337,10 @@ class DeviceRowStore:
                    if ent.patch_seq != table.mutation_version else [])
         if patches is None:  # lagged past the trimmed patch log: full re-sync
             return self._full_upload(table)
+        if patches or table.row_count > ent.rows:
+            # before any entry mutation: a fault here leaves the resident
+            # copy at its pre-sync state, so a bare retry re-syncs cleanly
+            faults.maybe_fault("upload", table=table.uid, delta=True)
         moved = self._apply_patches(ent, table, patches)
         ent.patch_seq = table.mutation_version
         if table.row_count > ent.rows:
@@ -426,14 +450,16 @@ class RelationalMemoryEngine:
 
     ``device`` is where the row store lives and the kernels run: ``None``
     means the card (a ``RuntimeError`` if there is none), ``"cpu"`` runs the
-    plain PyTorch versions.  ``revision`` is the paper's §5.2 datapath; only
-    ``"mlp"`` is ported.  ``delta_uploads=False`` disables the write-path
+    plain PyTorch versions.  ``revision`` is the paper's §5.2 datapath:
+    ``"bsl"``, ``"pck"`` or ``"mlp"``.  ``delta_uploads=False`` disables the write-path
     delta machinery (any change re-ships the table; a grown table turns
     cached views cold).  ``block_rows`` and ``vmem_bytes`` model the
     reference's row tile and 2 MB SPM: the fused-pass guard halves the
     modeled tile until it fits, exactly as the reference does, and records
     it in ``EngineStats.last_block_rows`` — the CUDA kernels choose their
-    own tile.
+    own tile.  ``breaker_threshold`` / ``breaker_cooldown`` configure the
+    lowering circuit breaker (:attr:`breaker`), which reroutes on a CPU
+    engine only.
     """
 
     def __init__(
@@ -443,6 +469,8 @@ class RelationalMemoryEngine:
         cache_bytes: int = 2 << 20,
         vmem_bytes: int = 2 << 20,  # paper: 2 MB data SPM
         delta_uploads: bool = True,
+        breaker_threshold: int = 3,
+        breaker_cooldown: int = 4,
         subsume: bool = True,
         device: str | torch.device | None = None,
     ):
@@ -463,6 +491,13 @@ class RelationalMemoryEngine:
         # decode-on-finalize cache: decoded client reads of encoded packed
         # outputs, keyed per table version/storage epoch (FIFO-capped)
         self._decode_cache: dict[tuple, object] = {}
+        # lowering circuit breaker: flips a repeatedly-failing (table,
+        # request-shape) route to the plain version for a cooldown.  Only a
+        # CPU engine consults it: the card has no fallback to flip to.
+        self.breaker = faults.CircuitBreaker(
+            threshold=breaker_threshold, cooldown=breaker_cooldown
+        )
+        self._reroutes = self.device.type == "cpu"
 
     @property
     def backend(self) -> str:
@@ -634,6 +669,8 @@ class RelationalMemoryEngine:
         for chunk in chunks:
             start = 0
             while start < chunk.shape[0]:
+                faults.maybe_fault("stream_chunk", table=table.uid,
+                                   index=len(parts))
                 stop = (chunk.shape[0] if chunk_rows is None
                         else min(start + chunk_rows, chunk.shape[0]))
                 piece = chunk[start:stop]  # a row slice of a chunk is contiguous
@@ -742,12 +779,15 @@ class RelationalMemoryEngine:
         subsumption-collapsed batch keeps the union-geometry charging and
         ``shared_scans`` accounting of the multi-consumer pass it replaces.
         """
+        faults.maybe_fault("scan_launch", table=table.uid)
         if len(reqs) == 1 and not shared:
             words = self.device_words(table)
             return [self._execute_solo(words, table, reqs[0])]
         chunks = self.device_chunks(table)
         self._fused_block_rows(reqs, table.row_words)  # the modeled guard
-        per_chunk = [self._scan_chunk(chunk, reqs) for chunk in chunks]
+        route = ((table.uid, tuple(KR._strip_dynamic(r) for r in reqs))
+                 if self._reroutes else None)
+        per_chunk = [self._scan_chunk(chunk, reqs, route) for chunk in chunks]
         outs = (per_chunk[0] if len(per_chunk) == 1 else [
             KR.combine_chunk_outputs(req, [o[r] for o in per_chunk])
             for r, req in enumerate(reqs)
@@ -758,23 +798,56 @@ class RelationalMemoryEngine:
             self.charge_scan(table, reqs, row_count=chunk.shape[0])
         return outs
 
+    def _guarded(self, route, op: str, kernel, plain):
+        """Kernel dispatch behind the lowering circuit breaker.
+
+        On a CPU engine (``route`` is its key) a ``closed`` route runs
+        ``kernel()``; an injected ``lowering`` fault records a failure
+        against the route and this serve runs ``plain()`` (same results);
+        an ``open`` route skips the attempt for the cooldown.  On the card
+        (``route`` is ``None``) there is no fallback: ``plain()`` is never
+        called and an injected ``lowering`` fault propagates.  Every other
+        exception — injected faults of other sites, and any real error of a
+        kernel — propagates unrecorded."""
+        if route is None:
+            faults.maybe_fault("lowering", op=op)
+            return kernel()
+        if not self.breaker.allow(route):
+            return plain()
+        try:
+            faults.maybe_fault("lowering", op=op)
+            out = kernel()
+        except faults.FaultError as err:
+            if err.site != "lowering":
+                raise
+            self.breaker.record_failure(route)
+            return plain()
+        self.breaker.record_success(route)
+        return out
+
     def _scan_chunk(self, chunk: torch.Tensor,
-                    reqs: tuple["KR.ScanRequest", ...]) -> list:
-        """One chunk's fused pass: the CUDA kernel on the card, its plain
-        version on the CPU — no fallback between them."""
-        return KR.scan_multi(chunk, reqs)
+                    reqs: tuple["KR.ScanRequest", ...], route) -> list:
+        """One chunk's fused pass behind the breaker: the CUDA kernel on the
+        card, its plain version on the CPU."""
+        return self._guarded(route, "scan", lambda: KR.scan_multi(chunk, reqs),
+                             lambda: KR.scan_multi_torch(chunk, reqs))
 
     def _execute_solo(self, words: torch.Tensor, table: RelationalTable,
                       req: "KR.ScanRequest"):
-        """One request: accounting here, kernel dispatch in
-        :meth:`_solo_kernel` (a zero-row store launches nothing)."""
+        """One request: accounting here, kernel dispatch behind the breaker
+        in :meth:`_solo_kernel` (a zero-row store launches nothing and, as
+        in the reference, skips the breaker)."""
         if isinstance(req, KR.ProjectRequest):
             self.stats.rows_projected += req.geom.row_count
             self.stats.bytes_from_dram += bytes_moved(req.geom)["rme"]
         else:
             self.stats.rows_projected += table.row_count
             self.charge_scan(table, (req,))
-        return self._solo_kernel(words, req)
+        if words.shape[0] == 0:
+            return self._solo_kernel(words, req)
+        route = (table.uid, (KR._strip_dynamic(req),)) if self._reroutes else None
+        return self._guarded(route, "scan", lambda: self._solo_kernel(words, req),
+                             lambda: KR.scan_multi_torch(words, (req,))[0])
 
     def _solo_kernel(self, words: torch.Tensor, req: "KR.ScanRequest"):
         """Single-op kernel dispatch."""
@@ -842,6 +915,7 @@ class RelationalMemoryEngine:
         ``join_builds``/``bytes_join_build`` split."""
         from .planner import DEVICE_JOIN_PATH, _insert_build_index
 
+        faults.maybe_fault("join_build", table=table.uid)
         words = table.words()
         parts = K.build_partitions(
             words[:, table.schema.word_offset(key)],
@@ -866,20 +940,24 @@ class RelationalMemoryEngine:
                                            op.right_proj)
 
     def _probe_join(self, words: torch.Tensor, partitions, key_word: int,
-                    val_word: int, ts_word: int, ts: int, build_ts: bool):
-        """One probe pass: the CUDA kernel on the card, its plain version on
-        the CPU — no fallback between them.  The reference's SPM guard is
-        kept as a model: the row tile is halved while the modeled working
-        set (row tile + resident buckets) exceeds ``vmem_bytes``, and the
-        choice lands in ``EngineStats.last_block_rows``."""
+                    val_word: int, ts_word: int, ts: int, build_ts: bool,
+                    route):
+        """One probe pass behind the breaker (``route`` is the caller's key,
+        ``None`` on the card): the CUDA kernel on the card, its plain version
+        on the CPU.
+        The reference's SPM guard is kept as a model: the row tile is halved
+        while the modeled working set (row tile + resident buckets) exceeds
+        ``vmem_bytes``, and the choice lands in
+        ``EngineStats.last_block_rows``."""
         block_rows = self.block_rows
         while (block_rows // 2 >= MIN_FUSED_BLOCK_ROWS
                and K.probe_vmem_footprint_bytes(
                    partitions, words.shape[1], block_rows) > self.vmem_bytes):
             block_rows //= 2
         self.stats.last_block_rows = block_rows
-        return K.hash_join(words, partitions, key_word, val_word,
-                           ts_word=ts_word, ts=ts, build_ts=build_ts)
+        args = (words, partitions, key_word, val_word, ts_word, ts, build_ts)
+        return self._guarded(route, "join", lambda: K.hash_join(*args),
+                             lambda: K.hash_join_torch(*args))
 
     def _join_direct(self, op: JoinOp) -> JoinResult:
         """Solo join: stream the probe over the device row-store chunks (no
@@ -892,9 +970,10 @@ class RelationalMemoryEngine:
         val_word = table.schema.word_offset(op.left_proj)
         snap = op.snapshot_ts is not None
         ts_word = table.ts_begin_word if snap else -1
+        route = (table.uid, "join") if self._reroutes else None
         outs = [
             self._probe_join(chunk, parts, key_word, val_word, ts_word,
-                             op.snapshot_ts or 0, snap)
+                             op.snapshot_ts or 0, snap, route)
             for chunk in chunks
         ]
         acc_req = op.lower()  # its intervals are exactly the probe footprint
@@ -915,6 +994,7 @@ class RelationalMemoryEngine:
         s, r, m = self._probe_join(
             packed, parts, key_word, val_word, ts_word=-1,
             ts=op.snapshot_ts or 0, build_ts=op.snapshot_ts is not None,
+            route=(op.table.uid, "join") if self._reroutes else None,
         )
         if mask is not None:  # packed blocks carry no ts words: mask outside
             zero = torch.zeros((), dtype=s.dtype, device=s.device)
@@ -1043,3 +1123,7 @@ class RelationalMemoryEngine:
         host = out.cpu()
         return float(host[0]), float(host[1])
 
+    def vmem_budget_bytes(self, geom: TableGeometry) -> int:
+        """The 'area report' analogue: the reference kernels' modeled VMEM
+        working set of one engine step for ``geom`` under this revision."""
+        return K.vmem_footprint_bytes(geom, self.block_rows, self.revision)

@@ -1,13 +1,18 @@
 """Deterministic fault injection + the lowering circuit breaker — a copy of
 ``repro.core.faults``.
 
-In the port only the fault types are wired: the ``QueryServer`` catches
-:class:`TransientFault` around its retries.  No hot path calls
-:func:`maybe_fault` yet and no engine holds a :class:`CircuitBreaker`; the
-injection sites and the breaker are ROADMAP queue 1 item 4.  The
-reference's ``lowering`` site reroutes a failing Pallas dispatch to XLA;
-the port has no such reroute (a CUDA tensor launches its kernel or raises).
-The text below describes the reference package.
+In the port the single-device sites are wired as in the reference: the
+engine calls :func:`maybe_fault` at ``upload``, ``stream_chunk``,
+``scan_launch``, ``lowering`` and ``join_build``, holds a
+:class:`CircuitBreaker`, and the ``QueryServer`` retries
+:class:`TransientFault`.  ``shard_pass`` and ``collective_combine`` wait for
+the sharded backend.  Two deliberate differences: where the text below says
+a lowering *failure* reroutes to the XLA fallback, the port reroutes only on
+a CPU engine, and only an injected ``lowering`` fault (or an open route), to
+the plain PyTorch version there.  On the card the breaker is not consulted:
+an injected ``lowering`` fault propagates like the other sites' faults, and
+a real error of a CUDA kernel propagates everywhere.  The text below
+describes the reference package.
 
 A real deployment of Relational Memory sits *between* the CPU and memory:
 the accelerator path can fail — a lowering error on a new target, a device

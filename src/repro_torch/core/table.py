@@ -1,6 +1,7 @@
 """Row-major in-memory relational table with MVCC timestamps (paper §4) —
-the port's own copy of ``repro.core.table`` (numpy only), plus
-:meth:`RelationalTable.from_state` to carry a table across from a plain dict.
+the port's own copy of ``repro.core.table`` (numpy only, WAL recovery
+included), plus :meth:`RelationalTable.from_state` to carry a table across
+from a plain dict.
 
 The base data is *always* a row store ("the source data tables are always stored
 in physical memory according to the same format — i.e., as a row-store").  Host
@@ -462,6 +463,61 @@ class RelationalTable:
         t._clock = int(state["clock"])
         t.storage_epoch = int(state.get("storage_epoch", 0))
         return t
+
+    # ------------------------------------------------------------ durability
+    def checkpoint_payload(self) -> dict:
+        """The WAL ``checkpoint`` record body: enough state to reconstruct
+        this table byte-identically (storage words + MVCC clock)."""
+        return {
+            "schema": self.schema,
+            "words": self._words[: self.row_count].copy(),
+            "row_count": self.row_count,
+            "clock": self._clock,
+            # stored words of encoded columns are code words: the fitted
+            # codecs (and the epoch of their last in-place re-encode) are
+            # part of the byte-identical reconstruction contract
+            "codecs": dict(self.codecs),
+            "storage_epoch": self.storage_epoch,
+        }
+
+    @staticmethod
+    def recover(wal, key) -> "RelationalTable | None":
+        """Rebuild the table for ``key`` from a (possibly torn) WAL.
+
+        Restores the latest surviving ``checkpoint`` record, then replays
+        every subsequent write record through the real :meth:`append` /
+        :meth:`update` / :meth:`delete` methods.  Because the MVCC clock
+        ticks only on writes, replaying the same mutation sequence from the
+        same checkpoint re-derives the exact same timestamps: the recovered
+        table's ``words()`` and ``now()`` are byte-identical to the
+        pre-crash table's, as far as the log survived.  Returns ``None``
+        when no checkpoint for ``key`` survived the crash.
+        """
+        table: RelationalTable | None = None
+        for rec in wal.records():
+            if rec.key != key:
+                continue
+            if rec.kind == "checkpoint":
+                p = rec.payload
+                table = RelationalTable(
+                    p["schema"], capacity=max(p["row_count"], 16)
+                )
+                table._words[: p["row_count"]] = p["words"]
+                table.row_count = p["row_count"]
+                table._clock = p["clock"]
+                table.codecs = dict(p.get("codecs", table.codecs))
+                table.storage_epoch = p.get("storage_epoch", 0)
+            elif table is None:
+                continue  # write before any surviving checkpoint: unanchored
+            elif rec.kind == "insert":
+                table.append(rec.payload["columns"])
+            elif rec.kind == "update":
+                table.update(rec.payload["rows"], rec.payload["values"])
+            elif rec.kind == "delete":
+                table.delete(rec.payload["rows"])
+            else:
+                raise ValueError(f"unknown WAL record kind {rec.kind!r}")
+        return table
 
 
 def columnar_copy(table: RelationalTable, names: Sequence[str]) -> dict[str, np.ndarray]:

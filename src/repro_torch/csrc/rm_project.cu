@@ -1,0 +1,211 @@
+// The paper's §5.2 projection revisions and the compacting selection for
+// Hopper (sm_90a).
+//
+//   rm_project_bsl_kernel     <- repro/kernels/rme_project.py _bsl_kernel
+//   rm_project_pck_kernel     <- repro/kernels/rme_project.py _pck_kernel
+//   rm_select_compact_kernel  <- repro/kernels/rme_select.py  _select_kernel
+//
+// (The MLP revision is rm_project_kernel and the multi-view projection
+// rm_project_multi_kernel, both in rm_scan.cu: they stage whole row tiles.)
+//
+// What bounds them: bytes.  Each moves the enabled words of every row once
+// and writes the packed output once, with no arithmetic to speak of, so the
+// least time is the 32-byte sectors holding the enabled (and, for the
+// selection, the predicate and timestamp) words plus the output, over the
+// memory rate.
+//
+// Design.  The three revisions must stay structurally distinct, because the
+// distinction is what the paper's revision study measures:
+//
+//   * BSL (baseline, no packer): grid (row tiles, Q), the Q column blocks of
+//     a tile adjacent in launch order as the Pallas grid iterates them.  Each
+//     block copies one column's word range of its row tile from global
+//     memory straight into that column's slice of the output rows.  Nothing
+//     is staged: the loads and the stores are strided and partial, Q blocks
+//     touch every output row, and the row tile is read Q times — from L2
+//     after the first, because the tile's blocks run together.  (Launched
+//     column-major instead, each column becomes a pass over the whole table
+//     from device memory; PERF.md has both orders' times.)
+//   * PCK (packer register): one block per row tile walks the Q columns,
+//     gathers each column's words into a packed tile in shared memory (the
+//     packer), then writes the whole packed tile with one coalesced store.
+//     The Q strided gathers of a tile re-read its sectors, so they load
+//     through the cache (not the streaming hint the one-pass kernels use).
+//   * MLP (rm_scan.cu): the whole row tile is staged with coalesced 16-byte
+//     loads and every column is packed out of shared memory.
+//
+// The selection keeps a row when the predicate holds, the row exists
+// (ridx < n: the reference pads the table with zero rows, here the tail is
+// masked and nothing is copied) and it is visible at the snapshot.  One
+// block per contract block of block_rows rows walks it in sub-tiles of
+// kThreads rows: a warp ballot and popc give each kept row its rank in the
+// warp, a prefix over the block's warps and a running base give its slot,
+// so kept rows keep their original order (the reference's stable argsort).
+// Slots from the count to block_rows are zero-filled and the count written.
+#include "rm_common.cuh"
+
+using namespace rm;
+
+namespace {
+
+constexpr int kMaxCols = 256;  // column slices one BSL / PCK launch carries
+constexpr int kBslRows = 256;  // rows per BSL block
+
+}  // namespace
+
+// Mirrored by ctypes in repro_torch/kernels/_cuda.py (_ColParams,
+// _SelectParams), which checks both sizes at load time.
+struct ColParams {
+  const int32_t* words;  // (n, row_words) row store
+  int32_t* out;          // (n, out_w) packed output
+  long long n;
+  int32_t row_words;
+  int32_t out_w;
+  int32_t n_cols;        // Q
+  int32_t tile_rows;     // PCK: rows per packed tile (a multiple of 4)
+  int32_t src[kMaxCols]; // first row word of each column
+  int32_t dst[kMaxCols]; // first packed word of each column
+  int32_t width[kMaxCols];
+};
+
+struct SelectParams {
+  const int32_t* words;  // (n, row_words) row store
+  int32_t* out;          // (n_blocks, block_rows, out_w)
+  int32_t* counts;       // (n_blocks,)
+  long long n;
+  int32_t row_words;
+  int32_t out_w;
+  int32_t block_rows;
+  int32_t pad_;
+  Req q;                 // predicate and MVCC test (pred_* and ts_* fields)
+  int32_t map[kMaxMap];  // source word of every packed word
+};
+
+__global__ void __launch_bounds__(kThreads)
+rm_project_bsl_kernel(const __grid_constant__ ColParams p) {
+  const long long tile = blockIdx.x / p.n_cols;
+  const int j = static_cast<int>(blockIdx.x - tile * p.n_cols);
+  const long long row0 = tile * kBslRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kBslRows), p.n - row0));
+  const int src = p.src[j], dst = p.dst[j], w = p.width[j];
+  const int32_t* in = p.words + row0 * p.row_words + src;
+  int32_t* out = p.out + row0 * p.out_w + dst;
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+    const int r = i / w, k = i - r * w;
+    out[static_cast<long long>(r) * p.out_w + k] =
+        __ldg(in + static_cast<long long>(r) * p.row_words + k);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rm_project_pck_kernel(const __grid_constant__ ColParams p) {
+  int32_t* packed = smem_words();
+  const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * p.tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
+    const int32_t* in = p.words + row0 * p.row_words;
+    __syncthreads();  // the previous tile's packer is flushed
+    // one column chunk per step into the packer register
+    for (int j = 0; j < p.n_cols; ++j) {
+      const int src = p.src[j], dst = p.dst[j], w = p.width[j];
+      for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+        const int r = i / w, k = i - r * w;
+        packed[r * p.out_w + dst + k] = __ldg(in + static_cast<long long>(r) * p.row_words + src + k);
+      }
+    }
+    __syncthreads();
+    // one write of the packed lines: contiguous, 16 bytes a thread where
+    // the destination is aligned (a tile of a multiple of 4 rows is)
+    int32_t* out = p.out + row0 * p.out_w;
+    const int n_words = rows * p.out_w;
+    int head = 0;
+    if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+      const int n_vec = n_words >> 2;
+      const int4* s4 = reinterpret_cast<const int4*>(packed);
+      int4* o4 = reinterpret_cast<int4*>(out);
+      for (int i = threadIdx.x; i < n_vec; i += blockDim.x) o4[i] = s4[i];
+      head = n_vec << 2;
+    }
+    for (int i = head + threadIdx.x; i < n_words; i += blockDim.x) out[i] = packed[i];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rm_select_compact_kernel(const __grid_constant__ SelectParams p) {
+  __shared__ int warp_n[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long blk0 = static_cast<long long>(blockIdx.x) * p.block_rows;
+  int32_t* out = p.out + blk0 * p.out_w;
+  int base = 0;  // slots filled by earlier sub-tiles (same in every thread)
+  for (int s = 0; s < p.block_rows; s += blockDim.x) {
+    const int slot_row = s + threadIdx.x;
+    const long long ridx = blk0 + slot_row;
+    const int32_t* row = p.words + ridx * p.row_words;
+    const bool keep = slot_row < p.block_rows && ridx < p.n && row_pass(row, p.q);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) {
+      before += i < warp ? warp_n[i] : 0;
+      total += warp_n[i];
+    }
+    if (keep) {
+      const int slot = base + before + __popc(ballot & ((1u << lane) - 1u));
+      int32_t* dst = out + static_cast<long long>(slot) * p.out_w;
+      for (int k = 0; k < p.out_w; ++k) dst[k] = row[p.map[k]];
+    }
+    base += total;
+    __syncthreads();  // warp_n is rewritten by the next sub-tile
+  }
+  // zero-fill the slots past the count
+  const long long fill0 = static_cast<long long>(base) * p.out_w;
+  const long long fill1 = static_cast<long long>(p.block_rows) * p.out_w;
+  for (long long i = fill0 + threadIdx.x; i < fill1; i += blockDim.x) out[i] = 0;
+  if (threadIdx.x == 0) p.counts[blockIdx.x] = base;
+}
+
+extern "C" {
+
+int rm_col_params_size() { return static_cast<int>(sizeof(ColParams)); }
+int rm_select_params_size() { return static_cast<int>(sizeof(SelectParams)); }
+
+// BSL: ceil(n / kBslRows) * Q blocks, block b on tile b / Q, column b % Q.
+// Launch on `stream`, do not synchronise, return the launch's
+// cudaGetLastError() (0 on success).
+int rm_project_bsl(const ColParams* params, void* stream) {
+  if (params->n_cols <= 0 || params->n_cols > kMaxCols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (params->n + kBslRows - 1) / kBslRows * params->n_cols;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rm_project_bsl_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each.
+int rm_project_pck(const ColParams* params, int n_blocks, long long smem, void* stream) {
+  if (n_blocks <= 0 || params->n_cols <= 0 || params->n_cols > kMaxCols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rm_project_pck_kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  rm_project_pck_kernel<<<n_blocks, kThreads, static_cast<size_t>(smem),
+                          static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Selection: one block per contract block.
+int rm_select_compact(const SelectParams* params, long long n_blocks, void* stream) {
+  if (n_blocks <= 0 || n_blocks > 0x7fffffffLL || params->block_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rm_select_compact_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

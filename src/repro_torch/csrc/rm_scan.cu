@@ -6,6 +6,7 @@
 //   rm_aggregate_kernel    <- repro/kernels/rme_aggregate.py _agg_kernel
 //   rm_groupby_kernel      <- repro/kernels/rme_aggregate.py _groupby_kernel
 //   rm_scan_multi_kernel   <- repro/kernels/rme_scan_multi.py _scan_multi_kernel
+//   rm_project_multi_kernel <- repro/kernels/rme_project_multi.py _mlp_multi_kernel
 //
 // What bounds them: bytes.  Each reads the row store once and does a few
 // integer compares and float adds per row, far below the card's operation
@@ -44,6 +45,28 @@ rm_project_kernel(const __grid_constant__ Params p) {
     stage_tile(tile, p.words, row0, rows, p.row_words);
     __syncthreads();
     pack_tile<false>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
+  }
+}
+
+// Several packed views from one staged row tile: every request of the
+// launch is a projection (the Python side splits larger view sets).
+__global__ void __launch_bounds__(kThreads)
+rm_project_multi_kernel(const __grid_constant__ Params p) {
+  int32_t* smem = smem_words();
+  int32_t* tile = smem;
+  int32_t* sm_map = smem + p.map_smem;
+  stage_map(p, sm_map);
+  const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = t * p.tile_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
+    __syncthreads();
+    stage_tile(tile, p.words, row0, rows, p.row_words);
+    __syncthreads();
+    for (int r = 0; r < p.n_req; ++r) {
+      const Req& q = p.req[r];
+      pack_tile<false>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
+    }
   }
 }
 
@@ -195,6 +218,7 @@ const void* const kKernels[] = {
     reinterpret_cast<const void*>(rm_aggregate_kernel),
     reinterpret_cast<const void*>(rm_groupby_kernel),
     reinterpret_cast<const void*>(rm_scan_multi_kernel),
+    reinterpret_cast<const void*>(rm_project_multi_kernel),
 };
 constexpr int kNumKernels = sizeof(kKernels) / sizeof(kKernels[0]);
 
@@ -249,6 +273,7 @@ RM_LAUNCHER(rm_filter_project, rm_filter_kernel)
 RM_LAUNCHER(rm_aggregate, rm_aggregate_kernel)
 RM_LAUNCHER(rm_groupby_sum, rm_groupby_kernel)
 RM_LAUNCHER(rm_scan_multi, rm_scan_multi_kernel)
+RM_LAUNCHER(rm_project_multi, rm_project_multi_kernel)
 
 int rm_reduce_partials(const float* partials, int n_parts, int width,
                        float* out, void* stream) {

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels of the RME and their plain PyTorch versions.
 
-``rme_project``    — packed projection (the paper's MLP revision)
+``rme_project``    — packed projection (the paper's BSL / PCK / MLP revisions)
+``rme_project_multi`` — several packed views from one row-store pass
+``rme_select``     — selection with per-block compaction, and ``densify``
 ``rme_filter``     — fused selection + projection
 ``rme_aggregate``  — fused selection + aggregation, and group-by
 ``rme_scan_multi`` — the heterogeneous one-pass scan and its requests

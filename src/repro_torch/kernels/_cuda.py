@@ -1,5 +1,5 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
-``csrc/rm_join.cu``).
+``csrc/rm_join.cu``, ``csrc/rm_project.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -10,10 +10,11 @@ first CUDA call, so importing this module needs neither ``nvcc`` nor a card.
 Every scan launch goes through :func:`run`: it plans the launch (tile
 height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
-and raises if the launch reports a CUDA error.  The hash-join probe has its
-own parameter block and launcher, :func:`run_hash_join`, under the same
-rules.  ``LAUNCHES`` counts the launches of each kernel; nothing else adds
-to it.
+and raises if the launch reports a CUDA error.  The hash-join probe, the
+BSL / PCK projection revisions and the compacting selection have their own
+parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
+:func:`run_select`) under the same rules.  ``LAUNCHES`` counts the launches
+of each kernel; nothing else adds to it.
 """
 
 from __future__ import annotations
@@ -34,14 +35,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the scan kernels, in the order of kKernels in rm_scan.cu (the index
-# rm_max_blocks takes), then the hash-join probe of rm_join.cu
+# the staged-tile kernels, in the order of kKernels in rm_scan.cu (the index
+# rm_max_blocks takes), then the hash-join probe of rm_join.cu and the
+# kernels of rm_project.cu
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
-                "scan_multi")
-KERNELS = SCAN_KERNELS + ("hash_join",)
+                "scan_multi", "project_multi")
+KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
+                          "select_compact")
+MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
-JOIN_MAX_BLOCKS = 1 << 20  # the probe's grid-stride loop covers any rest
+MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
+MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
 
 # must match rm_common.cuh
 THREADS = 256
@@ -86,6 +91,21 @@ class _JoinParams(ctypes.Structure):
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "key_word", "val_word", "ts_word", "ts", "build_ts",
             "shift", "cap")]
+
+
+class _ColParams(ctypes.Structure):
+    _fields_ = [("words", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong)] + [
+        (name, ctypes.c_int32) for name in (
+            "row_words", "out_w", "n_cols", "tile_rows")] + [
+        (name, ctypes.c_int32 * MAX_COLS) for name in ("src", "dst", "width")]
+
+
+class _SelectParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("words", "out", "counts")] + [
+        ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
+            "row_words", "out_w", "block_rows", "pad_")] + [
+        ("q", _Req), ("map", ctypes.c_int32 * MAX_MAP)]
 
 
 # ---------------------------------------------------------------- requests
@@ -278,8 +298,18 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_void_p]
     lib.rm_hash_join.restype = ctypes.c_int
     lib.rm_join_params_size.restype = ctypes.c_int
+    lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_void_p]
+    lib.rm_project_pck.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_void_p]
+    lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
+                                      ctypes.c_longlong, ctypes.c_void_p]
+    for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
+               lib.rm_col_params_size, lib.rm_select_params_size):
+        fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
-                           (lib.rm_join_params_size(), _JoinParams)):
+                           (lib.rm_join_params_size(), _JoinParams),
+                           (lib.rm_col_params_size(), _ColParams),
+                           (lib.rm_select_params_size(), _SelectParams)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
@@ -349,7 +379,7 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
     results = [_empty_result(r, n, device) for r in reqs]
     if n == 0:
         return results
-    if len(reqs) > 1 and kernel != "scan_multi":
+    if len(reqs) > 1 and kernel not in MULTI_REQUEST:
         raise ValueError(f"{kernel} takes one request")
     lib = load()
     fn = getattr(lib, f"rm_{kernel}")
@@ -431,10 +461,90 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
         ts_word=ts_word, ts=ts, build_ts=int(build_ts),
         shift=32 - (p.bit_length() - 1), cap=cap,
     )
-    n_blocks = min(-(-n // JOIN_THREADS), JOIN_MAX_BLOCKS)
+    n_blocks = min(-(-n // JOIN_THREADS), MAX_GRID_BLOCKS)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, lib.rm_hash_join(ctypes.byref(params), n_blocks, stream),
                "hash_join launch")
     LAUNCHES["hash_join"] += 1
     return s_out, r_out, m_out
+
+
+def run_columns(kernel: str, words: torch.Tensor,
+                slices: Sequence[tuple[int, int, int]], out_w: int) -> torch.Tensor:
+    """Launch a column-walking projection revision (``"project_bsl"`` or
+    ``"project_pck"``) over ``words``; ``slices`` holds ``(src_word,
+    dst_word, width_words)`` per enabled column.  Returns the packed
+    ``(N, out_w)`` int32 block; a zero-row input launches nothing."""
+    check_words(words)
+    n, row_words = words.shape
+    if not 0 < len(slices) <= MAX_COLS:
+        raise ValueError(f"a launch carries 1..{MAX_COLS} columns, got {len(slices)}")
+    for src, dst, w in slices:
+        if not (w > 0 and 0 <= src and src + w <= row_words and 0 <= dst
+                and dst + w <= out_w):
+            raise ValueError(f"column slice {(src, dst, w)} outside the "
+                             f"{row_words}-word row or the {out_w}-word output")
+    out = torch.empty((n, out_w), dtype=torch.int32, device=words.device)
+    if n == 0:
+        return out
+    rows = tile_rows(out_w)
+    smem = rows * out_w * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"packed rows of {out_w} words are too wide to stage")
+    params = _ColParams(words=words.data_ptr(), out=out.data_ptr(), n=n,
+                        row_words=row_words, out_w=out_w, n_cols=len(slices),
+                        tile_rows=rows)
+    for j, (src, dst, w) in enumerate(slices):
+        params.src[j], params.dst[j], params.width[j] = src, dst, w
+    lib = load()
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        if kernel == "project_bsl":
+            err = lib.rm_project_bsl(ctypes.byref(params), stream)
+        elif kernel == "project_pck":
+            n_blocks = min(-(-n // rows), MAX_GRID_BLOCKS)
+            err = lib.rm_project_pck(ctypes.byref(params), n_blocks, smem, stream)
+        else:
+            raise ValueError(kernel)
+        _check(lib, err, f"{kernel} launch")
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def run_select(words: torch.Tensor, req: KernelReq,
+               block_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the compacting selection: ``req`` carries the packed word map
+    (``words``) and the predicate and MVCC test.  Returns ``(blocks
+    (n_blocks, block_rows, out_w) int32, counts (n_blocks,) int32)`` with
+    ``n_blocks = ceil(N / block_rows)``; a zero-row input launches nothing."""
+    check_words(words)
+    n, row_words = words.shape
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if not 0 < len(req.words) <= MAX_MAP:
+        raise ValueError(f"1..{MAX_MAP} packed words, got {len(req.words)}")
+    bad = [w for w in req.touched() if not 0 <= w < row_words]
+    if bad:
+        raise ValueError(f"words {bad} outside the {row_words}-word row")
+    out_w = len(req.words)
+    n_blocks = -(-n // block_rows)
+    blocks = torch.empty((n_blocks, block_rows, out_w), dtype=torch.int32,
+                         device=words.device)
+    counts = torch.empty(n_blocks, dtype=torch.int32, device=words.device)
+    if n == 0:
+        return blocks, counts
+    params = _SelectParams(
+        words=words.data_ptr(), out=blocks.data_ptr(), counts=counts.data_ptr(),
+        n=n, row_words=row_words, out_w=out_w, block_rows=block_rows,
+        q=_Req(pred_word=req.pred_word, pred_float=int(req.pred_float),
+               pred_op=PRED_OPS[req.pred_op], k_bits=req.k_bits,
+               ts_word=req.ts_word, ts=req.ts))
+    params.map[:out_w] = req.words
+    lib = load()
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        _check(lib, lib.rm_select_compact(ctypes.byref(params), n_blocks, stream),
+               "select_compact launch")
+    LAUNCHES["select_compact"] += 1
+    return blocks, counts

@@ -2,11 +2,11 @@
 
 One import surface for the engine.  Every function dispatches on the
 tensor's device: a CUDA tensor launches the hand-written Hopper kernel
-(``csrc/rm_scan.cu``, ``csrc/rm_join.cu``), a CPU tensor runs the plain
-PyTorch version beside it.
-Only the paper's production revision, ``"mlp"``, is ported; the BSL and PCK
-revisions are still to port (ROADMAP queue 2), and the reference's ``"xla"``
-revision has no counterpart — the plain versions play its part on the CPU.
+(``csrc/rm_scan.cu``, ``csrc/rm_join.cu``, ``csrc/rm_project.cu``), a CPU
+tensor runs the plain PyTorch version beside it.  The paper's three §5.2
+revisions (``"bsl"``, ``"pck"``, ``"mlp"``) each have their projection
+kernel; the reference's ``"xla"`` revision has no counterpart — the plain
+versions play its part on the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +26,14 @@ from .rme_join import (
     partitions_from_numpy,
     probe_vmem_footprint_bytes,
 )
-from .rme_project import DEFAULT_BLOCK_ROWS, project, project_torch, vmem_footprint_bytes
+from .rme_project import (
+    DEFAULT_BLOCK_ROWS,
+    REVISIONS,
+    project,
+    project_torch,
+    vmem_footprint_bytes,
+)
+from .rme_project_multi import project_multi, project_multi_torch
 from .rme_scan_multi import (
     AggregateRequest,
     FilterRequest,
@@ -40,16 +47,16 @@ from .rme_scan_multi import (
     scan_vmem_footprint_bytes,
     union_geometry,
 )
-
-REVISIONS = ("mlp",)
+from .rme_select import densify, select_compact, select_compact_torch
 
 
 def check_revision(revision: str) -> None:
-    if revision not in REVISIONS:
+    if revision == "xla":
         raise ValueError(
-            f"revision {revision!r} is not ported (ROADMAP queue 2 lists the "
-            f"bsl/pck kernels); the port has {REVISIONS}"
-        )
+            "the port has no 'xla' revision: the plain PyTorch versions play "
+            f"its part on the CPU (device='cpu'); want one of {REVISIONS}")
+    if revision not in REVISIONS:
+        raise ValueError(f"unknown revision {revision!r}; want one of {REVISIONS}")
 
 
 def project_any(
@@ -57,9 +64,9 @@ def project_any(
     geom: TableGeometry,
     revision: str = "mlp",
 ) -> torch.Tensor:
-    """Dispatch projection across the ported revisions."""
+    """Dispatch projection to the revision's kernel."""
     check_revision(revision)
-    return project(words, geom)
+    return project(words, geom, revision)
 
 
 __all__ = [
@@ -75,6 +82,7 @@ __all__ = [
     "build_partitions",
     "check_revision",
     "combine_chunk_outputs",
+    "densify",
     "estimated_partition_bytes",
     "filter_project",
     "filter_project_torch",
@@ -86,12 +94,16 @@ __all__ = [
     "probe_vmem_footprint_bytes",
     "project",
     "project_any",
+    "project_multi",
+    "project_multi_torch",
     "project_torch",
     "reduced_result_bytes",
     "request_intervals",
     "scan_multi",
     "scan_multi_torch",
     "scan_vmem_footprint_bytes",
+    "select_compact",
+    "select_compact_torch",
     "union_geometry",
     "vmem_footprint_bytes",
 ]

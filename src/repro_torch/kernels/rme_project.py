@@ -1,13 +1,21 @@
-"""Packed projection — the port of ``repro.kernels.rme_project`` (MLP only).
+"""Packed projection — the port of ``repro.kernels.rme_project``: the
+paper's three §5.2 datapath revisions.
 
 ``project`` copies the enabled word ranges of each row into an
-``(N, out_words)`` int32 block.  On a CUDA tensor it launches
-``rm_project_kernel`` (``csrc/rm_scan.cu``, the Hopper form of the
-reference's ``_mlp_kernel``); on a CPU tensor it runs :func:`project_torch`,
-the plain version of the same contract.  There is no fallback between the
-two: a CUDA tensor gets the kernel or an error.
+``(N, out_words)`` int32 block.  On a CUDA tensor it launches the
+revision's kernel:
 
-The paper's BSL and PCK revisions are not ported yet (ROADMAP queue 2).
+* ``"mlp"`` — ``rm_project_kernel`` (``csrc/rm_scan.cu``, the Hopper form of
+  ``_mlp_kernel``): whole row tiles staged with coalesced loads;
+* ``"pck"`` — ``rm_project_pck_kernel`` (``csrc/rm_project.cu``, from
+  ``_pck_kernel``): column chunks gathered into a shared-memory packer, one
+  store of the packed tile;
+* ``"bsl"`` — ``rm_project_bsl_kernel`` (``csrc/rm_project.cu``, from
+  ``_bsl_kernel``): one column per block, stored straight into the output.
+
+On a CPU tensor every revision runs :func:`project_torch`, the one plain
+version (the revisions compute the same function).  There is no fallback
+between the two: a CUDA tensor gets the kernel or an error.
 """
 
 from __future__ import annotations
@@ -17,10 +25,13 @@ import torch
 from repro_torch.core.schema import TableGeometry
 
 from . import _cuda
-from .common import DEFAULT_BLOCK_ROWS, geometry_words
+from .common import DEFAULT_BLOCK_ROWS, column_slices, geometry_words
 
-__all__ = ["DEFAULT_BLOCK_ROWS", "project", "project_torch",
+__all__ = ["DEFAULT_BLOCK_ROWS", "REVISIONS", "project", "project_torch",
            "vmem_footprint_bytes"]
+
+# the paper's §5.2 revisions, baseline first; "mlp" is the production one
+REVISIONS = ("bsl", "pck", "mlp")
 
 
 def _check_geometry(words: torch.Tensor, geom: TableGeometry) -> None:
@@ -36,16 +47,23 @@ def project_torch(words: torch.Tensor, geom: TableGeometry) -> torch.Tensor:
     return words.index_select(1, idx)
 
 
-def project(words: torch.Tensor, geom: TableGeometry) -> torch.Tensor:
-    """Packed projection ``(N, row_words) -> (N, out_words)`` via the RME.
+def project(words: torch.Tensor, geom: TableGeometry,
+            revision: str = "mlp") -> torch.Tensor:
+    """Packed projection ``(N, row_words) -> (N, out_words)`` via the RME's
+    ``revision`` datapath (``"bsl"``, ``"pck"`` or ``"mlp"``).
 
     ``words.shape[1]`` may exceed ``geom.row_words``: the hidden MVCC words
     ride along in storage but are never shipped unless enabled."""
+    if revision not in REVISIONS:
+        raise ValueError(f"unknown RME revision {revision!r}; want one of {REVISIONS}")
     if words.device.type == "cpu":
         return project_torch(words, geom)
     _check_geometry(words, geom)
-    req = _cuda.KernelReq(_cuda.PROJECT, tuple(geometry_words(geom)))
-    return _cuda.run("project", words, [req])[0]
+    if revision == "mlp":
+        req = _cuda.KernelReq(_cuda.PROJECT, tuple(geometry_words(geom)))
+        return _cuda.run("project", words, [req])[0]
+    return _cuda.run_columns(f"project_{revision}", words, column_slices(geom),
+                             geom.out_words_per_row)
 
 
 def vmem_footprint_bytes(

@@ -91,6 +91,19 @@ class GroupByRequest:
 ScanRequest = ProjectRequest | FilterRequest | AggregateRequest | GroupByRequest
 
 
+def _strip_dynamic(req: ScanRequest) -> ScanRequest:
+    """The request with its runtime operands (predicate constant, snapshot
+    time) and the geometry's ``row_count`` normalized away — the request's
+    *shape*, which keys the engine's circuit-breaker routes as in the
+    reference (where it is also the kernel's trace key)."""
+    if isinstance(req, (ProjectRequest, FilterRequest)):
+        req = dataclasses.replace(
+            req, geom=dataclasses.replace(req.geom, row_count=0))
+    if isinstance(req, ProjectRequest):
+        return req
+    return dataclasses.replace(req, pred_k=0, ts=0)
+
+
 def request_intervals(req: ScanRequest) -> list[tuple[int, int]]:
     """Byte intervals of the row-store words this request enables.
 

@@ -2,11 +2,9 @@
 with live HTAP writes, pipelined ticks, priority lanes, and streaming results.
 The port of ``repro.serve.query_server``.
 
-What the port leaves out, each raising ``NotImplementedError`` that names
-its ROADMAP item: the mesh-sharded backend (``mesh=`` / ``num_shards=``,
-queue 1 item 6) and the write-ahead log (a non-``None`` ``wal=``, item 4).
-``snapshot()`` has no circuit-breaker fields, because the port's engine has
-no breaker yet (item 4).
+What the port leaves out, raising ``NotImplementedError`` that names its
+ROADMAP item: the mesh-sharded backend (``mesh=`` / ``num_shards=``, queue 1
+item 6).
 
 The paper's closing argument (§8) is that native column access "can vastly
 simplify the software logic" of an analytics engine.  This module is the
@@ -100,8 +98,16 @@ path; a ticket that *keeps* failing resolves typed and its plan signature
 enters **poison quarantine** — re-submissions of the same shape fail
 immediately with :class:`PoisonedPlanError` for ``poison_cooldown_ticks``
 ticks instead of burning retry budget, and the rest of the tick is never
-poisoned (a failing shared step falls back to per-query execution).  The
-reference's circuit breaker and write-ahead log are not ported.
+poisoned (a failing shared step falls back to per-query execution).  On a
+CPU engine an injected lowering fault flips the (table, request-shape)
+route to the plain version via the engine's circuit breaker (cooldown +
+half-open probes — ``breaker_*`` in :meth:`snapshot`); on the card, where
+no plain version stands in for a kernel, it is retried like any transient
+fault.  Built with ``wal=`` (a
+:class:`repro_torch.core.wal.WriteAheadLog`), every applied write appends a
+checksummed record *before* the host store mutates, so
+:meth:`repro_torch.core.table.RelationalTable.recover` replays a
+byte-identical table after a crash at any record boundary.
 
 Threading model: ``submit*`` is thread-safe and non-blocking (clients get a
 :class:`QueryTicket` and block on ``result()`` — or iterate ``chunks()`` —
@@ -489,7 +495,9 @@ class QueryServer:
 
     Reliability knobs (see ``docs/reliability.md``):
 
-    * ``wal`` — must be ``None``: the write-ahead log is not ported.
+    * ``wal`` — a :class:`repro_torch.core.wal.WriteAheadLog`; when set,
+      every applied write appends a checksummed record (after an automatic
+      per-table checkpoint record) *before* the host store mutates.
     * ``max_retries`` — per-ticket bound on transient-fault retries.
     * ``poison_cooldown_ticks`` — how many ticks a retry-exhausted plan
       signature stays quarantined (:class:`PoisonedPlanError`).
@@ -520,11 +528,6 @@ class QueryServer:
                 "the mesh-sharded backend is not ported yet (ROADMAP queue 1 "
                 "item 6: sharded QueryServer)"
             )
-        if wal is not None:
-            raise NotImplementedError(
-                "the write-ahead log is not ported yet (ROADMAP queue 1 item "
-                "4: fault sites, breaker and WAL)"
-            )
         if overload not in ("shed", "degrade"):
             raise ValueError(f"unknown overload policy {overload!r}; "
                              "want 'shed' or 'degrade'")
@@ -537,9 +540,12 @@ class QueryServer:
         self.express_result_bytes = express_result_bytes
         self.max_queue = max_queue
         self.overload = overload
-        self.wal = wal  # always None: the WAL is not ported
+        self.wal = wal
         self.max_retries = max_retries
         self.poison_cooldown_ticks = poison_cooldown_ticks
+        # tables with a checkpoint record already in the WAL (the first
+        # logged write per table writes one); touched only on the tick thread
+        self._wal_checkpointed: set[int] = set()
         # poison quarantine: plan signature -> remaining cooldown ticks
         self._poisoned: dict[Any, int] = {}
         self.stats = ServerStats()
@@ -730,7 +736,27 @@ class QueryServer:
             return len(self._express) + len(self._bulk)
 
     # --------------------------------------------------------------- writes
+    def _log_write(self, w: _WritePayload) -> None:
+        """Write-ahead: append the write's record — after an automatic
+        checkpoint record on the table's first logged write — *before* the
+        host store mutates.  A crash between append and apply replays one
+        extra record; an acknowledged write is never lost."""
+        if self.wal is None:
+            return
+        if w.table.uid not in self._wal_checkpointed:
+            self.wal.append(w.table.uid, "checkpoint",
+                            w.table.checkpoint_payload())
+            self._wal_checkpointed.add(w.table.uid)
+        if w.kind == "insert":
+            payload = {"columns": dict(w.columns)}
+        elif w.kind == "update":
+            payload = {"rows": w.rows, "values": dict(w.values)}
+        else:
+            payload = {"rows": w.rows}
+        self.wal.append(w.table.uid, w.kind, payload)
+
     def _apply_write(self, w: _WritePayload) -> Any:
+        self._log_write(w)
         if w.kind == "insert":
             rows = w.table.append(w.columns)
             self.stats.inserts += 1
@@ -1325,8 +1351,10 @@ class QueryServer:
             "engine_decodes": e.decodes,
             "engine_decode_cache_hits": e.decode_cache_hits,
         })
-        # the reference adds its circuit breaker's fields here; the port's
-        # engine has no breaker yet (ROADMAP queue 1 item 4)
+        out.update(self.engine.breaker.snapshot())
+        if self.wal is not None:
+            out["wal_records"] = self.wal.record_count
+            out["wal_bytes"] = self.wal.nbytes
         return out
 
 

@@ -333,3 +333,195 @@ def test_query_server_tick_launches_the_probe(dev):
             continue
         for f in ("s_proj", "r_proj", "matched"):
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+
+
+# ------------------------------------------------ revisions, multi-view, select
+REVISION_GEOMS = [
+    ([0, 4, 8, 12], None),  # the path's A1, A5, A9, A13
+    ([1], None),
+    ([0, 3, 9], [2, 4, 1]),  # char-like multi-word columns
+    (list(range(11)), None),  # the configuration port's 11 columns
+]
+
+
+@pytest.mark.parametrize("revision", ["bsl", "pck"])
+@pytest.mark.parametrize("cols", REVISION_GEOMS)
+def test_project_revisions_match_plain(dev, revision, cols):
+    kernel = f"project_{revision}"
+    for n, start in ((1, 0), (3, 0), (1000, 0), (4099, 0), (2001, 1)):
+        # start 1: a chunk sliced at an odd row (not 16-byte aligned)
+        words = torch.from_numpy(make_words(n + start)).to(dev)[start:]
+        g = geom(*cols)
+        before = _cuda.LAUNCHES[kernel]
+        got = K.project(words, g, revision)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[kernel] == before + 1
+        assert torch.equal(got, K.project_torch(words, g)), (revision, cols, n)
+
+
+@pytest.mark.parametrize("revision", ["bsl", "pck"])
+def test_project_revisions_wide_rows(dev, revision):
+    # 700-word rows with a 600-word column: PCK's packer tile shrinks to 8
+    # rows so it fits shared memory
+    rng = np.random.default_rng(5)
+    words = torch.from_numpy(rng.integers(-9, 9, (777, 700)).astype(np.int32)).to(dev)
+    g = geom([3, 650], [600, 20], row_words=700)
+    assert torch.equal(K.project(words, g, revision), K.project_torch(words, g))
+    empty = words[:0]
+    before = dict(_cuda.LAUNCHES)
+    assert K.project(empty, g, revision).shape == (0, 620)
+    assert dict(_cuda.LAUNCHES) == before
+
+
+def test_project_multi_matches_plain_and_splits(dev):
+    words = torch.from_numpy(make_words(3001)).to(dev)
+    geoms = [geom([0]), geom([1, 2]), geom([0, 4, 8, 12]), geom([5, 9], [3, 2])]
+    before = _cuda.LAUNCHES["project_multi"]
+    got = K.project_multi(words, geoms)
+    assert _cuda.LAUNCHES["project_multi"] == before + 1
+    for a, b in zip(got, K.project_multi_torch(words, geoms)):
+        assert torch.equal(a, b)
+    # 24 views of 30 words: more than MAX_REQ views and MAX_MAP words, so
+    # the views split over launches as _cuda.split() groups them
+    wide = torch.from_numpy(np.random.default_rng(6).integers(
+        -9, 9, (1501, 64)).astype(np.int32)).to(dev)[1:]
+    many = [geom([v % 20, 30], [10, 20], row_words=64) for v in range(24)]
+    groups = _cuda.split([_cuda.KernelReq(_cuda.PROJECT, tuple(range(30)))] * 24)
+    assert len(groups) > 1
+    before = _cuda.LAUNCHES["project_multi"]
+    got = K.project_multi(wide, many)
+    assert _cuda.LAUNCHES["project_multi"] == before + len(groups)
+    for a, b in zip(got, K.project_multi_torch(wide, many)):
+        assert torch.equal(a, b)
+
+
+def assert_select_equal(got, want):
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int32
+    assert got[0].shape == want[0].shape and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("block_rows", [64, 256, 512, 1000])
+@pytest.mark.parametrize("pred", [(2, "int32", "gt", 5), (2, "int32", "lt", -2.7),
+                                  (13, "float32", "gt", -3.5), (0, "int32", "none", 0)])
+@pytest.mark.parametrize("mvcc", [False, True])
+def test_select_compact_matches_plain(dev, block_rows, pred, mvcc):
+    word, dtype, op, k = pred
+    w = make_words(2999 + 2)
+    w[::7, 13] = np.array(np.nan, np.float32).view(np.int32)  # NaN fails gt and lt
+    words = torch.from_numpy(w).to(dev)[2:]  # 8-byte, not 16-byte, aligned
+    kw = dict(pred_word=word, pred_dtype=dtype, pred_op=op, pred_k=k,
+              ts=6 if mvcc else 0, ts_word=16 if mvcc else -1, block_rows=block_rows)
+    g = geom([0, 8])
+    before = _cuda.LAUNCHES["select_compact"]
+    got = K.select_compact(words, g, **kw)
+    assert _cuda.LAUNCHES["select_compact"] == before + 1
+    want = K.select_compact_torch(words, g, **kw)
+    assert_select_equal(got, want)
+    assert got[0].shape == (-(-2999 // block_rows), block_rows, 2)
+    total = int(want[1].sum())
+    assert torch.equal(K.densify(*got, total=total), K.densify(*want, total=total))
+
+
+def test_select_compact_all_none_and_empty(dev):
+    words = torch.from_numpy(make_words(1500)).to(dev)
+    g = geom([1, 2, 3])
+    for k in (-10**6, 10**6):  # every row kept, then none
+        kw = dict(pred_word=0, pred_op="gt", pred_k=k, block_rows=256)
+        got = K.select_compact(words, g, **kw)
+        assert_select_equal(got, K.select_compact_torch(words, g, **kw))
+    before = dict(_cuda.LAUNCHES)
+    blocks, counts = K.select_compact(words[:0], g, pred_word=0, block_rows=64)
+    assert dict(_cuda.LAUNCHES) == before
+    assert blocks.shape == (0, 64, 3) and counts.shape == (0,)
+
+
+def test_new_kernels_past_2_31_bytes(dev):
+    # 30,000,001 rows of 18 words: the last rows lie past 2^31 bytes
+    n = 30_000_001
+    words = torch.randint(-1000, 1000, (n, ROW_WORDS), dtype=torch.int32, device=dev)
+    assert words.numel() * 4 > 2**31
+    g = geom([0, 4, 8, 12])
+    tail = slice(n - 5000, n)
+    for revision in ("bsl", "pck"):
+        got = K.project(words, g, revision)
+        assert torch.equal(got[tail], K.project_torch(words[tail], g))
+        del got
+    views = K.project_multi(words, [g, geom([1])])
+    assert torch.equal(views[0][tail], K.project_torch(words[tail], g))
+    del views
+    blocks, counts = K.select_compact(words, g, pred_word=2, pred_op="gt", pred_k=0,
+                                      block_rows=512)
+    lo = (n - 5000) // 512 * 512
+    want = K.select_compact_torch(words[lo:], g, pred_word=2, pred_op="gt", pred_k=0,
+                                  block_rows=512)
+    assert torch.equal(blocks[lo // 512:], want[0]) and torch.equal(counts[lo // 512:], want[1])
+
+
+@pytest.mark.parametrize("revision", ["bsl", "pck", "mlp"])
+def test_engine_revision_launches_its_kernel(dev, revision):
+    schema = TableSchema.of(*[Column(f"A{i + 1}", "int32") for i in range(16)])
+    rng = np.random.default_rng(4)
+    cols = {c.name: rng.integers(-1000, 1000, 3000).astype(np.int32) for c in schema.columns}
+    kernel = "project" if revision == "mlp" else f"project_{revision}"
+    outs = []
+    for device in ("cuda", "cpu"):
+        t = RelationalTable.from_columns(schema, cols)
+        eng = RelationalMemoryEngine(revision=revision, device=device, cache_bytes=0)
+        _cuda.reset_launches()
+        b = BatchExecutor(eng)
+        b.add_columns(t, ["A1", "A5", "A9", "A13"])
+        got = [b.submit()[0]]
+        got += list(eng.stream_project(eng.register(t, ["A2", "A3"]), chunk_rows=1000))
+        if device == "cuda":
+            assert _cuda.LAUNCHES[kernel] == 4, dict(_cuda.LAUNCHES)
+        outs.append(got)
+        assert eng.breaker.snapshot()["breaker_fallbacks"] == 0
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("path", ["fused", "solo", "join"])
+def test_card_lowering_fault_propagates(dev, monkeypatch, path):
+    """On the card the breaker has no fallback: an injected ``lowering``
+    fault propagates, no plain version runs, the breaker records nothing,
+    and the next dispatch launches the kernel again."""
+    from repro_torch.core import AggregateOp, GroupByOp, JoinOp, faults
+    from repro_torch.kernels import rme_scan_multi as KR
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(KR, "scan_multi_torch", no_plain)
+    monkeypatch.setattr(K, "hash_join_torch", no_plain)
+    schema = TableSchema.of(*[Column(f"A{i + 1}", "int32") for i in range(4)])
+    rng = np.random.default_rng(5)
+    t = RelationalTable.from_columns(
+        schema, {c.name: rng.integers(0, 8, 2000).astype(np.int32) for c in schema.columns})
+    r = RelationalTable.from_columns(
+        schema, {c.name: np.arange(8, dtype=np.int32) for c in schema.columns})
+    eng = RelationalMemoryEngine(device=dev, breaker_threshold=1, breaker_cooldown=1)
+    if path == "fused":
+        ops, kernel = [AggregateOp(t, "A1"), GroupByOp(t, "A2", "A1", num_groups=8)], "scan_multi"
+    elif path == "solo":
+        ops, kernel = [AggregateOp(t, "A1")], "aggregate"
+    else:
+        ops, kernel = [JoinOp(eng.register(t, ["A1", "A2"]), "A2", "A1", r, "A3")], "hash_join"
+    want = eng.execute_many(ops)
+    for _ in range(2):
+        plan = faults.FaultPlan().inject("lowering", kind="transient")
+        with faults.fault_plan(plan):
+            with pytest.raises(faults.TransientFault):
+                eng.execute_many(ops)
+        assert plan.fired("lowering") == 1
+    _cuda.reset_launches()
+    got = eng.execute_many(ops)
+    assert _cuda.LAUNCHES[kernel] >= 1, dict(_cuda.LAUNCHES)
+    assert eng.breaker.snapshot() == {"breaker_trips": 0, "breaker_fallbacks": 0,
+                                      "breaker_probes": 0, "breaker_open": 0}
+    for a, b in zip(want, got):
+        if hasattr(a, "s_proj"):
+            a, b = (a.s_proj, a.r_proj, a.matched), (b.s_proj, b.r_proj, b.matched)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)

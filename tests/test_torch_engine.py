@@ -209,8 +209,12 @@ def test_encoded_columns_match_jax():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        T.RelationalMemoryEngine(revision="bsl", device="cpu")
+    # the reference's "xla" revision has no counterpart: the plain versions
+    # play its part on the CPU
+    with pytest.raises(ValueError, match="xla"):
+        T.RelationalMemoryEngine(revision="xla", device="cpu")
+    with pytest.raises(ValueError, match="unknown revision"):
+        T.RelationalMemoryEngine(revision="nope", device="cpu")
     e = T.RelationalMemoryEngine(device="cpu")
     with pytest.raises(TypeError, match="scan op"):
         e.execute_many([object()])

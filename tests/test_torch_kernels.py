@@ -303,5 +303,7 @@ def test_launch_plan_layout():
 def test_cuda_path_refuses_cpu_and_unported_revisions():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _cuda.check_words(torch.zeros((4, 4), dtype=torch.int32))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TK.check_revision("pck")
+    with pytest.raises(ValueError, match="plain PyTorch versions"):
+        TK.check_revision("xla")
+    for revision in TK.REVISIONS:
+        TK.check_revision(revision)

@@ -302,8 +302,7 @@ def test_unported_options_raise_with_their_roadmap_item():
         TS.QueryServer(num_shards=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         TS.QueryServer(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TS.QueryServer(eng, wal=object())
+    assert TS.QueryServer(eng, wal=T.WriteAheadLog()).snapshot()["wal_records"] == 0
     with pytest.raises(ValueError, match="not both"):
         TS.QueryServer(eng, num_shards=2)
     with pytest.raises(ValueError, match="overload"):
