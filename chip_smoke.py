@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
-paper's three projection revisions and the selection entry points on one
-NVIDIA GPU.
+paper's three projection revisions, the selection entry points and the LM
+serving path (``qwen3-8b`` at full width) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -49,14 +49,41 @@ probe rows matching — all made from ``--seed``:
 8. the selection entry points on S's device words: ``project_multi`` of
    three views and ``select_compact`` + ``densify`` at the four
    selectivities, every result against numpy;
-9. checks that no engine the script built ever tripped its circuit breaker
-   or rerouted a dispatch to a plain version (no fault plan is installed);
-10. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+9. releases S, R and the engines, then the LM phases:
+   a. card against CPU: ``qwen3-8b-smoke`` served by a ``ServeSession`` on
+      the card and one on the CPU with the same weights (drawn from
+      ``--seed``), 5 requests over 2 slots: at float32 compute the token
+      lists are equal and every prefill's and decode step's logits agree
+      within 1e-4; at bfloat16 compute every prefill's logits agree within
+      5e-2 (the card's kernel scales q in float32, the CPU's blockwise path
+      in bf16, and the two frameworks round bf16 matmuls apart);
+   b. the flash-attention kernel against its plain version on the card
+      (bf16 within 2^-7 of each value plus 2e-3) at the serving path's
+      prefill shape (B 8, S 2,048, 32 query / 8 KV heads, D 128, causal),
+      there also its float32 build (within 1e-4), and at a ``gemma3-27b``
+      local layer's (32 / 16 heads, window 1,024), timed beside its bound
+      and one ``scaled_dot_product_attention`` call (a yardstick the port
+      never calls);
+   c. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
+      8,190,735,360 weights in bf16) initialised on the card from
+      ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
+      serving 16 requests with prompts of 1,024–2,048 tokens and 16 new
+      tokens each: every request gets 16 tokens inside the vocab, every
+      logit row is finite, the kernel launched once per layer and prefill,
+      and its output on the q, k, v of layers 0 and 35 (taken with a forward
+      hook in the first prefill) is the path's and matches the plain
+      version as in b; then one more prefill and one decode step are
+      warmed, timed and traced (``torch.profiler``: device-busy time,
+      launches, the profiled step's idle share, top kernels);
+10. checks that no engine the script built ever tripped its circuit breaker
+    or rerouted a dispatch to a plain version (no fault plan is installed);
+11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
-PCK, the selection phase for ``project_multi`` and ``select_compact``.
+PCK, the selection phase for ``project_multi`` and ``select_compact``, the
+LM serve phase for ``flash_attention``.
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device it exits non-zero
@@ -84,6 +111,7 @@ BUILD_ROWS = 1_048_576  # the dimension table: 18 MiB of hash buckets
 STREAM_CHUNK_ROWS = 4_194_304
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 SECTOR = 32
 # per request and row: the predicate and two MVCC compares, an add, a count
 OPS_PER_ROW = 5
@@ -100,8 +128,10 @@ REPLACES = {
     "project_bsl": "src/repro/kernels/rme_project.py:68",
     "project_multi": "src/repro/kernels/rme_project_multi.py:36",
     "select_compact": "src/repro/kernels/rme_select.py:35",
+    "flash_attention": "src/repro/kernels/flash_attention.py:36",
 }
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
+           "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
            "project_pck": "src/repro_torch/csrc/rm_project.cu",
            "project_bsl": "src/repro_torch/csrc/rm_project.cu",
            "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
@@ -116,6 +146,25 @@ MULTI_VIEWS = (["A1"], ["A2", "A3"], ["A1", "A5", "A9", "A13"])
 # [-1000, 1000), 512-row blocks
 SELECTIVITIES = ((90, -800), (50, 0), (10, 800), (1, 980))
 SELECT_BLOCK_ROWS = 512
+# the LM serving path: qwen3-8b, 8 slots of 2,112 positions, prompts of
+# 1,024-2,048 tokens, 16 new tokens each
+LM_ARCH = "qwen3-8b"
+LM_SLOTS = 8
+LM_MAX_LEN = 2112
+LM_PROMPT = (1024, 2048)
+LM_MAX_NEW = 16
+LM_REQUESTS = 16
+LM_CHECK_LAYERS = (0, 35)
+# (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer
+# and of a gemma3-27b local layer on the path's batch
+FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
+                ("flash_attention_window", 8, 2048, 32, 16, 128, True, 1024))
+# the kernel against its plain version, |got - want| <= atol + rtol·|want|:
+# bf16 output, one rounding step of the output (2^-7 of its value) plus the
+# rounding of p to bf16 before PV, which the two take at other running maxima
+# (64- against 256-key tiles), on outputs near 0; float32 output: summation
+# order alone
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (0.0, 1e-4)}
 
 
 def emit(obj) -> None:
@@ -590,6 +639,301 @@ def selection_phase(torch, table, breakers: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------- LM phases
+def lm_prompts(rng, n: int, lo: int, hi: int, vocab: int) -> list:
+    return [rng.integers(0, vocab, int(n_tok)).astype(np.int32)
+            for n_tok in rng.integers(lo, hi + 1, n)]
+
+
+def recorded(torch, fn, log: list, sync: bool):
+    """``fn`` (a session's prefill or decode step) timed on the host clock,
+    synced on both sides when ``sync``; appends ``(seconds, logits)``."""
+    def run(*args):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        if sync:
+            torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, logits))
+        return logits, cache
+    return run
+
+
+def serve_session(torch, model, prompts, slots: int, max_len: int, max_new: int,
+                  sync: bool):
+    """Serve ``prompts`` on a fresh session; returns the requests and the
+    recorded prefills and decode steps."""
+    from repro_torch.serve import Request, ServeSession
+
+    sess = ServeSession(model, batch_slots=slots, max_len=max_len)
+    prefills, decodes = [], []
+    sess.prefill_fn = recorded(torch, sess.prefill_fn, prefills, sync)
+    sess.decode_fn = recorded(torch, sess.decode_fn, decodes, sync)
+    reqs = [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        sess.submit(r)
+    sess.run_to_completion()
+    return reqs, prefills, decodes
+
+
+def lm_reference_phase(torch, seed: int) -> dict:
+    """qwen3-8b-smoke served on the card and on the CPU with the same
+    weights: float32 compute token lists equal and logits within 1e-4;
+    bfloat16 compute prefill logits within 5e-2."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.lm import DecoderLM
+
+    out = {"phase": "lm_reference", "arch": f"{LM_ARCH}-smoke"}
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype=dtype)
+        cpu = DecoderLM(cfg, device="cpu", seed=seed)
+        card = DecoderLM(cfg, device="cuda", seed=None)
+        card.load_state_dict(cpu.state_dict())
+        prompts = lm_prompts(np.random.default_rng(seed + 5), 5, 3, 24, cfg.vocab)
+        _cuda.reset_launches()
+        got = serve_session(torch, card, prompts, 2, 64, 6, True)
+        launches = _cuda.LAUNCHES["flash_attention"]
+        want = serve_session(torch, cpu, prompts, 2, 64, 6, False)
+        assert launches == cfg.n_layers * len(got[1]), (launches, len(got[1]))
+        tokens_equal = [r.out for r in got[0]] == [r.out for r in want[0]]
+        pairs = list(zip(got[1], want[1]))
+        if dtype == "float32":
+            assert tokens_equal, ([r.out for r in got[0]], [r.out for r in want[0]])
+            pairs += list(zip(got[2], want[2]))
+        assert len(got[1]) == len(want[1]) == 3  # three admissions of <= 2
+        err = 0.0
+        for (_, a), (_, b) in pairs:
+            torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+            err = max(err, float((a.cpu() - b).abs().max()))
+        out[dtype] = {"tokens_equal": tokens_equal, "max_abs_err": err,
+                      "logit_sets": len(pairs), "tolerance": tol,
+                      "flash_launches": launches}
+    emit(out)
+    return out
+
+
+def flash_check(got, want, dtype: str) -> dict:
+    """``got`` within ``FLASH_TOL[dtype]`` of ``want`` everywhere: the
+    largest error, and the largest share of its element's limit."""
+    rtol, atol = FLASH_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (atol + rtol * want.float().abs())).max())
+    out = {"max_abs_err": float(diff.max()), "limit_share": share,
+           "rtol": rtol, "atol": atol}
+    assert share <= 1.0, out
+    return out
+
+
+def flash_pairs(s: int, causal: bool, window: int | None) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    w = s if window is None else window
+    i = np.arange(s, dtype=np.int64)
+    if causal:
+        return int(np.minimum(i + 1, w).sum())
+    return int((np.minimum(i + w - 1, s - 1) - np.maximum(i - w + 1, 0) + 1).sum())
+
+
+def flash_bound(b, s, h, kh, d, causal, window, elem_bytes) -> tuple[float, str]:
+    """The least time of the attention forward: 4·B·H·D operations per
+    unmasked pair (QK and PV, a multiply and an add each) over the bf16
+    tensor-core rate, against Q, K, V and O moved once."""
+    ops = 4 * b * h * d * flash_pairs(s, causal, window)
+    t_ops = ops / BF16_OPS_PER_S
+    t_bytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elem_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_phase(torch, seed: int, reps: int) -> dict:
+    """The kernel against its plain version at the path's shapes, timed
+    beside its bound and one ``scaled_dot_product_attention`` call."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    for name, b, s, h, kh, d, causal, window in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for n in (h, kh, kh))
+        run = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        plain = lambda: FA.flash_attention_torch(q, k, v, causal=causal, window=window)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        check = flash_check(got, want, "bfloat16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D) views
+        if window is None:
+            library = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(s, device="cuda")
+            dist = i[:, None] - i[None, :]
+            mask = (dist >= 0) & (dist < window)
+            library = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+        del got, want
+        if window is None:  # the float32 build at the path's shape too
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            f32 = flash_check(FA.flash_attention(q32, k32, v32, causal=causal),
+                              FA.flash_attention_torch(q32, k32, v32, causal=causal),
+                              "float32")
+            f32["kernel_ms"] = time_ms(torch, lambda: FA.flash_attention(
+                q32, k32, v32, causal=causal), max(3, reps // 3))
+            del q32, k32, v32
+        bound_ms, bound_by = flash_bound(b, s, h, kh, d, causal, window, 2)
+        line = {"phase": "kernel", "name": name,
+                "kernel_ms": time_ms(torch, run, reps),
+                "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
+                "library_ms": time_ms(torch, library, reps),
+                "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                                + (" (is_causal)" if window is None else " (bool window mask)"),
+                "library_max_abs_err": lib_err,
+                "bound_ms": bound_ms, "bound_by": bound_by, **check,
+                "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
+                          "window": window, "dtype": "bfloat16"},
+                "pairs_per_head": flash_pairs(s, causal, window)}
+        if window is None:
+            line["float32"] = f32
+        emit(line)
+        out[name] = line
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(torch, fn) -> dict:
+    """One step's time: ``fn`` once to warm up, once on the host clock
+    (synced), then once more under ``torch.profiler`` — the sum of its
+    kernels' device times (one stream, so they do not overlap), its
+    launches, the top five kernels, and the idle share of that profiled
+    step against its own wall time (the profiler's host cost included).
+    ``None`` where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return {"profiled_wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
+            "device_busy_ms": busy_ms or None,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
+
+
+def lm_serve_phase(torch, seed: int) -> dict:
+    """qwen3-8b at full width on the card through ``ServeSession``; the
+    flash kernel's launches are counted on this run alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed)  # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() for p in model.parameters())
+    assert weights == cfg.param_count() and len(model.layers) == cfg.n_layers == 36
+    captured: dict = {}
+
+    def capture(idx):
+        def hook(module, args, result):
+            if idx not in captured:  # the first prefill's q, k, v and output
+                captured[idx] = (args, result)
+        return hook
+
+    hooks = [model.layers[i].mixer.attend.register_forward_hook(capture(i))
+             for i in LM_CHECK_LAYERS]
+    rng = np.random.default_rng(seed + 11)
+    prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, prefills, decodes = serve_session(torch, model, prompts, LM_SLOTS, LM_MAX_LEN,
+                                            LM_MAX_NEW, True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _cuda.LAUNCHES["flash_attention"]
+    for hk in hooks:
+        hk.remove()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == cfg.n_layers * len(prefills), (launches, len(prefills))
+    assert all(len(r.out) == LM_MAX_NEW for r in reqs), [len(r.out) for r in reqs]
+    assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
+    for _, logits in prefills + decodes:
+        assert logits.shape == (LM_SLOTS, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+    checked = {}
+    for idx in LM_CHECK_LAYERS:
+        (q, k, v), result = captured[idx]
+        again = FA.flash_attention(q, k, v)  # a compare launch, not counted above
+        want = FA.flash_attention_torch(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(again, result), idx  # the path's output is the kernel's
+        checked[idx] = {"shape": list(q.shape),
+                        **flash_check(result, want, cfg.compute_dtype)}
+    tokens = sum(len(r.out) for r in reqs)
+    decode_ms = [1e3 * t for t, _ in decodes]
+    # where a step's time goes: the first admission's prefill and one decode
+    # step again, after the counts were read, each timed and then profiled
+    first = prompts[:LM_SLOTS]
+    toks = np.zeros((LM_SLOTS, max(len(p) for p in first)), np.int32)
+    for slot, p in enumerate(first):
+        toks[slot, -len(p):] = p
+    toks = torch.from_numpy(toks).to(model.device)
+    _, cache = model.prefill({"tokens": toks}, LM_MAX_LEN)
+    profiles = {
+        "prefill": profile_step(torch, lambda: model.prefill({"tokens": toks}, LM_MAX_LEN)),
+        "decode": profile_step(torch, lambda: model.decode_step(cache, toks[:, -1:],
+                                                                toks.shape[1])),
+    }
+    del cache
+    out = {"phase": "lm_serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "weights": weights, "dtype": cfg.compute_dtype,
+           "slots": LM_SLOTS, "max_len": LM_MAX_LEN, "requests": len(reqs),
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "init_seconds": init_s,
+           "prefill_seconds": [t for t, _ in prefills],
+           "prefill_lengths": [max(len(p) for p in prompts[i:i + LM_SLOTS])
+                               for i in range(0, len(prompts), LM_SLOTS)],
+           "decode_steps": len(decodes),
+           "decode_tick_ms_median": statistics.median(decode_ms),
+           "decode_tick_ms": decode_ms,
+           "serve_seconds": serve_s, "generated_tokens": tokens,
+           "generated_tokens_per_s": tokens / serve_s,
+           "max_memory_allocated": peak, "launches": {"flash_attention": launches},
+           "kernel_check": checked, "profiles": profiles}
+    emit(out)
+    del model, captured, prefills, decodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def oracle_batch(table, results, ts: int | None, chunks: int) -> None:
     """The mixed batch's results against numpy over the host table."""
     w = table.words()
@@ -1022,16 +1366,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     revisions = revision_phase(torch, table, args.reps, breakers)
     selection = selection_phase(torch, table, breakers)
+    # the LM phases, after S, R and the engines are released
+    del table, dim
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "released", "memory_allocated": torch.cuda.memory_allocated()})
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 compared card vs CPU
+    torch.backends.cudnn.allow_tf32 = False
+    lm_reference_phase(torch, args.seed)
+    kernels.update(flash_phase(torch, args.seed, args.reps))
+    lm = lm_serve_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line)
     launches = {**revisions["launches"], **selection["launches"],
-                **engine["launches"], "hash_join": server["launches"]["hash_join"]}
+                **engine["launches"], "hash_join": server["launches"]["hash_join"],
+                "flash_attention": lm["launches"]["flash_attention"]}
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
                for k in ("breaker_trips", "breaker_fallbacks", "breaker_probes",
                          "breaker_open")}
     emit({"phase": "breaker", "engines": len(breakers), **breaker})
     assert not any(breaker.values()), breaker
-    assert set(kernels) == set(REPLACES) | {"hash_join_packed"}, sorted(kernels)
+    assert set(kernels) == set(REPLACES) | {"hash_join_packed", "flash_attention_window"}, \
+        sorted(kernels)
+    assert len(REPLACES) == 11
     emit({"phase": "done", "seconds": time.perf_counter() - started})
 
     emit({"kernels": [{

@@ -7,6 +7,7 @@
 ``rme_aggregate``  — fused selection + aggregation, and group-by
 ``rme_scan_multi`` — the heterogeneous one-pass scan and its requests
 ``rme_join``       — the device hash-join build and probe
+``flash_attention`` — the GQA flash-attention forward of the LM stack
 ``ops``            — the engine's import surface
 ``_cuda``          — builds, loads and launches ``csrc/*.cu``
 """

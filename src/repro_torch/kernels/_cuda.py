@@ -1,5 +1,5 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
-``csrc/rm_join.cu``, ``csrc/rm_project.cu``).
+``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -11,9 +11,10 @@ Every scan launch goes through :func:`run`: it plans the launch (tile
 height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
 and raises if the launch reports a CUDA error.  The hash-join probe, the
-BSL / PCK projection revisions and the compacting selection have their own
-parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
-:func:`run_select`) under the same rules.  ``LAUNCHES`` counts the launches
+BSL / PCK projection revisions, the compacting selection and the GQA
+flash-attention forward have their own parameter blocks and launchers
+(:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
+:func:`run_flash`) under the same rules.  ``LAUNCHES`` counts the launches
 of each kernel; nothing else adds to it.
 """
 
@@ -37,16 +38,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the staged-tile kernels, in the order of kKernels in rm_scan.cu (the index
 # rm_max_blocks takes), then the hash-join probe of rm_join.cu and the
-# kernels of rm_project.cu
+# kernels of rm_project.cu and the attention forward of rm_flash.cu
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
-                          "select_compact")
+                          "select_compact", "flash_attention")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
+FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
 
 # must match rm_common.cuh
 THREADS = 256
@@ -106,6 +109,14 @@ class _SelectParams(ctypes.Structure):
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "out_w", "block_rows", "pad_")] + [
         ("q", _Req), ("map", ctypes.c_int32 * MAX_MAP)]
+
+
+class _FlashParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("q", "k", "v", "out")] + [
+        (f"{t}_{s}", ctypes.c_longlong) for t in "qkvo" for s in ("sb", "ss", "sh")] + [
+        (name, ctypes.c_int32) for name in (
+            "batch", "seq", "heads", "kv_heads", "head_dim", "causal", "window",
+            "dtype")] + [("scale", ctypes.c_float), ("pad_", ctypes.c_int32)]
 
 
 # ---------------------------------------------------------------- requests
@@ -303,13 +314,16 @@ def load() -> ctypes.CDLL:
                                    ctypes.c_longlong, ctypes.c_void_p]
     lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
                                       ctypes.c_longlong, ctypes.c_void_p]
+    lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
-               lib.rm_col_params_size, lib.rm_select_params_size):
+               lib.rm_col_params_size, lib.rm_select_params_size,
+               lib.rm_flash_attention, lib.rm_flash_params_size):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
                            (lib.rm_col_params_size(), _ColParams),
-                           (lib.rm_select_params_size(), _SelectParams)):
+                           (lib.rm_select_params_size(), _SelectParams),
+                           (lib.rm_flash_params_size(), _FlashParams)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
@@ -548,3 +562,50 @@ def run_select(words: torch.Tensor, req: KernelReq,
                "select_compact launch")
     LAUNCHES["select_compact"] += 1
     return blocks, counts
+
+
+def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int | None) -> torch.Tensor:
+    """Launch the GQA flash-attention forward: q ``(B, S, H, D)``, k and v
+    ``(B, S, KH, D)`` (the caller, ``flash_attention``, has checked the
+    shapes), on one card, all float32 or all bfloat16, each with a unit
+    stride along D (the other strides are free: the kernel reads the layout
+    through them).  Returns a new contiguous ``(B, S, H, D)`` output of q's
+    type; an empty input launches nothing."""
+    b, s, h, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must all be float32 or all bfloat16, got "
+                             f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if t.numel() and t.stride(3) != 1:
+            raise ValueError(f"{name} needs a unit stride along D, got strides {t.stride()}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not one of {FLASH_HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"q on {q.device} but {name} on {t.device}")
+    win = s if window is None else int(window)
+    if win < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the grid's 65,535 rows")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    st = {"q": q.stride(), "k": k.stride(), "v": v.stride(), "o": out.stride()}
+    params = _FlashParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        **{f"{t}_{n}": st[t][i] for t in "qkvo" for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},
+        batch=b, seq=s, heads=h, kv_heads=k.shape[2], head_dim=d,
+        causal=int(bool(causal)), window=min(win, s), dtype=FLASH_DTYPES[q.dtype],
+        scale=d ** -0.5,
+    )
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _check(lib, lib.rm_flash_attention(ctypes.byref(params), stream),
+               "flash_attention launch")
+    LAUNCHES["flash_attention"] += 1
+    return out

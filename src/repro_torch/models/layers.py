@@ -1,0 +1,360 @@
+"""The dense layer subset of ``repro.models.layers`` on PyTorch.
+
+Blocks: RMSNorm, RoPE, GQA attention (the blockwise online-softmax form on
+the CPU, the hand-written flash kernel on the card, cached attention for
+decode, optional sliding window / qk-norm / QKV bias) and the
+SwiGLU / GeGLU / vanilla FFNs.  MoE, Mamba-2 SSD, RG-LRU, M-RoPE and int8
+weight records raise ``NotImplementedError`` naming their ROADMAP item.
+
+Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
+:class:`Attention`, :class:`MLP`) whose attribute names are the reference's
+parameter-tree keys, so a layer's ``state_dict`` names are the reference's
+paths.  Matmul weights are stored in the compute dtype and norm scales in
+float32 — the numbers the reference gets from its float32 master copy cast
+at use.  Weights never require grad: this slice serves only.
+
+Dtype discipline is the reference's: compute runs in the activations' dtype,
+and softmax, norms and RoPE run in float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+F32 = torch.float32
+
+MASK_VALUE = -1e30
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32 on ``device``, stored as ``dtype``."""
+    x = torch.randn(shape, generator=gen, dtype=F32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def _weight(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast a weight to the compute dtype.  The reference's int8 weight
+    records (``{"q": int8, "s": scale}``) are not ported."""
+    if isinstance(x, dict):
+        raise NotImplementedError(
+            "int8 weight records are not ported yet (ROADMAP queue 1 item 8.8, "
+            "quantize_for_serving)")
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+# ------------------------------------------------------------------ norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+class RMSNorm(nn.Module):
+    """``scale`` stored as ``(1 + scale)``'s offset, gemma-style, in float32;
+    zero at construction (the reference's ``init_rms_norm``)."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = _weight(torch.zeros(d, dtype=F32, device=device))
+
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables: positions (B, S) -> (B, S, half)."""
+    if mrope:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP queue 1 item 8.6, M-RoPE/VLM)")
+    half = head_dim // 2
+    exps = -torch.arange(half, dtype=F32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=F32, device=positions.device), exps)
+    ang = positions.to(F32)[..., None] * freqs  # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, Dh) rotated with (B, S, half) tables (llama-style half split)."""
+    half = x.shape[-1] // 2
+    c = cos[:, :, None, :].float()
+    s = sin[:, :, None, :].float()
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------- attention
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    mrope: bool = False
+    window: int | None = None  # None = full causal
+    causal: bool = True  # False: bidirectional (encoder self-attention)
+    softmax_scale: float | None = None
+
+    @property
+    def scale(self) -> float:
+        return self.softmax_scale or self.head_dim**-0.5
+
+
+class Attend(nn.Module):
+    """The attention body of a layer: ``(q, k, v) -> out``, dispatched by
+    :func:`_attend`.  A module of its own, with no parameters, so a forward
+    hook can read the q, k and v a layer hands the kernel."""
+
+    def __init__(self, spec: AttnSpec, chunk: int):
+        super().__init__()
+        self.spec = spec
+        self.chunk = chunk
+
+    def forward(self, q, k, v):
+        return _attend(q, k, v, self.spec, self.chunk)
+
+
+class Attention(nn.Module):
+    """One attention layer's weights (``wq``, ``wk``, ``wv``, ``wo``, the
+    optional ``b*`` biases and ``q_norm`` / ``k_norm``) and its body."""
+
+    def __init__(self, spec: AttnSpec, dtype: torch.dtype, device=None,
+                 chunk: int = 1024):
+        super().__init__()
+        d, h, k, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+        empty = dict(dtype=dtype, device=device)
+        self.wq = _weight(torch.empty((d, h * hd), **empty))
+        self.wk = _weight(torch.empty((d, k * hd), **empty))
+        self.wv = _weight(torch.empty((d, k * hd), **empty))
+        self.wo = _weight(torch.empty((h * hd, d), **empty))
+        if spec.qkv_bias:
+            self.bq = _weight(torch.zeros(h * hd, dtype=F32, device=device))
+            self.bk = _weight(torch.zeros(k * hd, dtype=F32, device=device))
+            self.bv = _weight(torch.zeros(k * hd, dtype=F32, device=device))
+        if spec.qk_norm:
+            self.q_norm = RMSNorm(hd, device)
+            self.k_norm = RMSNorm(hd, device)
+        self.attend = Attend(spec, chunk)
+
+
+@torch.no_grad()
+def _draw_fan_in(gen: torch.Generator, module: nn.Module) -> None:
+    """Every 2-D weight of ``module`` (not of its submodules) drawn as
+    ``N(0, 1) / sqrt(fan_in)``, fan_in its first dimension — the reference's
+    scale for each of them; its 1-D weights (biases) start at zero."""
+    for w in module.parameters(recurse=False):
+        if w.dim() == 2:
+            w.copy_(normal(gen, w.shape, w.shape[0] ** -0.5, w.dtype, w.device))
+        else:
+            w.zero_()
+
+
+@torch.no_grad()
+def init_attention(gen: torch.Generator, params: Attention) -> Attention:
+    """Draw an attention layer's weights in place."""
+    _draw_fan_in(gen, params)
+    for norm in (getattr(params, "q_norm", None), getattr(params, "k_norm", None)):
+        if norm is not None:
+            norm.scale.zero_()
+    return params
+
+
+def _qkv(params: Attention, spec: AttnSpec, x: torch.Tensor, cos, sin):
+    """Project + rope; returns q (B,S,H,Dh), k/v (B,S,K,Dh)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    q = x @ cast(params.wq, dt)
+    k = x @ cast(params.wk, dt)
+    v = x @ cast(params.wv, dt)
+    if spec.qkv_bias:
+        q = q + cast(params.bq, dt)
+        k = k + cast(params.bk, dt)
+        v = v + cast(params.bv, dt)
+    q = q.reshape(b, s, spec.n_heads, spec.head_dim)
+    k = k.reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    v = v.reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = rms_norm(q, params.q_norm.scale)
+        k = rms_norm(k, params.k_norm.scale)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,  # (B, S, K, Dh)
+    v: torch.Tensor,
+    spec: AttnSpec,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style attention: online-softmax loop over KV chunks (the CPU
+    path, as in the reference).  q is scaled in the compute dtype; logits and
+    the PV product accumulate in float32."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh  # GQA group size
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:  # pad KV to a chunk multiple; padded keys are masked out below
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    s_kv = s + pad
+    n_kv = s_kv // chunk
+    window = spec.window or s_kv
+
+    qh = (q * spec.scale).reshape(b, s, kh, g, hd).float()
+    q_pos = torch.arange(s, device=q.device)
+    acc = torch.zeros((b, s, kh, g, hd), dtype=F32, device=q.device)
+    m = torch.full((b, s, kh, g), float("-inf"), device=q.device)
+    l = torch.zeros((b, s, kh, g), device=q.device)
+    for i in range(n_kv):
+        kv_start = i * chunk
+        kc = k[:, kv_start:kv_start + chunk].float()
+        vc = v[:, kv_start:kv_start + chunk].float()
+        k_pos = kv_start + torch.arange(chunk, device=q.device)
+        logits = torch.einsum("bqkgd,bckd->bqkgc", qh, kc)
+        dist = q_pos[:, None] - k_pos[None, :]
+        if spec.causal:
+            mask = (dist >= 0) & (dist < window)  # (S, chunk)
+        else:
+            mask = dist.abs() < window  # bidirectional (encoder)
+        mask = mask & (k_pos < s)[None, :]  # drop chunk padding
+        logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(q.dtype).float(), vc)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _attend(q, k, v, spec: AttnSpec, chunk: int) -> torch.Tensor:
+    """Attention dispatch by the tensors' device: the hand-written flash
+    kernel on the card, the blockwise form on the CPU — as the reference
+    takes its Pallas kernel on the TPU and the XLA form elsewhere."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=spec.causal, window=spec.window)
+    return blockwise_attention(q, k, v, spec, chunk=chunk)
+
+
+def attention_prefill(
+    params: Attention, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+    cache_len: int,
+) -> tuple[torch.Tensor, dict]:
+    """Attention over the prompt; also emits the KV cache laid out for
+    decode: (B, K, cache_len, Dh), zero-padded — for a windowed layer the
+    last ``window`` positions, the ring buffer's contents."""
+    cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, spec.mrope)
+    q, k, v = _qkv(params, spec, x, cos, sin)
+    out = params.attend(q, k, v)
+    b, s = x.shape[:2]
+    y = out.reshape(b, s, spec.n_heads * spec.head_dim) @ cast(params.wo, x.dtype)
+    keep = s if spec.window is None else min(s, spec.window)
+    pad = max(cache_len - keep, 0)
+    ck = F.pad(k[:, s - keep:], (0, 0, 0, 0, 0, pad))
+    cv = F.pad(v[:, s - keep:], (0, 0, 0, 0, 0, pad))
+    cache = {"k": ck.transpose(1, 2).contiguous(), "v": cv.transpose(1, 2).contiguous()}
+    return y, cache
+
+
+def attention_decode(
+    params: Attention, spec: AttnSpec, x: torch.Tensor, cache: dict, pos: int
+) -> tuple[torch.Tensor, dict]:
+    """One-token cached attention. x (B,1,D); cache k/v (B,K,S,Dh); pos int.
+
+    For windowed layers the cache is a ring buffer of size ``window``: the
+    write slot is ``pos % window`` and, once full, every slot is valid.
+    Unlike the reference (which returns new arrays) the new token is written
+    into the cache tensors in place — a step would otherwise copy the whole
+    cache — and the same dict is returned."""
+    b = x.shape[0]
+    s_cache = cache["k"].shape[2]
+    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_cos_sin(pos_b, spec.head_dim, spec.rope_theta, spec.mrope)
+    q, k, v = _qkv(params, spec, x, cos, sin)
+    kh = spec.n_kv_heads
+    g = spec.n_heads // kh
+    # windowed layers use the cache as a ring buffer; full caches never
+    # wrap (pos < s_cache), so one modular slot covers both
+    slot = pos % s_cache
+    ck, cv = cache["k"], cache["v"]
+    ck[:, :, slot] = k[:, 0]
+    cv[:, :, slot] = v[:, 0]
+    qh = (q * spec.scale).reshape(b, kh, g, spec.head_dim).float()
+    logits = torch.einsum("bkgd,bksd->bkgs", qh, ck.float())
+    # a ring slot only holds one of the last s_cache positions, so slot
+    # validity reduces to "has this slot been written yet"
+    valid = torch.arange(s_cache, device=x.device) <= pos
+    logits = torch.where(valid[None, None, None, :], logits, MASK_VALUE)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", w, cv.float())
+    out = out.reshape(b, 1, spec.n_heads * spec.head_dim).to(x.dtype)
+    return out @ cast(params.wo, x.dtype), cache
+
+
+def init_attention_cache(spec: AttnSpec, batch: int, max_len: int,
+                         dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    s = min(max_len, spec.window) if spec.window is not None else max_len
+    shape = (batch, spec.n_kv_heads, s, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ------------------------------------------------------------------- FFNs
+class MLP(nn.Module):
+    """``w_gate``, ``w_up``, ``w_down`` (SwiGLU / GeGLU) or ``w_in``,
+    ``w_down`` (the vanilla FFN)."""
+
+    def __init__(self, d_model: int, d_ff: int, kind: str, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        if kind not in ("swiglu", "geglu", "gelu"):
+            raise ValueError(f"unknown mlp kind {kind!r}")
+        empty = dict(dtype=dtype, device=device)
+        if kind in ("swiglu", "geglu"):
+            self.w_gate = _weight(torch.empty((d_model, d_ff), **empty))
+            self.w_up = _weight(torch.empty((d_model, d_ff), **empty))
+        else:
+            self.w_in = _weight(torch.empty((d_model, d_ff), **empty))
+        self.w_down = _weight(torch.empty((d_ff, d_model), **empty))
+
+
+def init_mlp(gen: torch.Generator, params: MLP) -> MLP:
+    """Draw an FFN's weights in place."""
+    _draw_fan_in(gen, params)
+    return params
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    dt = x.dtype
+    if kind in ("swiglu", "geglu"):
+        act = F.silu if kind == "swiglu" else _gelu_tanh
+        h = act(x @ cast(params.w_gate, dt)) * (x @ cast(params.w_up, dt))
+        return h @ cast(params.w_down, dt)
+    h = _gelu_tanh(x @ cast(params.w_in, dt))
+    return h @ cast(params.w_down, dt)
+

@@ -1,9 +1,8 @@
-"""Serving substrate of the port: the relational ``QueryServer``.
-
-The LM side of the reference's ``repro.serve`` (``ServeSession`` and the
-prefill/decode steps) waits for the port of the LM stack.
+"""Serving substrate of the port: the relational ``QueryServer`` and the LM
+side's ``ServeSession`` (continuous-batching prefill and decode).
 """
 
+from .engine import Request, ServeSession, make_decode_step, make_prefill
 from .query_server import (
     DeadlineExceeded,
     LaneStats,
@@ -23,7 +22,11 @@ __all__ = [
     "PoisonedPlanError",
     "QueryServer",
     "QueryTicket",
+    "Request",
+    "ServeSession",
     "ServerOverloaded",
     "ServerStats",
     "StreamingTicket",
+    "make_decode_step",
+    "make_prefill",
 ]

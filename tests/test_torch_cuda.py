@@ -525,3 +525,109 @@ def test_card_lowering_fault_propagates(dev, monkeypatch, path):
             a, b = (a.s_proj, a.r_proj, a.matched), (b.s_proj, b.r_proj, b.matched)
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y)
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = [
+    # (B, S, H, KH, D, causal, window): tests/test_flash_attention.py's seven
+    # cases, then D 256 and a lone short sequence
+    (2, 128, 4, 4, 32, True, None),
+    (2, 128, 8, 2, 32, True, None),  # GQA group 4
+    (1, 256, 4, 1, 64, True, None),  # MQA
+    (2, 96, 4, 2, 32, True, None),  # ragged tail (96 % 64 != 0)
+    (2, 128, 4, 4, 32, True, 48),  # sliding window
+    (2, 128, 4, 4, 32, False, None),  # bidirectional
+    (1, 64, 2, 2, 128, True, None),
+    (1, 200, 4, 2, 256, True, None),  # the widest head the kernel takes
+    (2, 7, 2, 1, 16, False, 3),  # shorter than one tile, windowed both ways
+]
+# float32: the kernel and the plain version sum the same terms in another
+# order; bfloat16: one rounding of the output (and of p) to bf16
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def flash_inputs(case, dtype, dev, seed=0):
+    b, s, h, kh, d = case[:5]
+    g = torch.Generator(device="cpu").manual_seed(seed + sum(case[:5]))
+    return [torch.randn((b, s, n, d), generator=g).to(dtype).to(dev) for n in (h, kh, kh)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    from repro_torch.kernels import flash_attention as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(case, dtype, dev)
+    causal, window = case[5], case[6]
+    _cuda.reset_launches()
+    got = F.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    want = F.flash_attention_torch(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_layouts(dev):
+    """q, k and v as views of one fused projection (non-contiguous heads and
+    rows), as a caller might hand them: the kernel reads through strides."""
+    from repro_torch.kernels import flash_attention as F
+
+    b, s, h, kh, d = 2, 130, 8, 2, 64
+    qkv = torch.randn((b, s, h + 2 * kh, d), device=dev, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    assert not q.is_contiguous()
+    got = F.flash_attention(q, k, v)
+    want = F.flash_attention_torch(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_launch_count_and_refusals(dev):
+    from repro_torch.kernels import flash_attention as F
+
+    q, k, v = flash_inputs(FLASH_CASES[1], torch.bfloat16, dev)
+    _cuda.reset_launches()
+    for _ in range(3):
+        F.flash_attention(q, k, v)
+    assert _cuda.LAUNCHES["flash_attention"] == 3
+    with pytest.raises(ValueError):  # float16 is not instantiated
+        F.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # q on the card, k on the host
+        F.flash_attention(q, k.cpu(), v)
+    with pytest.raises(NotImplementedError):
+        F.flash_attention(q.float().requires_grad_(), k.float(), v.float())
+    assert _cuda.LAUNCHES["flash_attention"] == 3
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b"])
+def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
+    """A smoke decoder's prefill on the card launches the kernel once per
+    layer; at float32 its logits and caches match the CPU model's within
+    1e-4 (the kernel scales q in float32 where the CPU path scales it in the
+    compute type: the same number at float32 compute), then one decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import DecoderLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    cpu = DecoderLM(cfg, device="cpu", seed=3)
+    card = DecoderLM(cfg, device=dev, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 40)))
+    _cuda.reset_launches()
+    got, got_cache = card.prefill({"tokens": toks}, 48)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, want_cache = cpu.prefill({"tokens": toks}, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_cache, want_cache):
+        torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=1e-4, atol=1e-4)
+    nxt = want.argmax(-1)[:, None]
+    got, _ = card.decode_step(got_cache, nxt, 40)
+    want, _ = cpu.decode_step(want_cache, nxt, 40)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers  # decode: no kernel

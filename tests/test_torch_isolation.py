@@ -2,7 +2,9 @@
 
 * importing every ``repro_torch`` module loads neither ``jax`` nor ``repro``;
 * no source line of the port or of ``chip_smoke.py`` imports them;
-* without a card, the engine's default device raises, and ``chip_smoke.py``
+* without a card, the default device of the engine and of the LM entry
+  points (``DecoderLM``, ``build_model``, hence ``ServeSession``, and the
+  serving launcher) raises, and ``chip_smoke.py``
   exits non-zero without printing a result (also when it stands alone in a
   directory).  Those checks skip where a card is present.
 """
@@ -32,6 +34,10 @@ def port_modules() -> list[str]:
 def test_port_modules_load_no_jax_and_no_reference_package():
     mods = port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels._cuda" in mods
+    assert {"repro_torch.configs.base", "repro_torch.kernels.flash_attention",
+            "repro_torch.models.layers", "repro_torch.models.lm",
+            "repro_torch.models.convert", "repro_torch.models.registry",
+            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,6 +72,31 @@ def test_default_device_without_a_card_raises():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RelationalMemoryEngine()
+
+
+@pytest.mark.parametrize("entry", ["DecoderLM", "build_model", "ServeSession", "launcher"])
+def test_lm_entry_points_default_to_the_card(entry):
+    """Without a card each LM entry point raises unless asked for the CPU.
+    A ``ServeSession`` runs where its model lives, so a session on the
+    default device needs a model built on it — which raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serve import ServeSession
+
+    cfg = get_smoke_config("qwen3-8b")
+    calls = {
+        "DecoderLM": lambda: DecoderLM(cfg),
+        "build_model": lambda: build_model(cfg),
+        "ServeSession": lambda: ServeSession(build_model(cfg), batch_slots=2, max_len=16),
+        "launcher": lambda: main(["--arch", "qwen3-8b", "--smoke"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert DecoderLM(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])
