@@ -15,7 +15,9 @@ its primary key — the setup of ``benchmarks/fig12_join.py``, about half the
 probe rows matching — all made from ``--seed``:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
-2. times the kernel build;
+2. times the kernel build (one ``nvcc`` a source, all at once) and prints
+   ``rm_flash.cu``'s ``-Xptxas -v`` report: each flash instantiation's
+   registers, shared memory and spills;
 3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
    engine batch and the tick script below on a card engine and server and a
    CPU one and holds their results equal; then a WAL round: a card server
@@ -162,8 +164,8 @@ FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
 # the kernel against its plain version, |got - want| <= atol + rtol·|want|:
 # bf16 output, one rounding step of the output (2^-7 of its value) plus the
 # rounding of p to bf16 before PV, which the two take at other running maxima
-# (64- against 256-key tiles), on outputs near 0; float32 output: summation
-# order alone
+# (the bf16 kernel's 128-key tiles against the plain version's 256), on
+# outputs near 0; float32 output: summation order alone
 FLASH_TOL = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (0.0, 1e-4)}
 
 
@@ -1343,7 +1345,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _cuda.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(_cuda.library_path().name)})
+          "library": str(_cuda.library_path().name),
+          "flash_ptxas": _cuda.ptxas_report("rm_flash.cu")})
 
     breakers: list = []  # every engine's breaker; the engines themselves are freed
     small_reference_check(torch, args.seed, breakers)

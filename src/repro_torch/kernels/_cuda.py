@@ -6,6 +6,9 @@ a plain C interface and loaded with ``ctypes``.  It builds from the sources
 in this checkout only, into ``build/repro_torch/`` at the repository root,
 under a name keyed by a hash of the sources and flags — and only at the
 first CUDA call, so importing this module needs neither ``nvcc`` nor a card.
+Each source compiles in its own ``nvcc``, all at once; ``BUILD_LOG`` keeps
+what they printed (``-Xptxas -v``: registers, shared memory, spills), also
+when the library was built by an earlier process.
 
 Every scan launch goes through :func:`run`: it plans the launch (tile
 height, shared-memory layout, per-block partial rows), allocates the outputs
@@ -34,7 +37,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the staged-tile kernels, in the order of kKernels in rm_scan.cu (the index
 # rm_max_blocks takes), then the hash-join probe of rm_join.cu and the
@@ -268,21 +271,56 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this source hash is already built."""
+    """Compile the library unless this source hash is already built: one
+    ``nvcc -c`` per source, all started together, then one link."""
     global BUILD_LOG
     out = library_path()
+    log = out.with_suffix(".log")
     if out.exists():
+        BUILD_LOG = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    texts, failed = [], []
+    for src, proc in zip(sources, procs):
+        text, _ = proc.communicate(timeout=900)
+        texts.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True, timeout=300)
+        texts.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    BUILD_LOG = "".join(texts)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{BUILD_LOG}")
+    log.write_text(BUILD_LOG)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
+
+
+def ptxas_report(source: str) -> list[str]:
+    """The ``-Xptxas -v`` lines ``nvcc`` printed for ``source`` (a file name
+    in ``csrc/``) in the last build: each kernel's registers, shared memory,
+    spill stores and loads, and any warning."""
+    lines, inside = [], False
+    for line in BUILD_LOG.splitlines():
+        if line.startswith("== "):
+            inside = line[3:] == source
+        elif inside and line.strip():
+            lines.append(line.strip())
+    return lines
 
 
 def load() -> ctypes.CDLL:
@@ -564,14 +602,40 @@ def run_select(words: torch.Tensor, req: KernelReq,
     return blocks, counts
 
 
+def flash_tma_strides(shape: Sequence[int], strides: Sequence[int]) -> tuple[int, ...]:
+    """Strides as the kernels are given them: a dimension of size 1 is only
+    ever read at index 0, so its stride, whatever it is, is passed as the
+    head width (a multiple of 16 bytes at every width the kernels take)."""
+    return tuple(st if n != 1 else shape[-1] for n, st in zip(shape, strides))
+
+
+def check_flash_tma(name: str, shape: Sequence[int], strides: Sequence[int],
+                    itemsize: int, data_ptr: int) -> None:
+    """What the bf16 kernel's TMA descriptors can describe, checked on
+    shapes, strides (in elements, unit stride along D already checked) and
+    the base address alone: the base 16-byte aligned, every other stride a
+    positive multiple of 16 bytes.  Raises ``ValueError`` otherwise."""
+    if data_ptr % 16:
+        raise ValueError(f"{name} starts at an address that is not 16-byte aligned "
+                         f"({data_ptr:#x}); TMA needs 16")
+    for dim, st in enumerate(flash_tma_strides(shape, strides)[:-1]):
+        if st <= 0 or (st * itemsize) % 16:
+            raise ValueError(f"{name} has stride {st} along dimension {dim} "
+                             f"({st * itemsize} bytes); TMA needs a positive multiple "
+                             f"of 16 bytes")
+
+
 def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
               window: int | None) -> torch.Tensor:
     """Launch the GQA flash-attention forward: q ``(B, S, H, D)``, k and v
     ``(B, S, KH, D)`` (the caller, ``flash_attention``, has checked the
     shapes), on one card, all float32 or all bfloat16, each with a unit
-    stride along D (the other strides are free: the kernel reads the layout
-    through them).  Returns a new contiguous ``(B, S, H, D)`` output of q's
-    type; an empty input launches nothing."""
+    stride along D (the other strides are free: the kernels read the layout
+    through them).  bfloat16 goes to the tensor-core kernel, whose TMA loads
+    also need a 16-byte aligned base and strides of multiples of 16 bytes
+    (:func:`check_flash_tma`); float32 to the CUDA-core kernel.  Returns a
+    new contiguous ``(B, S, H, D)`` output of q's type; an empty input
+    launches nothing."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
@@ -581,6 +645,9 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             raise ValueError(f"{name} needs a unit stride along D, got strides {t.stride()}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not one of {FLASH_HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and q.numel() and k.numel():
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_flash_tma(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
@@ -594,7 +661,8 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    st = {"q": q.stride(), "k": k.stride(), "v": v.stride(), "o": out.stride()}
+    st = {n: flash_tma_strides(t.shape, t.stride())
+          for n, t in (("q", q), ("k", k), ("v", v), ("o", out))}
     params = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
         **{f"{t}_{n}": st[t][i] for t in "qkvo" for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},

@@ -3,13 +3,22 @@
 :func:`flash_attention` keeps the reference's layout and contract: q
 ``(B, S, H, D)``, k and v ``(B, S, KH, D)``, out ``(B, S, H, D)`` in q's
 type; causal or bidirectional, with an optional sliding window, and G = H /
-KH query heads sharing each KV head.  On a CUDA tensor it launches
-``rm_flash_attention_kernel`` (``csrc/rm_flash.cu``, the Hopper form of the
-reference's ``_flash_kernel``) through :func:`repro_torch.kernels._cuda.run_flash`;
-on a CPU tensor it runs :func:`flash_attention_torch`, the plain version.
+KH query heads sharing each KV head.  On a CUDA tensor it launches one of
+the two Hopper forms of the reference's ``_flash_kernel`` in
+``csrc/rm_flash.cu`` through :func:`repro_torch.kernels._cuda.run_flash`,
+chosen by dtype:
+
+* bfloat16: ``rm_flash_attention_tc_kernel`` on the tensor cores — 128
+  query rows a block (two consumer warpgroups of 64), K and V tiles of 128
+  keys (64 at D 256) brought by TMA into a two-stage ring, both products by
+  ``wgmma``.  TMA needs each tensor's base 16-byte aligned and its strides
+  multiples of 16 bytes (:func:`~repro_torch.kernels._cuda.check_flash_tma`);
+* float32: ``rm_flash_attention_kernel`` on the CUDA cores, 64 × 64 tiles.
+
+On a CPU tensor it runs :func:`flash_attention_torch`, the plain version.
 ``block_q`` and ``block_k`` are kept for API parity: the plain version walks
-keys in ``block_k`` tiles as the reference does, while the CUDA kernel's
-tile (64 × 64) is its own choice.
+keys in ``block_k`` tiles as the reference does, while the CUDA kernels'
+tiles are their own choice.
 
 No backward exists in this slice: a tensor that requires grad raises.
 """

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .common import resolve_device
 
 # target average bucket occupancy: P is the smallest power of two with
 # n_rows / P <= TARGET_BUCKET_LOAD (capacity C is then the observed maximum)
@@ -122,9 +123,11 @@ def estimated_partition_bytes(n_rows: int) -> int:
 
 def partitions_from_numpy(keys: np.ndarray, vals: np.ndarray,
                           begin: np.ndarray, end: np.ndarray,
-                          device: str | torch.device = "cpu") -> JoinPartitions:
+                          device: str | torch.device | None = None) -> JoinPartitions:
     """A partition set from four ``(P, C)`` int32 numpy arrays — how a set
-    built elsewhere (the reference package's, a file) is carried across."""
+    built elsewhere (the reference package's, a file) is carried across.
+    ``device`` as :func:`~repro_torch.kernels.common.resolve_device` reads
+    it: the card unless the caller passes ``"cpu"``."""
     # own copies: the caller's arrays may be read-only or change later
     arrs = [np.array(a, dtype=np.int32, order="C") for a in (keys, vals, begin, end)]
     shape = arrs[0].shape
@@ -133,7 +136,8 @@ def partitions_from_numpy(keys: np.ndarray, vals: np.ndarray,
     p = shape[0]
     if p < 2 or p & (p - 1):
         raise ValueError(f"the bucket count must be a power of two >= 2, got {p}")
-    return JoinPartitions(*(torch.from_numpy(a).to(device) for a in arrs))
+    dev = resolve_device(device)
+    return JoinPartitions(*(torch.from_numpy(a).to(dev) for a in arrs))
 
 
 def build_partitions(
@@ -141,12 +145,12 @@ def build_partitions(
     val: np.ndarray,
     ts_begin: np.ndarray | None = None,
     ts_end: np.ndarray | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> JoinPartitions:
     """Hash-partition the build side's raw column words into buckets on
-    ``device``.  Host-side numpy, run once per build-table version; the
-    returned tensors are the device-resident state every later probe
-    reuses."""
+    ``device`` (the card unless the caller passes ``"cpu"``).  Host-side
+    numpy, run once per build-table version; the returned tensors are the
+    device-resident state every later probe reuses."""
     key = np.asarray(key, dtype=np.int32)
     val = np.asarray(val, dtype=np.int32)
     n = key.shape[0]

@@ -150,10 +150,12 @@ def test_requires_grad_raises():
 
 
 @pytest.mark.parametrize("bad,match", [("cpu", "CUDA tensors"), ("float16", "bfloat16"),
-                                       ("head_dim", "head_dim"), ("stride", "unit stride")])
+                                       ("head_dim", "head_dim"), ("stride", "unit stride"),
+                                       ("base", "16-byte aligned"), ("row", "16 bytes")])
 def test_cuda_launcher_refuses_what_the_kernel_does_not_take(bad, match):
     """``run_flash`` checks before it builds or launches anything, so its
-    refusals show here, without a card."""
+    refusals show here, without a card.  The last two are TMA's (bf16 only):
+    a base that is not 16-byte aligned, a head stride of 34 bytes."""
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
     if bad == "float16":
@@ -162,5 +164,30 @@ def test_cuda_launcher_refuses_what_the_kernel_does_not_take(bad, match):
         q, k = torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24)
     elif bad == "stride":
         q = torch.zeros(1, 8, 4, 32)[..., ::2]
+    elif bad == "base":
+        q = torch.zeros(8 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 4, 16)
+        k = k.bfloat16()
+    elif bad == "row":
+        q = torch.zeros(1, 8, 4, 17, dtype=torch.bfloat16)[..., :16]
+        k = k.bfloat16()
     with pytest.raises(ValueError, match=match):
         _cuda.run_flash(q, k, k, True, None)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,match", [
+    ((2, 64, 8, 128), (65536, 1024, 128, 1), 256, None),  # contiguous
+    ((2, 64, 2, 64), (98304, 1536, 64, 1), 1024, None),  # a view of a fused qkv
+    ((1, 64, 1, 16), (7, 16, 3, 1), 0, None),  # size-1 dimensions: any stride
+    ((2, 64, 8, 128), (65536, 1024, 128, 1), 8, "16-byte aligned"),
+    ((2, 64, 8, 16), (8704, 136, 17, 1), 0, "dimension 2"),  # 34-byte head stride
+    ((2, 64, 8, 16), (8192, 4, 16, 1), 0, "dimension 1"),  # 8-byte row stride
+    ((2, 64, 8, 16), (0, 128, 16, 1), 0, "dimension 0"),  # broadcast batch
+])
+def test_flash_tma_check(shape, strides, ptr, match):
+    """The bf16 kernel's layout check, a pure function of shape, strides,
+    element size and base address."""
+    if match is None:
+        _cuda.check_flash_tma("q", shape, strides, 2, ptr)
+    else:
+        with pytest.raises(ValueError, match=match):
+            _cuda.check_flash_tma("q", shape, strides, 2, ptr)

@@ -196,3 +196,17 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="equal"):
         TK.partitions_from_numpy(np.zeros((2, 2), np.int32), np.zeros((2, 3), np.int32),
                                  np.zeros((2, 2), np.int32), np.zeros((2, 2), np.int32))
+
+
+@pytest.mark.parametrize("builder", ["build_partitions", "partitions_from_numpy"])
+def test_partition_builders_default_to_the_card(builder, monkeypatch):
+    """Without ``device`` the buckets go to the card, as every other entry
+    point of the port does; with no card that raises and names the CPU
+    spelling instead of quietly building on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    side = build_side(60, seed=2)
+    args = side if builder == "build_partitions" else [np.asarray(a) for a in jax_parts(*side)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(TK, builder)(*args)
+    assert getattr(TK, builder)(*args, device="cpu").keys.device.type == "cpu"
+
