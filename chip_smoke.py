@@ -16,8 +16,8 @@ probe rows matching — all made from ``--seed``:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
 2. times the kernel build (one ``nvcc`` a source, all at once) and prints
-   ``rm_flash.cu``'s ``-Xptxas -v`` report: each flash instantiation's
-   registers, shared memory and spills;
+   the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_join.cu`` and
+   ``rm_scan.cu``: each kernel's registers, shared memory and spills;
 3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
    engine batch and the tick script below on a card engine and server and a
    CPU one and holds their results equal; then a WAL round: a card server
@@ -1346,7 +1346,9 @@ def main(argv=None) -> int:
     _cuda.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_cuda.library_path().name),
-          "flash_ptxas": _cuda.ptxas_report("rm_flash.cu")})
+          "flash_ptxas": _cuda.ptxas_report("rm_flash.cu"),
+          "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
+          "scan_ptxas": _cuda.ptxas_report("rm_scan.cu")})
 
     breakers: list = []  # every engine's breaker; the engines themselves are freed
     small_reference_check(torch, args.seed, breakers)

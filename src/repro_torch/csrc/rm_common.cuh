@@ -3,7 +3,8 @@
 // Every kernel of the family does the same first step: a block stages a
 // contiguous tile of whole rows of the (N, row_words) int32 row store in
 // shared memory with 16-byte loads (rows are contiguous, so a tile is one
-// contiguous span), then per-request code reads the staged tile:
+// contiguous span) — the fused scan_multi asynchronously, into a ring of
+// two tiles (issue_tile) — then per-request code reads the staged tile:
 //
 //   * project / filter: a src_word[out_w] map scatters each row's enabled
 //     words into the packed output row; a filter writes zeros for failing
@@ -15,7 +16,7 @@
 //     atomics.
 //
 // Reduced requests leave one partial row per block; rm_reduce_partials sums
-// those rows in block order, so aggregates are deterministic run to run.
+// those rows in a fixed order, so aggregates are deterministic run to run.
 //
 // The layout of Params / Req is mirrored by ctypes in
 // repro_torch/kernels/_cuda.py, which checks sizeof(Params) at load time.
@@ -68,6 +69,8 @@ struct Params {
   int32_t n_slots;       // aggregate accumulator slots (scan_multi)
   int32_t map_smem;      // shared-memory word offset of the staged map
   int32_t slot_smem;     // shared-memory word offset of the slots
+  int32_t tile_stride;   // words between the ring's two tiles (scan_multi)
+  int32_t pad_;
   Req req[kMaxReq];
   int32_t map[kMaxMap];
 };
@@ -97,6 +100,45 @@ __device__ __forceinline__ void stage_tile(int32_t* tile, const int32_t* words,
   for (int i = head + threadIdx.x; i < n_words; i += blockDim.x) tile[i] = __ldcs(src + i);
 }
 
+// Asynchronous copies into shared memory (cp.async): 16 bytes through L2
+// only, or 4 bytes where the source is not 16-byte aligned.
+__device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::
+               "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's copy groups have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying rows [row0, row0 + rows) into `tile`, as stage_tile does but
+// without waiting; the caller commits the group.
+__device__ __forceinline__ void issue_tile(int32_t* tile, const int32_t* words,
+                                           long long row0, int rows,
+                                           int row_words) {
+  const int32_t* src = words + row0 * static_cast<long long>(row_words);
+  const int n_words = rows * row_words;
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n_vec = n_words >> 2;
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) cp_async16(tile + 4 * i, src + 4 * i);
+    head = n_vec << 2;
+  }
+  for (int i = head + threadIdx.x; i < n_words; i += blockDim.x) cp_async4(tile + i, src + i);
+}
+
 // Predicate AND MVCC visibility of one staged row.
 __device__ __forceinline__ bool row_pass(const int32_t* row, const Req& q) {
   bool m = true;
@@ -119,10 +161,13 @@ __device__ __forceinline__ float agg_value(const int32_t* row, const Req& q) {
 }
 
 // Floored modulo: CUDA's % truncates toward zero, the reference's
-// jnp.remainder takes the divisor's sign.  64-bit so no sum can overflow.
+// jnp.remainder takes the divisor's sign.  For g >= 1 the 32-bit remainder
+// cannot overflow and |r| < g, so r + g fits too; a power of two is a mask
+// of the two's-complement key.
 __device__ __forceinline__ int group_of(int32_t key, int g) {
-  const long long r = static_cast<long long>(key) % g;
-  return static_cast<int>(r < 0 ? r + g : r);
+  if ((g & (g - 1)) == 0) return key & (g - 1);
+  const int r = key % g;
+  return r < 0 ? r + g : r;
 }
 
 // Pack the enabled words of a staged tile: one thread per output word, so

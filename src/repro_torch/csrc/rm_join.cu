@@ -14,30 +14,73 @@
 //
 // where valid is the row's own MVCC test when ts_word >= 0.  The payload sum
 // is taken in uint32_t, so a duplicate-key build wraps exactly as the
-// reference's int32 sum does, without signed overflow.
+// reference's int32 sum does, without signed overflow; integer addition
+// does not depend on order, so the sum is bit-equal however it is split.
 //
-// What bounds it: bytes.  Each row reads two or three 4-byte words (key,
-// payload, and the two timestamp words) and writes 9 bytes; the bucket
-// arrays are read at random but are small (18 MiB for a 1M-row build side)
-// and stay in the 50 MB L2 after the first touch.  The least time is the
-// 32-byte sectors holding the probe words, the bucket arrays once, and the
-// outputs, over the memory rate.
+// What bounds it.  The least time is bytes: the 32-byte sectors holding the
+// probe words, the bucket arrays once (18 MiB for a 1M-row build side: they
+// stay in the 50 MB L2) and 9 output bytes a row.  What bounds it on the
+// card is the random reads from L2, one or more per row, and how many of
+// them are in flight.  Read in place, a row's bucket (C = 18 key slots)
+// spans one or two lines, and a match adds a line each of payload, begin
+// and end.  The first version (one thread a row, C dependent 4-byte slot
+// loads) was held back before that by load requests: the 32 lanes of a warp
+// hash to 32 buckets, so every slot load touched about 32 lines.
 //
-// Design: one thread per probe row in a grid-stride loop, slots scanned in
-// global memory through the read-only path.  On the TPU the kernel selected
-// a bucket by a one-hot matrix product over 16-bit halves (no dynamic
-// indexing there); on the card a gather is native, so the slot loop reads
-// the bucket directly.  Only 4-byte loads: a row slice of a chunk may start
-// at any 8-byte boundary, so nothing assumes 16-byte alignment.  Staging
-// buckets in shared memory and warp-cooperative slot compares are later
-// work.
+// Design.  rm_join_prepare_kernel first repacks the buckets into scratch
+// memory, so a row needs one line for its bucket and one per match:
+//   * fps: a 16-bit fingerprint of every slot key — the 16 bits of key * MIX
+//     just below the bucket bits, which at P >= 2^16 are all of the bits the
+//     bucket leaves, so the fingerprint is then the key itself — one 64-byte
+//     line a bucket per 32 slots;
+//   * recs: a 16-byte (key, payload, begin, end) record a slot.
+// Then a warp probes 32 rows (a task):
+//   1. Lane j reads row j's key, payload and timestamp words and publishes
+//      the row's bucket, fingerprint and key in shared memory.
+//   2. For each of the 32 rows the warp reads the row's fingerprint line,
+//      lane c on slot c (a pass per 32 slots while C > 32); kBatch rows'
+//      loads are in flight before any is compared.  Each lane then holds one
+//      bit a row for a fingerprint match at its slot.
+//   3. The candidate (row, slot) pairs go on the warp's list, placed by a
+//      prefix sum of the lanes' counts; then each lane takes one pair, reads
+//      the slot's record in one load and, if the key is the row's and the
+//      slot is visible, adds the payload into the row's uint32 sum in shared
+//      memory and sets the row's flag.  More pairs than the list holds take
+//      more rounds.  A fingerprint only selects slots: every match is a key
+//      match.
+//   4. Lane j writes row j's three outputs: coalesced stores.
+// On the TPU the kernel selected a bucket by a one-hot matrix product over
+// 16-bit halves (no dynamic indexing there); on the card a gather is native.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kJoinThreads = 256;
+constexpr int kWarps = kJoinThreads / 32;
+constexpr int kList = 64;  // candidates a warp lists before it settles them
+constexpr int kBatch = 8;   // rows whose fingerprint loads are in flight together
+constexpr int kJoinBlocksPerSm = 6;  // 40 registers a thread: 48 warps an SM
 constexpr uint32_t kMix = 2654435761u;  // floor(2^32 / golden ratio)
+constexpr unsigned kFull = 0xffffffffu;
+
+// One warp's shared state for a task of 32 probe rows.
+struct __align__(16) WarpStage {
+  int2 probe[32];       // (bucket, fingerprint) of row j
+  int2 list[kList];     // (row, slot) of candidate slots
+  int32_t key[32];      // key of row j
+  uint32_t sum[32];     // visible matching payloads of row j, wrapping
+  int32_t hit[32];      // row j has a visible matching slot
+};
+
+__device__ __forceinline__ uint32_t mixed(int32_t key) {
+  return static_cast<uint32_t>(key) * kMix;
+}
+
+// The 16 bits of the mixed key just below its bucket bits.
+__device__ __forceinline__ int32_t fingerprint(uint32_t h, int shift) {
+  return static_cast<int32_t>((h << (32 - shift)) >> 16);
+}
 
 }  // namespace
 
@@ -49,6 +92,8 @@ struct JoinParams {
   const int32_t* vals;
   const int32_t* begin;
   const int32_t* end;
+  uint16_t* fps;         // (P, fp_stride) fingerprints (scratch)
+  int4* recs;            // (P, C) (key, payload, begin, end) records (scratch)
   int32_t* s_out;        // (n,)
   int32_t* r_out;        // (n,)
   uint8_t* m_out;        // (n,) bool
@@ -61,40 +106,132 @@ struct JoinParams {
   int32_t build_ts;      // test the build rows' timestamps too
   int32_t shift;         // 32 - log2(P), in [1, 31]
   int32_t cap;           // C, slots per bucket
+  int32_t fp_stride;     // fingerprints a bucket: 32 per 32 slots
+  int32_t pad_;
 };
 
+// A warp per (bucket, 32-slot pass): lane c repacks slot c (fingerprint 0
+// past C: never read).
 __global__ void __launch_bounds__(kJoinThreads)
+rm_join_prepare_kernel(const __grid_constant__ JoinParams p, long long n_buckets) {
+  const int lane = threadIdx.x & 31;
+  const int passes = p.fp_stride >> 5;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long w = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       w < n_buckets * passes; w += n_warps) {
+    const long long g = w / passes;
+    const int c = static_cast<int>(w - g * passes) * 32 + lane;
+    int32_t fp = 0;
+    if (c < p.cap) {
+      const long long at = g * p.cap + c;
+      const int32_t k = __ldg(p.keys + at);
+      p.recs[at] = make_int4(k, __ldg(p.vals + at), __ldg(p.begin + at), __ldg(p.end + at));
+      fp = fingerprint(mixed(k), p.shift);
+    }
+    p.fps[g * p.fp_stride + c] = static_cast<uint16_t>(fp);
+  }
+}
+
+// Candidate slot c of row j: add its payload to the row if its key is the
+// row's and it is visible.
+__device__ __forceinline__ void settle(WarpStage& ws, const JoinParams& p, int j, int c) {
+  const int4 r = __ldg(p.recs + static_cast<long long>(ws.probe[j].x) * p.cap + c);
+  const bool seen = !p.build_ts || (r.z <= p.ts && p.ts < r.w);
+  if (r.x == ws.key[j] && seen) {
+    atomicAdd(&ws.sum[j], static_cast<uint32_t>(r.y));
+    ws.hit[j] = 1;
+  }
+}
+
+__global__ void __launch_bounds__(kJoinThreads, kJoinBlocksPerSm)
 rm_hash_join_kernel(const __grid_constant__ JoinParams p) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < p.n; i += stride) {
-    // 64-bit row offset: 33.5M rows of 18 words pass 2^31 words' bytes
-    const int32_t* row = p.words + i * static_cast<long long>(p.row_words);
-    const int32_t key = __ldcs(row + p.key_word);
+  __shared__ WarpStage stages[kWarps];
+  const int lane = threadIdx.x & 31;
+  WarpStage& ws = stages[threadIdx.x >> 5];
+  const long long n_tasks = (p.n + 31) >> 5;
+  const long long step = static_cast<long long>(gridDim.x) * kWarps;
+  const int4* pairs = reinterpret_cast<const int4*>(ws.probe);  // rows 2h, 2h + 1
+  for (long long t = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       t < n_tasks; t += step) {
+    const long long i0 = t << 5;
+    const int rows = static_cast<int>(min(32LL, p.n - i0));
+    const long long i = i0 + lane;
+    const bool live = lane < rows;
+
+    // 1. this lane's row: key, payload, own MVCC test (64-bit offsets:
+    // 33.5M rows of 18 words pass 2^31 bytes)
+    int32_t key = 0, sval = 0;
     bool valid = true;
-    if (p.ts_word >= 0) {
-      valid = __ldcs(row + p.ts_word) <= p.ts && p.ts < __ldcs(row + p.ts_word + 1);
+    if (live) {
+      const int32_t* row = p.words + i * static_cast<long long>(p.row_words);
+      key = __ldcs(row + p.key_word);
+      sval = __ldcs(row + p.val_word);
+      if (p.ts_word >= 0) valid = __ldcs(row + p.ts_word) <= p.ts && p.ts < __ldcs(row + p.ts_word + 1);
     }
-    const uint32_t g = (static_cast<uint32_t>(key) * kMix) >> p.shift;
-    const long long base = static_cast<long long>(g) * p.cap;
-    const int32_t* bk = p.keys + base;
-    const int32_t* bv = p.vals + base;
-    bool any = false;
-    uint32_t r = 0;
-    for (int c = 0; c < p.cap; ++c) {
-      if (__ldg(bk + c) != key) continue;
-      if (p.build_ts) {
-        const int32_t b = __ldg(p.begin + base + c);
-        const int32_t e = __ldg(p.end + base + c);
-        if (!(b <= p.ts && p.ts < e)) continue;
+    const uint32_t h = mixed(key);
+    ws.probe[lane] = make_int2(static_cast<int32_t>(h >> p.shift), fingerprint(h, p.shift));
+    ws.key[lane] = key;
+    ws.sum[lane] = 0u;
+    ws.hit[lane] = 0;
+    __syncwarp();
+
+    // 2. the warp reads each row's fingerprint line, a lane a slot
+    for (int c0 = 0; c0 < p.cap; c0 += 32) {
+      const int c = c0 + lane;
+      const bool slot = c < p.cap;
+      const uint16_t* fps = p.fps + c;
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int b0 = 0; b0 < 32; b0 += kBatch) {
+        int32_t ff[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; u += 2) {
+          const int j = b0 + u;
+          const int4 pk = pairs[j / 2];
+          ff[u] = slot && j < rows ? __ldg(fps + static_cast<long long>(pk.x) * p.fp_stride)
+                                   : ~pk.y;  // never the row's fingerprint
+          ff[u + 1] = slot && j + 1 < rows
+                          ? __ldg(fps + static_cast<long long>(pk.z) * p.fp_stride) : ~pk.w;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; u += 2) {
+          const int j = b0 + u;
+          const int4 pk = pairs[j / 2];
+          bits |= static_cast<uint32_t>(ff[u] == pk.y) << j;
+          bits |= static_cast<uint32_t>(ff[u + 1] == pk.w) << (j + 1);
+        }
       }
-      any = true;
-      r += static_cast<uint32_t>(__ldg(bv + c));
+      if (!__any_sync(kFull, bits != 0u)) continue;
+
+      // 3. list the candidates: each lane's count, prefix-summed across the
+      // warp, places its (row, slot) pairs; then a lane a listed pair.  A
+      // pass that finds more than kList pairs takes several rounds.
+      do {
+        const int cnt = __popc(bits);
+        int off = cnt;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(kFull, off, o);
+          if (lane >= o) off += x;
+        }
+        const int listed = min(__shfl_sync(kFull, off, 31), kList);
+        for (off -= cnt; bits != 0u && off < kList; bits &= bits - 1u, ++off) {
+          ws.list[off] = make_int2(__ffs(bits) - 1, c);
+        }
+        __syncwarp();
+        for (int e = lane; e < listed; e += 32) settle(ws, p, ws.list[e].x, ws.list[e].y);
+        __syncwarp();
+      } while (__any_sync(kFull, bits != 0u));
     }
-    const bool matched = any && valid;
-    p.s_out[i] = valid ? __ldcs(row + p.val_word) : 0;
-    p.r_out[i] = matched ? static_cast<int32_t>(r) : 0;
-    p.m_out[i] = matched ? 1 : 0;
+
+    // 4. row lane's outputs
+    if (live) {
+      const bool matched = ws.hit[lane] && valid;
+      p.s_out[i] = valid ? sval : 0;
+      p.r_out[i] = matched ? static_cast<int32_t>(ws.sum[lane]) : 0;
+      p.m_out[i] = matched ? 1 : 0;
+    }
+    __syncwarp();  // the stage is read before the next task overwrites it
   }
 }
 
@@ -102,12 +239,18 @@ extern "C" {
 
 int rm_join_params_size() { return static_cast<int>(sizeof(JoinParams)); }
 
-// Launch the probe on `stream` without synchronising; returns the launch's
-// cudaGetLastError() (0 on success).
-int rm_hash_join(const JoinParams* params, int n_blocks, void* stream) {
-  if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  rm_hash_join_kernel<<<n_blocks, kJoinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params);
+// Repack the buckets, then launch the probe, both on `stream` without
+// synchronising; returns the first failing launch's cudaGetLastError() (0
+// on success).
+int rm_hash_join(const JoinParams* params, long long n_buckets, int n_blocks, void* stream) {
+  if (n_blocks <= 0 || n_buckets <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long prep_warps = n_buckets * (params->fp_stride >> 5);
+  const int prep_blocks = static_cast<int>(min((prep_warps + kWarps - 1) / kWarps, 1LL << 20));
+  rm_join_prepare_kernel<<<prep_blocks, kJoinThreads, 0, st>>>(*params, n_buckets);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rm_hash_join_kernel<<<n_blocks, kJoinThreads, 0, st>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }
 

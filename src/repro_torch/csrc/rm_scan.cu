@@ -21,11 +21,19 @@
 // scan_multi reads the row store once for all its requests.  On the TPU the
 // grid ran in order and a reduction carried across grid steps in one output
 // block; here blocks run in any order, so a reduced request leaves one
-// partial row per block and rm_reduce_partials sums them in block order.
+// partial row per block and rm_reduce_partials sums them in a fixed order.
 // The predicate constant, the snapshot time and the geometry are runtime
 // data (Params), so nothing is compiled per query.  The grid-stride tile
 // loop and the row bound `rows` replace the reference's padding to whole
 // tiles and its `ridx < n` mask.
+//
+// The fused scan (rm_scan_multi_kernel) serves the most requests from one
+// tile, so it hides its copies and walks each row once: tiles arrive by
+// cp.async into a ring of two, the next in flight while one is served, and
+// thread r serves row r of the tile for every request —
+// vector stores of the packed words, a filter's predicate once a row, no
+// division per output word.  The single-request kernels stage synchronously
+// and pack one output word a thread (pack_tile).
 #include "rm_common.cuh"
 
 using namespace rm;
@@ -131,10 +139,64 @@ rm_groupby_kernel(const __grid_constant__ Params p) {
   flush_hist(p, q, hist);
 }
 
+// Store one row's packed words: 16- or 8-byte stores where the width and
+// the output allow, so a warp's stores stay contiguous.
+__device__ __forceinline__ void put_row(const int32_t* row, const int32_t* map,
+                                        int out_w, int32_t* dst, bool keep) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if ((out_w & 3) == 0 && (a & 15) == 0) {
+    for (int w = 0; w < out_w; w += 4) {
+      const int4 v = keep ? make_int4(row[map[w]], row[map[w + 1]], row[map[w + 2]],
+                                      row[map[w + 3]])
+                          : make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(dst + w) = v;
+    }
+  } else if ((out_w & 1) == 0 && (a & 7) == 0) {
+    for (int w = 0; w < out_w; w += 2) {
+      const int2 v = keep ? make_int2(row[map[w]], row[map[w + 1]]) : make_int2(0, 0);
+      *reinterpret_cast<int2*>(dst + w) = v;
+    }
+  } else {
+    for (int w = 0; w < out_w; ++w) dst[w] = keep ? row[map[w]] : 0;
+  }
+}
+
+// Every request of the launch from one staged row, row `grow` of the chunk:
+// the row is walked once, a filter's predicate evaluated once.
+__device__ __forceinline__ void serve_row(const Params& p, const int32_t* row,
+                                          long long grow, const int32_t* sm_map,
+                                          float* slot_s, unsigned* slot_c,
+                                          int32_t* smem) {
+  for (int r = 0; r < p.n_req; ++r) {
+    const Req& q = p.req[r];
+    if (q.kind == kProject) {
+      put_row(row, sm_map + q.map_off, q.out_w, q.out + grow * q.out_w, true);
+    } else if (q.kind == kFilter) {
+      const bool keep = row_pass(row, q);
+      put_row(row, sm_map + q.map_off, q.out_w, q.out + grow * q.out_w, keep);
+      q.mask[grow] = keep ? 1 : 0;
+    } else if (row_pass(row, q)) {
+      if (q.kind == kAggregate) {
+        const int at = q.slot * kThreads + threadIdx.x;
+        slot_s[at] += agg_value(row, q);
+        slot_c[at] += 1;
+      } else {
+        float* hist = group_hist(p, q, smem);
+        const int g = group_of(row[q.group_word], q.num_groups);
+        atomicAdd(hist + 2 * g, agg_value(row, q));
+        atomicAdd(hist + 2 * g + 1, 1.0f);
+      }
+    }
+  }
+}
+
+// The fused one-pass scan.  Tiles arrive by cp.async into a ring of two,
+// so while a block serves tile t from shared memory its next tile is in
+// flight; thread r serves row r of the tile for every request (a tile holds
+// at most kThreads rows).
 __global__ void __launch_bounds__(kThreads)
 rm_scan_multi_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
-  int32_t* tile = smem;
   int32_t* sm_map = smem + p.map_smem;
   float* slot_s = reinterpret_cast<float*>(smem + p.slot_smem);
   unsigned* slot_c = reinterpret_cast<unsigned*>(smem + p.slot_smem) + p.n_slots * kThreads;
@@ -148,30 +210,31 @@ rm_scan_multi_kernel(const __grid_constant__ Params p) {
     if (q.kind == kGroupBy) zero_floats(group_hist(p, q, smem), 2 * q.num_groups);
   }
   const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
+  auto issue = [&](long long t, int stage) {
+    if (t < n_tiles) {
+      const long long row0 = t * p.tile_rows;
+      const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
+      issue_tile(smem + stage * p.tile_stride, p.words, row0, rows, p.row_words);
+    }
+    cp_async_commit();
+  };
+  issue(blockIdx.x, 0);
+  int stage = 0;  // the ring slot holding tile t
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    cp_async_wait_all();  // tile t, the only group in flight
+    // tile t is in for every thread, and every thread is done with the
+    // other slot (also orders the zeroing above before any use)
+    __syncthreads();
+    issue(t + gridDim.x, stage ^ 1);
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
-    __syncthreads();
-    stage_tile(tile, p.words, row0, rows, p.row_words);
-    __syncthreads();
-    for (int r = 0; r < p.n_req; ++r) {
-      const Req& q = p.req[r];
-      if (q.kind == kProject) {
-        pack_tile<false>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
-      } else if (q.kind == kFilter) {
-        pack_tile<true>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
-      } else if (q.kind == kAggregate) {
-        const int at = q.slot * kThreads + threadIdx.x;
-        float s = slot_s[at];
-        unsigned c = slot_c[at];
-        agg_tile(tile, rows, p.row_words, q, s, c);
-        slot_s[at] = s;
-        slot_c[at] = c;
-      } else {
-        group_tile(tile, rows, p.row_words, q, group_hist(p, q, smem));
-      }
+    if (static_cast<int>(threadIdx.x) < rows) {
+      serve_row(p, smem + stage * p.tile_stride + threadIdx.x * p.row_words,
+                row0 + threadIdx.x, sm_map, slot_s, slot_c, smem);
     }
+    stage ^= 1;
   }
+  cp_async_wait_all();
   __syncthreads();
   for (int r = 0; r < p.n_req; ++r) {
     const Req& q = p.req[r];
@@ -190,21 +253,44 @@ rm_scan_multi_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// Sum the per-block partial rows in block order.  Even columns are float32
-// sums, kept float32 as on the TPU; odd columns are counts, exact integers
-// in each row, summed in double so the total is exact before its one
-// rounding to float32.
+// Sum the per-block partial rows.  A block takes 32 columns; its 8 warps
+// each add every 8th row in order (lanes on neighbouring columns, so loads
+// coalesce), then warp 0 adds the 8 results in warp order — a fixed order,
+// so results do not vary run to run.  Even columns are float32 sums, kept
+// float32 as on the TPU; odd columns are counts, exact integers in each row,
+// summed in double so the total is exact before its one rounding to float32.
+constexpr int kReduceCols = 32;
+
 __global__ void __launch_bounds__(kThreads)
 rm_reduce_partials_kernel(const float* partials, int n_parts, int width, float* out) {
-  for (int j = threadIdx.x; j < width; j += blockDim.x) {
-    if (j & 1) {
-      double c = 0.0;
-      for (int b = 0; b < n_parts; ++b) c += partials[static_cast<long long>(b) * width + j];
-      out[j] = static_cast<float>(c);
+  constexpr int kPhases = kThreads / kReduceCols;
+  __shared__ double part[kPhases][kReduceCols];
+  const int tx = threadIdx.x % kReduceCols, ty = threadIdx.x / kReduceCols;
+  const int j = blockIdx.x * kReduceCols + tx;
+  const bool count = j & 1;
+  float s = 0.0f;
+  double c = 0.0;
+  if (j < width) {
+    for (int b = ty; b < n_parts; b += kPhases) {
+      const float x = partials[static_cast<long long>(b) * width + j];
+      if (count) {
+        c += x;
+      } else {
+        s += x;
+      }
+    }
+  }
+  part[ty][tx] = count ? c : static_cast<double>(s);
+  __syncthreads();
+  if (ty == 0 && j < width) {
+    if (count) {
+      double total = 0.0;
+      for (int k = 0; k < kPhases; ++k) total += part[k][tx];
+      out[j] = static_cast<float>(total);
     } else {
-      float s = 0.0f;
-      for (int b = 0; b < n_parts; ++b) s += partials[static_cast<long long>(b) * width + j];
-      out[j] = s;
+      float total = 0.0f;
+      for (int k = 0; k < kPhases; ++k) total += static_cast<float>(part[k][tx]);
+      out[j] = total;
     }
   }
 }
@@ -277,7 +363,9 @@ RM_LAUNCHER(rm_project_multi, rm_project_multi_kernel)
 
 int rm_reduce_partials(const float* partials, int n_parts, int width,
                        float* out, void* stream) {
-  rm_reduce_partials_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (width + kReduceCols - 1) / kReduceCols;
+  rm_reduce_partials_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       partials, n_parts, width, out);
   return static_cast<int>(cudaGetLastError());
 }

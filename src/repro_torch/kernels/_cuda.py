@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -62,6 +63,7 @@ PROJECT, FILTER, AGGREGATE, GROUPBY = range(4)
 PRED_OPS = {"none": 0, "gt": 1, "lt": 2}
 
 TILE_BYTES = 32 * 1024  # staged row tile per block
+SCAN_RING = 2  # tiles in scan_multi's ring: must match rm_scan_multi_kernel
 HIST_SMEM_BYTES = 64 * 1024  # group-by histograms kept in shared memory
 PARTIAL_BYTES = 64 << 20  # cap on the per-block partials buffer
 SMEM_MAX = 227 * 1024  # what one block may use on Hopper
@@ -87,16 +89,17 @@ class _Params(ctypes.Structure):
         ("n", ctypes.c_longlong),
     ] + [(name, ctypes.c_int32) for name in (
         "row_words", "tile_rows", "n_req", "map_len", "part_w", "n_slots",
-        "map_smem", "slot_smem")] + [
+        "map_smem", "slot_smem", "tile_stride", "pad_")] + [
         ("req", _Req * MAX_REQ), ("map", ctypes.c_int32 * MAX_MAP)]
 
 
 class _JoinParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "words", "keys", "vals", "begin", "end", "s_out", "r_out", "m_out")] + [
+        "words", "keys", "vals", "begin", "end", "fps", "recs", "s_out", "r_out",
+        "m_out")] + [
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "key_word", "val_word", "ts_word", "ts", "build_ts",
-            "shift", "cap")]
+            "shift", "cap", "fp_stride", "pad_")]
 
 
 class _ColParams(ctypes.Structure):
@@ -179,6 +182,8 @@ class Plan:
     """Shared-memory layout and partial rows of one launch."""
 
     tile_rows: int
+    tile_stride: int  # words between the ring's tiles
+    n_stages: int  # tiles staged (SCAN_RING for scan_multi, else 1)
     map: list[int]
     map_off: list[int]
     red_off: list[int]  # -1 for blocked requests
@@ -195,8 +200,12 @@ def _round4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def plan(reqs: Sequence[KernelReq], row_words: int) -> Plan:
-    """Lay out one launch; raises if it cannot fit the kernels' limits."""
+def plan(reqs: Sequence[KernelReq], row_words: int, stages: int = 1) -> Plan:
+    """Lay out one launch; raises if it cannot fit the kernels' limits.
+
+    ``stages`` tiles of the row tile come first (scan_multi's ring; 1 for
+    the single-request kernels), then the word map, the aggregate slots and
+    the group-by histograms that fit ``HIST_SMEM_BYTES``."""
     if not 0 < len(reqs) <= MAX_REQ:
         raise ValueError(f"a launch carries 1..{MAX_REQ} requests, got {len(reqs)}")
     for r in reqs:
@@ -223,7 +232,8 @@ def plan(reqs: Sequence[KernelReq], row_words: int) -> Plan:
         hist_off.append(-1)
     if len(maps) > MAX_MAP:
         raise ValueError(f"{len(maps)} packed words exceed one launch's {MAX_MAP}")
-    map_smem = _round4(tile_words)
+    stride = _round4(tile_words)  # keeps every tile 16-byte aligned
+    map_smem = stages * stride
     slot_smem = _round4(map_smem + len(maps))
     top = slot_smem + 2 * n_slots * THREADS
     for i, r in enumerate(reqs):
@@ -231,8 +241,11 @@ def plan(reqs: Sequence[KernelReq], row_words: int) -> Plan:
             hist_off[i] = top
             top += 2 * r.num_groups
             hist_bytes += 8 * r.num_groups
-    return Plan(rows, maps, map_off, red_off, hist_off, slot, map_smem,
-                slot_smem, n_slots, part_w, top * 4)
+    if top * 4 > SMEM_MAX:
+        raise ValueError(f"{stages} tiles of {row_words}-word rows and the launch's "
+                         f"slots need {top * 4} B of shared memory, over {SMEM_MAX}")
+    return Plan(rows, stride, stages, maps, map_off, red_off, hist_off, slot,
+                map_smem, slot_smem, n_slots, part_w, top * 4)
 
 
 def split(reqs: Sequence[KernelReq]) -> list[list[int]]:
@@ -343,8 +356,8 @@ def load() -> ctypes.CDLL:
     lib.rm_reduce_partials.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p, ctypes.c_void_p]
     lib.rm_reduce_partials.restype = ctypes.c_int
-    lib.rm_hash_join.argtypes = [ctypes.POINTER(_JoinParams), ctypes.c_int,
-                                 ctypes.c_void_p]
+    lib.rm_hash_join.argtypes = [ctypes.POINTER(_JoinParams), ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p]
     lib.rm_hash_join.restype = ctypes.c_int
     lib.rm_join_params_size.restype = ctypes.c_int
     lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_void_p]
@@ -417,6 +430,38 @@ def _empty_result(r: KernelReq, n: int, device: torch.device):
     return zeros, zeros.clone()
 
 
+@functools.lru_cache(maxsize=256)
+def launch_groups(reqs: tuple[KernelReq, ...], row_words: int,
+                  stages: int) -> tuple[tuple[tuple[int, ...], Plan, bytes], ...]:
+    """The launches that serve ``reqs``: for each group of requests
+    (:func:`split`) its indices, its plan and its parameter block with every
+    field set but the pointers and the row count, as bytes to copy for each
+    launch.  Cached, since a batch repeats its requests call after call."""
+    out = []
+    for group in split(reqs):
+        sub = [reqs[i] for i in group]
+        pl = plan(sub, row_words, stages)
+        params = _Params(
+            row_words=row_words, tile_rows=pl.tile_rows, n_req=len(sub),
+            map_len=len(pl.map), part_w=pl.part_w, n_slots=pl.n_slots,
+            map_smem=pl.map_smem, slot_smem=pl.slot_smem,
+            tile_stride=pl.tile_stride,
+        )
+        params.map[: len(pl.map)] = pl.map
+        for j, r in enumerate(sub):
+            params.req[j] = _Req(
+                kind=r.kind, out_w=len(r.words), map_off=pl.map_off[j],
+                pred_word=r.pred_word, pred_float=int(r.pred_float),
+                pred_op=PRED_OPS[r.pred_op], k_bits=r.k_bits,
+                ts_word=r.ts_word, ts=r.ts, agg_word=r.agg_word,
+                agg_float=int(r.agg_float), group_word=r.group_word,
+                num_groups=r.num_groups, red_off=pl.red_off[j],
+                hist_off=pl.hist_off[j], slot=pl.slot[j],
+            )
+        out.append((tuple(group), pl, bytes(params)))
+    return tuple(out)
+
+
 def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
     """Launch ``kernel`` over ``words`` for ``reqs``; one result per request,
     in the single-op contracts: packed ``(N, out_w)`` int32, ``(packed, bool
@@ -435,37 +480,25 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
         raise ValueError(f"{kernel} takes one request")
     lib = load()
     fn = getattr(lib, f"rm_{kernel}")
+    stages = SCAN_RING if kernel == "scan_multi" else 1
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for group in split(reqs):
+        for group, pl, blob in launch_groups(tuple(reqs), row_words, stages):
             sub = [reqs[i] for i in group]
-            pl = plan(sub, row_words)
             n_tiles = -(-n // pl.tile_rows)
             n_blocks = min(n_tiles, _max_blocks(lib, kernel, pl.smem_bytes, device))
             if pl.part_w:
                 n_blocks = max(1, min(n_blocks, PARTIAL_BYTES // (4 * pl.part_w)))
             partials = torch.empty(n_blocks * pl.part_w, dtype=torch.float32,
                                    device=device)
-            params = _Params(
-                words=words.data_ptr(), partials=partials.data_ptr(), n=n,
-                row_words=row_words, tile_rows=pl.tile_rows, n_req=len(sub),
-                map_len=len(pl.map), part_w=pl.part_w, n_slots=pl.n_slots,
-                map_smem=pl.map_smem, slot_smem=pl.slot_smem,
-            )
-            params.map[: len(pl.map)] = pl.map
+            params = _Params.from_buffer_copy(blob)
+            params.words, params.partials, params.n = words.data_ptr(), partials.data_ptr(), n
             for j, (i, r) in enumerate(zip(group, sub)):
-                out = results[i][0] if r.kind == FILTER else results[i]
-                params.req[j] = _Req(
-                    kind=r.kind, out_w=len(r.words), map_off=pl.map_off[j],
-                    pred_word=r.pred_word, pred_float=int(r.pred_float),
-                    pred_op=PRED_OPS[r.pred_op], k_bits=r.k_bits,
-                    ts_word=r.ts_word, ts=r.ts, agg_word=r.agg_word,
-                    agg_float=int(r.agg_float), group_word=r.group_word,
-                    num_groups=r.num_groups, red_off=pl.red_off[j],
-                    hist_off=pl.hist_off[j], slot=pl.slot[j],
-                    out=out.data_ptr() if r.kind in (PROJECT, FILTER) else None,
-                    mask=results[i][1].data_ptr() if r.kind == FILTER else None,
-                )
+                if r.kind == PROJECT:
+                    params.req[j].out = results[i].data_ptr()
+                elif r.kind == FILTER:
+                    params.req[j].out = results[i][0].data_ptr()
+                    params.req[j].mask = results[i][1].data_ptr()
             _check(lib, fn(ctypes.byref(params), n_blocks, pl.smem_bytes, stream),
                    f"{kernel} launch")
             LAUNCHES[kernel] += 1
@@ -485,14 +518,34 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
     return results
 
 
+def join_launch(n: int, row_words: int, num_buckets: int, capacity: int,
+                key_word: int, val_word: int, ts_word: int, ts: int,
+                build_ts: bool) -> tuple[_JoinParams, int]:
+    """The probe's parameter block (pointers left null) and grid for ``n``
+    probe rows: a warp probes 32 rows, a block of ``JOIN_THREADS`` threads
+    256 rows a pass, and a grid-stride loop covers what ``MAX_GRID_BLOCKS``
+    blocks do not.  The fingerprint scratch holds ``fp_stride`` 16-bit
+    fingerprints a bucket: one 64-byte line per 32 slots."""
+    params = _JoinParams(
+        n=n, row_words=row_words, key_word=key_word, val_word=val_word,
+        ts_word=ts_word, ts=ts, build_ts=int(build_ts),
+        shift=32 - (num_buckets.bit_length() - 1), cap=capacity,
+        fp_stride=32 * -(-capacity // 32),
+    )
+    return params, min(-(-n // JOIN_THREADS), MAX_GRID_BLOCKS)
+
+
 def run_hash_join(words: torch.Tensor, partitions, key_word: int,
                   val_word: int, ts_word: int, ts: int,
                   build_ts: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the hash-join probe over ``words`` against ``partitions``
     (four ``(P, C)`` int32 tensors: keys, vals, begin, end); returns
     ``(s_proj int32, r_proj int32, matched bool)`` of ``N`` rows.  The
-    caller has checked words, offsets and bucket shapes
-    (``rme_join.check_probe``); a zero-row input launches nothing."""
+    launch first repacks the buckets into scratch memory (16-bit key
+    fingerprints, ``P * fp_stride * 2`` bytes, and a 16-byte record a slot,
+    ``P * C * 16`` bytes), then probes.  The caller has checked words,
+    offsets and bucket shapes (``rme_join.check_probe``); a zero-row input
+    launches nothing."""
     check_words(words)
     parts = [t.contiguous() for t in partitions]
     n, row_words = words.shape
@@ -504,19 +557,17 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
         return s_out, r_out, m_out
     p, cap = parts[0].shape
     lib = load()
-    params = _JoinParams(
-        words=words.data_ptr(), keys=parts[0].data_ptr(),
-        vals=parts[1].data_ptr(), begin=parts[2].data_ptr(),
-        end=parts[3].data_ptr(), s_out=s_out.data_ptr(),
-        r_out=r_out.data_ptr(), m_out=m_out.data_ptr(), n=n,
-        row_words=row_words, key_word=key_word, val_word=val_word,
-        ts_word=ts_word, ts=ts, build_ts=int(build_ts),
-        shift=32 - (p.bit_length() - 1), cap=cap,
-    )
-    n_blocks = min(-(-n // JOIN_THREADS), MAX_GRID_BLOCKS)
+    params, n_blocks = join_launch(n, row_words, p, cap, key_word, val_word,
+                                   ts_word, ts, build_ts)
+    fps = torch.empty(p * params.fp_stride, dtype=torch.int16, device=device)
+    recs = torch.empty((p * cap, 4), dtype=torch.int32, device=device)
+    params.words, params.fps, params.recs = words.data_ptr(), fps.data_ptr(), recs.data_ptr()
+    params.keys, params.vals, params.begin, params.end = (t.data_ptr() for t in parts)
+    params.s_out, params.r_out, params.m_out = (
+        s_out.data_ptr(), r_out.data_ptr(), m_out.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _check(lib, lib.rm_hash_join(ctypes.byref(params), n_blocks, stream),
+        _check(lib, lib.rm_hash_join(ctypes.byref(params), p, n_blocks, stream),
                "hash_join launch")
     LAUNCHES["hash_join"] += 1
     return s_out, r_out, m_out

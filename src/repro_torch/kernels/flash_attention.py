@@ -85,8 +85,14 @@ def flash_attention_torch(
     softmax with float32 ``m``, ``l`` and accumulator, ``p`` cast to v's
     type before the PV product, and ``acc / max(l, 1e-30)``.  Keys past S
     are simply absent (the reference pads and masks them: the same sums).
-    ``block_q`` does not change the result and is accepted for parity."""
+    ``block_q`` does not change the result and is accepted for parity.
+
+    A window below 1 raises ``ValueError``, as the card's kernel does: such
+    a window masks every key, and the reference's value there depends on
+    its own padding of S to ``block_k`` (a deliberate difference)."""
     _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
     del block_q
     b, s, h, d = q.shape
     kh = k.shape[2]

@@ -18,6 +18,7 @@ from repro_torch.core import BatchExecutor, RelationalMemoryEngine, RelationalTa
 from repro_torch.core.schema import Column, TableGeometry, TableSchema  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
+from repro_torch.kernels.rme_join import bucket_fills  # noqa: E402
 from repro_torch.kernels.rme_scan_multi import (  # noqa: E402
     AggregateRequest,
     FilterRequest,
@@ -169,6 +170,49 @@ def test_scan_multi_group_histograms_in_global_memory(dev):
     check_multi(K.scan_multi(words, reqs), K.scan_multi_torch(words, reqs), words)
 
 
+def sixteen_requests():
+    """Sixteen requests, four of each kind, on one launch."""
+    reqs = []
+    for i in range(4):
+        reqs += [
+            ProjectRequest(geom([i, 4 + i, 8, 12 + i][: 1 + i])),
+            FilterRequest(geom([2 + i, 7, 13][: 3 - i % 2]), pred_word=5 + i,
+                          pred_op=("gt", "lt")[i % 2], pred_k=-100 * i,
+                          ts_word=16 if i % 2 else -1, ts=6),
+            AggregateRequest(agg_word=(0, 13)[i % 2], agg_dtype=("int32", "float32")[i % 2],
+                             pred_word=6, pred_op="lt", pred_k=100 * i, ts_word=16, ts=5),
+            GroupByRequest(group_word=3, agg_word=(1, 2, 4, 5)[i], num_groups=(1, 16, 7, 1000)[i],
+                           ts_word=16 if i else -1, ts=6),
+        ]
+    return reqs
+
+
+@pytest.mark.parametrize("n", [1357, 256 * 700 + 3])
+@pytest.mark.parametrize("start", [0, 1, 2])
+def test_scan_multi_ring_sixteen_requests(dev, n, start):
+    """Sixteen requests of all four kinds in one launch of the ring, with a
+    last tile shorter than the ring's 256-row tile, on a few tiles a block
+    and on more tiles than the grid has blocks, from a 16-byte aligned
+    chunk, an odd row (4-byte copies) and an even one."""
+    words = torch.from_numpy(make_words(n + start, seed=8)).to(dev)[start:]
+    reqs = sixteen_requests()
+    before = _cuda.LAUNCHES["scan_multi"]
+    got = K.scan_multi(words, reqs)
+    assert _cuda.LAUNCHES["scan_multi"] == before + 1
+    want = K.scan_multi_torch(words, reqs)
+    for r, g, w in zip(reqs, got, want):
+        if isinstance(r, (ProjectRequest, FilterRequest)):
+            for x, y in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+                assert torch.equal(x, y)
+        elif isinstance(r, GroupByRequest):  # int32 sums: exact
+            assert torch.equal(g[1], w[1]) and torch.equal(g[0], w[0])
+        else:
+            assert g[1].item() == w[1].item()
+            vals = words[:, r.agg_word].view(torch.float32) if r.agg_dtype == "float32" \
+                else words[:, r.agg_word].float()
+            assert_sum_close(g[0], w[0], vals.abs().sum())
+
+
 def test_empty_chunk_launches_nothing(dev):
     words = torch.empty((0, ROW_WORDS), dtype=torch.int32, device=dev)
     before = dict(_cuda.LAUNCHES)
@@ -289,6 +333,69 @@ def test_hash_join_unaligned_slice_and_empty(dev):
     assert [t.shape for t in out] == [(0,), (0,), (0,)]
     with pytest.raises(ValueError, match="partitions on"):
         K.hash_join(words, K.build_partitions(*side, device="cpu"), 1, 0)
+
+
+def padded(parts, cap):
+    """The same buckets with ``cap`` slots: each extra slot holds its bucket's
+    fill key (which never matches) and invisible timestamps."""
+    extra = cap - parts.capacity
+    fills = torch.from_numpy(bucket_fills(parts.num_buckets)).to(parts.keys.device)
+    cols = [fills[:, None].expand(-1, extra), torch.zeros_like(fills)[:, None].expand(-1, extra),
+            torch.ones_like(fills)[:, None].expand(-1, extra),
+            torch.zeros_like(fills)[:, None].expand(-1, extra)]
+    return type(parts)(*(torch.cat([t, c], dim=1).contiguous() for t, c in zip(parts, cols)))
+
+
+def warp_probe_build(case, dev):
+    """C = 1 on P = 2; an odd C; C > 32 from 40 copies of one key whose
+    payloads sum past 2^31 (the int32 sum wraps)."""
+    rng = np.random.default_rng(11)
+    if case == "c1":
+        keys = np.array([7], np.int32)
+    else:
+        keys = rng.permutation(np.arange(-400, 400, dtype=np.int32))[:300]
+    vals = rng.integers(I32.min, I32.max, keys.size, dtype=np.int64).astype(np.int32)
+    if case == "wide_wrap":
+        keys = np.concatenate([keys, np.full(40, keys[5], np.int32)])
+        vals = np.concatenate([vals, np.full(40, 1 << 30, np.int32)])
+    begin = np.zeros(keys.size, np.int32)
+    end = np.where(rng.random(keys.size) < 0.2, 3, I32.max).astype(np.int32)
+    parts = K.build_partitions(keys, vals, begin, end, device=dev)
+    if case == "odd":
+        parts = padded(parts, parts.capacity + 1 - parts.capacity % 2 + 2)
+    return keys, parts
+
+
+@pytest.mark.parametrize("case", ["c1", "odd", "wide_wrap"])
+@pytest.mark.parametrize("form", [(ROW_WORDS, 1, 0, 16, True), (ROW_WORDS, 1, 0, -1, False),
+                                  (2, 1, 0, -1, True), (40, 33, 2, 38, True),
+                                  (5, 1, 0, 3, True)])
+def test_hash_join_warp_probe_edges(dev, case, form):
+    """The warp-wide probe at the edges of its layout: C = 1 on P = 2, an odd
+    C, C > 32 (two slot passes, two fingerprint lines) with a wrapping
+    payload sum; 1,037 rows (not a multiple of 32), whole and from odd rows;
+    the row store with and without the MVCC tests, a packed block, 40-word
+    rows whose key and payload are not adjacent, and 5-word rows, where every
+    other row's word pairs are not 8-byte aligned."""
+    keys, parts = warp_probe_build(case, dev)
+    cap = parts.capacity
+    assert {"c1": cap == 1 and parts.num_buckets == 2, "odd": cap % 2 == 1,
+            "wide_wrap": cap > 32}[case]
+    row_words, key_word, val_word, ts_word, build_ts = form
+    w = join_probe(1037, row_words, key_word, keys, 5)
+    if ts_word >= 0 and row_words != ROW_WORDS:
+        w[:, ts_word] = 0
+        w[:, ts_word + 1] = np.where(np.arange(1037) % 3 == 0, 2, I32.max)
+    words = torch.from_numpy(w).to(dev)
+    args = (key_word, val_word, ts_word, 1, build_ts)
+    for start in (0, 1, 3):
+        got = K.hash_join(words[start:], parts, *args)
+        want = K.hash_join_torch(words[start:], parts, *args)
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), (case, form, start)
+        if case == "wide_wrap":  # 40 payloads of 2^30 wrap to 0 in int32
+            hot = (words[start:, key_word] == int(keys[5])) & want[2]
+            assert hot.any() and bool((want[1][hot] == want[1][hot][0]).all())
 
 
 def test_partition_builders_default_to_the_card(dev):
@@ -466,6 +573,24 @@ def test_new_kernels_past_2_31_bytes(dev):
     want = K.select_compact_torch(words[lo:], g, pred_word=2, pred_op="gt", pred_k=0,
                                   block_rows=512)
     assert torch.equal(blocks[lo // 512:], want[0]) and torch.equal(counts[lo // 512:], want[1])
+    del blocks, counts, want
+    # the probe and the fused scan: tails of the blocked outputs, and an
+    # aggregate over rows from the whole store
+    side = join_build(3000, seed=2)
+    parts = K.build_partitions(*side, device=dev)
+    got = K.hash_join(words, parts, 1, 0, 16, 5, True)
+    want = K.hash_join_torch(words[tail], parts, 1, 0, 16, 5, True)
+    assert all(torch.equal(x[tail], y) for x, y in zip(got, want))
+    del got
+    reqs = [ProjectRequest(g), FilterRequest(geom([1, 2]), pred_word=5, pred_op="gt", pred_k=0),
+            AggregateRequest(agg_word=0, pred_word=3, pred_op="gt", pred_k=990)]
+    got = K.scan_multi(words, reqs)
+    assert torch.equal(got[0][tail], K.project_torch(words[tail], g))
+    want = K.filter_project_torch(words[tail], geom([1, 2]), pred_word=5, pred_op="gt", pred_k=0)
+    assert torch.equal(got[1][0][tail], want[0]) and torch.equal(got[1][1][tail], want[1])
+    want = K.aggregate_torch(words, agg_word=0, pred_word=3, pred_op="gt", pred_k=990)
+    assert got[2][1].item() == want[1].item()
+    assert_sum_close(got[2][0], want[0], words[:, 0].abs().float().sum())
 
 
 @pytest.mark.parametrize("revision", ["bsl", "pck", "mlp"])

@@ -123,6 +123,17 @@ def test_window_and_tail_edges_match_reference():
         got.numpy(), tv.repeat_interleave(2, dim=2).numpy())
 
 
+@pytest.mark.parametrize("window", [0, -3])
+def test_window_below_one_is_refused_on_the_cpu(window):
+    """A window below 1 masks every key; the card's kernel refuses it, and
+    the plain version does too, with the same error (the reference returns a
+    value that depends on its padding of S to block_k)."""
+    (_, q), (_, k), (_, v) = inputs((1, 5, 2, 1, 16, True, None, 4, 4), "float32")
+    for fn in (TF.flash_attention, TF.flash_attention_torch):
+        with pytest.raises(ValueError, match="window must be positive"):
+            fn(q, k, v, causal=True, window=window)
+
+
 @pytest.mark.parametrize("bad", ["rank", "kv_shape", "groups", "dtype", "int"])
 def test_bad_inputs_raise(bad):
     q = torch.zeros(1, 8, 4, 16)

@@ -11,6 +11,8 @@ columns within ±1000 exact (every partial stays below 2^24 in float32); sums
 over float32 columns ``rtol=1e-5`` (summation order differs).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -298,6 +300,82 @@ def test_launch_plan_layout():
     assert [len(g) for g in _cuda.split([proj] * 20)] == [16, 4]
     with pytest.raises(ValueError, match="outside"):
         _cuda.plan([_cuda.KernelReq(_cuda.PROJECT, (18,))], row_words=18)
+
+
+def path_kernel_requests():
+    """The five requests the engine's mixed batch lowers to (the fused scan
+    of the server's tick C and of chip_smoke.py's kernel line)."""
+    words = lambda *ws: tuple(ws)  # noqa: E731
+    return [
+        _cuda.KernelReq(_cuda.PROJECT, words(0, 4, 8, 12)),
+        _cuda.KernelReq(_cuda.FILTER, words(1, 2), pred_word=3, pred_op="gt",
+                        ts_word=16, ts=1),
+        _cuda.KernelReq(_cuda.AGGREGATE, agg_word=6, pred_word=5, pred_op="lt",
+                        k_bits=100, ts_word=16, ts=1),
+        _cuda.KernelReq(_cuda.GROUPBY, agg_word=7, group_word=15, num_groups=16,
+                        ts_word=16, ts=1),
+        _cuda.KernelReq(_cuda.AGGREGATE, agg_word=9, pred_word=8, pred_op="gt",
+                        k_bits=-500, ts_word=16, ts=1),
+    ]
+
+
+@pytest.mark.parametrize("which", ["path", "sixteen"])
+def test_scan_ring_layout_fits(which):
+    """scan_multi's ring of tiles: every tile 16-byte aligned and whole, the
+    map, slots and histograms after the ring, all within SMEM_MAX — for the
+    path's five requests and for 16 requests at 18-word rows."""
+    reqs = path_kernel_requests()
+    if which == "sixteen":
+        reqs = (reqs * 4)[:16]
+    stages = _cuda.SCAN_RING
+    pl = _cuda.plan(reqs, 18, stages)
+    tile_words = pl.tile_rows * 18
+    assert pl.n_stages == stages == 2 and pl.tile_stride >= tile_words
+    assert pl.tile_stride % 4 == 0 and pl.map_smem == stages * pl.tile_stride
+    assert pl.slot_smem >= pl.map_smem + len(pl.map) and pl.slot_smem % 4 == 0
+    hists = [h for h in pl.hist_off if h >= 0]
+    assert hists and min(hists) >= pl.slot_smem + 2 * pl.n_slots * _cuda.THREADS
+    assert pl.smem_bytes <= _cuda.SMEM_MAX
+    # the cached parameter block carries the plan; pointers and N are left
+    # for each launch
+    (group, cached, blob), = _cuda.launch_groups(tuple(reqs), 18, stages)
+    assert group == tuple(range(len(reqs))) and cached == pl
+    params = _cuda._Params.from_buffer_copy(blob)
+    assert (params.tile_stride, params.map_smem, params.slot_smem) == \
+        (pl.tile_stride, pl.map_smem, pl.slot_smem)
+    assert (params.n_req, params.part_w, params.n) == (len(reqs), pl.part_w, 0)
+    assert list(params.map[: len(pl.map)]) == pl.map
+    assert [params.req[j].hist_off for j in group] == pl.hist_off
+    assert [params.req[j].kind for j in group] == [r.kind for r in reqs]
+    assert not any(params.req[j].out or params.req[j].mask for j in group)
+    # the single-request kernels keep one tile
+    one = _cuda.plan(reqs[:1], 18)
+    assert one.n_stages == 1 and one.map_smem == one.tile_stride
+    # rows so wide that the ring would pass SMEM_MAX are refused
+    with pytest.raises(ValueError, match="shared memory"):
+        _cuda.plan(reqs, 7200, _cuda.SCAN_RING)
+
+
+@pytest.mark.parametrize("n,row_words,buckets,cap", [
+    (33_554_432, 18, 65_536, 18),  # the server's row-store probe
+    (33_554_432, 2, 65_536, 18),  # the packed {A1, A2} block
+    (1037, 40, 2, 1),  # C = 1 on P = 2
+    (1 << 29, 32, 1 << 20, 47),  # the grid's cap, C > 32: two fingerprint lines
+])
+def test_join_launch_geometry(n, row_words, buckets, cap):
+    """The probe's parameter block and grid, computed as rm_join.cu expects,
+    without loading the library: the Fibonacci shift, a line of 32 16-bit
+    fingerprints per 32 slots, and a block of 8 warps per 256 rows."""
+    params, n_blocks = _cuda.join_launch(n, row_words, buckets, cap, 1, 0, 16, 7, True)
+    assert ctypes.sizeof(params) == 128  # sizeof(JoinParams) on x86-64
+    assert (params.n, params.row_words, params.cap) == (n, row_words, cap)
+    assert (params.key_word, params.val_word, params.ts_word, params.ts,
+            params.build_ts) == (1, 0, 16, 7, 1)
+    assert 1 << (32 - params.shift) == buckets
+    assert params.fp_stride % 32 == 0 and 0 <= params.fp_stride - cap < 32
+    assert _cuda.JOIN_THREADS % 32 == 0
+    assert n_blocks == min(-(-n // _cuda.JOIN_THREADS), _cuda.MAX_GRID_BLOCKS)
+    assert params.words is params.fps is params.recs is None  # filled at launch
 
 
 def test_cuda_path_refuses_cpu_and_unported_revisions():
