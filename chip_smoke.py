@@ -25,8 +25,10 @@ probe rows matching — all made from ``--seed``:
    from the log, and tick C's reads served again from it on a fresh server,
    with equal results;
 4. holds every kernel against its plain PyTorch version on the card at the
-   path's shapes, and times both (CUDA events, median of ``--reps`` after a
-   warm-up), beside the least time the card could take and one library
+   path's shapes, and times both (CUDA events around the call, host work
+   included, median of ``--reps`` after a warm-up; for the kernel and the
+   library call also ``device_ms``, their kernels' device time alone from
+   ``torch.profiler``), beside the least time the card could take and one library
    call where one computes the same (or, footnoted, less) work — the
    selection at four selectivities (90/50/10/1 %), one line each;
 5. drives the engine through ``BatchExecutor`` / ``execute_many`` on the
@@ -197,6 +199,40 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int) -> tuple[float | None, list]:
+    """Device time per call of ``fn`` without its host work: the kernels it
+    launches (one stream, so they do not overlap), from ``torch.profiler``
+    over ``reps`` calls after a warm-up; and ``[kernel, ms per call,
+    launches per call]`` for each.  A trace that holds no device time, or
+    lost launches (a kernel counted other than a multiple of ``reps``
+    times), is taken once more; then ``None``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+        split = [[e.key[:60], dev_us(e) / 1e3 / reps, e.count / reps] for e in kernels]
+        if kernels and not any(e.count % reps for e in kernels):
+            return sum(dev_us(e) for e in kernels) / 1e3 / reps, split
+    return None, split
+
+
+def device_fields(torch, fn, reps: int) -> dict:
+    """A kernel line's ``device_ms`` and its split, ``device_kernels``."""
+    ms, split = device_ms(torch, fn, reps)
+    return {"device_ms": ms, "device_kernels": split}
 
 
 def sector_bytes(words: set[int], rows: int, row_bytes: int) -> int:
@@ -405,9 +441,12 @@ def kernels_phase(torch, table, dim, reps: int) -> dict:
         line = {
             "phase": "kernel", "name": name,
             "kernel_ms": time_ms(torch, lambda: run(words), reps),
+            **device_fields(torch, lambda: run(words), reps),
             "plain_ms": time_ms(torch, lambda: plain(words), max(3, reps // 3)),
             "library_ms": (time_ms(torch, library[name], reps)
                            if name in library else None),
+            "library_device_ms": (device_ms(torch, library[name], reps)[0]
+                                  if name in library else None),
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "rows": n, "row_bytes": row_bytes,
         }
@@ -442,8 +481,10 @@ def slice3_kernel_phase(torch, words, table, p, reps: int) -> dict:
         bound_ms, bound_by = bound(read, outb, n, row_bytes, OPS_PER_ROW)
         row = {"phase": "kernel", "name": name,
                "kernel_ms": time_ms(torch, run, reps),
+               **device_fields(torch, run, reps),
                "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
                "library_ms": time_ms(torch, library, reps) if library else None,
+               "library_device_ms": device_ms(torch, library, reps)[0] if library else None,
                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
                "rows": n, "row_bytes": row_bytes, **extra}
         emit(row)
@@ -531,6 +572,7 @@ def join_kernel_phase(torch, words, dim, ts: int, reps: int) -> dict:
         line = {
             "phase": "kernel", "name": name,
             "kernel_ms": time_ms(torch, lambda: K.hash_join(w, parts, *args), reps),
+            **device_fields(torch, lambda: K.hash_join(w, parts, *args), reps),
             "plain_ms": time_ms(torch, lambda: K.hash_join_torch(w, parts, *args),
                                 max(3, reps // 3)),
             # the sort-probe route's one call: a binary search of the probe
@@ -538,6 +580,8 @@ def join_kernel_phase(torch, words, dim, ts: int, reps: int) -> dict:
             # payload, no MVCC tests, no match mask)
             "library_ms": time_ms(torch, lambda: torch.searchsorted(sorted_keys, probe_keys),
                                   reps),
+            "library_device_ms": device_ms(
+                torch, lambda: torch.searchsorted(sorted_keys, probe_keys), reps)[0],
             "library_call": "torch.searchsorted (does less work)",
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "rows": w.shape[0], "row_bytes": w.shape[1] * 4,
@@ -789,8 +833,10 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
         bound_ms, bound_by = flash_bound(b, s, h, kh, d, causal, window, 2)
         line = {"phase": "kernel", "name": name,
                 "kernel_ms": time_ms(torch, run, reps),
+                **device_fields(torch, run, reps),
                 "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
                 "library_ms": time_ms(torch, library, reps),
+                "library_device_ms": device_ms(torch, library, reps)[0],
                 "library_call": "torch.nn.functional.scaled_dot_product_attention"
                                 + (" (is_causal)" if window is None else " (bool window mask)"),
                 "library_max_abs_err": lib_err,

@@ -190,6 +190,11 @@ __device__ __forceinline__ void serve_row(const Params& p, const int32_t* row,
   }
 }
 
+// Tiles in the fused scan's ring: a block serves one slot while the other
+// fills (slot ^ 1).  _cuda.SCAN_RING lays the ring out and checks it against
+// rm_scan_ring() at load time.
+constexpr int kScanRing = 2;
+
 // The fused one-pass scan.  Tiles arrive by cp.async into a ring of two,
 // so while a block serves tile t from shared memory its next tile is in
 // flight; thread r serves row r of the tile for every request (a tile holds
@@ -331,6 +336,8 @@ cudaError_t allow_smem(const void* fn, long long smem) {
 extern "C" {
 
 int rm_params_size() { return static_cast<int>(sizeof(Params)); }
+
+int rm_scan_ring() { return kScanRing; }
 
 const char* rm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

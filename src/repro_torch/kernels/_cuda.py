@@ -18,14 +18,15 @@ BSL / PCK projection revisions, the compacting selection and the GQA
 flash-attention forward have their own parameter blocks and launchers
 (:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
 :func:`run_flash`) under the same rules.  ``LAUNCHES`` counts the launches
-of each kernel; nothing else adds to it.
+of each kernel; nothing else adds to it.  ``hash_join`` counts one for each
+probe, which is two kernels on the card: the bucket repack
+(``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
@@ -50,6 +51,7 @@ KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
+JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
@@ -63,7 +65,7 @@ PROJECT, FILTER, AGGREGATE, GROUPBY = range(4)
 PRED_OPS = {"none": 0, "gt": 1, "lt": 2}
 
 TILE_BYTES = 32 * 1024  # staged row tile per block
-SCAN_RING = 2  # tiles in scan_multi's ring: must match rm_scan_multi_kernel
+SCAN_RING = 2  # tiles in scan_multi's ring (kScanRing; load() checks rm_scan_ring())
 HIST_SMEM_BYTES = 64 * 1024  # group-by histograms kept in shared memory
 PARTIAL_BYTES = 64 << 20  # cap on the per-block partials buffer
 SMEM_MAX = 227 * 1024  # what one block may use on Hopper
@@ -99,7 +101,7 @@ class _JoinParams(ctypes.Structure):
         "m_out")] + [
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "key_word", "val_word", "ts_word", "ts", "build_ts",
-            "shift", "cap", "fp_stride", "pad_")]
+            "shift", "cap", "fp_stride", "stream")]
 
 
 class _ColParams(ctypes.Structure):
@@ -183,7 +185,6 @@ class Plan:
 
     tile_rows: int
     tile_stride: int  # words between the ring's tiles
-    n_stages: int  # tiles staged (SCAN_RING for scan_multi, else 1)
     map: list[int]
     map_off: list[int]
     red_off: list[int]  # -1 for blocked requests
@@ -244,7 +245,7 @@ def plan(reqs: Sequence[KernelReq], row_words: int, stages: int = 1) -> Plan:
     if top * 4 > SMEM_MAX:
         raise ValueError(f"{stages} tiles of {row_words}-word rows and the launch's "
                          f"slots need {top * 4} B of shared memory, over {SMEM_MAX}")
-    return Plan(rows, stride, stages, maps, map_off, red_off, hist_off, slot,
+    return Plan(rows, stride, maps, map_off, red_off, hist_off, slot,
                 map_smem, slot_smem, n_slots, part_w, top * 4)
 
 
@@ -360,6 +361,12 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_int, ctypes.c_void_p]
     lib.rm_hash_join.restype = ctypes.c_int
     lib.rm_join_params_size.restype = ctypes.c_int
+    lib.rm_join_stream_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rm_join_stream_blocks.restype = ctypes.c_int
+    lib.rm_scan_ring.restype = ctypes.c_int
+    if lib.rm_scan_ring() != SCAN_RING:
+        raise RuntimeError(f"rm_scan_multi_kernel stages {lib.rm_scan_ring()} tiles, "
+                           f"the plan lays out SCAN_RING = {SCAN_RING}")
     lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_void_p]
     lib.rm_project_pck.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_void_p]
@@ -391,6 +398,7 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 _MAX_BLOCKS: dict[tuple, int] = {}
+_JOIN_STREAM_BLOCKS: dict[int, int] = {}
 
 
 def _max_blocks(lib: ctypes.CDLL, kernel: str, smem: int,
@@ -430,13 +438,11 @@ def _empty_result(r: KernelReq, n: int, device: torch.device):
     return zeros, zeros.clone()
 
 
-@functools.lru_cache(maxsize=256)
-def launch_groups(reqs: tuple[KernelReq, ...], row_words: int,
-                  stages: int) -> tuple[tuple[tuple[int, ...], Plan, bytes], ...]:
+def launch_groups(reqs: Sequence[KernelReq], row_words: int,
+                  stages: int) -> list[tuple[list[int], Plan, _Params]]:
     """The launches that serve ``reqs``: for each group of requests
     (:func:`split`) its indices, its plan and its parameter block with every
-    field set but the pointers and the row count, as bytes to copy for each
-    launch.  Cached, since a batch repeats its requests call after call."""
+    field set but the pointers and the row count."""
     out = []
     for group in split(reqs):
         sub = [reqs[i] for i in group]
@@ -458,8 +464,8 @@ def launch_groups(reqs: tuple[KernelReq, ...], row_words: int,
                 num_groups=r.num_groups, red_off=pl.red_off[j],
                 hist_off=pl.hist_off[j], slot=pl.slot[j],
             )
-        out.append((tuple(group), pl, bytes(params)))
-    return tuple(out)
+        out.append((group, pl, params))
+    return out
 
 
 def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
@@ -483,7 +489,7 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
     stages = SCAN_RING if kernel == "scan_multi" else 1
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for group, pl, blob in launch_groups(tuple(reqs), row_words, stages):
+        for group, pl, params in launch_groups(reqs, row_words, stages):
             sub = [reqs[i] for i in group]
             n_tiles = -(-n // pl.tile_rows)
             n_blocks = min(n_tiles, _max_blocks(lib, kernel, pl.smem_bytes, device))
@@ -491,7 +497,6 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
                 n_blocks = max(1, min(n_blocks, PARTIAL_BYTES // (4 * pl.part_w)))
             partials = torch.empty(n_blocks * pl.part_w, dtype=torch.float32,
                                    device=device)
-            params = _Params.from_buffer_copy(blob)
             params.words, params.partials, params.n = words.data_ptr(), partials.data_ptr(), n
             for j, (i, r) in enumerate(zip(group, sub)):
                 if r.kind == PROJECT:
@@ -524,13 +529,16 @@ def join_launch(n: int, row_words: int, num_buckets: int, capacity: int,
     """The probe's parameter block (pointers left null) and grid for ``n``
     probe rows: a warp probes 32 rows, a block of ``JOIN_THREADS`` threads
     256 rows a pass, and a grid-stride loop covers what ``MAX_GRID_BLOCKS``
-    blocks do not.  The fingerprint scratch holds ``fp_stride`` 16-bit
-    fingerprints a bucket: one 64-byte line per 32 slots."""
+    blocks do not.  The fingerprint scratch holds ``fp_stride`` 8-bit
+    fingerprints a bucket: 32 bytes per 32 slots.  Rows wider than a 32-byte
+    sector take the streaming form (``stream``), which prefetches row words
+    on a persistent grid: ``run_hash_join`` caps ``n_blocks`` at what fits
+    on the card (``rm_join_stream_blocks``)."""
     params = _JoinParams(
         n=n, row_words=row_words, key_word=key_word, val_word=val_word,
         ts_word=ts_word, ts=ts, build_ts=int(build_ts),
         shift=32 - (num_buckets.bit_length() - 1), cap=capacity,
-        fp_stride=32 * -(-capacity // 32),
+        fp_stride=32 * -(-capacity // 32), stream=int(4 * row_words > JOIN_SECTOR),
     )
     return params, min(-(-n // JOIN_THREADS), MAX_GRID_BLOCKS)
 
@@ -541,8 +549,8 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
     """Launch the hash-join probe over ``words`` against ``partitions``
     (four ``(P, C)`` int32 tensors: keys, vals, begin, end); returns
     ``(s_proj int32, r_proj int32, matched bool)`` of ``N`` rows.  The
-    launch first repacks the buckets into scratch memory (16-bit key
-    fingerprints, ``P * fp_stride * 2`` bytes, and a 16-byte record a slot,
+    launch first repacks the buckets into scratch memory (8-bit key
+    fingerprints, ``P * fp_stride`` bytes, and a 16-byte record a slot,
     ``P * C * 16`` bytes), then probes.  The caller has checked words,
     offsets and bucket shapes (``rme_join.check_probe``); a zero-row input
     launches nothing."""
@@ -559,13 +567,25 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
     lib = load()
     params, n_blocks = join_launch(n, row_words, p, cap, key_word, val_word,
                                    ts_word, ts, build_ts)
-    fps = torch.empty(p * params.fp_stride, dtype=torch.int16, device=device)
-    recs = torch.empty((p * cap, 4), dtype=torch.int32, device=device)
-    params.words, params.fps, params.recs = words.data_ptr(), fps.data_ptr(), recs.data_ptr()
+    # one scratch buffer: the fingerprints, then the 16-byte records
+    # (P * fp_stride is a multiple of 32, so they stay aligned)
+    fp_bytes = p * params.fp_stride
+    scratch = torch.empty(fp_bytes + 16 * p * cap, dtype=torch.uint8, device=device)
+    params.words, params.fps = words.data_ptr(), scratch.data_ptr()
+    params.recs = scratch.data_ptr() + fp_bytes
     params.keys, params.vals, params.begin, params.end = (t.data_ptr() for t in parts)
     params.s_out, params.r_out, params.m_out = (
         s_out.data_ptr(), r_out.data_ptr(), m_out.data_ptr())
     with torch.cuda.device(device):
+        if params.stream:
+            if device.index not in _JOIN_STREAM_BLOCKS:
+                blocks = ctypes.c_int(0)
+                _check(lib, lib.rm_join_stream_blocks(ctypes.byref(blocks)),
+                       "hash_join occupancy")
+                if blocks.value <= 0:
+                    raise RuntimeError("hash_join: no block of the streaming form fits")
+                _JOIN_STREAM_BLOCKS[device.index] = blocks.value
+            n_blocks = min(n_blocks, _JOIN_STREAM_BLOCKS[device.index])
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, lib.rm_hash_join(ctypes.byref(params), p, n_blocks, stream),
                "hash_join launch")

@@ -20,7 +20,6 @@ engine charges a fused pass's bus beats once.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Sequence
 
 import torch
@@ -185,10 +184,8 @@ def _check_requests(row_words: int, requests: Sequence[ScanRequest]) -> None:
 
 
 # ------------------------------------------------------------- CUDA kernel
-@functools.lru_cache(maxsize=1024)
 def kernel_request(req: ScanRequest) -> _cuda.KernelReq:
-    """The request as the CUDA kernels take it (cached: requests are frozen,
-    and a batch repeats them call after call)."""
+    """The request as the CUDA kernels take it."""
     if isinstance(req, ProjectRequest):
         return _cuda.KernelReq(_cuda.PROJECT, tuple(geometry_words(req.geom)))
     pred = dict(pred_word=req.pred_word,

@@ -9,6 +9,8 @@ within ±1000 exact (every partial stays below 2^24 in float32); sums of
 float32 columns within ``1e-5 * sum(|v|)`` (summation order differs).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -314,6 +316,25 @@ def test_hash_join_matches_plain(dev, form, build):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["hash_join"] == before + 1
     want = K.hash_join_torch(words, parts, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tasks_a_warp", [2, 3])
+def test_hash_join_streaming_form_several_tasks_a_warp(dev, tasks_a_warp):
+    """The row store's streaming form on a persistent grid: every warp takes
+    two or three 32-row tasks (the row words fetched two tasks ahead, the
+    last task part-filled), bit-equal to the plain version."""
+    blocks = ctypes.c_int(0)
+    assert _cuda.load().rm_join_stream_blocks(ctypes.byref(blocks)) == 0 and blocks.value > 0
+    n = (tasks_a_warp - 1) * blocks.value * (_cuda.JOIN_THREADS // 32) * 32 + 1000
+    side = join_build(3000, seed=5)
+    parts = K.build_partitions(*side, device=dev)
+    words = torch.from_numpy(join_probe(n, ROW_WORDS, 1, side[0], 6)).to(dev)
+    assert _cuda.join_launch(n, ROW_WORDS, parts.num_buckets, parts.capacity,
+                             1, 0, 16, 5, True)[0].stream
+    got = K.hash_join(words, parts, 1, 0, 16, 5, True)
+    want = K.hash_join_torch(words, parts, 1, 0, 16, 5, True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 

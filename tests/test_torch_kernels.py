@@ -330,17 +330,16 @@ def test_scan_ring_layout_fits(which):
     stages = _cuda.SCAN_RING
     pl = _cuda.plan(reqs, 18, stages)
     tile_words = pl.tile_rows * 18
-    assert pl.n_stages == stages == 2 and pl.tile_stride >= tile_words
+    assert stages == 2 and pl.tile_stride >= tile_words
     assert pl.tile_stride % 4 == 0 and pl.map_smem == stages * pl.tile_stride
     assert pl.slot_smem >= pl.map_smem + len(pl.map) and pl.slot_smem % 4 == 0
     hists = [h for h in pl.hist_off if h >= 0]
     assert hists and min(hists) >= pl.slot_smem + 2 * pl.n_slots * _cuda.THREADS
     assert pl.smem_bytes <= _cuda.SMEM_MAX
-    # the cached parameter block carries the plan; pointers and N are left
-    # for each launch
-    (group, cached, blob), = _cuda.launch_groups(tuple(reqs), 18, stages)
-    assert group == tuple(range(len(reqs))) and cached == pl
-    params = _cuda._Params.from_buffer_copy(blob)
+    # the parameter block carries the plan; pointers and N are left for the
+    # launch
+    (group, planned, params), = _cuda.launch_groups(reqs, 18, stages)
+    assert group == list(range(len(reqs))) and planned == pl
     assert (params.tile_stride, params.map_smem, params.slot_smem) == \
         (pl.tile_stride, pl.map_smem, pl.slot_smem)
     assert (params.n_req, params.part_w, params.n) == (len(reqs), pl.part_w, 0)
@@ -350,22 +349,24 @@ def test_scan_ring_layout_fits(which):
     assert not any(params.req[j].out or params.req[j].mask for j in group)
     # the single-request kernels keep one tile
     one = _cuda.plan(reqs[:1], 18)
-    assert one.n_stages == 1 and one.map_smem == one.tile_stride
+    assert one.map_smem == one.tile_stride
     # rows so wide that the ring would pass SMEM_MAX are refused
     with pytest.raises(ValueError, match="shared memory"):
         _cuda.plan(reqs, 7200, _cuda.SCAN_RING)
 
 
-@pytest.mark.parametrize("n,row_words,buckets,cap", [
-    (33_554_432, 18, 65_536, 18),  # the server's row-store probe
-    (33_554_432, 2, 65_536, 18),  # the packed {A1, A2} block
-    (1037, 40, 2, 1),  # C = 1 on P = 2
-    (1 << 29, 32, 1 << 20, 47),  # the grid's cap, C > 32: two fingerprint lines
+@pytest.mark.parametrize("n,row_words,buckets,cap,stream", [
+    (33_554_432, 18, 65_536, 18, 1),  # the server's row-store probe
+    (33_554_432, 2, 65_536, 18, 0),  # the packed {A1, A2} block
+    (1037, 40, 2, 1, 1),  # C = 1 on P = 2
+    (1037, 8, 2, 1, 0),  # 32-byte rows: still the dense form
+    (1 << 29, 32, 1 << 20, 47, 1),  # the grid's cap, C > 32: two fingerprint lines
 ])
-def test_join_launch_geometry(n, row_words, buckets, cap):
+def test_join_launch_geometry(n, row_words, buckets, cap, stream):
     """The probe's parameter block and grid, computed as rm_join.cu expects,
-    without loading the library: the Fibonacci shift, a line of 32 16-bit
-    fingerprints per 32 slots, and a block of 8 warps per 256 rows."""
+    without loading the library: the Fibonacci shift, 32 8-bit fingerprints
+    per 32 slots, a block of 8 warps per 256 rows, and the streaming form
+    for rows wider than a 32-byte sector."""
     params, n_blocks = _cuda.join_launch(n, row_words, buckets, cap, 1, 0, 16, 7, True)
     assert ctypes.sizeof(params) == 128  # sizeof(JoinParams) on x86-64
     assert (params.n, params.row_words, params.cap) == (n, row_words, cap)
@@ -373,6 +374,7 @@ def test_join_launch_geometry(n, row_words, buckets, cap):
             params.build_ts) == (1, 0, 16, 7, 1)
     assert 1 << (32 - params.shift) == buckets
     assert params.fp_stride % 32 == 0 and 0 <= params.fp_stride - cap < 32
+    assert params.stream == stream
     assert _cuda.JOIN_THREADS % 32 == 0
     assert n_blocks == min(-(-n // _cuda.JOIN_THREADS), _cuda.MAX_GRID_BLOCKS)
     assert params.words is params.fps is params.recs is None  # filled at launch
