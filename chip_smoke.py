@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
-paper's three projection revisions, the selection entry points and the LM
-serving path (``qwen3-8b`` at full width) on one NVIDIA GPU.
+sharded backend, the paper's three projection revisions, the selection
+entry points and the LM serving path (``qwen3-8b`` at full width) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -45,6 +46,22 @@ probe rows matching — all made from ``--seed``:
    tick, all pinned to the tick's snapshot and riding one shared scan (the
    joins probe its packed block).  Every ticket is held against a numpy
    oracle, and the hash-join probe must have launched in ticks A and C;
+   Then the sharded phase, on S as ``--seed`` built it and the same R: a
+   ``ShardedEngine(num_shards=4)`` beside a single-device engine, step for
+   step and timed apart — the upload (the same bytes; each shard its
+   ``shard_ranges`` rows), the 7-op batch, a lone aggregate, 4,096 appends
+   (exactly one shard gains a chunk), 64 updates and 64 deletes and the
+   batch under a snapshot, the solo join (one broadcast of the build
+   partitions: ``3 * parts.nbytes`` collective bytes, one collective op; a
+   warm repeat adds nothing) — packed blocks, masks and join outputs
+   bit-equal to the single engine's, everything against numpy; a permanent
+   ``shard_pass`` fault on shard 1 (one failover, shard 1's bytes, the
+   fused scan kernel launched for its chunks, equal results) and a
+   malformed request that raises without a failover; the path's kernels
+   against their plain versions on shard 0's rows; ``QueryServer(
+   num_shards=4)`` through ticks A/B/C; the free ``dist_project``,
+   ``dist_aggregate``, ``dist_groupby`` and ``dist_join`` over 4 shards,
+   against numpy, and at 5,003 rows (one padding row) card against CPU;
 7. the paper's Fig. 6 revision study on the card: for each revision an
    engine serves a solo projection of S for 1, 4 and 11 columns (11 is the
    configuration port's cap, ``MAX_ENABLED_COLUMNS``), each held bit-equal
@@ -87,7 +104,10 @@ Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
-LM serve phase for ``flash_attention``.
+LM serve phase for ``flash_attention``; the sharded phase's own path (its
+sharded engine's and server's runs and the free operators, not the single
+engine beside them) adds its launches of the fused scan, the projection,
+aggregate and group-by kernels and the probe.
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device it exits non-zero
@@ -1286,6 +1306,330 @@ def server_phase(torch, S, R, seed: int, breakers: list) -> dict:
     return out
 
 
+SHARDS = 4
+# the sharded phase's path kernels: rows 1, 2, 4, 5 and 6 of PERF.md's table
+SHARDED_KERNELS = ("scan_multi", "project", "aggregate", "groupby_sum", "hash_join")
+
+
+class PairClock:
+    """Times each step on the single engine and then on the sharded one
+    (host clock, synced on both sides), and counts the launches of the
+    sharded engine's runs alone: the phase's path."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import _cuda
+
+        self.torch, self.cuda = torch, _cuda
+        self.steps: list = []
+        self.launches = dict.fromkeys(SHARDED_KERNELS, 0)
+
+    def _run(self, fn, count: bool):
+        self.torch.cuda.synchronize()
+        before = dict(self.cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if count:
+            for k in self.launches:
+                self.launches[k] += self.cuda.LAUNCHES[k] - before[k]
+        return out, dt
+
+    def pair(self, name: str, single, sharded, rows: int, profile: bool = False):
+        """``(single result, sharded result)`` of one step; ``profile`` runs
+        the sharded side under cProfile and keeps its top host functions."""
+        a, t_single = self._run(single, False)
+        prof = cProfile.Profile() if profile else None
+        if prof:
+            prof.enable()
+        b, t_sharded = self._run(sharded, True)
+        step = {"step": name, "rows": rows, "single_s": t_single,
+                "sharded_s": t_sharded}
+        if prof:
+            prof.disable()
+            step["sharded_host_top"] = host_top(prof)
+        self.steps.append(step)
+        return a, b
+
+    def solo(self, name: str, fn, rows: int, single_s=None):
+        out, dt = self._run(fn, True)
+        self.steps.append({"step": name, "rows": rows, "single_s": single_s,
+                           "sharded_s": dt})
+        return out
+
+
+def assert_same_blocks(torch, single, sharded) -> None:
+    """Packed blocks, masks and join outputs bit-equal on the card."""
+    for a, b in zip(flatten(single), flatten(sharded)):
+        if isinstance(a, float):
+            continue
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if x.dtype != torch.float32:
+                assert torch.equal(x, y), (x, y)
+
+
+def sharded_holds(torch, eng, table, dim_parts) -> dict:
+    """The path's kernels against their plain versions at the shard shapes:
+    the fused scan and the probe over shard 0's chunk, the projection,
+    aggregate and group-by over shard 0's rows."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import rme_scan_multi as KR
+
+    words = eng.rowstore.shard_parts(table)[0][0].words
+    reqs = path_requests(table, table.now())
+    fused = [reqs[k] for k in ("project", "filter", "aggregate", "groupby", "aggregate2")]
+    errs = {"rows": words.shape[0]}
+    got, want = K.scan_multi(words, fused), K.scan_multi_torch(words, fused)
+    errs["scan_multi"] = max(compare(torch, kind_of(r, KR), x, y, words, r)
+                             for r, x, y in zip(fused, got, want))
+    del got, want
+    p, a, g = reqs["project"], reqs["aggregate"], reqs["groupby"]
+    errs["project"] = compare(torch, "project", K.project(words, p.geom),
+                              K.project_torch(words, p.geom), words, p)
+    akw = dict(agg_word=a.agg_word, pred_word=a.pred_word, pred_op=a.pred_op,
+               pred_k=a.pred_k, ts=a.ts, ts_word=a.ts_word)
+    errs["aggregate"] = compare(torch, "aggregate", K.aggregate(words, **akw),
+                                K.aggregate_torch(words, **akw), words, a)
+    gkw = dict(group_word=g.group_word, agg_word=g.agg_word, num_groups=g.num_groups,
+               ts=g.ts, ts_word=g.ts_word)
+    errs["groupby_sum"] = compare(torch, "groupby", K.groupby_sum(words, **gkw),
+                                  K.groupby_sum_torch(words, **gkw), words, g)
+    args = (words, dim_parts, 1, 0, table.ts_begin_word, table.now(), True)
+    for x, y in zip(K.hash_join(*args), K.hash_join_torch(*args)):
+        assert torch.equal(x, y)
+    errs["hash_join"] = 0.0
+    return errs
+
+
+def sharded_phase(torch, S, R, seed: int, breakers: list, single_ticks: dict) -> dict:
+    """The sharded backend on the card: ``ShardedEngine(num_shards=4)`` beside
+    a single-device engine on the same table, step for step; the solo join
+    with its broadcast; a sharded ``QueryServer`` through ticks A/B/C; a
+    failover that runs the kernel; a real kernel error that propagates; the
+    free ``dist_*`` operators; every result against numpy."""
+    import dataclasses
+
+    from repro_torch.core import (RelationalMemoryEngine, ShardedEngine, TableGeometry,
+                                  compile_plan, faults, plan, planner, shard_ranges)
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.rme_scan_multi import AggregateRequest
+    from repro_torch.serve import QueryServer
+
+    started = time.perf_counter()
+    planner.clear_join_build_cache()
+    single, eng = RelationalMemoryEngine(), ShardedEngine(num_shards=SHARDS)
+    breakers += [single.breaker, eng.breaker]
+    clock = PairClock(torch)
+    rng = np.random.default_rng(seed + 5)
+    n = S.row_count
+
+    # upload: the same bytes as one engine, each shard its shard_ranges rows
+    clock.pair("upload", lambda: single.device_chunks(S),
+               lambda: eng.rowstore.shard_parts(S), n)
+    assert eng.stats.bytes_uploaded == single.stats.bytes_uploaded == n * S.row_bytes
+    parts = eng.rowstore.shard_parts(S)
+    assert [[c.segments for c in p] for p in parts] == [
+        [((start, rows),)] for start, rows in shard_ranges(n, SHARDS)]
+
+    a, b = clock.pair("mixed_batch", lambda: single.execute_many(mixed_ops(single, S, None)),
+                      lambda: eng.execute_many(mixed_ops(eng, S, None)), n, profile=True)
+    assert_same_blocks(torch, a, b)
+    oracle_batch(S, b, None, SHARDS)
+    del a, b
+    a, b = clock.pair("lone_aggregate", lambda: single.aggregate(S, "A6", "A7", "lt", 100),
+                      lambda: eng.aggregate(S, "A6", "A7", "lt", 100), n)
+    w = S.words()
+    m = w[:, 6] < 100
+    v = w[m, 5].astype(np.float64)
+    for s_, c_ in (a, b):
+        assert count_ok(c_, int(m.sum()), SHARDS)
+        assert abs(s_ - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
+
+    # writes: 4,096 appends land on one owning shard; then updates, deletes
+    before = [len(p) for p in eng.rowstore.shard_parts(S)]
+    S.append({c.name: rng.integers(-1000, 1000, 4096, dtype=np.int32)
+              for c in S.schema.columns})
+    after = [len(p) for p in eng.rowstore.shard_parts(S)]
+    assert [x - y for x, y in zip(after, before)] == [1, 0, 0, 0], (before, after)
+    S.update(rng.choice(n, 64, replace=False),
+             {"A1": rng.integers(-1000, 1000, 64, dtype=np.int32)})
+    S.delete(rng.choice(n, 64, replace=False))
+    ts = S.now()
+    a, b = clock.pair("mixed_batch_snapshot",
+                      lambda: single.execute_many(mixed_ops(single, S, ts)),
+                      lambda: eng.execute_many(mixed_ops(eng, S, ts)), S.row_count)
+    assert_same_blocks(torch, a, b)
+    oracle_batch(S, b, ts, SHARDS + 1)
+    oracle_batch(S, a, ts, 2)  # the single engine: base + one tail
+    del a, b
+
+    # the solo join S.A2 = R.A2: one build, one broadcast, every shard probes
+    def join(e):
+        return compile_plan(plan(S).join(R, key="A2", left_proj="A1", right_proj="A3"), e).run()
+
+    coll = (eng.stats.bytes_collective, eng.stats.collective_ops)
+    a, b = clock.pair("solo_join", lambda: join(single), lambda: join(eng), S.row_count)
+    (bparts, _), = eng._bcast_parts.values()
+    assert (eng.stats.bytes_collective - coll[0],
+            eng.stats.collective_ops - coll[1]) == ((SHARDS - 1) * bparts.nbytes, 1)
+    want = join_oracle(S.words(), R, None, 2)
+    for res in (a, b):
+        check_join(res, want)
+    assert_same_blocks(torch, [a], [b])
+    coll = (eng.stats.bytes_collective, eng.stats.collective_ops)
+    a, b = clock.pair("solo_join_warm", lambda: join(single), lambda: join(eng), S.row_count)
+    assert (eng.stats.bytes_collective, eng.stats.collective_ops) == coll  # cache hit
+    check_join(b, want)
+    del a, b, want
+
+    # a permanent fault on shard 1: its chunks re-run on the root, through
+    # the kernel; a malformed request is a real error and propagates
+    ops = lambda: mixed_ops(eng, S, ts)  # noqa: E731
+    healthy = eng.execute_many(ops())
+    shard1 = eng.rowstore.shard_parts(S)[1]
+    chunks = sum(len(p) for p in eng.rowstore.shard_parts(S))
+    _cuda.reset_launches()
+    fail0 = (eng.stats.failovers, eng.stats.bytes_failover)
+    with faults.fault_plan(faults.FaultPlan().inject(
+            "shard_pass", kind="permanent", times=None, shard=1)):
+        failed = clock.solo("failover_batch", lambda: eng.execute_many(ops()), S.row_count)
+    # the faulted pass launched nothing: shard 1's chunks ran by failover
+    failover_launches = _cuda.LAUNCHES["scan_multi"] - (chunks - len(shard1))
+    assert failover_launches == len(shard1), (dict(_cuda.LAUNCHES), chunks)
+    assert (eng.stats.failovers - fail0[0],
+            eng.stats.bytes_failover - fail0[1]) == (1, sum(c.words.numel() * 4 for c in shard1))
+    for x, y in zip(flatten(healthy), flatten(failed)):
+        for p_, q_ in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
+            assert torch.equal(p_, q_)
+    del healthy, failed
+    try:
+        eng._serve_scan(S, (AggregateRequest(agg_word=40), AggregateRequest(agg_word=1)))
+        raise AssertionError("a malformed request did not raise")
+    except ValueError as err:
+        assert "outside the" in str(err), err
+    assert eng.stats.failovers - fail0[0] == 1 and eng.shard_health() == ["healthy"] * SHARDS
+
+    holds = sharded_holds(torch, eng, S, bparts)
+    stats = dataclasses.asdict(eng.stats)
+    del single, eng, bparts, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sharded server through ticks A/B/C
+    planner.clear_join_build_cache()
+    server = QueryServer(num_shards=SHARDS)  # on the card
+    breakers.append(server.engine.breaker)
+    seen = dict(_cuda.LAUNCHES)
+    for name, results, dt, _ in server_ticks(torch, server, S, R, seed, STREAM_CHUNK_ROWS):
+        delta = {k: _cuda.LAUNCHES[k] - seen[k] for k in SHARDED_KERNELS}
+        seen = dict(_cuda.LAUNCHES)
+        for k, v in delta.items():
+            clock.launches[k] += v
+        if name in ("A", "C"):
+            assert delta["hash_join"] >= 1, (name, delta)
+        ts_c = max(S.now(), R.now()) if name == "C" else None
+        server_oracle(torch, name, results, S, R, ts_c)
+        clock.steps.append({"step": f"server_tick_{name}", "rows": S.row_count,
+                            "single_s": single_ticks[name], "sharded_s": dt,
+                            "launches": delta})
+        del results
+    srv_snap = server.snapshot()
+    assert srv_snap["engine_collective_ops"] >= 1 and srv_snap["engine_shards_quarantined"] == 0
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the free operators over 4 shards of the card: rows 2, 4, 5 run
+    mesh = [torch.device("cuda")] * SHARDS
+    w = S.words()
+    n = S.row_count
+    words = D.pad_rows_to(torch.from_numpy(w).cuda(), SHARDS)
+    r_words = D.pad_rows_to(torch.from_numpy(R.words()).cuda(), SHARDS)
+    geom = TableGeometry.from_schema(S.schema, ["A1", "A5"], n)
+    s_geom = TableGeometry.from_schema(S.schema, ["A1", "A2"], n)
+    r_geom = TableGeometry.from_schema(R.schema, ["A2", "A3"], R.row_count)
+    free0 = dict(_cuda.LAUNCHES)
+    packed = clock.solo("dist_project", lambda: D.dist_project(words, geom, mesh, valid_rows=n), n)
+    assert np.array_equal(packed[:n].cpu().numpy(), w[:, [0, 4]])
+    del packed
+    agg = clock.solo("dist_aggregate", lambda: D.dist_aggregate(
+        words, mesh, agg_word=0, pred_word=2, pred_op="gt", pred_k=100, valid_rows=n), n)
+    m = w[:, 2] > 100
+    v = w[m, 0].astype(np.float64)
+    host = agg.cpu().numpy()
+    assert count_ok(host[1], int(m.sum()), SHARDS)
+    assert abs(host[0] - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
+    gs, gc_ = clock.solo("dist_groupby", lambda: D.dist_groupby(
+        words, mesh, group_word=1, agg_word=0, num_groups=16, valid_rows=n), n)
+    gid = np.mod(w[:, 1].astype(np.int64), 16)
+    want_c = np.bincount(gid, minlength=16)
+    assert all(count_ok(x, int(y), SHARDS) for x, y in zip(gc_.cpu().numpy(), want_c))
+    want_s = np.bincount(gid, weights=w[:, 0].astype(np.float64), minlength=16)
+    abs_s = np.bincount(gid, weights=np.abs(w[:, 0]).astype(np.float64), minlength=16)
+    assert np.all(np.abs(gs.cpu().numpy() - want_s) <= SUM_RTOL * abs_s + 1e-3)
+    res = clock.solo("dist_join", lambda: D.dist_join(
+        words, r_words, mesh, s_geom, r_geom, s_key_word=1, s_val_word=0, r_key_word=0,
+        r_val_word=1, s_valid_rows=n, r_valid_rows=R.row_count), n)
+    s_want, r_want, m_want = join_oracle(w, R, None, 2)
+    for got, exp in zip(res, (w[:, 0], r_want, m_want)):
+        assert np.array_equal(got[:n].cpu().numpy(), exp)
+    free = {k: _cuda.LAUNCHES[k] - free0[k] for k in ("project", "aggregate", "groupby_sum")}
+    assert all(v >= SHARDS for v in free.values()), free  # a launch a shard at least
+    del words, r_words, res
+    padding = dist_padding_check(torch, seed)
+
+    out = {"phase": "sharded", "seconds": time.perf_counter() - started,
+           "shards": SHARDS, "rows": S.row_count,
+           "build_rows": R.row_count, "steps": clock.steps,
+           "bytes_collective": stats["bytes_collective"],
+           "collective_ops": stats["collective_ops"],
+           "failovers": stats["failovers"], "bytes_failover": stats["bytes_failover"],
+           "failover_scan_launches": failover_launches,
+           "launches": clock.launches, "free_operator_launches": free,
+           "shard_holds_max_abs_err": holds, "server_snapshot_collective": [
+               srv_snap["engine_bytes_collective"], srv_snap["engine_collective_ops"]],
+           "padding_check_rows": padding, "stats": stats}
+    emit(out)
+    missing = [k for k, v in clock.launches.items() if v == 0]
+    assert not missing, f"kernels never launched on the sharded path: {missing}"
+    return out
+
+
+def dist_padding_check(torch, seed: int) -> int:
+    """The free operators at 5,003 rows (one padding row over 4 shards): the
+    card equals the CPU, bit for bit, and padding stays out."""
+    from repro_torch.core import TableGeometry
+    from repro_torch.core import distributed as D
+
+    S, R = build_table(5003, seed, 1024), build_dimension(1023, seed)
+    n, nr = S.row_count, R.row_count
+    geom = TableGeometry.from_schema(S.schema, ["A1", "A5"], n)
+    s_geom = TableGeometry.from_schema(S.schema, ["A1", "A2"], n)
+    r_geom = TableGeometry.from_schema(R.schema, ["A2", "A3"], nr)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        mesh = [torch.device(dev)] * SHARDS
+        w = D.pad_rows_to(torch.from_numpy(S.words().copy()).to(dev), SHARDS)
+        rw = D.pad_rows_to(torch.from_numpy(R.words().copy()).to(dev), SHARDS)
+        assert w.shape[0] == 5004 and rw.shape[0] == 1024
+        outs.append([
+            D.dist_project(w, geom, mesh, valid_rows=n),
+            D.dist_aggregate(w, mesh, agg_word=0, pred_word=2, pred_op="gt",
+                             pred_k=10, valid_rows=n),
+            *D.dist_groupby(w, mesh, group_word=1, agg_word=0, num_groups=16,
+                            valid_rows=n),
+            *D.dist_join(w, rw, mesh, s_geom, r_geom, s_key_word=1, s_val_word=0,
+                         r_key_word=0, r_val_word=1, s_valid_rows=n, r_valid_rows=nr),
+        ])
+    for x, y in zip(*outs):
+        assert torch.equal(x.cpu(), y), (x, y)
+    packed, matched = outs[1][0], outs[1][-1]
+    assert not packed[n:].any() and not matched[n:].any()
+    return n
+
+
 def small_reference_check(torch, seed: int, breakers: list) -> None:
     """The card against the CPU on small tables, for every revision: the
     engine batch and the server's tick script; then the WAL round."""
@@ -1401,6 +1745,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     table = build_table(args.rows, args.seed, args.build_rows)
     dim = build_dimension(args.build_rows, args.seed)
+    # S as built, for the sharded phase (the engine and server phases write S)
+    pristine = {"columns": [(c.name, c.dtype, c.width, c.codec) for c in table.schema.columns],
+                "words": table.words().copy(), "clock": table.now()}
     emit({"phase": "data", "rows": table.row_count,
           "row_bytes_stored": table.row_bytes,
           "bytes_stored": table.row_count * table.row_bytes,
@@ -1413,6 +1760,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     server = server_phase(torch, table, dim, args.seed, breakers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the sharded backend on S as --seed built it, beside a single engine
+    from repro_torch.core import RelationalTable
+
+    fresh = RelationalTable.from_state(pristine)
+    del pristine
+    sharded = sharded_phase(torch, fresh, dim, args.seed, breakers,
+                            server["tick_seconds"])
+    del fresh
     gc.collect()
     torch.cuda.empty_cache()
     revisions = revision_phase(torch, table, args.reps, breakers)
@@ -1432,6 +1789,8 @@ def main(argv=None) -> int:
     launches = {**revisions["launches"], **selection["launches"],
                 **engine["launches"], "hash_join": server["launches"]["hash_join"],
                 "flash_attention": lm["launches"]["flash_attention"]}
+    for k, v in sharded["launches"].items():  # the sharded phase's path too
+        launches[k] += v
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
                for k in ("breaker_trips", "breaker_fallbacks", "breaker_probes",
                          "breaker_open")}

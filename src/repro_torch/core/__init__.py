@@ -16,8 +16,8 @@ Layers (bottom-up):
   operators   — Q0-Q5 over interchangeable rme/row/col access paths
   faults      — deterministic fault injection + lowering circuit breaker
   wal         — checksummed write-ahead log for crash-consistent writes
-
-Not ported yet (ROADMAP.md): the sharded backend (``distributed``).
+  distributed — the sharded backend (ShardedRowStore + ShardedEngine) and
+                the free dist_* operators
 """
 
 from .schema import (
@@ -44,7 +44,9 @@ from .faults import (
     fault_plan,
 )
 from .wal import WriteAheadLog
-from . import compression, executor, faults, operators, optimizer, planner, wal
+from .distributed import ShardedEngine, ShardedRowStore, shard_ranges
+from . import (compression, distributed, executor, faults, operators, optimizer,
+               planner, wal)
 
 __all__ = [
     "BUS_WIDTH", "MAX_ENABLED_COLUMNS", "WORD", "TS_INF",
@@ -62,6 +64,7 @@ __all__ = [
     "CompileOptions", "PhysicalQuery", "compile_plan",
     "CircuitBreaker", "FaultError", "FaultPlan", "PermanentFault",
     "TransientFault", "fault_plan", "WriteAheadLog",
-    "compression", "executor", "faults", "operators", "optimizer", "planner",
-    "wal",
+    "ShardedEngine", "ShardedRowStore", "shard_ranges",
+    "compression", "distributed", "executor", "faults", "operators",
+    "optimizer", "planner", "wal",
 ]

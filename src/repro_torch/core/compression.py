@@ -142,6 +142,17 @@ class DeltaCodec:
     code_bits: int = 32
 
     @staticmethod
+    def fit(values: np.ndarray, frame_rows: int = 1024) -> "DeltaCodec":
+        """One reference (the minimum) per frame of ``frame_rows`` rows."""
+        v = np.asarray(values, dtype=np.int64)
+        n_frames = -(-len(v) // frame_rows)
+        refs = np.array([v[f * frame_rows:(f + 1) * frame_rows].min()
+                         for f in range(n_frames)], dtype=np.int64)
+        bits = _delta_bits(v, refs[np.arange(len(v)) // frame_rows]
+                           if len(v) else refs[:0])
+        return DeltaCodec(refs, frame_rows, code_bits=bits)
+
+    @staticmethod
     def fit_global(values: np.ndarray) -> "DeltaCodec":
         """One reference for every row, past and future — the table-level
         FOR codec.  ``frame_rows`` is effectively infinite, so encode/decode

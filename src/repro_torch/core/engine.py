@@ -43,7 +43,8 @@ not consulted and an injected ``lowering`` fault propagates like the other
 sites' faults, to the server's retries.  And any other exception — a real
 build or launch error of a CUDA kernel included — propagates and is not
 recorded, so the plain version never stands in for a kernel on the card.
-Not ported yet (ROADMAP.md): the sharded backend.
+The sharded backend (:mod:`repro_torch.core.distributed`) subclasses this
+engine and overrides its scan and join hooks.
 """
 
 from __future__ import annotations
@@ -103,12 +104,15 @@ class EngineStats:
     * ``join_builds`` / ``bytes_join_build`` — hash-partition builds of a
       join's build side and their bytes (also charged as an upload).
 
-    The sharded backend's counters of the reference (``bytes_collective``,
-    ``collective_ops``, and the shard ``retries``, ``failovers``,
-    ``bytes_failover``) are kept so the two engines' stats line up field for
-    field; the port never moves them yet.  The circuit breaker's reroutes (a
-    CPU engine's only) are counted in ``engine.breaker.snapshot()``, as in
-    the reference.
+    * ``bytes_collective`` / ``collective_ops`` — the sharded backend's
+      interconnect traffic: cross-shard combines of reduced partials and
+      build-partition broadcasts (never O(rows)).
+    * ``retries`` / ``failovers`` / ``bytes_failover`` — the sharded
+      backend's shard-pass retries, root-device failovers and the shard
+      bytes they re-shipped.
+
+    The circuit breaker's reroutes (a CPU engine's only) are counted in
+    ``engine.breaker.snapshot()``, as in the reference.
     """
 
     hot_hits: int = 0
@@ -126,11 +130,11 @@ class EngineStats:
     last_block_rows: int = 0  # row-tile height the fused-pass VMEM guard chose
     join_builds: int = 0  # build-side hash partitionings
     bytes_join_build: int = 0  # their partition-array bytes
-    bytes_collective: int = 0  # not ported yet (sharded backend)
-    collective_ops: int = 0  # not ported yet (sharded backend)
-    retries: int = 0  # not ported yet (sharded shard retries)
-    failovers: int = 0  # not ported yet (sharded failover)
-    bytes_failover: int = 0  # not ported yet (sharded failover)
+    bytes_collective: int = 0  # cross-shard bytes (sharded backend)
+    collective_ops: int = 0  # cross-shard combines and broadcasts
+    retries: int = 0  # transient shard-pass / combine retries
+    failovers: int = 0  # shard passes re-executed on the root device
+    bytes_failover: int = 0  # shard bytes those failovers re-shipped
     bytes_saved_compression: int = 0  # plain-minus-narrow bytes codecs kept off the bus
     decodes: int = 0  # client-read decodes of encoded packed results
     decode_cache_hits: int = 0  # decode results served from the per-version cache
@@ -501,9 +505,9 @@ class RelationalMemoryEngine:
 
     @property
     def backend(self) -> str:
-        """Execution-backend identity: ``"single"`` (the sharded backend is
-        not ported).  ``compile_plan(..., backend=...)`` validates against
-        it."""
+        """Execution-backend identity: ``"single"`` here, ``"sharded"`` on
+        :class:`~repro_torch.core.distributed.ShardedEngine`.
+        ``compile_plan(..., backend=...)`` validates against it."""
         return "single"
 
     # ---------------------------------------------------------------- config

@@ -1,12 +1,15 @@
 """Deterministic fault injection + the lowering circuit breaker — a copy of
 ``repro.core.faults``.
 
-In the port the single-device sites are wired as in the reference: the
-engine calls :func:`maybe_fault` at ``upload``, ``stream_chunk``,
-``scan_launch``, ``lowering`` and ``join_build``, holds a
-:class:`CircuitBreaker`, and the ``QueryServer`` retries
-:class:`TransientFault`.  ``shard_pass`` and ``collective_combine`` wait for
-the sharded backend.  Two deliberate differences: where the text below says
+In the port every site is wired as in the reference: the engine calls
+:func:`maybe_fault` at ``upload``, ``stream_chunk``, ``scan_launch``,
+``lowering`` and ``join_build``, the sharded backend at ``shard_pass`` and
+``collective_combine``, the engine holds a :class:`CircuitBreaker`, and the
+``QueryServer`` retries :class:`TransientFault`.  Three deliberate
+differences.  The sharded backend retries and fails over on an injected
+fault only (a real kernel error propagates), and its failover re-runs the
+shard through the fused scan kernel on the root device rather than an XLA
+fallback.  And where the text below says
 a lowering *failure* reroutes to the XLA fallback, the port reroutes only on
 a CPU engine, and only an injected ``lowering`` fault (or an open route), to
 the plain PyTorch version there.  On the card the breaker is not consulted:

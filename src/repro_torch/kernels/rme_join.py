@@ -292,3 +292,15 @@ def probe_vmem_footprint_bytes(
     resident for the whole pass.  The engine keeps the model for its
     ``last_block_rows`` accounting; the CUDA kernel has no such tile."""
     return (2 * block_rows * (row_words + 3) * 4) + partitions.nbytes
+
+
+def broadcast_partitions(partitions: JoinPartitions,
+                         devices) -> list[JoinPartitions]:
+    """Replicate the build side's buckets onto every shard's device — the
+    join's only collective.  ``devices`` has one entry per shard; ``None``
+    keeps the original partitions, any other entry gets a copy moved there
+    with ``.to(device)`` (no copy where they already live).  The sharded
+    engine charges ``(shards - 1) * partitions.nbytes`` for it."""
+    return [partitions if d is None
+            else JoinPartitions(*(t.to(d) for t in partitions))
+            for d in devices]

@@ -290,6 +290,19 @@ def combine_chunk_outputs(req: ScanRequest, parts: Sequence) -> object:
     return sums, counts
 
 
+def scan_shard(chunks: Sequence[torch.Tensor],
+               requests: Sequence[ScanRequest]) -> list[list]:
+    """One shard's fused pass: an ordinary :func:`scan_multi` over each of
+    its resident chunks, on the chunk's own device, with the per-chunk
+    outputs left **uncombined** (``[chunk][request]``).
+
+    The sharded engine needs that granularity: blocked outputs go back to
+    global row order through each chunk's ownership segments, and reduced
+    partials combine shard-locally before anything crosses shards.
+    """
+    return [scan_multi(chunk, requests) for chunk in chunks]
+
+
 def reduced_result_bytes(req: ScanRequest) -> int | None:
     """Bytes of one request's *reduced* partial, or ``None`` for blocked kinds
     (the unit of the sharded backend's interconnect accounting: an aggregate

@@ -1,10 +1,8 @@
 """Concurrent query serving: many clients, one engine, shared scans per tick —
 with live HTAP writes, pipelined ticks, priority lanes, and streaming results.
-The port of ``repro.serve.query_server``.
-
-What the port leaves out, raising ``NotImplementedError`` that names its
-ROADMAP item: the mesh-sharded backend (``mesh=`` / ``num_shards=``, queue 1
-item 6).
+The port of ``repro.serve.query_server``.  With ``mesh=`` / ``num_shards=``
+the server builds a :class:`~repro_torch.core.distributed.ShardedEngine`
+whose ticks run one fused pass per shard.
 
 The paper's closing argument (§8) is that native column access "can vastly
 simplify the software logic" of an analytics engine.  This module is the
@@ -143,6 +141,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults
+from repro_torch.core.distributed import ShardedEngine
 from repro_torch.core.engine import RelationalMemoryEngine
 from repro_torch.core.plan import PlanBuilder, PlanNode, Scan, decompose
 from repro_torch.core.planner import (
@@ -476,9 +475,12 @@ class QueryServer:
     ``True``/``False`` to force either mode globally; plans that cannot
     carry a snapshot (joins, row/col host paths) always compile unpinned.
 
-    ``mesh`` / ``num_shards`` select the reference's mesh-sharded backend,
-    which the port does not have yet: either raises
-    ``NotImplementedError``.
+    ``mesh`` / ``num_shards`` build the sharded backend
+    (:class:`repro_torch.core.distributed.ShardedEngine`) instead of the
+    default single-device engine: ``mesh`` is a sequence of devices, one
+    per shard; ``num_shards`` alone gives logical shards on ``device``.
+    ``device`` places the engine the server builds — the card unless the
+    caller passes ``"cpu"``; a pre-built ``engine`` carries its own.
 
     Serving-loop knobs (see ``docs/serving.md`` for tuning guidance):
 
@@ -518,21 +520,24 @@ class QueryServer:
         wal=None,
         max_retries: int = 2,
         poison_cooldown_ticks: int = 8,
+        device=None,
     ):
-        if engine is not None and (mesh is not None or num_shards is not None):
+        if engine is not None and (mesh is not None or num_shards is not None
+                                   or device is not None):
             raise ValueError(
-                "pass either a pre-built engine or mesh/num_shards, not both"
+                "pass either a pre-built engine or mesh/num_shards/device, "
+                "not both"
             )
-        if mesh is not None or num_shards is not None:
-            raise NotImplementedError(
-                "the mesh-sharded backend is not ported yet (ROADMAP queue 1 "
-                "item 6: sharded QueryServer)"
-            )
+        if engine is None and (mesh is not None or num_shards is not None):
+            engine = ShardedEngine(mesh=mesh, num_shards=num_shards,
+                                   device=device)
         if overload not in ("shed", "degrade"):
             raise ValueError(f"unknown overload policy {overload!r}; "
                              "want 'shed' or 'degrade'")
-        # no engine given: one on the card (raises without a card)
-        self.engine = engine if engine is not None else RelationalMemoryEngine()
+        # no engine given: one on `device`, the card by default (raises
+        # without a card)
+        self.engine = (engine if engine is not None
+                       else RelationalMemoryEngine(device=device))
         self.max_batch = max_batch
         self.snapshot_reads = snapshot_reads
         self.lanes = lanes
@@ -1352,6 +1357,10 @@ class QueryServer:
             "engine_decode_cache_hits": e.decode_cache_hits,
         })
         out.update(self.engine.breaker.snapshot())
+        if hasattr(self.engine, "shard_health"):
+            out["engine_shards_quarantined"] = sum(
+                1 for s in self.engine.shard_health() if s != "healthy"
+            )
         if self.wal is not None:
             out["wal_records"] = self.wal.record_count
             out["wal_bytes"] = self.wal.nbytes

@@ -799,3 +799,141 @@ def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
     want, _ = cpu.decode_step(want_cache, nxt, 40)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers  # decode: no kernel
+
+
+# ------------------------------------------------------- sharded backend
+def sharded_tables(n=5000, seed=3):
+    """A 5,000-row fact table (int32 payloads below 2^24: re-associated
+    float32 sums stay exact) and a 64-row dimension with key ``A2``."""
+    from repro_torch.core import benchmark_schema
+
+    rng = np.random.default_rng(seed)
+    schema = benchmark_schema(64, 4)
+    cols = {c.name: rng.integers(-1000, 1000, n).astype(np.int32) for c in schema.columns}
+    cols["A2"] = rng.integers(0, 128, n).astype(np.int32)
+    dim = {c.name: rng.integers(-1000, 1000, 64).astype(np.int32) for c in schema.columns}
+    dim["A2"] = np.arange(64, dtype=np.int32)
+    return (RelationalTable.from_columns(schema, cols),
+            RelationalTable.from_columns(schema, dim))
+
+
+def sharded_ops(eng, t, r, ts=None):
+    from repro_torch.core import AggregateOp, FilterOp, GroupByOp, JoinOp, ProjectOp
+
+    return [ProjectOp(eng.register(t, ["A1", "A5", "A9"])),
+            FilterOp(eng.register(t, ["A2", "A3"]), "A4", "gt", 0, ts),
+            AggregateOp(t, "A6", "A7", "lt", 100, ts),
+            GroupByOp(t, "A16", "A8", 16, snapshot_ts=ts),
+            JoinOp(eng.register(t, ["A1", "A2"]), "A2", "A1", r, "A3", snapshot_ts=ts)]
+
+
+def assert_all_equal(want, got):
+    for a, b in zip(want, got):
+        if hasattr(a, "s_proj"):
+            a, b = (a.s_proj, a.r_proj, a.matched), (b.s_proj, b.r_proj, b.matched)
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_scan_shard_matches_plain_per_chunk(dev):
+    from repro_torch.kernels import rme_scan_multi as KR
+
+    w = torch.from_numpy(make_words(7001)).to(dev)
+    chunks = [w[:3000], w[3000:3001], w[3001:]]
+    reqs = (ProjectRequest(geom([0, 4, 8])),
+            FilterRequest(geom([1, 2]), pred_word=3, pred_op="gt", pred_k=0,
+                          ts_word=16, ts=5),
+            AggregateRequest(agg_word=5, pred_word=6, pred_op="lt", pred_k=100),
+            GroupByRequest(group_word=3, agg_word=7, num_groups=16))
+    _cuda.reset_launches()
+    got = KR.scan_shard(chunks, reqs)
+    assert _cuda.LAUNCHES["scan_multi"] == 3
+    assert len(got) == 3 and all(len(outs) == 4 for outs in got)
+    for chunk, outs in zip(chunks, got):
+        assert_all_equal(KR.scan_multi_torch(chunk, reqs), outs)
+
+
+def test_broadcast_partitions_onto_the_card(dev):
+    from repro_torch.kernels.rme_join import broadcast_partitions
+
+    keys = np.arange(300, dtype=np.int32)
+    parts = K.build_partitions(keys, keys * 3, device="cpu")
+    same, moved = broadcast_partitions(parts, [None, dev])
+    assert same is parts
+    assert all(t.device.type == "cuda" for t in moved)
+    for a, b in zip(parts, moved):
+        assert torch.equal(a, b.cpu())
+    # already on the card: the replica is the same tensors, no copy
+    again = broadcast_partitions(moved, [dev])[0]
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(moved, again))
+
+
+def test_sharded_engine_on_the_card_matches_the_cpu(dev):
+    """4 logical shards on the card against the CPU sharded engine and the
+    card's single-device engine, with writes and a snapshot; every stats
+    field equal between the two sharded engines."""
+    import dataclasses
+
+    from repro_torch.core import ShardedEngine, planner
+
+    out = {}
+    for name, mk in (("card", lambda: ShardedEngine(num_shards=4)),
+                     ("cpu", lambda: ShardedEngine(num_shards=4, device="cpu")),
+                     ("single", lambda: RelationalMemoryEngine())):
+        planner.clear_join_build_cache()
+        eng = mk()
+        t, r = sharded_tables()
+        first = eng.execute_many(sharded_ops(eng, t, r))
+        t.append({c.name: np.arange(77, dtype=np.int32) for c in t.schema.columns})
+        t.delete(np.arange(0, 5000, 13))
+        second = eng.execute_many(sharded_ops(eng, t, r, t.now()))
+        solo = eng.execute_many(sharded_ops(eng, t, r)[-1:])  # the solo join probe
+        out[name] = (first + second + solo, eng)
+    assert_all_equal(out["cpu"][0], out["card"][0])
+    assert_all_equal(out["cpu"][0], out["single"][0])
+    assert (dataclasses.asdict(out["card"][1].stats)
+            == dataclasses.asdict(out["cpu"][1].stats))
+    assert out["card"][1].breaker.snapshot()["breaker_fallbacks"] == 0
+
+
+def test_sharded_failover_launches_the_kernel(dev, monkeypatch):
+    """A permanent ``shard_pass`` fault on shard 1: the shard's chunks re-run
+    on the root device through the fused scan kernel — never its plain
+    version — and the results stay equal."""
+    from repro_torch.core import AggregateOp, GroupByOp, ShardedEngine, faults
+    from repro_torch.kernels import rme_scan_multi as KR
+
+    t, _ = sharded_tables()
+    eng = ShardedEngine(num_shards=4)
+    ops = lambda: [AggregateOp(t, "A6"), GroupByOp(t, "A16", "A8", 16)]  # noqa: E731
+    want = eng.execute_many(ops())
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(KR, "scan_multi_torch", no_plain)
+    _cuda.reset_launches()
+    plan = faults.FaultPlan().inject("shard_pass", kind="permanent", times=None, shard=1)
+    with faults.fault_plan(plan):
+        got = eng.execute_many(ops())
+    chunks = [len(c) for c in eng.rowstore.shard_parts(t)]
+    assert _cuda.LAUNCHES["scan_multi"] == sum(chunks)  # shard 1's by failover
+    assert eng.stats.failovers == 1
+    assert eng.stats.bytes_failover == sum(
+        c.words.numel() * 4 for c in eng.rowstore.shard_parts(t)[1])
+    assert_all_equal(want, got)
+
+
+def test_sharded_real_kernel_error_propagates(dev):
+    """A malformed request fails inside the kernel wrapper: the error
+    propagates, nothing is retried or failed over."""
+    from repro_torch.core import ShardedEngine
+
+    t, _ = sharded_tables()
+    eng = ShardedEngine(num_shards=4)
+    bad = (AggregateRequest(agg_word=40), AggregateRequest(agg_word=1))
+    with pytest.raises(ValueError, match="outside the 18-word row"):
+        eng._serve_scan(t, bad)
+    assert (eng.stats.retries, eng.stats.failovers, eng.stats.bytes_failover) == (0, 0, 0)
+    assert eng.shard_health() == ["healthy"] * 4

@@ -4,8 +4,7 @@ Both engines get tables built from the same numpy arrays and the same
 writes; the JAX engine runs its Pallas kernels in interpret mode, the port's
 runs on the CPU (``device="cpu"``, the kernels' plain versions).  Results
 must match under the kernel tolerances (packed blocks, masks and counts
-bit-equal, int32 sums exact), and every ``EngineStats`` field must be equal
-except the counters of paths this slice does not port (``OUT_OF_SLICE``).
+bit-equal, int32 sums exact), and every ``EngineStats`` field must be equal.
 """
 
 import dataclasses
@@ -18,10 +17,6 @@ torch = pytest.importorskip("torch")
 import repro.core as J  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
-
-# the sharded backend and fault tolerance are later slices
-OUT_OF_SLICE = {"bytes_collective", "collective_ops", "retries", "failovers",
-                "bytes_failover"}
 
 N = 600
 
@@ -64,8 +59,7 @@ class Pair:
         js = dataclasses.asdict(self.je.stats)
         ts = dataclasses.asdict(self.te.stats)
         assert set(js) == set(ts)
-        diff = {k: (js[k], ts[k]) for k in js
-                if k not in OUT_OF_SLICE and js[k] != ts[k]}
+        diff = {k: (js[k], ts[k]) for k in js if js[k] != ts[k]}
         assert not diff, diff
 
 

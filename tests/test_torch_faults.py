@@ -7,12 +7,14 @@ independent) and returns its results, the plan's fired counts, the server's
 retry counters and the breaker's snapshot; the two must be equal.  The JAX
 engine runs ``revision="xla"`` where the reference test does and ``"mlp"``
 (Pallas in interpret mode) where the breaker is exercised; the port's
-engine runs on the CPU (``device="cpu"``).  The sharded classes wait for the
-sharded backend.
+engine runs on the CPU (``device="cpu"``).  ``TestShardFailover`` runs the
+sharded engines (``ShardedEngine(num_shards=2)``; the port's on the CPU) and
+holds every ``EngineStats`` field equal too.
 
 The port differs from the reference in one deliberate way, checked last: a
 non-injected exception raised by a kernel wrapper propagates and is never
-rerouted or counted by the breaker.
+rerouted or counted by the breaker — nor, on the sharded engine, retried or
+failed over.
 """
 
 import dataclasses
@@ -42,6 +44,12 @@ class Side:
         if self.core is J:
             return J.RelationalMemoryEngine(revision=revision, **kw)
         return T.RelationalMemoryEngine(device="cpu", **kw)
+
+    def sharded(self, num_shards=2, **kw):
+        if self.core is J:
+            from repro.core.distributed import ShardedEngine
+            return ShardedEngine(num_shards=num_shards, revision="xla", **kw)
+        return T.ShardedEngine(num_shards=num_shards, device="cpu", **kw)
 
     def server(self, revision="xla", engine_kw=None, **kw):
         return self.serve.QueryServer(self.engine(revision, **(engine_kw or {})), **kw)
@@ -402,6 +410,142 @@ class TestLoweringBreaker:
         assert side_by_side(scenario)["open"] == 0
 
 
+# -------------------------------------------------- sharded shard failover
+def shard_ops(core, t):
+    return [core.AggregateOp(t, "b"), core.GroupByOp(t, "g", "b", num_groups=8)]
+
+
+def single_reference(side):
+    return side.engine().execute_many(shard_ops(side.core, side.table()))
+
+
+def stats_of(eng):
+    return list(dataclasses.asdict(eng.stats).values())
+
+
+class TestShardFailover:
+    """``tests/test_faults.py::TestShardFailover``, side by side: results
+    equal the single-device engine's, and every stats field the JAX one's."""
+
+    def test_transient_shard_fault_retries_byte_identical(self):
+        def scenario(side):
+            ref = single_reference(side)
+            eng = side.sharded()
+            with side.core.fault_plan(
+                    side.core.FaultPlan().inject("shard_pass", shard=1)) as p:
+                out = eng.execute_many(shard_ops(side.core, side.table()))
+            for a, b in zip(as_np(out), as_np(ref)):
+                np.testing.assert_array_equal(a, b)
+            return {"out": out, "fired": p.fired("shard_pass"),
+                    "stats": stats_of(eng)}
+
+        out = side_by_side(scenario)
+        assert out["fired"] == 1
+
+    def test_permanent_shard_fault_fails_over_byte_identical(self):
+        def scenario(side):
+            ref = single_reference(side)
+            eng = side.sharded()
+            plan = side.core.FaultPlan().inject("shard_pass", kind="permanent",
+                                                times=None, shard=0)
+            with side.core.fault_plan(plan):
+                out = eng.execute_many(shard_ops(side.core, side.table()))
+            assert eng.stats.failovers == 1 and eng.stats.bytes_failover > 0
+            for a, b in zip(as_np(out), as_np(ref)):
+                np.testing.assert_array_equal(a, b)
+            return {"out": out, "stats": stats_of(eng)}
+
+        side_by_side(scenario)
+
+    def test_retry_exhaustion_fails_over(self):
+        def scenario(side):
+            ref = single_reference(side)
+            eng = side.sharded(shard_retries=1)
+            plan = side.core.FaultPlan().inject("shard_pass", times=None, shard=1)
+            with side.core.fault_plan(plan):
+                out = eng.execute_many(shard_ops(side.core, side.table()))
+            assert eng.stats.retries == 1 and eng.stats.failovers == 1
+            for a, b in zip(as_np(out), as_np(ref)):
+                np.testing.assert_array_equal(a, b)
+            return {"out": out, "stats": stats_of(eng)}
+
+        side_by_side(scenario)
+
+    def test_quarantine_and_probe_recovery(self):
+        def scenario(side):
+            ref = single_reference(side)
+            eng = side.sharded(shard_retries=0, quarantine_after=2,
+                               quarantine_probe_every=2)
+            t = side.table()
+            plan = side.core.FaultPlan().inject("shard_pass", times=None, shard=0)
+            with side.core.fault_plan(plan):
+                eng.execute_many(shard_ops(side.core, t))
+                eng.execute_many(shard_ops(side.core, t))  # second failure
+            health = [eng.shard_health()]
+            eng.execute_many(shard_ops(side.core, t))  # skipped: failover
+            health.append(eng.shard_health())
+            out = eng.execute_many(shard_ops(side.core, t))  # half-open probe
+            health.append(eng.shard_health())
+            assert health == [["quarantined", "healthy"],
+                              ["quarantined", "healthy"],
+                              ["healthy", "healthy"]]
+            for a, b in zip(as_np(out), as_np(ref)):
+                np.testing.assert_array_equal(a, b)
+            return {"out": out, "health": health, "stats": stats_of(eng)}
+
+        side_by_side(scenario)
+
+    def test_collective_combine_transient_retries(self):
+        def scenario(side):
+            ref = single_reference(side)
+            eng = side.sharded()
+            with side.core.fault_plan(
+                    side.core.FaultPlan().inject("collective_combine")):
+                out = eng.execute_many(shard_ops(side.core, side.table()))
+            assert eng.stats.retries == 1
+            for a, b in zip(as_np(out), as_np(ref)):
+                np.testing.assert_array_equal(a, b)
+            return {"out": out, "stats": stats_of(eng)}
+
+        side_by_side(scenario)
+
+    def test_collective_combine_permanent_propagates_typed(self):
+        def scenario(side):
+            eng = side.sharded()
+            plan = side.core.FaultPlan().inject("collective_combine",
+                                                kind="permanent", times=None)
+            with side.core.fault_plan(plan) as p:
+                with pytest.raises(side.core.PermanentFault):
+                    eng.execute_many(shard_ops(side.core, side.table()))
+            return {"fired": p.fired("collective_combine"),
+                    "stats": stats_of(eng)}
+
+        side_by_side(scenario)
+
+    def test_sharded_server_recovers_through_failover(self):
+        def scenario(side):
+            ref_srv = side.server()
+            tk = ref_srv.submit(side.core.plan(side.table()).aggregate("b"))
+            ref_srv.drain()
+            ref = tk.result()
+            srv = side.serve.QueryServer(side.sharded())
+            plan = side.core.FaultPlan().inject("shard_pass", kind="permanent",
+                                                times=None, shard=1)
+            with side.core.fault_plan(plan):
+                tk = srv.submit(side.core.plan(side.table()).aggregate("b"))
+                srv.drain()
+            out = tk.result()
+            assert float(np.asarray(out)) == float(np.asarray(ref))
+            snap = srv.snapshot()
+            assert snap["engine_failovers"] >= 1
+            assert snap["engine_bytes_failover"] > 0
+            return {"out": out, "counters": server_counters(srv),
+                    "failover": [snap["engine_failovers"],
+                                 snap["engine_bytes_failover"]]}
+
+        side_by_side(scenario)
+
+
 # ------------------------------------------------ server-level degradation
 class TestServerDegradation:
     def test_transient_fault_retried_and_tick_mates_unaffected(self):
@@ -555,3 +699,18 @@ def test_real_kernel_errors_propagate_unrecorded(monkeypatch, path):
             eng.execute_many(ops)
     assert eng.breaker.snapshot() == {"breaker_trips": 0, "breaker_fallbacks": 0,
                                       "breaker_probes": 0, "breaker_open": 0}
+
+
+def test_real_kernel_error_on_a_shard_propagates_without_failover(monkeypatch):
+    """A non-injected exception of the fused scan inside a shard pass is not
+    an injected fault: no retry, no failover, nothing counted."""
+    def broken(*args, **kwargs):
+        raise RuntimeError("rm_scan_multi launch: CUDA error 700")
+
+    side = SIDES[1]
+    eng = side.sharded()
+    monkeypatch.setattr(TR, "scan_multi", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        eng.execute_many(shard_ops(T, side.table()))
+    assert (eng.stats.retries, eng.stats.failovers, eng.stats.bytes_failover) == (0, 0, 0)
+    assert eng.shard_health() == ["healthy", "healthy"]

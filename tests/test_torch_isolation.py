@@ -2,7 +2,8 @@
 
 * importing every ``repro_torch`` module loads neither ``jax`` nor ``repro``;
 * no source line of the port or of ``chip_smoke.py`` imports them;
-* without a card, the default device of the engine and of the LM entry
+* without a card, the default device of the engine (the sharded one and
+  its server too) and of the LM entry
   points (``DecoderLM``, ``build_model``, hence ``ServeSession``, and the
   serving launcher) raises, and ``chip_smoke.py``
   exits non-zero without printing a result (also when it stands alone in a
@@ -34,7 +35,8 @@ def port_modules() -> list[str]:
 def test_port_modules_load_no_jax_and_no_reference_package():
     mods = port_modules()
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels._cuda" in mods
-    assert {"repro_torch.configs.base", "repro_torch.kernels.flash_attention",
+    assert {"repro_torch.configs.base", "repro_torch.core.distributed",
+            "repro_torch.kernels.flash_attention",
             "repro_torch.models.layers", "repro_torch.models.lm",
             "repro_torch.models.convert", "repro_torch.models.registry",
             "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
@@ -72,6 +74,23 @@ def test_default_device_without_a_card_raises():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RelationalMemoryEngine()
+
+
+@pytest.mark.parametrize("entry", ["ShardedEngine", "mesh", "QueryServer"])
+def test_sharded_backend_defaults_to_the_card(entry):
+    """The sharded engine, its mesh entries and the sharded server resolve
+    their devices as the engine does: the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core import ShardedEngine
+    from repro_torch.serve import QueryServer
+
+    calls = {"ShardedEngine": lambda: ShardedEngine(num_shards=4),
+             "mesh": lambda: ShardedEngine(mesh=["cpu", None]),
+             "QueryServer": lambda: QueryServer(num_shards=4)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert ShardedEngine(num_shards=4, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("entry", ["DecoderLM", "build_model", "ServeSession", "launcher"])

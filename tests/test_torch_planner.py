@@ -31,10 +31,6 @@ from repro_torch.core import operators as TO  # noqa: E402
 from repro_torch.core import planner as TP  # noqa: E402
 from test_torch_state import state_of  # noqa: E402
 
-# the sharded backend and fault tolerance are later slices
-OUT_OF_SLICE = {"bytes_collective", "collective_ops", "retries", "failovers",
-                "bytes_failover"}
-
 
 def port(t):
     return T.RelationalTable.from_state(state_of(t))
@@ -86,7 +82,7 @@ def assert_same(j, t):
 def assert_stats(je, te):
     js, ts = dataclasses.asdict(je.stats), dataclasses.asdict(te.stats)
     assert set(js) == set(ts)
-    diff = {k: (js[k], ts[k]) for k in js if k not in OUT_OF_SLICE and js[k] != ts[k]}
+    diff = {k: (js[k], ts[k]) for k in js if js[k] != ts[k]}
     assert not diff, diff
 
 

@@ -6,7 +6,9 @@ JAX engine runs its Pallas kernels in interpret mode, the port's engine the
 plain versions on the CPU.  Every ticket's result must match (packed blocks,
 masks, join outputs and counts bit-equal; finalized averages within 1 ulp),
 and the ``ServerStats`` and ``EngineStats`` must be equal apart from timing
-fields (latency reservoirs, percentiles).
+fields (latency reservoirs, percentiles).  The sharded cases run the same
+scripts on ``ShardedEngine`` servers, every ``EngineStats`` field equal, the collective and failover counters
+included.
 """
 
 import dataclasses
@@ -47,7 +49,7 @@ class Rig:
     """A fact table S and a dimension table R (primary key ``A2``), a
     server over each package's engine, driven in lockstep."""
 
-    def __init__(self, **server_kw):
+    def __init__(self, num_shards=None, **server_kw):
         s = cols(0, N_S)
         s["A2"] = np.random.default_rng(1).integers(-8, 2 * N_R, N_S).astype(np.int32)
         r = cols(2, N_R)
@@ -55,8 +57,13 @@ class Rig:
         js, jr = (J.RelationalTable.from_columns(J.benchmark_schema(64, 4), c)
                   for c in (s, r))
         self.tables = {J: (js, jr), T: (port(js), port(jr))}
-        self.je = J.RelationalMemoryEngine()
-        self.te = T.RelationalMemoryEngine(device="cpu")
+        if num_shards is None:
+            self.je = J.RelationalMemoryEngine()
+            self.te = T.RelationalMemoryEngine(device="cpu")
+        else:
+            from repro.core.distributed import ShardedEngine
+            self.je = ShardedEngine(num_shards=num_shards)
+            self.te = T.ShardedEngine(num_shards=num_shards, device="cpu")
         self.servers = {J: JS.QueryServer(self.je, **server_kw),
                         T: TS.QueryServer(self.te, **server_kw)}
 
@@ -119,8 +126,19 @@ def test_join_stream_and_snapshot_ticks():
     """The chip smoke test's tick script at a small size: a cold solo join
     and a stream; the same join again (build cache hit); then writes and
     one tick of five reads over S riding one shared scan."""
-    rig = Rig()
+    smoke_ticks(Rig())
 
+
+def test_sharded_join_stream_and_snapshot_ticks():
+    """The same tick script on 4-shard servers: the solo join probes every
+    shard after one broadcast of the build partitions (none on the cache
+    hit); tick C's five reads ride one fused pass per shard."""
+    rig = Rig(num_shards=4)
+    smoke_ticks(rig)
+    assert rig.te.stats.collective_ops > 0 and rig.te.stats.bytes_collective > 0
+
+
+def smoke_ticks(rig):
     def tick_a(pkg, srv, s, r):
         tks = [srv.submit(join(pkg, s, r)),
                srv.submit(pkg.plan(s).project("A1", "A4"), stream=True,
@@ -176,6 +194,57 @@ def test_mixed_ticks_pipelined_and_serial(pipeline):
 
     rig.check(rig.both(script))
     assert rig.servers[T].stats.ticks == 3
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_sharded_mixed_ticks_pipelined_and_serial(pipeline):
+    """``tests/test_query_server.py::test_overlapped_ticks_match_serial``,
+    sharded: 3 shards, forced into several ticks, both packages equal."""
+    rig = Rig(num_shards=3, pipeline=pipeline, max_batch=2)
+
+    def script(pkg, srv, s, r):
+        tks = [srv.submit(pkg.plan(s).project("A1", "A3")),
+               srv.submit(pkg.plan(s).filter("A5", "gt", 10).project("A1", "A2")),
+               srv.submit(pkg.plan(s).sum("A2")),
+               srv.submit(pkg.plan(s).groupby("A2", "A1", "avg", 16)),
+               srv.submit(pkg.plan(r).project("A2", "A4")),
+               srv.submit(pkg.plan(r).filter("A4", "lt", 5).sum("A1"))]
+        srv.drain()
+        return tks
+
+    rig.check(rig.both(script))
+    if pipeline:
+        assert rig.servers[T].stats.ticks_overlapped > 0
+
+
+def test_sharded_streamed_chunks_concat_to_blocking_result():
+    """``tests/test_query_server.py::test_streamed_chunks_concat_to_blocking_
+    result``, sharded: a cold streamed projection arrives in more than one
+    chunk, in global row order, equal to the blocking result."""
+    blocking = Rig(num_shards=3)
+
+    def block(pkg, srv, s, r):
+        tk = srv.submit(pkg.plan(s).project("A1", "A4"))
+        srv.drain()
+        return [tk]
+
+    tickets = blocking.both(block)
+    blocking.check(tickets)
+    expect = tickets[1][0].result(timeout=5)
+    rig = Rig(num_shards=3)
+
+    def stream(pkg, srv, s, r):
+        tk = srv.submit(pkg.plan(s).project("A1", "A4"), stream=True,
+                        stream_chunk_rows=64)
+        srv.drain()
+        assert len(list(tk.chunks(timeout=5))) > 1
+        return [tk]
+
+    tickets = rig.both(stream)
+    rig.check(tickets)
+    chunks = list(tickets[1][0].chunks(timeout=5))
+    assert torch.equal(torch.cat(chunks), expect)
+    assert rig.servers[T].snapshot()["stream_chunks"] == len(chunks)
 
 
 def test_express_lane_finishes_while_bulk_in_flight():
@@ -297,16 +366,28 @@ def test_concurrent_clients_share_one_tick():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
+    """Every server option is ported: ``num_shards`` builds a sharded
+    engine on the server's device, a ``mesh`` must be a device list, and
+    the argument checks stay."""
     eng = T.RelationalMemoryEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TS.QueryServer(num_shards=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    sharded = TS.QueryServer(num_shards=2, device="cpu").engine
+    assert isinstance(sharded, T.ShardedEngine) and sharded.backend == "sharded"
+    assert sharded.num_shards == 2 and sharded.device == torch.device("cpu")
+    meshed = TS.QueryServer(mesh=["cpu", torch.device("cpu")]).engine
+    assert meshed.num_shards == 2 and meshed.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="sequence of devices"):
         TS.QueryServer(mesh=object())
+    with pytest.raises(TypeError, match="sequence of devices"):
+        TS.QueryServer(mesh="cpu")
     assert TS.QueryServer(eng, wal=T.WriteAheadLog()).snapshot()["wal_records"] == 0
     with pytest.raises(ValueError, match="not both"):
         TS.QueryServer(eng, num_shards=2)
     with pytest.raises(ValueError, match="overload"):
         TS.QueryServer(eng, overload="drop")
+    with pytest.raises(ValueError, match="not both"):
+        TS.QueryServer(eng, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TS.QueryServer()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TS.QueryServer(num_shards=2)

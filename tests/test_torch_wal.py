@@ -1,5 +1,6 @@
-"""The write-ahead log on the port: the single-backend cases of
-``tests/test_wal.py`` on both packages, and logs carried across.
+"""The write-ahead log on the port: the cases of ``tests/test_wal.py`` on
+both packages (recovered tables served by the single-device and the sharded
+engine), and logs carried across.
 
 A server crash may tear the WAL at any record boundary or corrupt its tail
 record; recovery must rebuild, from the surviving prefix, a table whose
@@ -32,6 +33,12 @@ class Side:
         if self.core is J:
             return J.RelationalMemoryEngine(revision="xla")
         return T.RelationalMemoryEngine(device="cpu")
+
+    def sharded_engine(self):
+        if self.core is J:
+            from repro.core.distributed import ShardedEngine
+            return ShardedEngine(num_shards=2, revision="xla")
+        return T.ShardedEngine(num_shards=2, device="cpu")
 
     def schema(self, strings=False):
         c = self.core
@@ -208,6 +215,63 @@ class TestRecoveredTableServes:
         srv.drain()
         assert float(np.asarray(tk.result())) == float(
             np.sum(np.asarray(recovered.read_column("b"), np.float64)))
+
+
+@PKGS
+class TestShardedRecoveredTableServes:
+    """``tests/test_wal.py::TestRecoveredTableServes[sharded]``: a recovered
+    table served by a 2-shard engine equals the live table, and the port's
+    results equal the JAX package's."""
+
+    def test_full_recovery_serves_identically(self, side):
+        wal, t, _ = logged_history(side)
+        recovered = side.core.RelationalTable.recover(wal, t.uid)
+        ops = lambda tab: [side.core.AggregateOp(tab, "b"),  # noqa: E731
+                           side.core.GroupByOp(tab, "g", "b", num_groups=8)]
+        live = to_np(side.sharded_engine().execute_many(ops(t)))
+        redo = to_np(side.sharded_engine().execute_many(ops(recovered)))
+        for a, b, c in zip(live, redo, to_np(aggregate_and_groupby(side, t))):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)  # == the single-device engine
+
+    def test_every_truncation_prefix_serves_identically(self, side):
+        wal, t, states = logged_history(side)
+        bounds = wal.boundaries()
+        for k in range(1, len(bounds)):
+            recovered = side.core.RelationalTable.recover(wal.truncated(bounds[k]), t.uid)
+            words, row_count, clock = states[k - 1]
+            reference = side.core.RelationalTable(side.schema(), capacity=max(row_count, 16))
+            reference._words[:row_count] = words
+            reference.row_count, reference._clock = row_count, clock
+            live = side.sharded_engine().execute_many([side.core.AggregateOp(reference, "b")])
+            redo = side.sharded_engine().execute_many([side.core.AggregateOp(recovered, "b")])
+            np.testing.assert_array_equal(to_np(live)[0], to_np(redo)[0])
+
+    def test_recovered_table_accepts_new_writes(self, side):
+        wal, t, _ = logged_history(side)
+        recovered = side.core.RelationalTable.recover(wal.corrupted_tail(), t.uid)
+        srv = side.serve.QueryServer(side.sharded_engine())
+        srv.submit_insert(recovered, _cols(np.random.default_rng(9), 4))
+        tk = srv.submit(side.core.plan(recovered).aggregate("b"))
+        srv.drain()
+        assert float(np.asarray(tk.result())) == float(
+            np.sum(np.asarray(recovered.read_column("b"), np.float64)))
+
+
+def test_sharded_recovery_equal_across_packages():
+    """The recovered table's sharded results and stats, JAX against port."""
+    outs = []
+    for side in SIDES:
+        wal, t, _ = logged_history(side)
+        recovered = side.core.RelationalTable.recover(wal, t.uid)
+        eng = side.sharded_engine()
+        res = eng.execute_many([side.core.AggregateOp(recovered, "b"),
+                                side.core.GroupByOp(recovered, "g", "b", num_groups=8)])
+        outs.append((to_np(res), dataclasses.asdict(eng.stats)))
+    (ja, js), (ta, ts) = outs
+    for a, b in zip(ja, ta):
+        np.testing.assert_array_equal(b, a)
+    assert js == ts
 
 
 # ------------------------------------------------------ across the packages
