@@ -126,6 +126,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1002,34 +1003,125 @@ def lm_serve_phase(torch, seed: int) -> dict:
     return out
 
 
-def oracle_batch(table, results, ts: int | None, chunks: int) -> None:
-    """The mixed batch's results against numpy over the host table."""
+# the words the mixed batch (and the engine's solo steps) read
+BATCH_WORDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15)
+# table uid -> (version, {word: contiguous column}) for the numpy oracles
+_HOST_COLUMNS: dict = {}
+
+
+def host_columns(table, *words) -> list:
+    """Contiguous copies of ``table``'s word columns for the numpy oracles.
+
+    A column of the row-major host buffer is a strided read of all of it, so
+    each is taken once, a thread a column, and kept while the table's
+    version (row count, mutation count) stands: equal versions mean
+    byte-identical storage.  A write drops the table's columns.
+    """
+    ver, cols = _HOST_COLUMNS.get(table.uid, (None, {}))
+    if ver != table.version:
+        ver, cols = table.version, {}
+        _HOST_COLUMNS[table.uid] = (ver, cols)
     w = table.words()
-    vis = (np.ones(len(w), bool) if ts is None
-           else (w[:, 16] <= ts) & (ts < w[:, 17]))
+    missing = [i for i in dict.fromkeys(words) if i not in cols]
+    if missing:
+        with ThreadPoolExecutor(min(8, len(missing))) as pool:
+            cols.update(zip(missing, pool.map(
+                lambda i: np.ascontiguousarray(w[:, i]), missing)))
+    return [cols[i] for i in words]
+
+
+def same_block(block, cols, mask=None) -> bool:
+    """A ``(N, k)`` result block equals ``k`` numpy columns (zero where
+    ``mask`` is false), compared a thread a column."""
+    b = block.cpu().numpy()
+    if b.shape != (len(cols[0]), len(cols)):
+        return False
+
+    def eq(i):
+        want = cols[i] if mask is None else np.where(mask, cols[i], 0)
+        return np.array_equal(b[:, i], want)
+
+    with ThreadPoolExecutor(len(cols)) as pool:
+        return all(pool.map(eq, range(len(cols))))
+
+
+def visible(table, ts: int | None):
+    """The rows a snapshot at ``ts`` sees (every row without one)."""
+    if ts is None:
+        return np.ones(table.row_count, bool)
+    begin, end = host_columns(table, 16, 17)
+    return (begin <= ts) & (ts < end)
+
+
+# (table uid, version, ts) -> the mixed batch's expected results; one entry
+_BATCH_WANT: dict = {}
+
+
+def batch_expectation(table, ts: int | None) -> dict:
+    """What the mixed batch must return at ``ts``, from numpy over the host
+    columns.  Kept for the table's version and ``ts``, so a second engine's
+    batch over the same state is only compared."""
+    key = (table.uid, table.version, ts)
+    if key in _BATCH_WANT:
+        return _BATCH_WANT[key]
+    w = dict(zip(BATCH_WORDS, host_columns(table, *BATCH_WORDS)))
+    vis = None if ts is None else visible(table, ts)
+
+    def seen(m):
+        return m if vis is None else m & vis
+
+    def total(col, pred):
+        m = seen(pred(w))
+        v = np.where(m, w[col], 0)
+        return (int(v.sum(dtype=np.int64)), int(np.abs(v, dtype=np.int64).sum()),
+                int(m.sum()))
+
+    def filtered():
+        m = seen(w[3] > 0)
+        return m, [np.where(m, w[1], 0), np.where(m, w[2], 0)]
+
+    def groups():
+        gid = np.mod(w[15], 16)
+        g = w[7] if vis is None else np.where(vis, w[7], 0)
+        return [np.bincount(gid, weights=vis, minlength=16),
+                np.bincount(gid, weights=g, minlength=16),
+                np.bincount(gid, weights=np.abs(g), minlength=16)]
+
+    # independent pieces, a thread each (numpy lets go of the GIL)
+    with ThreadPoolExecutor(4) as pool:
+        parts = [pool.submit(total, 5, lambda w: w[6] < 100),
+                 pool.submit(total, 8, lambda w: w[9] > -500),
+                 pool.submit(filtered), pool.submit(groups)]
+        agg, agg2, (fmask, fcols), (count, sums, absval) = [f.result() for f in parts]
+    want = {"w": w, "fmask": fmask, "fcols": fcols, "aggs": [agg, agg2],
+            "count": count, "sum": sums, "abs": absval}
+    _BATCH_WANT.clear()
+    _BATCH_WANT[key] = want
+    return want
+
+
+def oracle_batch(table, results, ts: int | None, chunks: int,
+                 blocks: bool = True) -> None:
+    """The mixed batch's results against numpy over the host table;
+    ``blocks=False`` checks the sums and counts alone (for an engine whose
+    blocks were already held bit-equal to a checked engine's)."""
+    want = batch_expectation(table, ts)
+    w = want["w"]
     packed, sub, (fp, fm), (fp2, fm2), agg, (gs, gc), agg2 = results
-    proj = w[:, [0, 4, 8, 12]]
-    assert np.array_equal(packed.cpu().numpy(), proj)
-    assert np.array_equal(sub.cpu().numpy(), w[:, [0, 4]])
-    m = (w[:, 3] > 0) & vis
-    want = np.where(m[:, None], w[:, [1, 2]], 0)
-    for p_, m_ in ((fp, fm), (fp2, fm2)):
-        assert np.array_equal(m_.cpu().numpy(), m)
-        assert np.array_equal(p_.cpu().numpy(), want)
-    for got, col, pred in ((agg, 5, w[:, 6] < 100), (agg2, 8, w[:, 9] > -500)):
-        m = pred & vis
-        v = w[m, col].astype(np.float64)
+    if blocks:
+        assert same_block(packed, [w[0], w[4], w[8], w[12]])
+        assert same_block(sub, [w[0], w[4]])
+        same = fp2 is fp and fm2 is fm  # the duplicate filter, deduplicated
+        for p_, m_ in [(fp, fm)] + ([] if same else [(fp2, fm2)]):
+            assert np.array_equal(m_.cpu().numpy(), want["fmask"])
+            assert same_block(p_, want["fcols"])
+    for got, (total, absval, count) in zip((agg, agg2), want["aggs"]):
         host = got.cpu().numpy()
-        assert count_ok(host[1], int(m.sum()), chunks), (host, m.sum())
-        assert abs(host[0] - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
-    gid = np.mod(w[:, 15].astype(np.int64), 16)
-    m = vis
-    want_c = np.bincount(gid[m], minlength=16)
-    want_s = np.bincount(gid[m], weights=w[m, 7].astype(np.float64), minlength=16)
-    abs_s = np.bincount(gid[m], weights=np.abs(w[m, 7]).astype(np.float64), minlength=16)
+        assert count_ok(host[1], count, chunks), (host, count)
+        assert abs(host[0] - total) <= SUM_RTOL * absval + 1e-3
     # per-group counts stay below 2^24 at the smoke size: exact
-    assert np.array_equal(gc.cpu().numpy(), want_c.astype(np.float32))
-    assert np.all(np.abs(gs.cpu().numpy() - want_s) <= SUM_RTOL * abs_s + 1e-3)
+    assert np.array_equal(gc.cpu().numpy(), want["count"].astype(np.float32))
+    assert np.all(np.abs(gs.cpu().numpy() - want["sum"]) <= SUM_RTOL * want["abs"] + 1e-3)
 
 
 def mixed_ops(eng, table, ts):
@@ -1080,7 +1172,8 @@ def engine_phase(torch, table, seed: int, breakers: list) -> dict:
         return b.submit()[0]
 
     packed = step("solo_project", solo_project, n)
-    assert np.array_equal(packed.cpu().numpy(), table.words()[:, [0, 4, 8, 12]])
+    w = dict(zip(BATCH_WORDS, host_columns(table, *BATCH_WORDS)))
+    assert same_block(packed, [w[0], w[4], w[8], w[12]])
     del packed
 
     def solo_filter():
@@ -1089,15 +1182,14 @@ def engine_phase(torch, table, seed: int, breakers: list) -> dict:
         return b.submit()[0]
 
     fp, fm = step("solo_filter", solo_filter, n)
-    w = table.words()
-    m = w[:, 3] > 0
+    m = w[3] > 0
     assert np.array_equal(fm.cpu().numpy(), m)
-    assert np.array_equal(fp.cpu().numpy(), np.where(m[:, None], w[:, [1, 2]], 0))
+    assert same_block(fp, [w[1], w[2]], m)
     del fp, fm
 
     s, c = step("solo_aggregate", lambda: eng.aggregate(table, "A6", "A7", "lt", 100), n)
-    m = w[:, 6] < 100
-    v = w[m, 5].astype(np.float64)
+    m = w[6] < 100
+    v = w[5][m].astype(np.float64)
     assert count_ok(c, int(m.sum())) and abs(s - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
 
     def solo_groupby():
@@ -1106,10 +1198,10 @@ def engine_phase(torch, table, seed: int, breakers: list) -> dict:
         return b.submit()[0]
 
     gs, gc = step("solo_groupby", solo_groupby, n)
-    gid = np.mod(w[:, 15].astype(np.int64), 16)
+    gid = np.mod(w[15].astype(np.int64), 16)
     assert np.array_equal(gc.cpu().numpy(), np.bincount(gid, minlength=16).astype(np.float32))
-    want = np.bincount(gid, weights=w[:, 7].astype(np.float64), minlength=16)
-    absw = np.bincount(gid, weights=np.abs(w[:, 7]).astype(np.float64), minlength=16)
+    want = np.bincount(gid, weights=w[7].astype(np.float64), minlength=16)
+    absw = np.bincount(gid, weights=np.abs(w[7]).astype(np.float64), minlength=16)
     assert np.all(np.abs(gs.cpu().numpy() - want) <= SUM_RTOL * absw + 1e-3)
 
     res = step("mixed_batch", lambda: eng.execute_many(mixed_ops(eng, table, None)), n)
@@ -1213,15 +1305,15 @@ def tick_c_reads(S, R) -> list:
             join().join(R, key="A2", left_proj="A1", right_proj="A5")]
 
 
-def join_oracle(w, R, ts: int | None, proj_word: int):
-    """(s_proj, r_proj, matched) of ``S.A2 = R.A2`` over S's words ``w``:
+def join_oracle(S, R, ts: int | None, proj_word: int):
+    """(s_proj, r_proj, matched) of ``S.A2 = R.A2`` over S's host words:
     R's key is its row number, so a probe key in range matches row key."""
-    key = w[:, 1].astype(np.int64)
-    vis = np.ones(len(w), bool) if ts is None else (w[:, 16] <= ts) & (ts < w[:, 17])
+    s_val, key = host_columns(S, 0, 1)
+    vis = visible(S, ts)
     matched = vis & (key >= 0) & (key < R.row_count)
-    r_vals = R.words()[:, proj_word]
+    r_vals, = host_columns(R, proj_word)
     r = np.where(matched, r_vals[np.clip(key, 0, R.row_count - 1)], 0)
-    return np.where(vis, w[:, 0], 0), r, matched
+    return np.where(vis, s_val, 0), r, matched
 
 
 def check_join(res, want) -> None:
@@ -1231,30 +1323,30 @@ def check_join(res, want) -> None:
 
 def server_oracle(torch, tick: str, results, S, R, ts: int | None) -> None:
     """Every ticket of a tick against numpy over the host tables."""
-    w = S.words()
+    w = dict(zip((0, 2, 3, 4), host_columns(S, 0, 2, 3, 4)))
     if tick in ("A", "B"):
-        check_join(results[0], join_oracle(w, R, None, 2))
+        check_join(results[0], join_oracle(S, R, None, 2))
         if tick == "A":
-            assert np.array_equal(results[1].cpu().numpy(), w[:, [0, 3]])
+            assert same_block(results[1], [w[0], w[3]])
         return
     total, avg, (packed, mask), one, chain = results
-    vis = (w[:, 16] <= ts) & (ts < w[:, 17])
-    m = vis & (w[:, 2] > 100)
-    v = w[m, 0].astype(np.float64)
+    vis = visible(S, ts)
+    m = vis & (w[2] > 100)
+    v = w[0][m].astype(np.float64)
     assert abs(total - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3, (total, v.sum())
-    gid = np.mod(w[:, 3].astype(np.int64), 16)[vis]
+    gid = np.mod(w[3].astype(np.int64), 16)[vis]
     cnt = np.bincount(gid, minlength=16)
-    sums = np.bincount(gid, weights=w[vis, 0].astype(np.float64), minlength=16)
-    abs_s = np.bincount(gid, weights=np.abs(w[vis, 0]).astype(np.float64), minlength=16)
+    sums = np.bincount(gid, weights=w[0][vis].astype(np.float64), minlength=16)
+    abs_s = np.bincount(gid, weights=np.abs(w[0][vis]).astype(np.float64), minlength=16)
     got = avg.cpu().numpy().astype(np.float64)
     assert np.all(np.abs(got - sums / np.maximum(cnt, 1))
                   <= (SUM_RTOL * abs_s + 1e-3) / np.maximum(cnt, 1)), (got, sums / cnt)
     assert np.array_equal(mask.cpu().numpy(), vis)
-    assert np.array_equal(packed.cpu().numpy(), np.where(vis[:, None], w[:, [0, 4]], 0))
-    want = join_oracle(w, R, ts, 2)
+    assert same_block(packed, [w[0], w[4]], vis)
+    want = join_oracle(S, R, ts, 2)
     check_join(one, want)
     s_want, r3, matched = want
-    r5 = join_oracle(w, R, ts, 4)[1]
+    r5 = join_oracle(S, R, ts, 4)[1]
     assert np.array_equal(chain.matched.cpu().numpy(), matched)
     assert np.array_equal(chain.s_proj.cpu().numpy(), np.where(matched, s_want, 0))
     assert np.array_equal(chain.r_projs[0].cpu().numpy(), r3)
@@ -1440,9 +1532,9 @@ def sharded_phase(torch, S, R, seed: int, breakers: list, single_ticks: dict) ->
     del a, b
     a, b = clock.pair("lone_aggregate", lambda: single.aggregate(S, "A6", "A7", "lt", 100),
                       lambda: eng.aggregate(S, "A6", "A7", "lt", 100), n)
-    w = S.words()
-    m = w[:, 6] < 100
-    v = w[m, 5].astype(np.float64)
+    agg, pred = host_columns(S, 5, 6)
+    m = pred < 100
+    v = agg[m].astype(np.float64)
     for s_, c_ in (a, b):
         assert count_ok(c_, int(m.sum()), SHARDS)
         assert abs(s_ - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
@@ -1462,19 +1554,27 @@ def sharded_phase(torch, S, R, seed: int, breakers: list, single_ticks: dict) ->
                       lambda: eng.execute_many(mixed_ops(eng, S, ts)), S.row_count)
     assert_same_blocks(torch, a, b)
     oracle_batch(S, b, ts, SHARDS + 1)
-    oracle_batch(S, a, ts, 2)  # the single engine: base + one tail
+    # the single engine (base + one tail): its blocks equal the sharded ones
+    oracle_batch(S, a, ts, 2, blocks=False)
     del a, b
 
     # the solo join S.A2 = R.A2: one build, one broadcast, every shard probes
     def join(e):
         return compile_plan(plan(S).join(R, key="A2", left_proj="A1", right_proj="A3"), e).run()
 
+    def cold_join(e):
+        # both engines share the planner's build cache (keyed by device):
+        # each cold side pays the key check and R's build itself
+        planner.clear_join_build_cache()
+        return join(e)
+
     coll = (eng.stats.bytes_collective, eng.stats.collective_ops)
-    a, b = clock.pair("solo_join", lambda: join(single), lambda: join(eng), S.row_count)
+    a, b = clock.pair("solo_join", lambda: cold_join(single), lambda: cold_join(eng),
+                      S.row_count)
     (bparts, _), = eng._bcast_parts.values()
     assert (eng.stats.bytes_collective - coll[0],
             eng.stats.collective_ops - coll[1]) == ((SHARDS - 1) * bparts.nbytes, 1)
-    want = join_oracle(S.words(), R, None, 2)
+    want = join_oracle(S, R, None, 2)
     for res in (a, b):
         check_join(res, want)
     assert_same_blocks(torch, [a], [b])
@@ -1552,28 +1652,29 @@ def sharded_phase(torch, S, R, seed: int, breakers: list, single_ticks: dict) ->
     r_geom = TableGeometry.from_schema(R.schema, ["A2", "A3"], R.row_count)
     free0 = dict(_cuda.LAUNCHES)
     packed = clock.solo("dist_project", lambda: D.dist_project(words, geom, mesh, valid_rows=n), n)
-    assert np.array_equal(packed[:n].cpu().numpy(), w[:, [0, 4]])
+    c0, c1, c2, c4 = host_columns(S, 0, 1, 2, 4)
+    assert same_block(packed[:n], [c0, c4])
     del packed
     agg = clock.solo("dist_aggregate", lambda: D.dist_aggregate(
         words, mesh, agg_word=0, pred_word=2, pred_op="gt", pred_k=100, valid_rows=n), n)
-    m = w[:, 2] > 100
-    v = w[m, 0].astype(np.float64)
+    m = c2 > 100
+    v = c0[m].astype(np.float64)
     host = agg.cpu().numpy()
     assert count_ok(host[1], int(m.sum()), SHARDS)
     assert abs(host[0] - v.sum()) <= SUM_RTOL * np.abs(v).sum() + 1e-3
     gs, gc_ = clock.solo("dist_groupby", lambda: D.dist_groupby(
         words, mesh, group_word=1, agg_word=0, num_groups=16, valid_rows=n), n)
-    gid = np.mod(w[:, 1].astype(np.int64), 16)
+    gid = np.mod(c1.astype(np.int64), 16)
     want_c = np.bincount(gid, minlength=16)
     assert all(count_ok(x, int(y), SHARDS) for x, y in zip(gc_.cpu().numpy(), want_c))
-    want_s = np.bincount(gid, weights=w[:, 0].astype(np.float64), minlength=16)
-    abs_s = np.bincount(gid, weights=np.abs(w[:, 0]).astype(np.float64), minlength=16)
+    want_s = np.bincount(gid, weights=c0.astype(np.float64), minlength=16)
+    abs_s = np.bincount(gid, weights=np.abs(c0).astype(np.float64), minlength=16)
     assert np.all(np.abs(gs.cpu().numpy() - want_s) <= SUM_RTOL * abs_s + 1e-3)
     res = clock.solo("dist_join", lambda: D.dist_join(
         words, r_words, mesh, s_geom, r_geom, s_key_word=1, s_val_word=0, r_key_word=0,
         r_val_word=1, s_valid_rows=n, r_valid_rows=R.row_count), n)
-    s_want, r_want, m_want = join_oracle(w, R, None, 2)
-    for got, exp in zip(res, (w[:, 0], r_want, m_want)):
+    s_want, r_want, m_want = join_oracle(S, R, None, 2)
+    for got, exp in zip(res, (c0, r_want, m_want)):
         assert np.array_equal(got[:n].cpu().numpy(), exp)
     free = {k: _cuda.LAUNCHES[k] - free0[k] for k in ("project", "aggregate", "groupby_sum")}
     assert all(v >= SHARDS for v in free.values()), free  # a launch a shard at least

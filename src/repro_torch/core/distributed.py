@@ -33,9 +33,9 @@ Two layers live here:
 
 Deliberate differences from the reference (``ROADMAP.md`` §3):
 
-* **A mesh is a device list**: ``mesh`` is a sequence of devices, one per
-  shard, each resolved as the engine's own device is (the counterpart of
-  ``mesh.devices.flat``).  ``num_shards`` without a mesh gives logical
+* **A mesh is a device list**: ``mesh`` is a sequence of devices of one
+  type, one per shard, each resolved as the engine's own device is (the
+  counterpart of ``mesh.devices.flat``).  ``num_shards`` without a mesh gives logical
   shards on the engine's ``device`` — the card unless the caller asks for
   the CPU.
 * **No named mesh axes**: the ``dist_*`` operators take no ``axes``, and
@@ -80,14 +80,23 @@ from .table import RelationalTable
 
 
 def mesh_devices(mesh) -> list[torch.device]:
-    """The port's mesh: a sequence of devices, one per shard, each resolved
-    by :func:`~repro_torch.kernels.common.resolve_device`."""
+    """The port's mesh: a sequence of devices of one type, one per shard,
+    each resolved by :func:`~repro_torch.kernels.common.resolve_device`.
+
+    A mesh never mixes the card and the host: a shard's tensors and the
+    root's then share a type, so a card shard never fails over to a host
+    root, and a card chunk never takes the breaker's plain route.
+    """
     if isinstance(mesh, (str, torch.device)) or not isinstance(mesh, Sequence):
         raise TypeError(
             f"a mesh is a sequence of devices, one per shard; got "
             f"{type(mesh).__name__}")
     if not mesh:
         raise ValueError("a mesh needs at least one device")
+    types = {torch.device("cuda" if d is None else d).type for d in mesh}
+    if len(types) > 1:
+        raise ValueError(
+            f"a mesh holds devices of one type; got {sorted(types)}")
     return [common.resolve_device(d) for d in mesh]
 
 
@@ -541,9 +550,9 @@ class ShardedEngine(RelationalMemoryEngine):
       collective, O(build rows)); each shard probes its own rows in place
       with the hash-join probe kernel.
 
-    ``mesh`` is a sequence of devices: shard ``s``'s buffers live on
-    ``mesh[s]`` and the first is the root (the engine's ``device``, where
-    results and the join build land).  ``num_shards`` without a mesh runs
+    ``mesh`` is a sequence of devices of one type: shard ``s``'s buffers
+    live on ``mesh[s]`` and the first is the root (the engine's ``device``,
+    where results and the join build land).  ``num_shards`` without a mesh runs
     the identical code path as logical shards on ``device`` — the card
     unless the caller passes ``"cpu"``.  Results equal the single-device
     engine's; exact float equality of re-associated sums holds whenever the
@@ -742,8 +751,8 @@ class ShardedEngine(RelationalMemoryEngine):
         """Re-execute a failed shard's chunks on the root device.
 
         ``scan_multi`` serves the same request tuple over the same chunk
-        rows — the CUDA kernel on a card root, the plain version on a CPU
-        one — so the per-chunk outputs, and everything combined from them,
+        rows — the CUDA kernel on a card mesh, the plain version on a host
+        one (a mesh never mixes the two) — so the per-chunk outputs, and everything combined from them,
         equal the healthy shard pass.  Charged as one ``failovers`` event
         plus the shard's row bytes re-shipped (``bytes_failover``).
         """

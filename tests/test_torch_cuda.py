@@ -937,3 +937,19 @@ def test_sharded_real_kernel_error_propagates(dev):
         eng._serve_scan(t, bad)
     assert (eng.stats.retries, eng.stats.failovers, eng.stats.bytes_failover) == (0, 0, 0)
     assert eng.shard_health() == ["healthy"] * 4
+
+
+@pytest.mark.parametrize("mesh", [["cpu", "cuda"], ["cuda", "cpu"], [None, "cpu"]])
+def test_sharded_mesh_of_mixed_devices_raises(dev, mesh):
+    """A mesh never mixes the card and the host: a card shard can then
+    neither fail over to a host root nor take the breaker's plain route."""
+    from repro_torch.core import ShardedEngine
+    from repro_torch.core.distributed import dist_aggregate
+    from repro_torch.serve import QueryServer
+
+    for build in (lambda: ShardedEngine(mesh=mesh), lambda: QueryServer(mesh=mesh),
+                  lambda: dist_aggregate(torch.zeros((4, 18), dtype=torch.int32), mesh,
+                                         agg_word=0)):
+        with pytest.raises(ValueError, match="devices of one type"):
+            build()
+    assert ShardedEngine(mesh=[dev, dev]).device.type == "cuda"

@@ -464,6 +464,10 @@ def test_mesh_and_device_arguments():
         port_sharded(0)
     with pytest.raises(ValueError, match="unsupported device"):
         T.ShardedEngine(mesh=["meta"])
+    # one device type a mesh, checked before any device is resolved
+    for mixed in (["cpu", "cuda"], [None, torch.device("cpu")]):
+        with pytest.raises(ValueError, match="devices of one type"):
+            T.ShardedEngine(mesh=mixed)
     if not torch.cuda.is_available():
         for kw in ({"num_shards": 4}, {"mesh": ["cuda"]}):
             with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -86,7 +86,7 @@ def test_sharded_backend_defaults_to_the_card(entry):
     from repro_torch.serve import QueryServer
 
     calls = {"ShardedEngine": lambda: ShardedEngine(num_shards=4),
-             "mesh": lambda: ShardedEngine(mesh=["cpu", None]),
+             "mesh": lambda: ShardedEngine(mesh=[None, None]),
              "QueryServer": lambda: QueryServer(num_shards=4)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
