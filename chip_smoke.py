@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
 sharded backend, the paper's three projection revisions, the selection
-entry points and the LM serving path (``qwen3-8b`` at full width) on one
-NVIDIA GPU.
+entry points and the LM serving path (``qwen3-8b`` at full width, bf16 and
+int8) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -71,13 +71,17 @@ probe rows matching — all made from ``--seed``:
    three views and ``select_compact`` + ``densify`` at the four
    selectivities, every result against numpy;
 9. releases S, R and the engines, then the LM phases:
-   a. card against CPU: ``qwen3-8b-smoke`` served by a ``ServeSession`` on
-      the card and one on the CPU with the same weights (drawn from
+   a. card against CPU: the smokes of ``qwen3-8b`` and of the two QKV-bias
+      decoders, ``qwen1.5-110b`` and ``internlm2-20b``, each served by a
+      ``ServeSession`` on the card (decode steps replayed from a CUDA
+      graph) and one on the CPU with the same weights (drawn from
       ``--seed``), 5 requests over 2 slots: at float32 compute the token
       lists are equal and every prefill's and decode step's logits agree
       within 1e-4; at bfloat16 compute every prefill's logits agree within
       5e-2 (the card's kernel scales q in float32, the CPU's blockwise path
-      in bf16, and the two frameworks round bf16 matmuls apart);
+      in bf16, and the two frameworks round bf16 matmuls apart); then
+      ``qwen3-8b-smoke`` int8-quantized at float32 compute (the W8 kernel
+      in its decode steps), tokens equal and logits within 1e-4;
    b. the flash-attention kernel against its plain version on the card
       (bf16 within 2^-7 of each value plus 2e-3) at the serving path's
       prefill shape (B 8, S 2,048, 32 query / 8 KV heads, D 128, causal),
@@ -85,17 +89,30 @@ probe rows matching — all made from ``--seed``:
       local layer's (32 / 16 heads, window 1,024), timed beside its bound
       and one ``scaled_dot_product_attention`` call (a yardstick the port
       never calls);
-   c. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
+   c. the W8 kernel (``csrc/rm_w8.cu``) against its plain version (the
+      dequant, then ``torch.matmul``) and against the exact product at a
+      qwen3-8b layer's four decode shapes (M 8; K x N 4,096 x 4,096,
+      4,096 x 1,024, 4,096 x 12,288, 12,288 x 4,096), bf16 and float32
+      (``W8_SUM_RTOL``), timed beside its bound and one ``torch.matmul`` of
+      x against the weight dequantized beforehand;
+   d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
       serving 16 requests with prompts of 1,024–2,048 tokens and 16 new
-      tokens each: every request gets 16 tokens inside the vocab, every
-      logit row is finite, the kernel launched once per layer and prefill,
-      and its output on the q, k, v of layers 0 and 35 (taken with a forward
-      hook in the first prefill) is the path's and matches the plain
-      version as in b; then one more prefill and one decode step are
-      warmed, timed and traced (``torch.profiler``: device-busy time,
-      launches, the profiled step's idle share, top kernels);
+      tokens each, its decode steps replayed from a CUDA graph: every
+      request gets 16 tokens inside the vocab, every logit row is finite,
+      the flash kernel launched once per layer and prefill, and its output
+      on the q, k, v of layers 0 and 35 (taken with a forward hook in the
+      first prefill) is the path's and matches the plain version as in b;
+      one replayed decode step is bit-equal to an eager ``decode_step`` on
+      a copy of the same cache; then one more prefill, one replayed and one
+      eager decode step are warmed, timed and traced (``torch.profiler``:
+      device-busy time, launches, the profiled step's idle share, top
+      kernels);
+   e. the same model int8-quantized in place (``quantize_for_serving``,
+      timed, its peak memory) and the same 16 requests served and checked
+      as in d, the W8 kernel launched 252 times a decode step (7 products
+      of 36 layers), and the dequant's device time in an int8 prefill;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -104,7 +121,9 @@ Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
-LM serve phase for ``flash_attention``; the sharded phase's own path (its
+LM serve phase's two runs for ``flash_attention`` and its int8 run for
+``w8_matmul`` (a CUDA graph's replay counts the kernels it launches, the
+capture none); the sharded phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe.
@@ -155,8 +174,11 @@ REPLACES = {
     "select_compact": "src/repro/kernels/rme_select.py:35",
     "flash_attention": "src/repro/kernels/flash_attention.py:36",
 }
+# kernels with no Pallas counterpart: what of the reference each replaces
+FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51"}
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
+           "w8_matmul": "src/repro_torch/csrc/rm_w8.cu",
            "project_pck": "src/repro_torch/csrc/rm_project.cu",
            "project_bsl": "src/repro_torch/csrc/rm_project.cu",
            "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
@@ -180,6 +202,13 @@ LM_PROMPT = (1024, 2048)
 LM_MAX_NEW = 16
 LM_REQUESTS = 16
 LM_CHECK_LAYERS = (0, 35)
+# the card-against-CPU smokes: qwen3-8b's, then the two QKV-bias decoders'
+LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b")
+# (K, N) of a qwen3-8b layer's decode products at M = 8 rows, and how many
+# of each a layer runs: wq and wo, wk and wv, w_gate and w_up, w_down
+W8_SHAPES = (((4096, 4096), 2), ((4096, 1024), 2), ((4096, 12288), 2),
+             ((12288, 4096), 1))
+W8_ROWS = LM_SLOTS
 # (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer
 # and of a gemma3-27b local layer on the path's batch
 FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
@@ -190,6 +219,12 @@ FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
 # (the bf16 kernel's 128-key tiles against the plain version's 256), on
 # outputs near 0; float32 output: summation order alone
 FLASH_TOL = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (0.0, 1e-4)}
+# the W8 kernel against the exact product of x and the dequantized weight:
+# the float32 sum within W8_SUM_RTOL of sum(|x| |w|) (its order), and in bf16
+# also half a bf16 step of the value (the output's one rounding); against
+# the plain version (cuBLAS, reduced-precision bf16 reductions off) the same
+# sum term twice and one whole bf16 step (two roundings)
+W8_SUM_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -228,7 +263,9 @@ def device_ms(torch, fn, reps: int) -> tuple[float | None, list]:
     over ``reps`` calls after a warm-up; and ``[kernel, ms per call,
     launches per call]`` for each.  A trace that holds no device time, or
     lost launches (a kernel counted other than a multiple of ``reps``
-    times), is taken once more; then ``None``."""
+    times), is taken once more; then a kernel that lost launches counts its
+    mean time a launch, times its launches a call rounded (at least one),
+    and ``None`` only where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,7 +284,10 @@ def device_ms(torch, fn, reps: int) -> tuple[float | None, list]:
         split = [[e.key[:60], dev_us(e) / 1e3 / reps, e.count / reps] for e in kernels]
         if kernels and not any(e.count % reps for e in kernels):
             return sum(dev_us(e) for e in kernels) / 1e3 / reps, split
-    return None, split
+    if not kernels:
+        return None, split
+    per_call = [dev_us(e) / e.count * max(1, round(e.count / reps)) for e in kernels]
+    return sum(per_call) / 1e3, split
 
 
 def device_fields(torch, fn, reps: int) -> dict:
@@ -729,43 +769,56 @@ def recorded(torch, fn, log: list, sync: bool):
 
 def serve_session(torch, model, prompts, slots: int, max_len: int, max_new: int,
                   sync: bool):
-    """Serve ``prompts`` on a fresh session; returns the requests and the
-    recorded prefills and decode steps."""
+    """Serve ``prompts`` on a fresh session; returns the requests, the
+    recorded prefills and decode steps, and the session's decode step."""
     from repro_torch.serve import Request, ServeSession
 
     sess = ServeSession(model, batch_slots=slots, max_len=max_len)
     prefills, decodes = [], []
+    step = sess.decode_fn
     sess.prefill_fn = recorded(torch, sess.prefill_fn, prefills, sync)
     sess.decode_fn = recorded(torch, sess.decode_fn, decodes, sync)
     reqs = [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     for r in reqs:
         sess.submit(r)
     sess.run_to_completion()
-    return reqs, prefills, decodes
+    return reqs, prefills, decodes, step
 
 
 def lm_reference_phase(torch, seed: int) -> dict:
-    """qwen3-8b-smoke served on the card and on the CPU with the same
-    weights: float32 compute token lists equal and logits within 1e-4;
-    bfloat16 compute prefill logits within 5e-2."""
+    """Each smoke of ``LM_REFERENCE_ARCHS`` served on the card (graphed
+    decode steps) and on the CPU (eager) with the same weights: float32
+    compute token lists equal and logits within 1e-4; bfloat16 compute
+    prefill logits within 5e-2.  Then qwen3-8b-smoke int8-quantized at
+    float32 compute (the W8 kernel in every decode step and the prefill of
+    rows <= 64): tokens equal and logits within 1e-4."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import _cuda
+    from repro_torch.models.layers import quantize_for_serving
     from repro_torch.models.lm import DecoderLM
 
-    out = {"phase": "lm_reference", "arch": f"{LM_ARCH}-smoke"}
-    for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
-        cfg = dataclasses.replace(get_smoke_config(LM_ARCH), compute_dtype=dtype)
+    out = {"phase": "lm_reference"}
+    runs = [(arch, dtype, tol, False) for arch in LM_REFERENCE_ARCHS
+            for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2))]
+    runs.append((LM_ARCH, "float32", 1e-4, True))
+    for arch, dtype, tol, int8 in runs:
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
         cpu = DecoderLM(cfg, device="cpu", seed=seed)
         card = DecoderLM(cfg, device="cuda", seed=None)
+        if int8:
+            quantize_for_serving(cpu)
+            quantize_for_serving(card)
         card.load_state_dict(cpu.state_dict())
         prompts = lm_prompts(np.random.default_rng(seed + 5), 5, 3, 24, cfg.vocab)
         _cuda.reset_launches()
         got = serve_session(torch, card, prompts, 2, 64, 6, True)
-        launches = _cuda.LAUNCHES["flash_attention"]
+        launches = dict(_cuda.LAUNCHES)
         want = serve_session(torch, cpu, prompts, 2, 64, 6, False)
-        assert launches == cfg.n_layers * len(got[1]), (launches, len(got[1]))
+        assert launches["flash_attention"] == cfg.n_layers * len(got[1]), (
+            launches, len(got[1]))
+        assert launches["w8_matmul"] >= (7 * cfg.n_layers * len(got[2]) if int8 else 0), launches
         tokens_equal = [r.out for r in got[0]] == [r.out for r in want[0]]
         pairs = list(zip(got[1], want[1]))
         if dtype == "float32":
@@ -776,9 +829,12 @@ def lm_reference_phase(torch, seed: int) -> dict:
         for (_, a), (_, b) in pairs:
             torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
             err = max(err, float((a.cpu() - b).abs().max()))
-        out[dtype] = {"tokens_equal": tokens_equal, "max_abs_err": err,
-                      "logit_sets": len(pairs), "tolerance": tol,
-                      "flash_launches": launches}
+        out[f"{cfg.name}{'-int8' if int8 else ''}-{dtype}"] = {
+            "tokens_equal": tokens_equal, "max_abs_err": err,
+            "logit_sets": len(pairs), "tolerance": tol,
+            "flash_launches": launches["flash_attention"],
+            "w8_launches": launches["w8_matmul"]}
+        del cpu, card
     emit(out)
     return out
 
@@ -874,13 +930,106 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
     return out
 
 
-def profile_step(torch, fn) -> dict:
+def w8_bound(m: int, k: int, n: int, elem_bytes: int) -> tuple[float, str]:
+    """The least time of ``x (m, k) @ dequant(q (k, n), s)``: the int8
+    weight, the bf16 scales, x and y moved once over the memory rate,
+    against 2·m·k·n operations over the inputs' rate (bf16 on the tensor
+    cores, float32 on the CUDA cores)."""
+    t_bytes = (k * n + 2 * n + (m * k + m * n) * elem_bytes) / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / (BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def w8_check(torch, got, x, q, s, want) -> dict:
+    """``got`` against the exact product (float64) and against ``want``, the
+    plain version, with the limits of ``W8_SUM_RTOL``; raises on a miss."""
+    from repro_torch.kernels.w8_matmul import dequantize
+
+    w = dequantize(q, s, x.dtype).double()
+    exact = x.double() @ w
+    sums = x.double().abs() @ w.abs()
+    half_step = 2.0 ** -8 if x.dtype == torch.bfloat16 else 0.0
+    err = (got.double() - exact).abs()
+    share = float((err / (W8_SUM_RTOL * sums + half_step * exact.abs() + 1e-30)).max())
+    plain_err = (got.double() - want.double()).abs()
+    plain_share = float((plain_err / (2 * W8_SUM_RTOL * sums + 2 * half_step
+                                      * want.double().abs() + 1e-30)).max())
+    out = {"max_abs_err": float(plain_err.max()), "max_abs_err_exact": float(err.max()),
+           "limit_share": share, "plain_limit_share": plain_share}
+    assert share <= 1.0 and plain_share <= 1.0, out
+    return out
+
+
+def w8_phase(torch, seed: int, reps: int) -> dict:
+    """The W8 kernel against its plain version at a qwen3-8b layer's four
+    decode shapes, in bf16 and float32, timed beside its bound and one
+    ``torch.matmul`` of the same x against the weight dequantized
+    beforehand (it reads twice the bytes of a bf16 weight and does no
+    dequant).  Returns the bf16 lines and, as ``w8_matmul``, a layer's seven
+    products summed (the shapes times their count)."""
+    from repro_torch.kernels import w8_matmul as W8
+    from repro_torch.models.layers import quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    lines = {}
+    for (k, n), count in W8_SHAPES:
+        rec = quantize_weight(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
+        q, s = rec.q, rec.s
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((W8_ROWS, k), generator=g, device="cuda").to(dtype)
+            w = W8.dequantize(q, s, dtype)  # the library call's weight
+            run = lambda: W8.w8_matmul(x, q, s)  # noqa: E731
+            plain = lambda: W8.w8_matmul_torch(x, q, s)  # noqa: E731
+            library = lambda: torch.matmul(x, w)  # noqa: E731
+            got = run()
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            want = plain()
+            torch.cuda.synchronize()
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+            assert torch.equal(got, run())  # a fixed order of the split-K sums
+            bound_ms, bound_by = w8_bound(W8_ROWS, k, n, x.element_size())
+            name = f"w8_matmul_{k}x{n}_{str(dtype).split('.')[1]}"
+            line = {"phase": "kernel", "name": name,
+                    "kernel_ms": time_ms(torch, run, reps),
+                    **device_fields(torch, run, reps),
+                    "plain_ms": time_ms(torch, plain, reps),
+                    "library_ms": time_ms(torch, library, reps),
+                    "library_device_ms": device_ms(torch, library, reps)[0],
+                    "library_call": "torch.matmul (weight dequantized beforehand)",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **w8_check(torch, got, x, q, s, want),
+                    "shape": {"M": W8_ROWS, "K": k, "N": n, "dtype": str(dtype),
+                              "per_layer": count}}
+            emit(line)
+            lines[name] = line
+            del x, w, got, want
+        del rec, q, s
+        torch.cuda.empty_cache()
+    bf16 = [(lines[f"w8_matmul_{k}x{n}_bfloat16"], c) for (k, n), c in W8_SHAPES]
+
+    def total(key):
+        vals = [(ln[key], c) for ln, c in bf16]
+        return None if any(v is None for v, _ in vals) else sum(v * c for v, c in vals)
+
+    layer = {"phase": "kernel", "name": "w8_matmul", "per": "a qwen3-8b layer's 7 decode "
+             "products, bf16, M 8", **{key: total(key) for key in (
+                 "kernel_ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                 "bound_ms")},
+             "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln, _ in bf16)
+             else "operations",
+             "max_abs_err": max(ln["max_abs_err"] for ln in lines.values())}
+    emit(layer)
+    return {"w8_matmul": layer}
+
+
+def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
     """One step's time: ``fn`` once to warm up, once on the host clock
     (synced), then once more under ``torch.profiler`` — the sum of its
     kernels' device times (one stream, so they do not overlap), its
-    launches, the top five kernels, and the idle share of that profiled
-    step against its own wall time (the profiler's host cost included).
-    ``None`` where the trace holds no device time."""
+    launches, the top five kernels, the launches of the kernels whose names
+    hold one of ``count``, and the idle share of that profiled step against
+    its own wall time (the profiler's host cost included).  ``None`` where
+    the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -907,26 +1056,21 @@ def profile_step(torch, fn) -> dict:
             "device_busy_ms": busy_ms or None,
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
+            "counted": {c: sum(e.count for e in kernels if c in e.key) for c in count},
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
-def lm_serve_phase(torch, seed: int) -> dict:
-    """qwen3-8b at full width on the card through ``ServeSession``; the
-    flash kernel's launches are counted on this run alone."""
-    from repro_torch.configs import get_config
+def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
+    """Serve ``prompts`` through ``ServeSession`` (graphed decode steps) on
+    ``model`` and check what came out; then, on the first admission's
+    prompts again, one replayed step against an eager ``decode_step`` on a
+    copy of the same cache (bit-equal logits and caches), and one prefill,
+    one replayed and one eager decode step timed and profiled.  The flash
+    and W8 launches are counted on the serving run alone."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serve.engine import make_decode_step
 
-    cfg = get_config(LM_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = DecoderLM(cfg, seed=seed)  # on the card
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights = sum(p.numel() for p in model.parameters())
-    assert weights == cfg.param_count() and len(model.layers) == cfg.n_layers == 36
     captured: dict = {}
 
     def capture(idx):
@@ -937,20 +1081,26 @@ def lm_serve_phase(torch, seed: int) -> dict:
 
     hooks = [model.layers[i].mixer.attend.register_forward_hook(capture(i))
              for i in LM_CHECK_LAYERS]
-    rng = np.random.default_rng(seed + 11)
-    prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs, prefills, decodes = serve_session(torch, model, prompts, LM_SLOTS, LM_MAX_LEN,
-                                            LM_MAX_NEW, True)
+    reqs, prefills, decodes, session_step = serve_session(
+        torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = _cuda.LAUNCHES["flash_attention"]
+    launches = {k: _cuda.LAUNCHES[k] for k in ("flash_attention", "w8_matmul")}
+    capture_s = session_step.capture_seconds
+    del session_step
     for hk in hooks:
         hk.remove()
     peak = torch.cuda.max_memory_allocated()
-    assert launches == cfg.n_layers * len(prefills), (launches, len(prefills))
+    assert launches["flash_attention"] == cfg.n_layers * len(prefills), (launches, len(prefills))
+    # graphed: the warm-up step before the capture, then one replay a tick
+    want_w8 = 7 * cfg.n_layers * (len(decodes) + 1) if int8 else 0
+    assert launches["w8_matmul"] == want_w8, (launches, want_w8)
     assert all(len(r.out) == LM_MAX_NEW for r in reqs), [len(r.out) for r in reqs]
     assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
     for _, logits in prefills + decodes:
@@ -965,27 +1115,36 @@ def lm_serve_phase(torch, seed: int) -> dict:
         assert torch.equal(again, result), idx  # the path's output is the kernel's
         checked[idx] = {"shape": list(q.shape),
                         **flash_check(result, want, cfg.compute_dtype)}
+    del captured
     tokens = sum(len(r.out) for r in reqs)
     decode_ms = [1e3 * t for t, _ in decodes]
     # where a step's time goes: the first admission's prefill and one decode
-    # step again, after the counts were read, each timed and then profiled
+    # step again, after the counts were read
     first = prompts[:LM_SLOTS]
     toks = np.zeros((LM_SLOTS, max(len(p) for p in first)), np.int32)
     for slot, p in enumerate(first):
         toks[slot, -len(p):] = p
     toks = torch.from_numpy(toks).to(model.device)
+    nxt, pos = toks[:, -1:].contiguous(), toks.shape[1]
     _, cache = model.prefill({"tokens": toks}, LM_MAX_LEN)
+    twin = [{n: t.clone() for n, t in c.items()} for c in cache]
+    step = make_decode_step(model)
+    replayed, _ = step(cache, nxt, pos)
+    eager, _ = model.decode_step(twin, nxt, pos)
+    torch.cuda.synchronize()
+    replay_equal = torch.equal(replayed, eager) and all(
+        torch.equal(a[n], b[n]) for a, b in zip(cache, twin) for n in a)
+    assert replay_equal, float((replayed - eager).abs().max())
+    del twin, replayed, eager
     profiles = {
         "prefill": profile_step(torch, lambda: model.prefill({"tokens": toks}, LM_MAX_LEN)),
-        "decode": profile_step(torch, lambda: model.decode_step(cache, toks[:, -1:],
-                                                                toks.shape[1])),
+        "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos)),
+        "decode_eager": profile_step(torch, lambda: model.decode_step(cache, nxt, pos)),
     }
-    del cache
-    out = {"phase": "lm_serve", "arch": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "weights": weights, "dtype": cfg.compute_dtype,
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "weights": "int8" if int8 else cfg.compute_dtype, "dtype": cfg.compute_dtype,
            "slots": LM_SLOTS, "max_len": LM_MAX_LEN, "requests": len(reqs),
            "prompt_tokens": int(sum(len(p) for p in prompts)),
-           "init_seconds": init_s,
            "prefill_seconds": [t for t, _ in prefills],
            "prefill_lengths": [max(len(p) for p in prompts[i:i + LM_SLOTS])
                                for i in range(0, len(prompts), LM_SLOTS)],
@@ -994,13 +1153,78 @@ def lm_serve_phase(torch, seed: int) -> dict:
            "decode_tick_ms": decode_ms,
            "serve_seconds": serve_s, "generated_tokens": tokens,
            "generated_tokens_per_s": tokens / serve_s,
-           "max_memory_allocated": peak, "launches": {"flash_attention": launches},
+           # the session's serve time outside its timed prefills and ticks
+           "untimed_seconds": serve_s - sum(t for t, _ in prefills + decodes),
+           "capture_seconds": capture_s,
+           "max_memory_allocated": peak, "launches": launches,
+           "replayed_step_bit_equal_to_eager": replay_equal,
            "kernel_check": checked, "profiles": profiles}
+    del cache, step, prefills, decodes
+    return out
+
+
+def lm_serve_phase(torch, seed: int) -> dict:
+    """qwen3-8b at full width on the card through ``ServeSession``, in bf16
+    and then, on the same model quantized in place by
+    ``quantize_for_serving``, int8; the flash kernel's and the W8 kernel's
+    launches are counted on these runs alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.w8_matmul import dequantize
+    from repro_torch.models.layers import QuantizedWeight, quantize_for_serving
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed)  # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() for p in model.parameters())
+    assert weights == cfg.param_count() and len(model.layers) == cfg.n_layers == 36
+    rng = np.random.default_rng(seed + 11)
+    prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
+    bf16 = serve_cell(torch, model, cfg, prompts, int8=False)
+    out = {"phase": "lm_serve", "weights": weights, "init_seconds": init_s, **bf16}
     emit(out)
-    del model, captured, prefills, decodes
+
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_for_serving(model)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    quantize_peak = torch.cuda.max_memory_allocated()
+    records = [m for m in model.modules() if isinstance(m, QuantizedWeight)]
+    assert len(records) == 7 * cfg.n_layers, len(records)
+    int8 = serve_cell(torch, model, cfg, prompts, int8=True)
+    # the dequant's share of an int8 prefill: the casts a prefill runs (one
+    # for each of the 252 weights: its rows exceed W8_DECODE_ROWS), timed
+    # alone by CUDA events (a device-bound loop), against the profiled
+    # prefill's device-busy time
+    dtype = model.compute_dtype
+    def dequant_all():
+        for r in records:
+            dequantize(r.q, r.s, dtype)
+
+    dequant_ms = time_ms(torch, dequant_all, 3)
+    busy = int8["profiles"]["prefill"]["device_busy_ms"]
+    int8_line = {"phase": "lm_serve_int8", "quantize_seconds": quantize_s,
+                 "quantize_peak_memory": quantize_peak,
+                 "int8_weight_bytes": sum(r.q.numel() + 2 * r.s.numel() for r in records),
+                 "prefill_dequant_ms": dequant_ms,
+                 "prefill_dequant_share": (dequant_ms / busy) if dequant_ms and busy else None,
+                 **int8,
+                 "bf16": {k: bf16[k] for k in (
+                     "prefill_seconds", "decode_tick_ms_median", "generated_tokens_per_s",
+                     "max_memory_allocated")}}
+    emit(int8_line)
+    del model, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16": out, "int8": int8_line}
 
 
 # the words the mixed batch (and the engine's solo steps) read
@@ -1884,12 +2108,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     lm_reference_phase(torch, args.seed)
     kernels.update(flash_phase(torch, args.seed, args.reps))
+    kernels.update(w8_phase(torch, args.seed, args.reps))
     lm = lm_serve_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
-    # (the revision phase's mlp engines launch it too, counted in its line)
+    # (the revision phase's mlp engines launch it too, counted in its line);
+    # the flash kernel's in both serving runs (bf16 and int8), the W8
+    # kernel's in the int8 run
     launches = {**revisions["launches"], **selection["launches"],
                 **engine["launches"], "hash_join": server["launches"]["hash_join"],
-                "flash_attention": lm["launches"]["flash_attention"]}
+                "flash_attention": sum(lm[w]["launches"]["flash_attention"]
+                                       for w in ("bf16", "int8")),
+                "w8_matmul": lm["int8"]["launches"]["w8_matmul"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
@@ -1897,19 +2126,20 @@ def main(argv=None) -> int:
                          "breaker_open")}
     emit({"phase": "breaker", "engines": len(breakers), **breaker})
     assert not any(breaker.values()), breaker
-    assert set(kernels) == set(REPLACES) | {"hash_join_packed", "flash_attention_window"}, \
-        sorted(kernels)
+    assert set(kernels) == set(REPLACES) | set(FUSIONS) | {
+        "hash_join_packed", "flash_attention_window"}, sorted(kernels)
     assert len(REPLACES) == 11
+    assert all(launches[name] > 0 for name in (*REPLACES, *FUSIONS)), launches
     emit({"phase": "done", "seconds": time.perf_counter() - started})
 
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": SOURCES.get(name, "src/repro_torch/csrc/rm_scan.cu"),
-        "replaces": REPLACES[name], "launches": launches[name],
+        "replaces": REPLACES.get(name) or FUSIONS[name], "launches": launches[name],
         "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-    } for name, k in kernels.items() if name in REPLACES]})
+    } for name, k in kernels.items() if name in REPLACES or name in FUSIONS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

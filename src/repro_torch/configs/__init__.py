@@ -2,7 +2,8 @@
 
 ``get_config(name)`` returns the full-size config, ``get_smoke_config(name)``
 the reduced same-family config the CPU tests use.  Only the architectures
-whose blocks the port has (``qwen3-8b``, ``gemma3-27b``) resolve; the others
+whose blocks the port has (``qwen3-8b``, ``gemma3-27b``, ``qwen1.5-110b``,
+``internlm2-20b``: the dense attention-only ones) resolve; the others
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 

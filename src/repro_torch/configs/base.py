@@ -2,8 +2,9 @@
 
 ``ArchConfig`` (with ``param_count``), ``ShapeSpec``, ``SHAPES`` and
 ``ARCH_NAMES`` are copied unchanged.  Of the ten architectures the port
-serves the dense attention-only ones it has modules for: ``qwen3-8b`` and
-``gemma3-27b``.  ``get_config`` / ``get_smoke_config`` of another name raise
+serves the dense attention-only ones it has modules for: ``qwen3-8b``,
+``gemma3-27b`` and the two with QKV bias, ``qwen1.5-110b`` and
+``internlm2-20b``.  ``get_config`` / ``get_smoke_config`` of another name raise
 ``NotImplementedError`` naming ROADMAP queue 1 item 8 (the rest of the LM
 stack: MoE, SSD, RG-LRU, M-RoPE and enc-dec blocks).
 """
@@ -176,7 +177,9 @@ ARCH_NAMES = (
 )
 
 _MODULES = {
+    "qwen1.5-110b": "qwen1_5_110b",
     "qwen3-8b": "qwen3_8b",
+    "internlm2-20b": "internlm2_20b",
     "gemma3-27b": "gemma3_27b",
 }
 

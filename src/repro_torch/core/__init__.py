@@ -2,7 +2,7 @@
 
 Layers (bottom-up):
   schema      — table layouts + RME geometry (configuration port, Table 1)
-  descriptor  — Requestor Eq. (1)-(3): the bus-beat bytes a scan moves
+  descriptor  — Requestor Eq. (1)-(6) + byte-exact software fetch model
   compression — dictionary + delta/FOR codecs (paper §4)
   table       — row-major MVCC row store (the single source of truth)
   ephemeral   — ephemeral variables (lazy column-group views)
@@ -22,10 +22,12 @@ Layers (bottom-up):
 
 from .schema import (
     MAX_ENABLED_COLUMNS, WORD, Column, TableGeometry, TableSchema,
-    benchmark_schema, geometry_from_intervals, merge_geometries,
+    benchmark_schema, geometry_from_intervals, merge_geometries, paper_schema,
 )
 from .table import TS_INF, RelationalTable, columnar_copy
-from .descriptor import BUS_WIDTH, bytes_moved
+from .descriptor import (
+    BUS_WIDTH, Descriptor, bytes_moved, descriptor_arrays, descriptors, fetch_model,
+)
 from .ephemeral import EphemeralView
 from .requests import (
     AggregateOp, FilterOp, GroupByOp, JoinOp, JoinResult, MultiJoinResult,
@@ -51,8 +53,9 @@ from . import (compression, distributed, executor, faults, operators, optimizer,
 __all__ = [
     "BUS_WIDTH", "MAX_ENABLED_COLUMNS", "WORD", "TS_INF",
     "Column", "TableSchema", "TableGeometry", "benchmark_schema",
-    "geometry_from_intervals", "merge_geometries",
-    "RelationalTable", "columnar_copy", "bytes_moved",
+    "geometry_from_intervals", "merge_geometries", "paper_schema",
+    "RelationalTable", "columnar_copy",
+    "Descriptor", "descriptors", "descriptor_arrays", "fetch_model", "bytes_moved",
     "EphemeralView", "DeviceRowStore", "EngineStats", "PassHandle",
     "RelationalMemoryEngine", "ReorgCache", "BatchExecutor", "execute_batch",
     "materialize_batch",

@@ -8,6 +8,7 @@
 ``rme_scan_multi`` — the heterogeneous one-pass scan and its requests
 ``rme_join``       — the device hash-join build and probe
 ``flash_attention`` — the GQA flash-attention forward of the LM stack
+``w8_matmul``      — the int8-weight decode matmul of int8 serving
 ``ops``            — the engine's import surface
 ``_cuda``          — builds, loads and launches ``csrc/*.cu``
 """

@@ -1,5 +1,6 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
-``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``).
+``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``,
+``csrc/rm_w8.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -14,13 +15,17 @@ Every scan launch goes through :func:`run`: it plans the launch (tile
 height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
 and raises if the launch reports a CUDA error.  The hash-join probe, the
-BSL / PCK projection revisions, the compacting selection and the GQA
-flash-attention forward have their own parameter blocks and launchers
-(:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
-:func:`run_flash`) under the same rules.  ``LAUNCHES`` counts the launches
-of each kernel; nothing else adds to it.  ``hash_join`` counts one for each
+BSL / PCK projection revisions, the compacting selection, the GQA
+flash-attention forward and the int8-weight decode matmul have their own
+parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
+:func:`run_select`, :func:`run_flash`, :func:`run_w8`) under the same rules.
+``LAUNCHES`` counts the launches of each kernel; nothing else adds to it but
+a CUDA graph's replays (``serve.engine.make_decode_step``), which launch
+the kernels their capture recorded.  ``hash_join`` counts one for each
 probe, which is two kernels on the card: the bucket repack
-(``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``).
+(``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``);
+``w8_matmul`` one for each product, which is two kernels when K is split
+(``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
-                          "select_compact", "flash_attention")
+                          "select_compact", "flash_attention", "w8_matmul")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
@@ -56,6 +61,14 @@ MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
+W8_MAX_ROWS = 64  # rows of x the int8-weight matmul takes (a decode step's B)
+W8_STRIP = 256  # output columns a block of rm_w8_matmul_kernel (kW8Strip)
+W8_TC_STRIP = 128  # output columns a block of rm_w8_matmul_tc_kernel (kW8TcStrip)
+W8_FORMS = {"cuda_cores": 0, "tensor": 1}  # W8Params::form
+W8_ROWS = 8  # rows of x a block (kW8Rows)
+W8_MIN_CHUNK = 128  # K rows a block at least: 32 a warp
+W8_MAX_CHUNK = 1024  # K rows a block at most (kW8MaxChunk): the staged x
+W8_BLOCKS_PER_SM = 4  # the grid the split of K aims for
 
 # must match rm_common.cuh
 THREADS = 256
@@ -117,6 +130,12 @@ class _SelectParams(ctypes.Structure):
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "out_w", "block_rows", "pad_")] + [
         ("q", _Req), ("map", ctypes.c_int32 * MAX_MAP)]
+
+
+class _W8Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("x", "q", "s", "y", "partials")] + [
+        (name, ctypes.c_int32) for name in (
+            "M", "K", "N", "chunk", "splits", "dtype", "form", "pad_")]
 
 
 class _FlashParams(ctypes.Structure):
@@ -373,15 +392,18 @@ def load() -> ctypes.CDLL:
     lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
                                       ctypes.c_longlong, ctypes.c_void_p]
     lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
+    lib.rm_w8_matmul.argtypes = [ctypes.POINTER(_W8Params), ctypes.c_void_p]
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
-               lib.rm_flash_attention, lib.rm_flash_params_size):
+               lib.rm_flash_attention, lib.rm_flash_params_size,
+               lib.rm_w8_matmul, lib.rm_w8_params_size):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
                            (lib.rm_col_params_size(), _ColParams),
                            (lib.rm_select_params_size(), _SelectParams),
-                           (lib.rm_flash_params_size(), _FlashParams)):
+                           (lib.rm_flash_params_size(), _FlashParams),
+                           (lib.rm_w8_params_size(), _W8Params)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
@@ -748,3 +770,85 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                "flash_attention launch")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def w8_form(dtype: torch.dtype, n: int, q_ptr: int, s_ptr: int) -> str:
+    """Which form of the W8 kernel takes a product (N a multiple of 8 and q
+    8-byte aligned, checked by :func:`run_w8`): ``"tensor"`` (bf16 on the
+    tensor cores: N a multiple of 16, q and s 16-byte aligned), else
+    ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and n % 16 == 0 and q_ptr % 16 == 0 and s_ptr % 16 == 0:
+        return "tensor"
+    return "cuda_cores"
+
+
+def w8_launch(m: int, k: int, n: int, n_sm: int,
+              form: str = "tensor") -> tuple[int, int, int, int]:
+    """The W8 kernel's grid for ``x (m, k) @ q (k, n)`` on a card of
+    ``n_sm`` SMs: ``(strips, splits, m_tiles, chunk)``.  Blocks of 128
+    (tensor cores) or 256 output columns and 8 rows of x; K is split into
+    chunks of ``chunk`` rows (a multiple of ``W8_MIN_CHUNK``, at most
+    ``W8_MAX_CHUNK``) so that the grid holds about ``W8_BLOCKS_PER_SM``
+    blocks an SM."""
+    strip = W8_TC_STRIP if form == "tensor" else W8_STRIP
+    strips, m_tiles = -(-n // strip), -(-m // W8_ROWS)
+    want = max(1, -(-W8_BLOCKS_PER_SM * n_sm // (strips * m_tiles)))
+    chunk = -(-k // want)
+    chunk = -(-chunk // W8_MIN_CHUNK) * W8_MIN_CHUNK
+    chunk = min(chunk, W8_MAX_CHUNK)
+    return strips, -(-k // chunk), m_tiles, chunk
+
+
+_SM_COUNT: dict[int, int] = {}
+
+
+def run_w8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Launch the int8-weight matmul ``y = x @ (q.to(dt) * s.to(dt))``: x
+    ``(M, K)`` float32 or bfloat16 with ``1 <= M <= W8_MAX_ROWS``, q ``(K,
+    N)`` int8 with N a multiple of 8, starting 8-byte aligned, s ``(1, N)``
+    bfloat16, all contiguous on one card; the form by :func:`w8_form`.  Returns a new ``(M, N)`` tensor of x's type; with K
+    split, a float32 scratch of ``(splits, M, N)`` partials.  Enqueues on
+    the current stream without synchronising (a CUDA graph can capture
+    it)."""
+    if x.dtype not in FLASH_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if q.dtype != torch.int8 or s.dtype != torch.bfloat16:
+        raise ValueError(f"want an int8 q and a bfloat16 s, got {q.dtype} and {s.dtype}")
+    if x.dim() != 2 or q.dim() != 2 or s.dim() != 2:
+        raise ValueError(f"want x (M, K), q (K, N), s (1, N); got {tuple(x.shape)}, "
+                         f"{tuple(q.shape)}, {tuple(s.shape)}")
+    (m, k), n = x.shape, q.shape[1]
+    if q.shape[0] != k or tuple(s.shape) != (1, n):
+        raise ValueError(f"x {tuple(x.shape)}, q {tuple(q.shape)} and s {tuple(s.shape)} "
+                         f"do not chain")
+    if not 1 <= m <= W8_MAX_ROWS or k < 1 or n < 1 or n % 8:
+        raise ValueError(f"the kernel takes 1..{W8_MAX_ROWS} rows, K >= 1 and N a multiple "
+                         f"of 8; got M {m}, K {k}, N {n}")
+    for name, t in (("x", x), ("q", q), ("s", s)):
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if t.device != x.device:
+            raise ValueError(f"x on {x.device} but {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.data_ptr() % 8:
+        raise ValueError("q must start 8-byte aligned")
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    form = w8_form(x.dtype, n, q.data_ptr(), s.data_ptr())
+    _, splits, _, chunk = w8_launch(m, k, n, _SM_COUNT[dev], form)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partials = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
+    params = _W8Params(
+        x=x.data_ptr(), q=q.data_ptr(), s=s.data_ptr(), y=y.data_ptr(),
+        partials=partials.data_ptr() if partials is not None else None,
+        M=m, K=k, N=n, chunk=chunk, splits=splits, dtype=FLASH_DTYPES[x.dtype],
+        form=W8_FORMS[form])
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib, lib.rm_w8_matmul(ctypes.byref(params), stream), "w8_matmul launch")
+    LAUNCHES["w8_matmul"] += 1
+    return y

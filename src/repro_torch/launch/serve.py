@@ -1,11 +1,13 @@
 """Serving launcher: continuous batching over the port's decoder.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
-      --requests 8 --slots 4 --max-new 16 [--device cpu]
+      --requests 8 --slots 4 --max-new 16 [--int8] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given; without a card the
-default raises.  Weights and prompts are drawn from ``--seed``.  The rate is
-printed beside the device it was measured on (the card's name).
+default raises.  Weights and prompts are drawn from ``--seed``.  ``--int8``
+serves with ``quantize_for_serving``'s int8 matmul weights (on the card a
+decode step's products run the W8 kernel).  The rate is printed beside the
+device it was measured on (the card's name) and the weights it served with.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import build_model
+from repro_torch.models.layers import quantize_for_serving
 from repro_torch.serve import Request, ServeSession
 
 
@@ -33,18 +36,16 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: the card) or 'cpu'")
     ap.add_argument("--int8", action="store_true",
-                    help="int8-quantize matmul weights (not ported yet)")
+                    help="int8-quantize matmul weights (the decode-cell path)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP queue 1 item 8.8, "
-            "quantize_for_serving)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=args.device, seed=args.seed)
+    if args.int8:
+        quantize_for_serving(model)
     device = model.device
     where = (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     sess = ServeSession(model, batch_slots=args.slots, max_len=args.max_len)
@@ -64,8 +65,9 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     toks = sum(len(r.out) for r in reqs)
+    weights = "int8" if args.int8 else cfg.compute_dtype
     print(f"{cfg.name}: {toks} tokens / {dt:.2f}s = {toks/dt:.0f} tok/s "
-          f"on {where} ({cfg.compute_dtype} compute)")
+          f"on {where} ({weights} weights, {cfg.compute_dtype} compute)")
     for r in reqs[:4]:
         print(f"  req {r.rid}: {r.out}")
 

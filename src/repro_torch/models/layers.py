@@ -3,8 +3,10 @@
 Blocks: RMSNorm, RoPE, GQA attention (the blockwise online-softmax form on
 the CPU, the hand-written flash kernel on the card, cached attention for
 decode, optional sliding window / qk-norm / QKV bias) and the
-SwiGLU / GeGLU / vanilla FFNs.  MoE, Mamba-2 SSD, RG-LRU, M-RoPE and int8
-weight records raise ``NotImplementedError`` naming their ROADMAP item.
+SwiGLU / GeGLU / vanilla FFNs, plus the int8 serving weights
+(:class:`QuantizedWeight`, :func:`quantize_weight`,
+:func:`quantize_for_serving`).  MoE, Mamba-2 SSD, RG-LRU and M-RoPE raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
 :class:`Attention`, :class:`MLP`) whose attribute names are the reference's
@@ -12,6 +14,12 @@ parameter-tree keys, so a layer's ``state_dict`` names are the reference's
 paths.  Matmul weights are stored in the compute dtype and norm scales in
 float32 — the numbers the reference gets from its float32 master copy cast
 at use.  Weights never require grad: this slice serves only.
+
+Every matmul against a weight goes through :func:`linear`: a plain
+``x @ cast(w, dt)``, except for an int8 weight on the card with at most
+``W8_DECODE_ROWS`` rows of ``x`` (a decode step), which goes to the
+hand-written int8-weight kernel (``kernels/w8_matmul.py``) so that the
+device reads the int8 buffer and never a dequantized copy.
 
 Dtype discipline is the reference's: compute runs in the activations' dtype,
 and softmax, norms and RoPE run in float32.
@@ -26,10 +34,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul
 
 F32 = torch.float32
 
 MASK_VALUE = -1e30
+# rows of x up to which an int8 weight's product on the card runs the W8
+# kernel (a decode step: B x 1 rows); above it (a prefill) the weight is
+# dequantized once and multiplied by torch.matmul
+W8_DECODE_ROWS = MAX_ROWS
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
@@ -43,14 +56,85 @@ def _weight(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Cast a weight to the compute dtype.  The reference's int8 weight
-    records (``{"q": int8, "s": scale}``) are not ported."""
-    if isinstance(x, dict):
-        raise NotImplementedError(
-            "int8 weight records are not ported yet (ROADMAP queue 1 item 8.8, "
-            "quantize_for_serving)")
+class QuantizedWeight(nn.Module):
+    """An int8 weight record, the reference's ``{"q": int8 (in, out), "s":
+    bf16 (1, out)}`` leaf pair (per-output-channel absmax): two buffers, so a
+    quantized layer's ``state_dict`` holds ``<name>.q`` and ``<name>.s``."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+
+def cast(x, dtype: torch.dtype) -> torch.Tensor:
+    """Cast a weight to the compute dtype; dequantizes an int8 record as the
+    reference does, ``q.to(dt) * s.to(dt)`` (each element rounded in
+    ``dt``)."""
+    if isinstance(x, QuantizedWeight):
+        return dequantize(x.q, x.s, dtype)
     return x if x.dtype == dtype else x.to(dtype)
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ cast(w, x.dtype)`` for every matmul site.  An int8 weight with
+    at most ``W8_DECODE_ROWS`` rows of ``x`` goes to :func:`w8_matmul` (on
+    the card the W8 kernel, on the CPU its plain version, the same
+    product); otherwise the weight is cast and multiplied."""
+    if isinstance(w, QuantizedWeight):
+        k = x.shape[-1]
+        rows = x.numel() // k if k else 0
+        if 0 < rows <= W8_DECODE_ROWS:
+            y = w8_matmul(x.reshape(rows, k).contiguous(), w.q, w.s)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
+    return x @ cast(w, x.dtype)
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
+    """Per-output-channel absmax int8 quantization of a 2-D weight, bit for
+    bit the reference's: ``s = max(|w|, axis 0) / 127`` floored at 1e-12 (in
+    float32), ``q = clip(round(w / s), -127, 127)`` (half to even), ``s``
+    stored as bf16."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_weight takes a 2-D weight, got {tuple(w.shape)}")
+    wf = w.float()
+    s = torch.clamp_min(wf.abs().amax(dim=0, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return QuantizedWeight(q, s.to(torch.bfloat16))
+
+
+# RG-LRU gate matrices (w_a, w_x) stay bf16: they parameterize decay rates,
+# where int8 grid error compounds over thousands of recurrence steps
+_QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
+                "w_out", "w_branch", "w_zx")
+_KEEP_F32 = ("a_log", "dt_bias", "lambda_", "d_skip")
+
+
+@torch.no_grad()
+def quantize_for_serving(model: nn.Module) -> nn.Module:
+    """int8-quantize the large 2-D matmul weights of ``model`` in place (the
+    reference's ``quantize_for_serving`` over a parameter tree) and return it.
+
+    A weight named in ``_QUANT_NAMES`` becomes a :class:`QuantizedWeight`;
+    every other float weight (embeddings, ``lm_head``, biases, norm scales)
+    is rounded to bf16 values, as the reference casts those leaves to bf16 —
+    the port keeps each in its own dtype (norm scales float32), so only the
+    values change.  Module by module, each weight is freed as soon as its
+    record exists, so the peak stays one weight's quantization above the
+    model."""
+    for module in list(model.modules()):
+        for name, w in list(module._parameters.items()):
+            if w is None or not w.dtype.is_floating_point:
+                continue
+            if name in _QUANT_NAMES and w.dim() >= 2:
+                record = quantize_weight(w)
+                del module._parameters[name]
+                setattr(module, name, record)
+                del w
+            elif name not in _KEEP_F32 and w.dtype != torch.bfloat16:
+                w.copy_(w.to(torch.bfloat16))
+    return model
 
 
 # ------------------------------------------------------------------ norms
@@ -80,8 +164,11 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
         raise NotImplementedError(
             "M-RoPE is not ported yet (ROADMAP queue 1 item 8.6, M-RoPE/VLM)")
     half = head_dim // 2
-    exps = -torch.arange(half, dtype=F32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=F32, device=positions.device), exps)
+    dev = positions.device
+    exps = -torch.arange(half, dtype=F32, device=dev) / half
+    # theta as a filled device scalar, not a host copy: a CUDA graph can
+    # capture a fill, not a copy from pageable memory
+    freqs = torch.pow(torch.full((), theta, dtype=F32, device=dev), exps)
     ang = positions.to(F32)[..., None] * freqs  # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
@@ -179,9 +266,9 @@ def _qkv(params: Attention, spec: AttnSpec, x: torch.Tensor, cos, sin):
     """Project + rope; returns q (B,S,H,Dh), k/v (B,S,K,Dh)."""
     b, s, _ = x.shape
     dt = x.dtype
-    q = x @ cast(params.wq, dt)
-    k = x @ cast(params.wk, dt)
-    v = x @ cast(params.wv, dt)
+    q = linear(x, params.wq)
+    k = linear(x, params.wk)
+    v = linear(x, params.wv)
     if spec.qkv_bias:
         q = q + cast(params.bq, dt)
         k = k + cast(params.bk, dt)
@@ -268,7 +355,7 @@ def attention_prefill(
     q, k, v = _qkv(params, spec, x, cos, sin)
     out = params.attend(q, k, v)
     b, s = x.shape[:2]
-    y = out.reshape(b, s, spec.n_heads * spec.head_dim) @ cast(params.wo, x.dtype)
+    y = linear(out.reshape(b, s, spec.n_heads * spec.head_dim), params.wo)
     keep = s if spec.window is None else min(s, spec.window)
     pad = max(cache_len - keep, 0)
     ck = F.pad(k[:, s - keep:], (0, 0, 0, 0, 0, pad))
@@ -278,28 +365,31 @@ def attention_prefill(
 
 
 def attention_decode(
-    params: Attention, spec: AttnSpec, x: torch.Tensor, cache: dict, pos: int
+    params: Attention, spec: AttnSpec, x: torch.Tensor, cache: dict, pos
 ) -> tuple[torch.Tensor, dict]:
-    """One-token cached attention. x (B,1,D); cache k/v (B,K,S,Dh); pos int.
+    """One-token cached attention. x (B,1,D); cache k/v (B,K,S,Dh); pos a
+    0-d integer tensor on x's device (or an int).
 
     For windowed layers the cache is a ring buffer of size ``window``: the
     write slot is ``pos % window`` and, once full, every slot is valid.
     Unlike the reference (which returns new arrays) the new token is written
     into the cache tensors in place — a step would otherwise copy the whole
-    cache — and the same dict is returned."""
+    cache — and the same dict is returned.  The slot, the validity mask and
+    the RoPE position are computed on the device from ``pos``, so the step
+    never reads ``pos`` back to the host (a CUDA graph replays it)."""
     b = x.shape[0]
     s_cache = cache["k"].shape[2]
-    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_cos_sin(pos_b, spec.head_dim, spec.rope_theta, spec.mrope)
+    pos = torch.as_tensor(pos, device=x.device)
+    cos, sin = rope_cos_sin(pos.expand(b, 1), spec.head_dim, spec.rope_theta, spec.mrope)
     q, k, v = _qkv(params, spec, x, cos, sin)
     kh = spec.n_kv_heads
     g = spec.n_heads // kh
     # windowed layers use the cache as a ring buffer; full caches never
     # wrap (pos < s_cache), so one modular slot covers both
-    slot = pos % s_cache
+    slot = (pos % s_cache).reshape(1).long()
     ck, cv = cache["k"], cache["v"]
-    ck[:, :, slot] = k[:, 0]
-    cv[:, :, slot] = v[:, 0]
+    ck.index_copy_(2, slot, k.transpose(1, 2))
+    cv.index_copy_(2, slot, v.transpose(1, 2))
     qh = (q * spec.scale).reshape(b, kh, g, spec.head_dim).float()
     logits = torch.einsum("bkgd,bksd->bkgs", qh, ck.float())
     # a ring slot only holds one of the last s_cache positions, so slot
@@ -309,7 +399,7 @@ def attention_decode(
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", w, cv.float())
     out = out.reshape(b, 1, spec.n_heads * spec.head_dim).to(x.dtype)
-    return out @ cast(params.wo, x.dtype), cache
+    return linear(out, params.wo), cache
 
 
 def init_attention_cache(spec: AttnSpec, batch: int, max_len: int,
@@ -350,11 +440,10 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    dt = x.dtype
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu_tanh
-        h = act(x @ cast(params.w_gate, dt)) * (x @ cast(params.w_up, dt))
-        return h @ cast(params.w_down, dt)
-    h = _gelu_tanh(x @ cast(params.w_in, dt))
-    return h @ cast(params.w_down, dt)
+        h = act(linear(x, params.w_gate)) * linear(x, params.w_up)
+        return linear(h, params.w_down)
+    h = _gelu_tanh(linear(x, params.w_in))
+    return linear(h, params.w_down)
 

@@ -9,7 +9,8 @@ tail — and prefill and decode loop over it.
 Interface (the reference's, with the weights held by the module):
   DecoderLM(cfg, device=None, seed=0)         weights drawn from ``seed``
   prefill(batch, max_len) -> (logits, cache)  logits (B, V) float32
-  decode_step(cache, tokens, pos) -> (logits, cache)
+  decode_step(cache, tokens, pos) -> (logits, cache)  pos an int or a
+                                                    0-d device tensor
 
 Only the block kinds ``attn`` and ``local`` are ported (the dense families);
 ``moe``, ``ssd``, ``rglru``, M-RoPE, precomputed input embeddings and the
@@ -152,7 +153,7 @@ class DecoderLM(nn.Module):
         hn = L.rms_norm(h, layer.ln2.scale)
         return h + L.mlp(layer.mlp, hn, self.cfg.mlp_kind), cache
 
-    def _decode_layer(self, layer: Block, h, cache: dict, pos: int):
+    def _decode_layer(self, layer: Block, h, cache: dict, pos: torch.Tensor):
         hn = L.rms_norm(h, layer.ln1.scale)
         mix, cache = L.attention_decode(layer.mixer, layer.spec, hn, cache, pos)
         h = h + mix
@@ -185,13 +186,17 @@ class DecoderLM(nn.Module):
         return self._logits(h), caches
 
     @torch.no_grad()
-    def decode_step(self, cache: list[dict], tokens, pos: int) -> tuple:
-        """One decode step. tokens (B, 1) ints, pos an int; the caches are
-        updated in place and returned."""
+    def decode_step(self, cache: list[dict], tokens, pos) -> tuple:
+        """One decode step. tokens (B, 1) ints; pos the position, a 0-d
+        integer tensor on the model's device (the reference's traced ``pos``)
+        or an int; the caches are updated in place and returned.  Nothing in
+        the step reads a device value back to the host, so
+        ``serve.engine.make_decode_step`` can capture it in a CUDA graph."""
         h = self._embed(tokens)
+        pos = torch.as_tensor(pos, device=self.device)
         new = []
         for layer, c in zip(self.layers, cache):
-            h, c = self._decode_layer(layer, h, c, int(pos))
+            h, c = self._decode_layer(layer, h, c, pos)
             new.append(c)
         h = L.rms_norm(h, self.final_norm.scale)
         return self._logits(h), new

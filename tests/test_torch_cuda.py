@@ -769,7 +769,7 @@ def test_flash_launch_count_and_refusals(dev):
     assert _cuda.LAUNCHES["flash_attention"] == 3
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b"])
 def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
     """A smoke decoder's prefill on the card launches the kernel once per
     layer; at float32 its logits and caches match the CPU model's within
@@ -799,6 +799,186 @@ def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
     want, _ = cpu.decode_step(want_cache, nxt, 40)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers  # decode: no kernel
+
+
+# ------------------------------------------- int8 serving: the W8 kernel
+# (M, K, N): the decode rows, then K and N that are not multiples of a
+# block's columns (128 on the tensor cores, 256 on the CUDA cores), its K
+# chunk or the tensor cores' 16-row k step — in bf16 N 528 and 48 take the
+# tensor cores, N 1000 and 72 the CUDA cores (N % 16 != 0), as float32
+# always does — and one of the serving path's shapes
+W8_CASES = [(m, k, n) for m in (1, 8, 64)
+            for k, n in ((300, 1000), (129, 72), (1100, 528), (33, 48))] + [(8, 4096, 1024)]
+
+
+def w8_inputs(m, k, n, dtype, dev, seed=0):
+    from repro_torch.models.layers import quantize_weight
+
+    rng = np.random.default_rng(seed + m + k + n)
+    w = rng.normal(0, 0.05, (k, n)).astype(np.float32)
+    w[:, n // 2] = 0.0  # an all-zero column: its scale is the 1e-12 floor
+    rec = quantize_weight(torch.from_numpy(w))
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(dtype)
+    return x.to(dev), rec.q.to(dev), rec.s.to(dev)
+
+
+def w8_check(got, x, q, s):
+    """``got`` against the exact product of x and the dequantized weight (in
+    float64): float32 within 1e-5 of sum(|x| |w|) (the summation order);
+    bf16 within half a bf16 step of the value (its one rounding) plus the
+    same (the float32 sum it rounds)."""
+    from repro_torch.kernels.w8_matmul import dequantize
+
+    w = dequantize(q, s, x.dtype).double()
+    exact = x.double() @ w
+    scale = x.double().abs() @ w.abs()
+    limit = 1e-5 * scale + (2.0 ** -8 * exact.abs() if x.dtype == torch.bfloat16 else 0.0)
+    err = (got.double() - exact).abs()
+    assert bool((err <= limit + 1e-30).all()), float((err / (limit + 1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", W8_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_w8_kernel_matches_plain(dev, case, dtype):
+    from repro_torch.kernels import w8_matmul as W8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, q, s = w8_inputs(*case, dtype, dev)
+    _cuda.reset_launches()
+    got = W8.w8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["w8_matmul"] == 1
+    assert got.dtype == dtype and got.shape == (case[0], case[2]) and got.is_contiguous()
+    w8_check(got, x, q, s)
+    again = W8.w8_matmul(x, q, s)
+    assert torch.equal(got, again)  # split-K sums in a fixed order
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = W8.w8_matmul_torch(x, q, s)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0  # two roundings of the output
+    limit = rtol * want.float().abs() + 2e-5 * (x.float().abs() @ W8.dequantize(
+        q, s, torch.float32).abs())
+    assert bool(((got.float() - want.float()).abs() <= limit + 1e-30).all())
+
+
+def test_w8_launch_count_and_refusals(dev):
+    from repro_torch.kernels import w8_matmul as W8
+
+    x, q, s = w8_inputs(8, 300, 1000, torch.bfloat16, dev)
+    _cuda.reset_launches()
+    for _ in range(3):
+        W8.w8_matmul(x, q, s)
+    assert _cuda.LAUNCHES["w8_matmul"] == 3
+    x65 = torch.zeros((65, 300), dtype=torch.bfloat16, device=dev)
+    for args in [(x65, q, s),  # more rows than a decode step
+                 (x.half(), q, s),  # float16 is not instantiated
+                 (x, q.float(), s), (x, q, s.float()),
+                 (x, q.cpu(), s),  # x on the card, q on the host
+                 (x[:, ::2], q[::2], s),  # not contiguous
+                 (x[:, :299], q, s),  # K does not chain
+                 (x, q[:, :999].contiguous(), s[:, :999].contiguous())]:  # N % 8 != 0
+        with pytest.raises(ValueError):
+            W8.w8_matmul(*args)
+    assert _cuda.LAUNCHES["w8_matmul"] == 3
+
+
+def smoke_model(arch, dtype, dev, int8, seed=3):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import quantize_for_serving
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    cpu = DecoderLM(cfg, device="cpu", seed=seed)
+    if int8:
+        quantize_for_serving(cpu)
+    card = DecoderLM(cfg, device=dev, seed=None)
+    if int8:
+        quantize_for_serving(card)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+def test_int8_smoke_on_the_card_matches_the_cpu(dev):
+    """An int8 smoke decoder at float32 compute: the card's prefill (dequant
+    and torch.matmul) and decode steps (the W8 kernel, one launch a weight)
+    within 1e-4 of the CPU's plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, card = smoke_model("qwen3-8b", "float32", dev, int8=True)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 40)))
+    _cuda.reset_launches()
+    got, got_cache = card.prefill({"tokens": toks}, 48)
+    want, want_cache = cpu.prefill({"tokens": toks}, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert _cuda.LAUNCHES["w8_matmul"] == 0  # 80 rows: the prefill's products
+    for t in range(3):
+        nxt = want.argmax(-1)[:, None]
+        got, _ = card.decode_step(got_cache, nxt, torch.tensor(40 + t, device=dev))
+        want, _ = cpu.decode_step(want_cache, nxt, 40 + t)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert _cuda.LAUNCHES["w8_matmul"] == 3 * 7 * cfg.n_layers
+
+
+def serve_logged(model, prompts, eager: bool):
+    """Serve ``prompts`` over 2 slots (three admissions of 5 requests); the
+    token lists and every decode step's logits."""
+    from repro_torch.serve import Request, ServeSession
+
+    sess = ServeSession(model, batch_slots=2, max_len=64)
+    if eager:
+        sess.decode_fn = model.decode_step
+    logged, step = [], sess.decode_fn
+
+    def run(*args):
+        logits, cache = step(*args)
+        logged.append(logits.clone())
+        return logits, cache
+
+    sess.decode_fn = run
+    reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+    for r in reqs:
+        sess.submit(r)
+    sess.run_to_completion()
+    return [r.out for r in reqs], logged, step
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_graph_replay_equals_eager_over_readmissions(dev, int8):
+    """The session's graphed decode step against the eager step on the same
+    model: equal tokens and bit-equal logits tick by tick, across three
+    admissions (the second and third copy their prefill's cache into the
+    captured one).  Replays count the W8 kernel's launches: 7 a layer a
+    tick, plus the warm-up step before the capture (the prompts are long
+    enough, 2 × 33 rows and more, that no prefill's products take it)."""
+    from repro_torch.serve.engine import GraphedDecodeStep
+
+    cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, 33 + 2 * i).astype(np.int32) for i in range(5)]
+    eager_tokens, eager_logits, _ = serve_logged(card, prompts, eager=True)
+    _cuda.reset_launches()
+    tokens, logits, step = serve_logged(card, prompts, eager=False)
+    assert isinstance(step, GraphedDecodeStep) and step.graph is not None
+    assert tokens == eager_tokens
+    assert len(logits) == len(eager_logits) > 6
+    for a, b in zip(logits, eager_logits):
+        assert torch.equal(a, b)
+    want = 7 * cfg.n_layers * (len(logits) + 1) if int8 else 0
+    assert _cuda.LAUNCHES["w8_matmul"] == want
+
+
+def test_decode_step_cache_of_other_shapes_raises(dev):
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8=False)
+    step = make_decode_step(card)
+    toks = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    step(card.init_cache(2, 32), toks, 3)
+    with pytest.raises(ValueError):
+        step(card.init_cache(2, 48), toks, 4)
 
 
 # ------------------------------------------------------- sharded backend
@@ -953,3 +1133,26 @@ def test_sharded_mesh_of_mixed_devices_raises(dev, mesh):
         with pytest.raises(ValueError, match="devices of one type"):
             build()
     assert ShardedEngine(mesh=[dev, dev]).device.type == "cuda"
+
+
+# last in the file: a capture that fails leaves no work behind it
+def test_failing_capture_raises(dev, monkeypatch):
+    """A step that reads a device value back to the host cannot be
+    captured: the graphed step raises, and never falls back to eager."""
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8=False)
+    decode = card.decode_step
+
+    def syncing(cache, tokens, pos):
+        logits, cache = decode(cache, tokens, pos)
+        logits.sum().item()  # a device-to-host read: not capturable
+        return logits, cache
+
+    monkeypatch.setattr(card, "decode_step", syncing)
+    step = make_decode_step(card)
+    with pytest.raises(RuntimeError):
+        step(card.init_cache(2, 32), torch.zeros((2, 1), dtype=torch.int32, device=dev), 3)
+    assert step.graph is None
+    torch.cuda.synchronize()
+    assert float((torch.ones(4, device=dev) * 2).sum()) == 8.0

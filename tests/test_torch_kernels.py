@@ -380,6 +380,30 @@ def test_join_launch_geometry(n, row_words, buckets, cap, stream):
     assert params.words is params.fps is params.recs is None  # filled at launch
 
 
+@pytest.mark.parametrize("m,k,n,form", [
+    (8, 4096, 4096, "tensor"), (8, 4096, 1024, "tensor"), (8, 4096, 12288, "tensor"),
+    (8, 12288, 4096, "tensor"), (1, 129, 72, "cuda_cores"), (64, 1100, 528, "tensor"),
+    (8, 300, 1000, "cuda_cores"), (3, 20000, 64, "tensor"),
+])
+def test_w8_launch_geometry(m, k, n, form):
+    """The W8 kernel's form and grid, as rm_w8.cu expects them, without the
+    library: chunks of K that are multiples of 128 rows, at most 1,024 (the
+    staged x), covering K in ``splits`` blocks; three to four blocks an SM on
+    a 132-SM card where K allows; the ctypes block the C struct's size."""
+    dtype = torch.bfloat16
+    assert _cuda.w8_form(dtype, n, 0, 0) == form
+    assert _cuda.w8_form(torch.float32, n, 0, 0) != "tensor"
+    assert _cuda.w8_form(torch.bfloat16, n, 8, 0) != "tensor"  # q not 16-byte aligned
+    strips, splits, m_tiles, chunk = _cuda.w8_launch(m, k, n, 132, form)
+    strip = 128 if form == "tensor" else 256
+    assert strips == -(-n // strip) and m_tiles == -(-m // 8)
+    assert chunk % 128 == 0 and 128 <= chunk <= 1024
+    assert splits == -(-k // chunk) and (splits - 1) * chunk < k
+    blocks = strips * splits * m_tiles
+    assert blocks >= 3 * 132 or chunk == 128  # the 128-row floor on chunks
+    assert ctypes.sizeof(_cuda._W8Params) == 72  # sizeof(W8Params) on x86-64
+
+
 def test_cuda_path_refuses_cpu_and_unported_revisions():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _cuda.check_words(torch.zeros((4, 4), dtype=torch.int32))

@@ -15,9 +15,12 @@ the same tokens:
   The bf16 caches, written from activations that already differ by those
   roundings, are held within 1e-1 too (largest measured: 0.078);
 * models: ``qwen3-8b-smoke`` (global attention, qk-norm, SwiGLU; an 80-token
-  prompt, two 64-key chunks with a padded tail) and ``gemma3-27b-smoke``
+  prompt, two 64-key chunks with a padded tail), ``gemma3-27b-smoke``
   (one 5-local + 1-global unit and a 2-layer tail, window 32, GeGLU; a
-  40-token prompt, longer than the window, so the ring buffer wraps);
+  40-token prompt, longer than the window, so the ring buffer wraps) and
+  the two QKV-bias decoders, ``qwen1.5-110b-smoke`` (4 layers, 8 / 2 heads;
+  a 72-token prompt) and ``internlm2-20b-smoke`` (3 layers, 6 / 3 heads; a
+  48-token prompt);
 * the converter refuses a tree with a leaf missing or left over.
 """
 
@@ -39,7 +42,8 @@ from repro_torch.models import build_model as tbuild  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.lm import DecoderLM, layer_kinds  # noqa: E402
 
-MODELS = {"qwen3-8b": 80, "gemma3-27b": 40}  # arch -> prompt length
+MODELS = {"qwen3-8b": 80, "gemma3-27b": 40, "qwen1.5-110b": 72,
+          "internlm2-20b": 48}  # arch -> prompt length
 BATCH = 2
 DECODE_STEPS = 6
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # prefill logits
@@ -55,6 +59,19 @@ def port_model(tcfg, tree) -> DecoderLM:
     model = DecoderLM(tcfg, device="cpu", seed=None)
     model.load_state_dict(params_from_reference(tcfg, tree))
     return model
+
+
+def with_biases(params: dict) -> dict:
+    """The reference initialises QKV biases at zero; give them values drawn
+    from a seed (the same in both packages) so the bias adds are tested."""
+    rng = np.random.default_rng(3)
+    for blocks in (params.get("units", {}), params.get("tail", {})):
+        for blk in blocks.values():
+            for name in ("bq", "bk", "bv"):
+                if name in blk["mixer"]:
+                    shape = blk["mixer"][name].shape
+                    blk["mixer"][name] = jnp.asarray(rng.normal(0, 0.5, shape), jnp.float32)
+    return params
 
 
 def ref_cache_layer(cache, cfg, idx: int) -> dict:
@@ -78,7 +95,7 @@ def served(request):
     arch, dtype = request.param
     jcfg, tcfg = configs(arch, dtype)
     jmodel = jbuild(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0))
+    params = with_biases(jmodel.init(jax.random.PRNGKey(0)))
     tree = jax.tree.map(np.asarray, params)
     tmodel = port_model(tcfg, tree)
     s = MODELS[arch]

@@ -5,7 +5,12 @@ weights (the reference's, carried across by ``params_from_reference``): five
 requests over two slots, ``max_new`` 4, so slots are reused across three
 admissions.  Greedy decoding must give the same token lists, request by
 request; a second run with an ``eos_id`` taken from the first run's output
-must retire that request early, in both.  Then the launcher runs on the CPU.
+must retire that request early, in both.  ``internlm2-20b-smoke`` (QKV
+bias) serves one request through each package's session and each session's
+tokens equal a hand-rolled prefill and decode (the reference's
+``tests/test_serve.py::test_serve_greedy_matches_manual_decode``), equal
+across the packages at float32.  Then the launcher runs on the CPU, with
+bf16 and with int8 weights.
 """
 
 import dataclasses
@@ -113,8 +118,53 @@ def test_launcher_runs_on_the_cpu():
     assert "12 tokens" in proc.stdout and "on cpu" in proc.stdout
 
 
-def test_launcher_int8_raises():
-    from repro_torch.launch.serve import main
+def test_launcher_serves_int8_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-8b",
+         "--smoke", "--device", "cpu", "--requests", "3", "--max-new", "4", "--int8"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert "12 tokens" in proc.stdout and "on cpu (int8 weights" in proc.stdout
 
-    with pytest.raises(NotImplementedError, match="8.8"):
-        main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--int8"])
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_session_greedy_matches_manual_decode_qkv_bias(dtype):
+    """internlm2-20b-smoke, one request: each package's session gives the
+    tokens of its own hand-rolled prefill and decode; at float32 the two
+    packages give the same tokens."""
+    import jax.numpy as jnp
+
+    jcfg = dataclasses.replace(jget_smoke("internlm2-20b"), compute_dtype=dtype)
+    tcfg = dataclasses.replace(tget_smoke("internlm2-20b"), compute_dtype=dtype)
+    jmodel = jbuild(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(1))
+    tmodel = DecoderLM(tcfg, device="cpu", seed=None)
+    tmodel.load_state_dict(params_from_reference(tcfg, jax.tree.map(np.asarray, params)))
+    prompt = np.random.default_rng(1).integers(0, tcfg.vocab, 12).astype(np.int32)
+
+    jsess = JSession(jmodel, params, batch_slots=1, max_len=32)
+    jreq = JRequest(rid=0, prompt=prompt, max_new=5)
+    jsess.submit(jreq)
+    jsess.run_to_completion()
+    tsess = ServeSession(tmodel, batch_slots=1, max_len=32)
+    treq = Request(rid=0, prompt=prompt, max_new=5)
+    tsess.submit(treq)
+    tsess.run_to_completion()
+
+    logits, cache = jax.jit(lambda p, b: jmodel.prefill(p, b, 32))(
+        params, {"tokens": jnp.asarray(prompt)[None, :]})
+    jout = [int(jnp.argmax(logits, -1)[0])]
+    tl, tc = tmodel.prefill({"tokens": torch.from_numpy(prompt)[None, :]}, 32)
+    tout = [int(tl.argmax(-1)[0])]
+    step = jax.jit(jmodel.decode_step)
+    for t in range(len(prompt), len(prompt) + 4):
+        logits, cache = step(params, cache, jnp.asarray([[jout[-1]]], jnp.int32),
+                             jnp.asarray(t, jnp.int32))
+        jout.append(int(jnp.argmax(logits, -1)[0]))
+        tl, tc = tmodel.decode_step(tc, torch.tensor([[tout[-1]]]), t)
+        tout.append(int(tl.argmax(-1)[0]))
+    assert jreq.out == jout
+    assert treq.out == tout
+    if dtype == "float32":
+        assert tout == jout
