@@ -83,8 +83,8 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     product); otherwise the weight is cast and multiplied."""
     if isinstance(w, QuantizedWeight):
         k = x.shape[-1]
-        rows = x.numel() // k if k else 0
-        if 0 < rows <= W8_DECODE_ROWS:
+        rows = x.numel() // k
+        if rows <= W8_DECODE_ROWS:
             y = w8_matmul(x.reshape(rows, k).contiguous(), w.q, w.s)
             return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ cast(w, x.dtype)
@@ -120,18 +120,17 @@ def quantize_for_serving(model: nn.Module) -> nn.Module:
     every other float weight (embeddings, ``lm_head``, biases, norm scales)
     is rounded to bf16 values, as the reference casts those leaves to bf16 —
     the port keeps each in its own dtype (norm scales float32), so only the
-    values change.  Module by module, each weight is freed as soon as its
-    record exists, so the peak stays one weight's quantization above the
-    model."""
+    values change.  Each weight is freed as soon as its record exists, so
+    the peak stays one weight's quantization above the model."""
     for module in list(model.modules()):
-        for name, w in list(module._parameters.items()):
+        for name in list(module._parameters):
+            w = module._parameters[name]
             if w is None or not w.dtype.is_floating_point:
                 continue
             if name in _QUANT_NAMES and w.dim() >= 2:
                 record = quantize_weight(w)
-                del module._parameters[name]
+                del module._parameters[name], w  # the weight's last reference
                 setattr(module, name, record)
-                del w
             elif name not in _KEEP_F32 and w.dtype != torch.bfloat16:
                 w.copy_(w.to(torch.bfloat16))
     return model
