@@ -29,7 +29,8 @@ probe rows matching — all made from ``--seed``:
    path's shapes, and times both (CUDA events around the call, host work
    included, median of ``--reps`` after a warm-up; for the kernel and the
    library call also ``device_ms``, their kernels' device time alone from
-   ``torch.profiler``), beside the least time the card could take and one library
+   ``torch.profiler``, or ``device_ms_estimated`` where the trace lost
+   launches), beside the least time the card could take and one library
    call where one computes the same (or, footnoted, less) work — the
    selection at four selectivities (90/50/10/1 %), one line each;
 5. drives the engine through ``BatchExecutor`` / ``execute_many`` on the
@@ -94,7 +95,8 @@ probe rows matching — all made from ``--seed``:
       qwen3-8b layer's four decode shapes (M 8; K x N 4,096 x 4,096,
       4,096 x 1,024, 4,096 x 12,288, 12,288 x 4,096), bf16 and float32
       (``W8_SUM_RTOL``), timed beside its bound and one ``torch.matmul`` of
-      x against the weight dequantized beforehand;
+      x against the weight dequantized beforehand, all three as a decode
+      step runs them: weights cold, launches replayed from a CUDA graph;
    d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
@@ -108,11 +110,13 @@ probe rows matching — all made from ``--seed``:
       a copy of the same cache; then one more prefill, one replayed and one
       eager decode step are warmed, timed and traced (``torch.profiler``:
       device-busy time, launches, the profiled step's idle share, top
-      kernels);
+      kernels); then the 16 requests are served once more under
+      ``torch.profiler``, and the kernels the trace holds are counted;
    e. the same model int8-quantized in place (``quantize_for_serving``,
       timed, its peak memory) and the same 16 requests served and checked
-      as in d, the W8 kernel launched 252 times a decode step (7 products
-      of 36 layers), and the dequant's device time in an int8 prefill;
+      as in d, the W8 kernel traced 252 times in a replayed decode step (7
+      products of 36 layers) and 252 times a step over the traced serving
+      run, and the dequant's device time in an int8 prefill;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -122,8 +126,9 @@ just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
 LM serve phase's two runs for ``flash_attention`` and its int8 run for
-``w8_matmul`` (a CUDA graph's replay counts the kernels it launches, the
-capture none); the sharded phase's own path (its
+``w8_matmul`` — its wrapper launches in the warm-up step before the graph's
+capture; the graph's replays launch it without the wrapper, and the
+traced serving run counts those from the trace —; the sharded phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe.
@@ -141,6 +146,7 @@ import gc
 import json
 import math
 import pstats
+import resource
 import statistics
 import subprocess
 import sys
@@ -209,6 +215,11 @@ LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b")
 W8_SHAPES = (((4096, 4096), 2), ((4096, 1024), 2), ((4096, 12288), 2),
              ((12288, 4096), 1))
 W8_ROWS = LM_SLOTS
+# the W8 lines' timing: the copies of a shape's int8 weight launched in turn
+# (8: more bytes than the 50 MB L2 for every shape but 4,096 x 1,024), one
+# graph of them replayed W8_GRAPH_REPS times
+W8_COPIES = 8
+W8_GRAPH_REPS = 20
 # (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer
 # and of a gemma3-27b local layer on the path's batch
 FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
@@ -257,15 +268,17 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float | None, list]:
+def device_ms(torch, fn, reps: int) -> tuple[float | None, list, float | None]:
     """Device time per call of ``fn`` without its host work: the kernels it
     launches (one stream, so they do not overlap), from ``torch.profiler``
-    over ``reps`` calls after a warm-up; and ``[kernel, ms per call,
-    launches per call]`` for each.  A trace that holds no device time, or
-    lost launches (a kernel counted other than a multiple of ``reps``
-    times), is taken once more; then a kernel that lost launches counts its
-    mean time a launch, times its launches a call rounded (at least one),
-    and ``None`` only where the trace holds no device time."""
+    over ``reps`` calls after a warm-up; ``[kernel, ms per call, launches
+    per call]`` for each; and an estimate.  A trace that holds no device
+    time, or lost launches (a kernel counted other than a multiple of
+    ``reps`` times), is taken once more; if the second loses launches too,
+    the time is ``None`` and the estimate is each kernel's mean time a
+    launch times its traced launches a call, rounded (at least one) — which
+    misses a kernel whose launches were all lost.  The estimate is ``None``
+    where the time was measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -283,17 +296,53 @@ def device_ms(torch, fn, reps: int) -> tuple[float | None, list]:
                    if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
         split = [[e.key[:60], dev_us(e) / 1e3 / reps, e.count / reps] for e in kernels]
         if kernels and not any(e.count % reps for e in kernels):
-            return sum(dev_us(e) for e in kernels) / 1e3 / reps, split
+            return sum(dev_us(e) for e in kernels) / 1e3 / reps, split, None
     if not kernels:
-        return None, split
+        return None, split, None
     per_call = [dev_us(e) / e.count * max(1, round(e.count / reps)) for e in kernels]
-    return sum(per_call) / 1e3, split
+    return None, split, sum(per_call) / 1e3
 
 
-def device_fields(torch, fn, reps: int) -> dict:
-    """A kernel line's ``device_ms`` and its split, ``device_kernels``."""
-    ms, split = device_ms(torch, fn, reps)
-    return {"device_ms": ms, "device_kernels": split}
+def device_fields(torch, fn, reps: int, prefix: str = "") -> dict:
+    """A kernel line's ``device_ms``, ``device_ms_estimated`` and split,
+    ``device_kernels`` (each key after ``prefix``)."""
+    ms, split, estimate = device_ms(torch, fn, reps)
+    return {f"{prefix}device_ms": ms, f"{prefix}device_ms_estimated": estimate,
+            f"{prefix}device_kernels": split}
+
+
+_SIDE_STREAM: list = []  # graph_ms's one side stream, made at its first call
+
+
+def graph_ms(torch, fns, reps: int) -> float:
+    """Milliseconds a launch of ``fns`` (a list of calls): run once on a side
+    stream, captured in one CUDA graph on that stream, and ``reps`` replays
+    of it timed by CUDA events, over the calls.  Every call uses the same
+    side stream: cuBLAS keeps a workspace allocated for each stream it ran
+    on, which a new stream a call would add to the memory in use."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps / len(fns)
 
 
 def sector_bytes(words: set[int], rows: int, row_bytes: int) -> int:
@@ -506,8 +555,8 @@ def kernels_phase(torch, table, dim, reps: int) -> dict:
             "plain_ms": time_ms(torch, lambda: plain(words), max(3, reps // 3)),
             "library_ms": (time_ms(torch, library[name], reps)
                            if name in library else None),
-            "library_device_ms": (device_ms(torch, library[name], reps)[0]
-                                  if name in library else None),
+            **(device_fields(torch, library[name], reps, "library_")
+               if name in library else {"library_device_ms": None}),
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "rows": n, "row_bytes": row_bytes,
         }
@@ -545,7 +594,8 @@ def slice3_kernel_phase(torch, words, table, p, reps: int) -> dict:
                **device_fields(torch, run, reps),
                "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
                "library_ms": time_ms(torch, library, reps) if library else None,
-               "library_device_ms": device_ms(torch, library, reps)[0] if library else None,
+               **(device_fields(torch, library, reps, "library_")
+                  if library else {"library_device_ms": None}),
                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0,
                "rows": n, "row_bytes": row_bytes, **extra}
         emit(row)
@@ -641,8 +691,8 @@ def join_kernel_phase(torch, words, dim, ts: int, reps: int) -> dict:
             # payload, no MVCC tests, no match mask)
             "library_ms": time_ms(torch, lambda: torch.searchsorted(sorted_keys, probe_keys),
                                   reps),
-            "library_device_ms": device_ms(
-                torch, lambda: torch.searchsorted(sorted_keys, probe_keys), reps)[0],
+            **device_fields(torch, lambda: torch.searchsorted(sorted_keys, probe_keys),
+                            reps, "library_"),
             "library_call": "torch.searchsorted (does less work)",
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "rows": w.shape[0], "row_bytes": w.shape[1] * 4,
@@ -752,17 +802,29 @@ def lm_prompts(rng, n: int, lo: int, hi: int, vocab: int) -> list:
             for n_tok in rng.integers(lo, hi + 1, n)]
 
 
-def recorded(torch, fn, log: list, sync: bool):
+def host_usage() -> dict:
+    """This process's host counters (all its threads): CPU seconds in user
+    and kernel mode, and the times a thread gave up its core to wait."""
+    r = resource.getrusage(resource.RUSAGE_SELF)
+    return {"user_s": r.ru_utime, "sys_s": r.ru_stime, "voluntary_switches": r.ru_nvcsw}
+
+
+def recorded(torch, fn, log: list, sync: bool, usage: list):
     """``fn`` (a session's prefill or decode step) timed on the host clock,
-    synced on both sides when ``sync``; appends ``(seconds, logits)``."""
+    synced on both sides when ``sync``; appends ``(seconds, logits)`` to
+    ``log`` and, to ``usage``, what :func:`host_usage` counted in the call
+    (a wall time far above its CPU seconds waited: on the device, a lock or
+    the scheduler)."""
     def run(*args):
         if sync:
             torch.cuda.synchronize()
+        before = host_usage()
         t0 = time.perf_counter()
         logits, cache = fn(*args)
         if sync:
             torch.cuda.synchronize()
         log.append((time.perf_counter() - t0, logits))
+        usage.append({k: v - before[k] for k, v in host_usage().items()})
         return logits, cache
     return run
 
@@ -770,19 +832,21 @@ def recorded(torch, fn, log: list, sync: bool):
 def serve_session(torch, model, prompts, slots: int, max_len: int, max_new: int,
                   sync: bool):
     """Serve ``prompts`` on a fresh session; returns the requests, the
-    recorded prefills and decode steps, and the session's decode step."""
+    recorded prefills and decode steps, the session's decode step, and the
+    host counters of each prefill and of the first decode step."""
     from repro_torch.serve import Request, ServeSession
 
     sess = ServeSession(model, batch_slots=slots, max_len=max_len)
-    prefills, decodes = [], []
+    prefills, decodes, usage = [], [], {"prefills": [], "ticks": []}
     step = sess.decode_fn
-    sess.prefill_fn = recorded(torch, sess.prefill_fn, prefills, sync)
-    sess.decode_fn = recorded(torch, sess.decode_fn, decodes, sync)
+    sess.prefill_fn = recorded(torch, sess.prefill_fn, prefills, sync, usage["prefills"])
+    sess.decode_fn = recorded(torch, sess.decode_fn, decodes, sync, usage["ticks"])
     reqs = [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
     for r in reqs:
         sess.submit(r)
     sess.run_to_completion()
-    return reqs, prefills, decodes, step
+    usage["first_tick"] = usage.pop("ticks")[0]
+    return reqs, prefills, decodes, step, usage
 
 
 def lm_reference_phase(torch, seed: int) -> dict:
@@ -796,7 +860,7 @@ def lm_reference_phase(torch, seed: int) -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import _cuda
-    from repro_torch.models.layers import quantize_for_serving
+    from repro_torch.models.layers import W8_DECODE_ROWS, quantize_for_serving
     from repro_torch.models.lm import DecoderLM
 
     out = {"phase": "lm_reference"}
@@ -818,7 +882,12 @@ def lm_reference_phase(torch, seed: int) -> dict:
         want = serve_session(torch, cpu, prompts, 2, 64, 6, False)
         assert launches["flash_attention"] == cfg.n_layers * len(got[1]), (
             launches, len(got[1]))
-        assert launches["w8_matmul"] >= (7 * cfg.n_layers * len(got[2]) if int8 else 0), launches
+        # the wrapper's launches: each prefill of at most W8_DECODE_ROWS rows
+        # (2 slots x its longest prompt) and the warm-up step before the
+        # capture; the replays launch without it
+        rows = [2 * max(len(p) for p in prompts[i:i + 2]) for i in range(0, len(prompts), 2)]
+        want_w8 = 7 * cfg.n_layers * (1 + sum(r <= W8_DECODE_ROWS for r in rows))
+        assert launches["w8_matmul"] == (want_w8 if int8 else 0), (launches, rows)
         tokens_equal = [r.out for r in got[0]] == [r.out for r in want[0]]
         pairs = list(zip(got[1], want[1]))
         if dtype == "float32":
@@ -913,7 +982,7 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
                 **device_fields(torch, run, reps),
                 "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
                 "library_ms": time_ms(torch, library, reps),
-                "library_device_ms": device_ms(torch, library, reps)[0],
+                **device_fields(torch, library, reps, "library_"),
                 "library_call": "torch.nn.functional.scaled_dot_product_attention"
                                 + (" (is_causal)" if window is None else " (bool window mask)"),
                 "library_max_abs_err": lib_err,
@@ -960,13 +1029,17 @@ def w8_check(torch, got, x, q, s, want) -> dict:
     return out
 
 
-def w8_phase(torch, seed: int, reps: int) -> dict:
+def w8_phase(torch, seed: int) -> dict:
     """The W8 kernel against its plain version at a qwen3-8b layer's four
     decode shapes, in bf16 and float32, timed beside its bound and one
     ``torch.matmul`` of the same x against the weight dequantized
     beforehand (it reads twice the bytes of a bf16 weight and does no
-    dequant).  Returns the bf16 lines and, as ``w8_matmul``, a layer's seven
-    products summed (the shapes times their count)."""
+    dequant).  All three are timed as a decode step meets them: over
+    ``W8_COPIES`` copies of the weight in turn (weights cold in L2), the
+    launches captured in one CUDA graph (no host work between them),
+    ``W8_GRAPH_REPS`` replays between CUDA events.  Returns the bf16 lines
+    and, as ``w8_matmul``, a layer's seven products summed (the shapes
+    times their count)."""
     from repro_torch.kernels import w8_matmul as W8
     from repro_torch.models.layers import quantize_weight
 
@@ -975,26 +1048,25 @@ def w8_phase(torch, seed: int, reps: int) -> dict:
     for (k, n), count in W8_SHAPES:
         rec = quantize_weight(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
         q, s = rec.q, rec.s
+        qs = [q] + [q.clone() for _ in range(W8_COPIES - 1)]
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((W8_ROWS, k), generator=g, device="cuda").to(dtype)
-            w = W8.dequantize(q, s, dtype)  # the library call's weight
-            run = lambda: W8.w8_matmul(x, q, s)  # noqa: E731
-            plain = lambda: W8.w8_matmul_torch(x, q, s)  # noqa: E731
-            library = lambda: torch.matmul(x, w)  # noqa: E731
-            got = run()
+            ws = [W8.dequantize(qc, s, dtype) for qc in qs]  # the library call's weights
+            got = W8.w8_matmul(x, q, s)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-            want = plain()
+            want = W8.w8_matmul_torch(x, q, s)
             torch.cuda.synchronize()
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-            assert torch.equal(got, run())  # a fixed order of the split-K sums
+            assert torch.equal(got, W8.w8_matmul(x, q, s))  # a fixed order of the split-K sums
             bound_ms, bound_by = w8_bound(W8_ROWS, k, n, x.element_size())
             name = f"w8_matmul_{k}x{n}_{str(dtype).split('.')[1]}"
             line = {"phase": "kernel", "name": name,
-                    "kernel_ms": time_ms(torch, run, reps),
-                    **device_fields(torch, run, reps),
-                    "plain_ms": time_ms(torch, plain, reps),
-                    "library_ms": time_ms(torch, library, reps),
-                    "library_device_ms": device_ms(torch, library, reps)[0],
+                    "kernel_ms": graph_ms(torch, [lambda qc=qc: W8.w8_matmul(x, qc, s)
+                                                  for qc in qs], W8_GRAPH_REPS),
+                    "plain_ms": graph_ms(torch, [lambda qc=qc: W8.w8_matmul_torch(x, qc, s)
+                                                 for qc in qs], W8_GRAPH_REPS),
+                    "library_ms": graph_ms(torch, [lambda w=w: torch.matmul(x, w)
+                                                   for w in ws], W8_GRAPH_REPS),
                     "library_call": "torch.matmul (weight dequantized beforehand)",
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     **w8_check(torch, got, x, q, s, want),
@@ -1002,19 +1074,14 @@ def w8_phase(torch, seed: int, reps: int) -> dict:
                               "per_layer": count}}
             emit(line)
             lines[name] = line
-            del x, w, got, want
-        del rec, q, s
+            del x, ws, got, want
+        del rec, q, s, qs
         torch.cuda.empty_cache()
     bf16 = [(lines[f"w8_matmul_{k}x{n}_bfloat16"], c) for (k, n), c in W8_SHAPES]
-
-    def total(key):
-        vals = [(ln[key], c) for ln, c in bf16]
-        return None if any(v is None for v, _ in vals) else sum(v * c for v, c in vals)
-
     layer = {"phase": "kernel", "name": "w8_matmul", "per": "a qwen3-8b layer's 7 decode "
-             "products, bf16, M 8", **{key: total(key) for key in (
-                 "kernel_ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-                 "bound_ms")},
+             "products, bf16, M 8",
+             **{key: sum(ln[key] * c for ln, c in bf16)
+                for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
              "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln, _ in bf16)
              else "operations",
              "max_abs_err": max(ln["max_abs_err"] for ln in lines.values())}
@@ -1065,8 +1132,11 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     ``model`` and check what came out; then, on the first admission's
     prompts again, one replayed step against an eager ``decode_step`` on a
     copy of the same cache (bit-equal logits and caches), and one prefill,
-    one replayed and one eager decode step timed and profiled.  The flash
-    and W8 launches are counted on the serving run alone."""
+    one replayed and one eager decode step timed and profiled; then the
+    requests served again under the profiler (:func:`traced_serve`).  The
+    wrappers' flash and W8 launches are counted on the first serving run
+    alone; its host counters (:func:`host_usage`) are kept for each prefill
+    and the first tick (warm-up, capture, replay)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.serve.engine import make_decode_step
@@ -1087,7 +1157,7 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     _cuda.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs, prefills, decodes, session_step = serve_session(
+    reqs, prefills, decodes, session_step, usage = serve_session(
         torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1098,9 +1168,10 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
         hk.remove()
     peak = torch.cuda.max_memory_allocated()
     assert launches["flash_attention"] == cfg.n_layers * len(prefills), (launches, len(prefills))
-    # graphed: the warm-up step before the capture, then one replay a tick
-    want_w8 = 7 * cfg.n_layers * (len(decodes) + 1) if int8 else 0
-    assert launches["w8_matmul"] == want_w8, (launches, want_w8)
+    # the W8 wrapper launches in the warm-up step before the capture alone
+    # (every prefill has more than W8_DECODE_ROWS rows; replays launch
+    # without the wrapper: the traced run below counts them)
+    assert launches["w8_matmul"] == (7 * cfg.n_layers if int8 else 0), launches
     assert all(len(r.out) == LM_MAX_NEW for r in reqs), [len(r.out) for r in reqs]
     assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
     for _, logits in prefills + decodes:
@@ -1141,6 +1212,10 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
         "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos)),
         "decode_eager": profile_step(torch, lambda: model.decode_step(cache, nxt, pos)),
     }
+    counted = profiles["decode_replayed"]["counted"]
+    assert counted["rm_w8_matmul"] == (7 * cfg.n_layers if int8 else 0), counted
+    del cache, step
+    traced = traced_serve(torch, model, cfg, prompts, int8, [r.out for r in reqs])
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "weights": "int8" if int8 else cfg.compute_dtype, "dtype": cfg.compute_dtype,
            "slots": LM_SLOTS, "max_len": LM_MAX_LEN, "requests": len(reqs),
@@ -1155,11 +1230,42 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
            "generated_tokens_per_s": tokens / serve_s,
            # the session's serve time outside its timed prefills and ticks
            "untimed_seconds": serve_s - sum(t for t, _ in prefills + decodes),
-           "capture_seconds": capture_s,
+           "capture_seconds": capture_s, "host_usage": usage,
            "max_memory_allocated": peak, "launches": launches,
            "replayed_step_bit_equal_to_eager": replay_equal,
-           "kernel_check": checked, "profiles": profiles}
-    del cache, step, prefills, decodes
+           "kernel_check": checked, "profiles": profiles, "traced_run": traced}
+    del prefills, decodes
+    return out
+
+
+def traced_serve(torch, model, cfg, prompts, int8: bool, tokens: list) -> dict:
+    """The same requests served again on a fresh session under
+    ``torch.profiler``: the launches of the flash and W8
+    kernels as the trace holds them — the graph's replays included, which
+    no wrapper counts — checked against what the session ran; whether the
+    tokens equal ``tokens`` (the timed run's); and the session's first
+    tick and capture seconds (the profiler's host cost included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reqs, prefills, decodes, step, _ = serve_session(
+            torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    traced = {name: sum(e.count for e in kernels if name in e.key)
+              for name in ("rm_flash_attention", "rm_w8_matmul")}
+    out = {"launches": traced, "prefills": len(prefills), "decode_steps": len(decodes),
+           "tokens_equal": [r.out for r in reqs] == tokens,
+           "first_tick_seconds": decodes[0][0], "capture_seconds": step.capture_seconds}
+    assert traced["rm_flash_attention"] == cfg.n_layers * len(prefills), out
+    # the warm-up step before the capture, then one replay a tick
+    want_w8 = 7 * cfg.n_layers * (len(decodes) + 1) if int8 else 0
+    assert traced["rm_w8_matmul"] == want_w8, (out, want_w8)
+    del step, prefills, decodes, prof
     return out
 
 
@@ -1174,6 +1280,7 @@ def lm_serve_phase(torch, seed: int) -> dict:
     from repro_torch.models.lm import DecoderLM
 
     cfg = get_config(LM_ARCH)
+    baseline = torch.cuda.memory_allocated()  # held before the model: not the cells'
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1185,7 +1292,8 @@ def lm_serve_phase(torch, seed: int) -> dict:
     rng = np.random.default_rng(seed + 11)
     prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
     bf16 = serve_cell(torch, model, cfg, prompts, int8=False)
-    out = {"phase": "lm_serve", "weights": weights, "init_seconds": init_s, **bf16}
+    out = {"phase": "lm_serve", "weights": weights, "init_seconds": init_s,
+           "baseline_memory_allocated": baseline, **bf16}
     emit(out)
 
     gc.collect()
@@ -2108,7 +2216,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     lm_reference_phase(torch, args.seed)
     kernels.update(flash_phase(torch, args.seed, args.reps))
-    kernels.update(w8_phase(torch, args.seed, args.reps))
+    kernels.update(w8_phase(torch, args.seed))
     lm = lm_serve_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);

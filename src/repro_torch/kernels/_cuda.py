@@ -19,9 +19,10 @@ BSL / PCK projection revisions, the compacting selection, the GQA
 flash-attention forward and the int8-weight decode matmul have their own
 parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
 :func:`run_select`, :func:`run_flash`, :func:`run_w8`) under the same rules.
-``LAUNCHES`` counts the launches of each kernel; nothing else adds to it but
-a CUDA graph's replays (``serve.engine.make_decode_step``), which launch
-the kernels their capture recorded.  ``hash_join`` counts one for each
+``LAUNCHES`` counts the launches each wrapper makes, and nothing else: a
+call inside a CUDA graph's capture records its kernel without launching it
+and counts nothing, and the graph's replays launch it without the wrapper
+(``torch.profiler`` sees those).  ``hash_join`` counts one for each
 probe, which is two kernels on the card: the bucket repack
 (``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``);
 ``w8_matmul`` one for each product, which is two kernels when K is split
@@ -87,6 +88,13 @@ SMEM_MAX = 227 * 1024  # what one block may use on Hopper
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(kernel: str) -> None:
+    """Count one launch of ``kernel`` by its wrapper; none while the current
+    stream is capturing a CUDA graph (the capture launches nothing)."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[kernel] += 1
 
 
 # ----------------------------------------------------------- ctypes layout
@@ -528,7 +536,7 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
                     params.req[j].mask = results[i][1].data_ptr()
             _check(lib, fn(ctypes.byref(params), n_blocks, pl.smem_bytes, stream),
                    f"{kernel} launch")
-            LAUNCHES[kernel] += 1
+            _launched(kernel)
             if not pl.part_w:
                 continue
             reduced = torch.empty(pl.part_w, dtype=torch.float32, device=device)
@@ -611,7 +619,7 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, lib.rm_hash_join(ctypes.byref(params), p, n_blocks, stream),
                "hash_join launch")
-    LAUNCHES["hash_join"] += 1
+    _launched("hash_join")
     return s_out, r_out, m_out
 
 
@@ -653,7 +661,7 @@ def run_columns(kernel: str, words: torch.Tensor,
         else:
             raise ValueError(kernel)
         _check(lib, err, f"{kernel} launch")
-    LAUNCHES[kernel] += 1
+    _launched(kernel)
     return out
 
 
@@ -691,7 +699,7 @@ def run_select(words: torch.Tensor, req: KernelReq,
         stream = torch.cuda.current_stream(words.device).cuda_stream
         _check(lib, lib.rm_select_compact(ctypes.byref(params), n_blocks, stream),
                "select_compact launch")
-    LAUNCHES["select_compact"] += 1
+    _launched("select_compact")
     return blocks, counts
 
 
@@ -768,7 +776,7 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _check(lib, lib.rm_flash_attention(ctypes.byref(params), stream),
                "flash_attention launch")
-    LAUNCHES["flash_attention"] += 1
+    _launched("flash_attention")
     return out
 
 
@@ -850,5 +858,5 @@ def run_w8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check(lib, lib.rm_w8_matmul(ctypes.byref(params), stream), "w8_matmul launch")
-    LAUNCHES["w8_matmul"] += 1
+    _launched("w8_matmul")
     return y

@@ -4,8 +4,9 @@
 * ``events_ms``: CUDA events around one wrapper call, host work included
   (as ``chip_smoke.py`` reports ``kernel_ms``), median of ``--reps``;
 * ``device_ms``: the device time of the kernels that call launches, from
-  ``torch.profiler`` over ``--reps`` calls, per call; ``kernels`` splits it
-  by kernel;
+  ``torch.profiler`` over ``--reps`` calls, per call; ``device_kernels``
+  splits it by kernel (``None``, and ``device_ms_estimated`` in its place,
+  where the trace lost launches: ``chip_smoke.device_ms``);
 * ``host_ms``: the host time to enqueue one call (planning, allocation,
   launch), mean over ``--reps`` calls issued back to back.
 
@@ -77,11 +78,11 @@ def main(argv=None) -> int:
     import repro_torch
 
     for name, fn in cases:
-        device, kernels = CS.device_ms(torch, fn, args.reps)
         print(json.dumps({
             "case": name, "tag": args.tag, "package": str(Path(repro_torch.__file__).parent),
-            "events_ms": CS.time_ms(torch, fn, args.reps), "device_ms": device,
-            "host_ms": host_ms(torch, fn, args.reps), "kernels": kernels,
+            "events_ms": CS.time_ms(torch, fn, args.reps),
+            **CS.device_fields(torch, fn, args.reps),
+            "host_ms": host_ms(torch, fn, args.reps),
         }), flush=True)
     return 0
 

@@ -26,8 +26,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels import _cuda
-
 
 def make_prefill(model, max_len: int) -> Callable:
     def prefill(batch):
@@ -71,17 +69,25 @@ class GraphedDecodeStep:
     raises.  A capture that fails raises (the step never falls back to
     eager).
 
-    Kernel launch counts (``_cuda.LAUNCHES``): the wrappers count when they
-    are called, and inside the capture they record a kernel rather than
-    launch it; so the capture's counts are taken back and every replay adds
-    them, as the kernels it launches."""
+    The graph also holds the addresses of the model's weights.  A model
+    whose weights were replaced after the capture (``quantize_for_serving``
+    frees each one) raises at the next call: it needs a new step.
+
+    Kernel launch counts (``_cuda.LAUNCHES``) hold the warm-up step's
+    launches only: the capture records kernels without launching them, and
+    a replay launches them without their wrappers."""
 
     def __init__(self, model):
         self.model = model
         self.graph: torch.cuda.CUDAGraph | None = None
         self.cache: list[dict] | None = None
-        self.captured_launches: dict[str, int] = {}
+        # each captured weight: its module's dict, name, tensor and address
+        self.weights: list[tuple[dict, str, torch.Tensor, int]] = []
         self.capture_seconds: dict[str, float] = {}  # host clock, synced
+
+    def _weights_unchanged(self) -> bool:
+        return all(d.get(name) is t and t.data_ptr() == ptr
+                   for d, name, t, ptr in self.weights)
 
     def _capture(self, cache, tokens, pos) -> None:
         device = self.model.device
@@ -97,14 +103,12 @@ class GraphedDecodeStep:
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
-        before = dict(_cuda.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.logits, _ = self.model.decode_step(cache, self.tokens, self.pos)
-        self.captured_launches = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
-                                  if v != before[k]}
-        for k, v in self.captured_launches.items():
-            _cuda.LAUNCHES[k] -= v
+        self.weights = [(d, name, t, t.data_ptr()) for m in self.model.modules()
+                        for d in (m._parameters, m._buffers)
+                        for name, t in d.items() if t is not None]
         self.graph = graph
         self.capture_seconds = {"warm_up": t1 - t0, "capture": time.perf_counter() - t1}
 
@@ -129,13 +133,14 @@ class GraphedDecodeStep:
         if self.graph is None:
             self._capture(cache, tokens, pos)
         else:
+            if not self._weights_unchanged():
+                raise RuntimeError("the model's weights changed since the decode step was "
+                                   "captured (e.g. quantize_for_serving); make a new step")
             if cache is not self.cache:
                 self._adopt(cache)
             self.tokens.copy_(torch.as_tensor(tokens, device=self.tokens.device))
             self._set_pos(pos)
         self.graph.replay()
-        for k, v in self.captured_launches.items():
-            _cuda.LAUNCHES[k] += v
         return self.logits.clone(), self.cache
 
 

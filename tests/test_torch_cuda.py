@@ -950,9 +950,10 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     """The session's graphed decode step against the eager step on the same
     model: equal tokens and bit-equal logits tick by tick, across three
     admissions (the second and third copy their prefill's cache into the
-    captured one).  Replays count the W8 kernel's launches: 7 a layer a
-    tick, plus the warm-up step before the capture (the prompts are long
-    enough, 2 × 33 rows and more, that no prefill's products take it)."""
+    captured one).  The W8 kernel's wrapper counts the warm-up step before
+    the capture only, 7 launches a layer: the capture launches nothing, the
+    replays launch without the wrapper, and the prompts are long enough,
+    2 × 33 rows and more, that no prefill's products take the kernel."""
     from repro_torch.serve.engine import GraphedDecodeStep
 
     cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8)
@@ -966,8 +967,26 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     assert len(logits) == len(eager_logits) > 6
     for a, b in zip(logits, eager_logits):
         assert torch.equal(a, b)
-    want = 7 * cfg.n_layers * (len(logits) + 1) if int8 else 0
-    assert _cuda.LAUNCHES["w8_matmul"] == want
+    assert _cuda.LAUNCHES["w8_matmul"] == (7 * cfg.n_layers if int8 else 0)
+
+
+def test_decode_step_raises_after_the_weights_change(dev):
+    """A step captured before ``quantize_for_serving`` holds the freed bf16
+    weights' addresses: its next call raises; a new step serves."""
+    from repro_torch.models.layers import quantize_for_serving
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8=False)
+    step = make_decode_step(card)
+    toks = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    cache = card.init_cache(2, 32)
+    step(cache, toks, 3)
+    step(cache, toks, 4)  # the same weights: a replay
+    quantize_for_serving(card)
+    with pytest.raises(RuntimeError, match="weights changed"):
+        step(cache, toks, 5)
+    logits, _ = make_decode_step(card)(cache, toks, 5)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_decode_step_cache_of_other_shapes_raises(dev):
