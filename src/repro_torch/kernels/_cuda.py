@@ -22,7 +22,8 @@ parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
 ``LAUNCHES`` counts the launches each wrapper makes, and nothing else: a
 call inside a CUDA graph's capture records its kernel without launching it
 and counts nothing, and the graph's replays launch it without the wrapper
-(``torch.profiler`` sees those).  ``hash_join`` counts one for each
+(``torch.profiler`` sees those).  ``CAPTURED`` counts, in the same units,
+the calls that a capture recorded instead: a graph replays each once.  ``hash_join`` counts one for each
 probe, which is two kernels on the card: the bucket repack
 (``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``);
 ``w8_matmul`` one for each product, which is two kernels when K is split
@@ -56,6 +57,7 @@ KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
                           "select_compact", "flash_attention", "w8_matmul")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
@@ -88,12 +90,16 @@ SMEM_MAX = 227 * 1024  # what one block may use on Hopper
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        CAPTURED[k] = 0
 
 
 def _launched(kernel: str) -> None:
-    """Count one launch of ``kernel`` by its wrapper; none while the current
-    stream is capturing a CUDA graph (the capture launches nothing)."""
-    if not torch.cuda.is_current_stream_capturing():
+    """Count one launch of ``kernel`` by its wrapper; while the current
+    stream is capturing a CUDA graph (the capture launches nothing), count
+    it in ``CAPTURED`` instead."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[kernel] += 1
+    else:
         LAUNCHES[kernel] += 1
 
 

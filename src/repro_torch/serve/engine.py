@@ -26,6 +26,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import _cuda
+
 
 def make_prefill(model, max_len: int) -> Callable:
     def prefill(batch):
@@ -75,7 +77,10 @@ class GraphedDecodeStep:
 
     Kernel launch counts (``_cuda.LAUNCHES``) hold the warm-up step's
     launches only: the capture records kernels without launching them, and
-    a replay launches them without their wrappers."""
+    a replay launches them without their wrappers.  ``captured`` holds what
+    the wrappers recorded into the graph (``_cuda.CAPTURED`` over the
+    capture), which each replay launches once; ``replays`` counts the
+    replays, one a call."""
 
     def __init__(self, model):
         self.model = model
@@ -84,6 +89,8 @@ class GraphedDecodeStep:
         # each captured weight: its module's dict, name, tensor and address
         self.weights: list[tuple[dict, str, torch.Tensor, int]] = []
         self.capture_seconds: dict[str, float] = {}  # host clock, synced
+        self.captured: dict[str, int] = {}
+        self.replays = 0
 
     def _weights_unchanged(self) -> bool:
         return all(d.get(name) is t and t.data_ptr() == ptr
@@ -104,8 +111,10 @@ class GraphedDecodeStep:
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        before = dict(_cuda.CAPTURED)
         with torch.cuda.graph(graph):
             self.logits, _ = self.model.decode_step(cache, self.tokens, self.pos)
+        self.captured = {k: n - before[k] for k, n in _cuda.CAPTURED.items()}
         self.weights = [(d, name, t, t.data_ptr()) for m in self.model.modules()
                         for d in (m._parameters, m._buffers)
                         for name, t in d.items() if t is not None]
@@ -141,6 +150,7 @@ class GraphedDecodeStep:
             self.tokens.copy_(torch.as_tensor(tokens, device=self.tokens.device))
             self._set_pos(pos)
         self.graph.replay()
+        self.replays += 1
         return self.logits.clone(), self.cache
 
 

@@ -953,7 +953,9 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     captured one).  The W8 kernel's wrapper counts the warm-up step before
     the capture only, 7 launches a layer: the capture launches nothing, the
     replays launch without the wrapper, and the prompts are long enough,
-    2 × 33 rows and more, that no prefill's products take the kernel."""
+    2 × 33 rows and more, that no prefill's products take the kernel.  The
+    capture records as many products as the warm-up launched, and the graph
+    replays once a tick."""
     from repro_torch.serve.engine import GraphedDecodeStep
 
     cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8)
@@ -968,6 +970,9 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     for a, b in zip(logits, eager_logits):
         assert torch.equal(a, b)
     assert _cuda.LAUNCHES["w8_matmul"] == (7 * cfg.n_layers if int8 else 0)
+    assert step.captured["w8_matmul"] == _cuda.LAUNCHES["w8_matmul"]
+    assert step.captured["flash_attention"] == 0
+    assert step.replays == len(logits)
 
 
 def test_decode_step_raises_after_the_weights_change(dev):
@@ -982,6 +987,7 @@ def test_decode_step_raises_after_the_weights_change(dev):
     cache = card.init_cache(2, 32)
     step(cache, toks, 3)
     step(cache, toks, 4)  # the same weights: a replay
+    assert step.replays == 2
     quantize_for_serving(card)
     with pytest.raises(RuntimeError, match="weights changed"):
         step(cache, toks, 5)
