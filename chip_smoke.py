@@ -92,11 +92,16 @@ probe rows matching — all made from ``--seed``:
       never calls);
    c. the W8 kernel (``csrc/rm_w8.cu``) against its plain version (the
       dequant, then ``torch.matmul``) and against the exact product at a
-      qwen3-8b layer's four decode shapes (M 8; K x N 4,096 x 4,096,
-      4,096 x 1,024, 4,096 x 12,288, 12,288 x 4,096), bf16 and float32
-      (``W8_SUM_RTOL``), timed beside its bound and one ``torch.matmul`` of
-      x against the weight dequantized beforehand, all three as a decode
-      step runs them: weights cold, launches replayed from a CUDA graph;
+      qwen3-8b layer's decode launches (M 8; K 4,096: wq, wk, wv as one
+      group of N 4,096, 1,024, 1,024, wo of N 4,096, w_gate, w_up as one
+      group of N 12,288 each; w_down, K 12,288, N 4,096), bf16 and float32
+      (``W8_SUM_RTOL``), each grouped output bit-equal to its product
+      launched alone, timed beside its bound, one ``torch.matmul`` of x
+      against the weight dequantized beforehand and, where the installed
+      torch runs it on the card, ``torch._weight_int8pack_mm`` on a
+      transposed copy of the int8 weight (two yardsticks the port never
+      calls), all as a decode step runs them: weights cold, launches
+      replayed from a CUDA graph; a layer's sum against its bound;
    d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
@@ -116,11 +121,13 @@ probe rows matching — all made from ``--seed``:
       a trace of about 100,000 kernels can lose records);
    e. the same model int8-quantized in place (``quantize_for_serving``,
       timed, its peak memory) and the same 16 requests served and checked
-      as in d, 252 W8 products (7 of 36 layers) launched by the wrapper in
-      the warm-up step and recorded by the capture, so 252 × (ticks + 1)
-      in the run, 252 W8 kernels in the trace of a replayed step (taken
-      once more if it lost records), some in the traced serving run, and
-      the dequant's device time in an int8 prefill;
+      as in d, 252 W8 products (7 of 36 layers) in 144 launches (4 a
+      layer: q, k and v one group, gate and up one) by the wrapper in the
+      warm-up step and as many recorded by the capture, so 252 × (ticks +
+      1) products in 144 × (ticks + 1) launches in the run, 144 W8 kernels
+      and no split-K reduction in the trace of a replayed step (taken once
+      more if it lost records) with their device time, some in the traced
+      serving run, and the dequant's device time in an int8 prefill;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -132,8 +139,9 @@ PCK, the selection phase for ``project_multi`` and ``select_compact``, the
 LM serve phase's two runs for ``flash_attention`` and its int8 run for
 ``w8_matmul`` — its wrapper launches in the warm-up step before the graph's
 capture; the graph's replays launch it without the wrapper, and the
-line's ``w8_kernels_run`` adds them from the capture's records and the
-replay count —; the sharded phase's own path (its
+line's ``w8_kernels_run`` (launches) and ``w8_products_run`` (products)
+add them from the capture's records and the replay count —; the sharded
+phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe.
@@ -215,14 +223,15 @@ LM_REQUESTS = 16
 LM_CHECK_LAYERS = (0, 35)
 # the card-against-CPU smokes: qwen3-8b's, then the two QKV-bias decoders'
 LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b")
-# (K, N) of a qwen3-8b layer's decode products at M = 8 rows, and how many
-# of each a layer runs: wq and wo, wk and wv, w_gate and w_up, w_down
-W8_SHAPES = (((4096, 4096), 2), ((4096, 1024), 2), ((4096, 12288), 2),
-             ((12288, 4096), 1))
+# a qwen3-8b layer's decode products at M = 8 rows, as the layer launches
+# them: (name, K, N of each record of the launch) — wq, wk, wv one group;
+# wo; w_gate, w_up one group; w_down
+W8_GROUPS = (("qkv", 4096, (4096, 1024, 1024)), ("wo", 4096, (4096,)),
+             ("gate_up", 4096, (12288, 12288)), ("w_down", 12288, (4096,)))
 W8_ROWS = LM_SLOTS
-# the W8 lines' timing: the copies of a shape's int8 weight launched in turn
-# (8: more bytes than the 50 MB L2 for every shape but 4,096 x 1,024), one
-# graph of them replayed W8_GRAPH_REPS times
+# the W8 lines' timing: the copies of a launch's int8 weights launched in
+# turn (8: more bytes than the 50 MB L2 for every launch), one graph of them
+# replayed W8_GRAPH_REPS times
 W8_COPIES = 8
 W8_GRAPH_REPS = 20
 # (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer
@@ -1004,13 +1013,16 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
     return out
 
 
-def w8_bound(m: int, k: int, n: int, elem_bytes: int) -> tuple[float, str]:
-    """The least time of ``x (m, k) @ dequant(q (k, n), s)``: the int8
-    weight, the bf16 scales, x and y moved once over the memory rate,
-    against 2·m·k·n operations over the inputs' rate (bf16 on the tensor
-    cores, float32 on the CUDA cores)."""
-    t_bytes = (k * n + 2 * n + (m * k + m * n) * elem_bytes) / HBM_BYTES_PER_S
-    t_ops = 2 * m * k * n / (BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
+def w8_bound(m: int, k: int, ns, elem_bytes: int) -> tuple[float, str]:
+    """The least time of ``x (m, k) @ dequant(q (k, n), s)`` for each ``n``
+    of ``ns``, a group that shares x: the int8 weights, the bf16 scales, x
+    (once) and the outputs moved once over the memory rate, against 2·m·k·n
+    operations a record over the inputs' rate (bf16 on the tensor cores,
+    float32 on the CUDA cores)."""
+    t_bytes = (sum(k * n + 2 * n + m * n * elem_bytes for n in ns)
+               + m * k * elem_bytes) / HBM_BYTES_PER_S
+    t_ops = sum(2 * m * k * n for n in ns) / (
+        BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
@@ -1034,62 +1046,99 @@ def w8_check(torch, got, x, q, s, want) -> dict:
     return out
 
 
+def int8pack_yardstick(torch, x, copies, want) -> dict:
+    """``torch._weight_int8pack_mm`` — x against an ``(N, K)`` int8 copy of
+    each record, transposed beforehand, and float32 scales — over the
+    ``copies`` as the kernel is timed, where the installed torch runs it on
+    the card: a yardstick that reads the same int8 bytes, never called by
+    the port.  Where it does not run, says why."""
+    try:
+        packs = [[(q.t().contiguous(), s.float().reshape(-1)) for q, s in c] for c in copies]
+        got = [torch._weight_int8pack_mm(x, wt, sc) for wt, sc in packs[0]]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return {"int8pack_ms": None, "int8pack_error": str(e).splitlines()[0][:200]}
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    ms = graph_ms(torch, [lambda p=p: [torch._weight_int8pack_mm(x, wt, sc) for wt, sc in p]
+                          for p in packs], W8_GRAPH_REPS)
+    del packs, got
+    return {"int8pack_ms": ms, "int8pack_max_abs_err": err}
+
+
 def w8_phase(torch, seed: int) -> dict:
     """The W8 kernel against its plain version at a qwen3-8b layer's four
-    decode shapes, in bf16 and float32, timed beside its bound and one
-    ``torch.matmul`` of the same x against the weight dequantized
-    beforehand (it reads twice the bytes of a bf16 weight and does no
-    dequant).  All three are timed as a decode step meets them: over
-    ``W8_COPIES`` copies of the weight in turn (weights cold in L2), the
+    decode launches (``W8_GROUPS``), in bf16 and float32: each output
+    within the limits of :func:`w8_check`, equal on a rerun and bit-equal to
+    its product launched alone.  Each launch is timed beside its bound, its
+    plain version and one ``torch.matmul`` of the same x against each
+    weight dequantized beforehand (it reads twice the bytes of a bf16 weight
+    and does no dequant), in bf16 also ``torch._weight_int8pack_mm``
+    (:func:`int8pack_yardstick`).  All are timed as a decode step meets
+    them: over ``W8_COPIES`` copies of the weights in turn (cold in L2), the
     launches captured in one CUDA graph (no host work between them),
-    ``W8_GRAPH_REPS`` replays between CUDA events.  Returns the bf16 lines
-    and, as ``w8_matmul``, a layer's seven products summed (the shapes
-    times their count)."""
+    ``W8_GRAPH_REPS`` replays between CUDA events.  Returns, as
+    ``w8_matmul``, a layer's four bf16 launches summed against their
+    bound."""
     from repro_torch.kernels import w8_matmul as W8
     from repro_torch.models.layers import quantize_weight
 
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
     lines = {}
-    for (k, n), count in W8_SHAPES:
-        rec = quantize_weight(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
-        q, s = rec.q, rec.s
-        qs = [q] + [q.clone() for _ in range(W8_COPIES - 1)]
+    for group, k, ns in W8_GROUPS:
+        recs = []
+        for n in ns:
+            rec = quantize_weight(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
+            recs.append((rec.q, rec.s))
+        copies = [recs] + [[(q.clone(), s) for q, s in recs] for _ in range(W8_COPIES - 1)]
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((W8_ROWS, k), generator=g, device="cuda").to(dtype)
-            ws = [W8.dequantize(qc, s, dtype) for qc in qs]  # the library call's weights
-            got = W8.w8_matmul(x, q, s)
+            got = W8.w8_matmul_group(x, recs)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-            want = W8.w8_matmul_torch(x, q, s)
+            want = [W8.w8_matmul_torch(x, q, s) for q, s in recs]
             torch.cuda.synchronize()
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-            assert torch.equal(got, W8.w8_matmul(x, q, s))  # a fixed order of the split-K sums
-            bound_ms, bound_by = w8_bound(W8_ROWS, k, n, x.element_size())
-            name = f"w8_matmul_{k}x{n}_{str(dtype).split('.')[1]}"
+            again = W8.w8_matmul_group(x, recs)  # a fixed order of the split-K sums
+            alone = [W8.w8_matmul(x, q, s) for q, s in recs]  # the same sums in a group
+            assert all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got, again, alone)), group
+            checks = [w8_check(torch, y, x, q, s, w) for y, (q, s), w in zip(got, recs, want)]
+            ws = [[W8.dequantize(q, s, dtype) for q, s in c] for c in copies]
+            bound_ms, bound_by = w8_bound(W8_ROWS, k, ns, x.element_size())
+            name = f"w8_matmul_{group}_{str(dtype).split('.')[1]}"
             line = {"phase": "kernel", "name": name,
-                    "kernel_ms": graph_ms(torch, [lambda qc=qc: W8.w8_matmul(x, qc, s)
-                                                  for qc in qs], W8_GRAPH_REPS),
-                    "plain_ms": graph_ms(torch, [lambda qc=qc: W8.w8_matmul_torch(x, qc, s)
-                                                 for qc in qs], W8_GRAPH_REPS),
-                    "library_ms": graph_ms(torch, [lambda w=w: torch.matmul(x, w)
+                    "kernel_ms": graph_ms(torch, [lambda c=c: W8.w8_matmul_group(x, c)
+                                                  for c in copies], W8_GRAPH_REPS),
+                    "plain_ms": graph_ms(torch, [
+                        lambda c=c: [W8.w8_matmul_torch(x, q, s) for q, s in c]
+                        for c in copies], W8_GRAPH_REPS),
+                    "library_ms": graph_ms(torch, [lambda w=w: [torch.matmul(x, wi) for wi in w]
                                                    for w in ws], W8_GRAPH_REPS),
                     "library_call": "torch.matmul (weight dequantized beforehand)",
+                    **(int8pack_yardstick(torch, x, copies, want)
+                       if dtype == torch.bfloat16 else {}),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    **w8_check(torch, got, x, q, s, want),
-                    "shape": {"M": W8_ROWS, "K": k, "N": n, "dtype": str(dtype),
-                              "per_layer": count}}
+                    "max_abs_err": max(c["max_abs_err"] for c in checks),
+                    "max_abs_err_exact": max(c["max_abs_err_exact"] for c in checks),
+                    "limit_share": max(c["limit_share"] for c in checks),
+                    "plain_limit_share": max(c["plain_limit_share"] for c in checks),
+                    "grouped_equal_alone": True,
+                    "shape": {"M": W8_ROWS, "K": k, "N": list(ns), "dtype": str(dtype)}}
             emit(line)
             lines[name] = line
-            del x, ws, got, want
-        del rec, q, s, qs
+            del x, ws, got, want, again, alone
+        del recs, copies
         torch.cuda.empty_cache()
-    bf16 = [(lines[f"w8_matmul_{k}x{n}_bfloat16"], c) for (k, n), c in W8_SHAPES]
+    bf16 = [lines[f"w8_matmul_{group}_bfloat16"] for group, _, _ in W8_GROUPS]
+    packs = [ln["int8pack_ms"] for ln in bf16]
     layer = {"phase": "kernel", "name": "w8_matmul", "per": "a qwen3-8b layer's 7 decode "
-             "products, bf16, M 8",
-             **{key: sum(ln[key] * c for ln, c in bf16)
+             "products in 4 launches, bf16, M 8",
+             **{key: sum(ln[key] for ln in bf16)
                 for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-             "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln, _ in bf16)
+             "int8pack_ms": sum(packs) if None not in packs else None,
+             "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln in bf16)
              else "operations",
              "max_abs_err": max(ln["max_abs_err"] for ln in lines.values())}
+    layer["bound_share"] = layer["bound_ms"] / layer["kernel_ms"]
     emit(layer)
     return {"w8_matmul": layer}
 
@@ -1098,10 +1147,10 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
     """One step's time: ``fn`` once to warm up, once on the host clock
     (synced), then once more under ``torch.profiler`` — the sum of its
     kernels' device times (one stream, so they do not overlap), its
-    launches, the top five kernels, the launches of the kernels whose names
-    hold one of ``count``, and the idle share of that profiled step against
-    its own wall time (the profiler's host cost included).  ``None`` where
-    the trace holds no device time."""
+    launches, the top five kernels, the launches and the device time of the
+    kernels whose names hold one of ``count``, and the idle share of that
+    profiled step against its own wall time (the profiler's host cost
+    included).  ``None`` where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1129,6 +1178,8 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
             "counted": {c: sum(e.count for e in kernels if c in e.key) for c in count},
+            "counted_ms": {c: sum(dev_us(e) for e in kernels if c in e.key) / 1e3
+                           for c in count},
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
@@ -1167,19 +1218,24 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {k: _cuda.LAUNCHES[k] for k in ("flash_attention", "w8_matmul")}
+    w8_products = _cuda.W8_PRODUCTS["launched"]
     capture_s = session_step.capture_seconds
     replays, recorded = session_step.replays, session_step.captured
+    recorded_products = session_step.captured_w8_products
     del session_step
     for hk in hooks:
         hk.remove()
     peak = torch.cuda.max_memory_allocated()
     assert launches["flash_attention"] == cfg.n_layers * len(prefills), (launches, len(prefills))
     # the W8 wrapper launches in the warm-up step before the capture alone
-    # (every prefill has more than W8_DECODE_ROWS rows); the capture records
-    # as many, which each replay launches without the wrapper
-    assert launches["w8_matmul"] == (7 * cfg.n_layers if int8 else 0), launches
+    # (every prefill has more than W8_DECODE_ROWS rows): 7 products a layer
+    # in 4 launches (q, k, v one; wo; gate, up one; w_down); the capture
+    # records as many, which each replay launches without the wrapper
+    assert launches["w8_matmul"] == (4 * cfg.n_layers if int8 else 0), launches
+    assert w8_products == (7 * cfg.n_layers if int8 else 0), w8_products
     assert replays == len(decodes), (replays, len(decodes))  # every tick a replay
     assert recorded["w8_matmul"] == launches["w8_matmul"], recorded  # as the warm-up
+    assert recorded_products == w8_products, (recorded_products, w8_products)
     assert all(len(r.out) == LM_MAX_NEW for r in reqs), [len(r.out) for r in reqs]
     assert all(0 <= t < cfg.vocab for r in reqs for t in r.out)
     for _, logits in prefills + decodes:
@@ -1220,14 +1276,17 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
         "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos)),
         "decode_eager": profile_step(torch, lambda: model.decode_step(cache, nxt, pos)),
     }
-    # the W8 products the serving run ran: the wrapper's (the warm-up step)
-    # and, in each replay, those its capture recorded, which the trace of a
-    # replayed step holds (taken once more if it lost records)
+    # the W8 launches and products the serving run ran: the wrapper's (the
+    # warm-up step) and, in each replay, those its capture recorded, whose
+    # kernels the trace of a replayed step holds, with no split-K reduction
+    # in bf16 (taken once more if it lost records)
     w8_run = launches["w8_matmul"] + replays * recorded["w8_matmul"]
+    w8_products_run = w8_products + replays * recorded_products
     if profiles["decode_replayed"]["counted"]["rm_w8_matmul"] != recorded["w8_matmul"]:
         profiles["decode_replayed"] = profile_step(torch, lambda: step(cache, nxt, pos))
     counted = profiles["decode_replayed"]["counted"]
     assert counted["rm_w8_matmul"] == recorded["w8_matmul"], (counted, recorded)
+    assert counted["rm_w8_reduce"] == 0, counted
     del cache, step
     traced = traced_serve(torch, model, prompts, [r.out for r in reqs],
                           {"rm_flash_attention": launches["flash_attention"],
@@ -1249,6 +1308,10 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
            "capture_seconds": capture_s, "host_usage": usage,
            "max_memory_allocated": peak, "launches": launches,
            "replays": replays, "captured": recorded, "w8_kernels_run": w8_run,
+           "w8_products": w8_products, "captured_w8_products": recorded_products,
+           "w8_products_run": w8_products_run,
+           # every W8 kernel's device time in the traced replayed step
+           "w8_step_device_ms": sum(profiles["decode_replayed"]["counted_ms"].values()),
            "replayed_step_bit_equal_to_eager": replay_equal,
            "kernel_check": checked, "profiles": profiles, "traced_run": traced}
     del prefills, decodes

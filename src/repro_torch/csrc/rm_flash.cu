@@ -65,9 +65,10 @@
 // softmax and the p V product for the D / 32 output columns it owns.
 #include <cmath>
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "rm_tma.cuh"  // mbarriers, the tensor-map encoder (CUtensorMap via <cuda.h>)
 
 // Mirrored by ctypes in repro_torch/kernels/_cuda.py (_FlashParams), which
 // checks sizeof at load time.  Strides are in elements.
@@ -276,7 +277,6 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskLog2 = kMaskValue * kLog2e;  // -1e30 in the exp2 domain
-constexpr uint64_t kWaitLimitNs = 10000000000ull;  // 10 s: a lost barrier traps
 
 template <int D>
 struct Tile {
@@ -293,36 +293,7 @@ struct Tile {
   static constexpr int kPvN = D < 128 ? D : 128;  // width of one PV wgmma
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-// Wait for the completion of the barrier's phase of parity `parity`.  A wait
-// that outlasts kWaitLimitNs traps (a launch error) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t start = 0;
-  for (unsigned spins = 1;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins % 1024 == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (start == 0) start = now;
-      else if (now - start > kWaitLimitNs) __trap();
-    }
-  }
-}
+using namespace rm_tma;
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int c1, int c2, int c3) {
@@ -706,38 +677,13 @@ int launch_f32(const FlashParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time so the library
-// needs no -lcuda at link time
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A (D, heads, S, B) view of a (B, S, heads, D) bf16 tensor whose box is
 // `chunk` columns of `rows` rows of one head, in `swizzle`.  The wrapper has
 // checked that the base is 16-byte aligned and the strides multiples of 16
 // bytes (a stride of a size-1 dimension is passed as one that is).
 int tensor_map(CUtensorMap* map, const void* base, int heads, long long sb, long long ss,
                long long sh, const FlashParams& p, int rows, int chunk, int swizzle) {
-  const EncodeTiled encode = encode_tiled();
+  const rm_tma::EncodeTiled encode = rm_tma::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.head_dim), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(p.seq), static_cast<cuuint64_t>(p.batch)};

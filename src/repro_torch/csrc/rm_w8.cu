@@ -1,5 +1,6 @@
-// The int8-weight decode matmul: y (M, N) = x (M, K) @ dequant(q, s), with
-// q an int8 (K, N) weight and s its bf16 per-column scale (1, N).
+// The int8-weight decode matmul: y_r (M, N_r) = x (M, K) @ dequant(q_r, s_r)
+// for a group of up to four records r that share x, with q_r an int8 (K, N_r)
+// weight and s_r its bf16 per-column scale (1, N_r).
 //
 // Replaces: no Pallas kernel.  The reference's `cast` of an int8 record,
 // `q.astype(dt) * s.astype(dt)` (src/repro/models/layers.py:51), is fused by
@@ -8,80 +9,155 @@
 // of every weight; this kernel reads the int8 buffer itself.
 //
 // Bound: bytes.  A decode step has M = B (8 on the serving path) rows, so a
-// weight byte feeds 2·M operations: the K·N weight bytes, read once, set
-// the time (qwen3-8b: 192,937,984 B a layer).  The work around the bytes
-// must stay below them: on the CUDA cores, eight float32 FMAs a weight and
-// its dequant cost more issue slots than the bytes take to arrive, so the
-// bf16 form runs its products on the tensor cores.  Two forms, one design:
-//   * a block of four warps owns a strip of output columns and a chunk of K
-//     (split-K, so that the grid fills the card for N as small as 1,024);
-//     the warps take interleaved rows of the chunk; the block's rows of x
-//     (an m tile of 8; zeros past M) are staged in shared memory;
+// weight byte feeds 2·M operations: the K·N weight bytes, read once, set the
+// time (qwen3-8b: 192,937,984 B a layer, 57.6 µs at the 3.35 TB/s of the
+// H100 SXM data sheet).  Two forms:
+//
+// bf16 with every N_r a multiple of 16 (rm_w8_matmul_tc_kernel, the tensor
+// cores).  One launch takes a group of products that share x (a layer's wq,
+// wk, wv; its w_gate, w_up), so a decode layer runs 4 launches, not 7 plus a
+// reduction for each.  A block owns a strip of 128 output columns of one
+// record, 8 rows of x and one rank's chunk of K; the chunks of a strip are
+// the blocks of one thread-block cluster along K (at most 8), so the grid
+// fills the card for N as small as 1,024:
+//   * a ring of RM_W8_STAGES (4) stages of 64 K rows × 128 columns (8 KB) in
+//     shared memory, fed by TMA from a tensor map of q (box 128 × 64, the
+//     128-byte swizzle) by one producer thread, with full / empty mbarriers:
+//     32 KB in flight a block whatever its chunk, up to RM_W8_BLOCKS (4)
+//     blocks an SM (the ~25 KB an SM that 3.35 TB/s × ~1 µs of latency asks
+//     for over 132 SMs); rows past K and columns past N arrive as zeros;
+//   * launched as a programmatic dependent of the kernel before it (in a
+//     decode step an elementwise pass that writes x): the weights start to
+//     stream while that kernel finishes; the consumers wait for it
+//     (griddepcontrol.wait) before they read x or s or write y;
+//   * four consumer warps take one 16-row k step of every stage each and
+//     run mma.sync m16n8k16, y^T = W^T x^T: the dequantized q^T as A, 16
+//     columns a tile, x^T as B (its 8 rows the tile's n: no padding).  Lane
+//     (g, t) reads rows 2t, 2t+1, 2t+8, 2t+9 of its step (the fragment's k)
+//     at columns 16g..16g+15: the swizzle puts a quarter-warp's 16-byte reads
+//     on distinct banks.  In mma j its A rows g and g+8 are columns 16g+2j
+//     and 16g+2j+1.  The rank's rows of x are staged once in shared memory;
 //   * a weight byte is dequantized in registers exactly as `cast` does:
 //     float(q), exact (the byte's sign flipped into the mantissa of 2^23,
-//     instead of the quarter-rate I2F), times s, rounded to bf16 when x is
-//     bf16 (the exact product rounded once); products accumulate in float32;
-//   * bf16, N a multiple of 16 (rm_w8_matmul_tc_kernel): a warp owns 128
-//     columns and walks K 16 rows a step with mma.sync m16n8k16, y^T =
-//     W^T x^T: the dequantized q^T as A, 16 columns a tile, and x^T as B,
-//     its 8 rows the tile's n, so no part of a tile is padding.  Lane
-//     (g, t) loads rows 4t..4t+3 of the step and columns 16g..16g+15 (four
-//     16-byte loads, the next step's in flight while this one is served);
-//     in mma j its A rows g and g+8 are columns 16g+2j and 16g+2j+1.  Since
-//     k is summed over, the four physical rows stand for the fragment's
-//     k = 2t, 2t+1, 2t+8, 2t+9, and x is read in the same order;
-//   * otherwise (float32, or N a multiple of 8 but not of 16:
-//     rm_w8_matmul_kernel, CUDA cores) a lane owns 8 columns of a
-//     256-column strip, reads them with one 8-byte load a row, 8 rows in
-//     flight, and does the 8 × 8 FMAs itself;
-//   * the four warps' sums meet in shared memory and are added in warp
-//     order; with several K chunks each block writes a float32 partial and
-//     rm_w8_reduce_kernel adds them in chunk order.  No atomics: a result
-//     is the same every run (and inside a CUDA graph).
-// The launcher only enqueues on the caller's stream (no synchronisation, no
-// allocation, no attribute calls: under 48 KB of shared memory), so a CUDA
-// graph can capture it.  wgmma, TMA and larger M are later work.
+//     instead of the quarter-rate I2F), its upper half the exact bf16, times
+//     s with __hmul2 (the product rounded once to bf16); float32 sums;
+//   * the sums are added in a fixed order: the four warps' in warp order in
+//     shared memory (the spent ring), then the cluster's ranks' in rank
+//     order, each rank reading its share of the outputs from every rank's
+//     shared memory (distributed shared memory) between two cluster
+//     barriers: no second kernel, no float32 partials in device memory, no
+//     atomics, so a result is the same every run, in a graph replay, and in
+//     a group or alone (the ranks depend on K alone).
+// Otherwise (float32, or N % 16 != 0: rm_w8_matmul_kernel, the CUDA cores;
+// one record a launch) a block of four warps owns a 256-column strip and a
+// chunk of K, a lane 8 columns read with one 8-byte load a row, 8 rows in
+// flight, doing the 8 × 8 FMAs itself; the warps' sums meet in shared memory
+// in warp order, and with several K chunks each block writes a float32
+// partial that rm_w8_reduce_kernel adds in chunk order.
 //
+// The launcher only enqueues on the caller's stream (no synchronisation, no
+// allocation; the tensor maps are encoded on the host into the kernel's
+// parameters), so a CUDA graph can capture it.  The dynamic shared memory
+// above 48 KB is allowed once, by rm_w8_init, when the library is loaded.
 // The layout of W8Params is mirrored by ctypes in
 // repro_torch/kernels/_cuda.py (_W8Params), checked at load time.
+// RM_W8_STAGES, RM_W8_FEED and RM_W8_BLOCKS are build-time knobs for the
+// design probe (repro_torch/launch/w8_probe.py); the library is built with
+// the defaults.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "rm_tma.cuh"  // mbarriers, the tensor-map encoder (CUtensorMap via <cuda.h>)
+
+#ifndef RM_W8_STAGES
+#define RM_W8_STAGES 4  // stages of the tensor-core kernel's ring
+#endif
+#ifndef RM_W8_FEED
+#define RM_W8_FEED 0  // the ring's feed: 0 TMA; probe only: 1 cp.async.cg, 2 cp.async.ca
+#endif
+#ifndef RM_W8_BLOCKS
+#define RM_W8_BLOCKS 4  // tensor-core blocks an SM (__launch_bounds__): the register cap
+#endif
+#ifndef RM_W8_PDL
+#define RM_W8_PDL 1  // launched as a programmatic dependent of the kernel before it
+#endif
+
+constexpr int kW8MaxRecords = 4;  // products one launch takes
+
 // At namespace scope, not in the unnamed namespace: the extern "C" entry
 // point takes it, and a type of internal linkage would hide that symbol.
 struct W8Params {
-  const void* x;             // (M, K) float32 or bf16, contiguous
-  const int8_t* q;           // (K, N) int8, contiguous
-  const __nv_bfloat16* s;    // (1, N) bf16
-  void* y;                   // (M, N) in x's type
-  float* partials;           // (splits, M, N) float32 when splits > 1
-  int32_t M, K, N;
-  int32_t chunk;             // K rows a block, <= kW8MaxChunk
-  int32_t splits;            // ceil(K / chunk)
-  int32_t dtype;             // 0 float32, 1 bf16
-  int32_t form;              // kFormCudaCores or kFormTensor
+  const void* x;                            // (M, K) float32 or bf16, contiguous
+  const int8_t* q[kW8MaxRecords];           // (K, N_r) int8, contiguous
+  const __nv_bfloat16* s[kW8MaxRecords];    // (1, N_r) bf16
+  void* y[kW8MaxRecords];                   // (M, N_r) in x's type
+  float* partials;                          // CUDA cores, splits > 1: (splits, M, N) float32
+  int32_t n[kW8MaxRecords];                 // N_r
+  int32_t records;                          // 1..kW8MaxRecords (1 on the CUDA cores)
+  int32_t M, K;
+  int32_t chunk;   // K rows a block (CUDA cores) or a cluster rank (tensor cores)
+  int32_t splits;  // ceil(K / chunk): blocks along K, the cluster's size on the tensor cores
+  int32_t dtype;   // 0 float32, 1 bf16
+  int32_t form;    // kFormCudaCores or kFormTensor
   int32_t pad_;
 };
 
 namespace {
 
-constexpr int kW8Threads = 128;                // four warps a block
+using namespace rm_tma;
+
+constexpr int kW8Threads = 128;                // four warps a block (CUDA cores)
 constexpr int kW8Warps = kW8Threads / 32;
 constexpr int kW8Cols = 8;                     // columns a lane: one 8-byte load
 constexpr int kW8Strip = 32 * kW8Cols;         // 256 columns a block
 constexpr int kW8Rows = 8;                     // rows of x a block (an m tile)
 constexpr int kW8Unroll = 8;                   // rows of q a warp has in flight
-constexpr int kW8MaxChunk = 1024;              // K rows a block stages
+constexpr int kW8MaxChunk = 1024;              // K rows a block stages (CUDA cores)
 constexpr int kW8RedBytes = kW8Warps * kW8Rows * kW8Strip * 4;  // 32 KB
 constexpr int kW8ReduceThreads = 256;
-constexpr int kW8TcStrip = 128;                // columns a tensor-core block
-constexpr int kW8TcXPad = 8;                   // bf16 pad of a staged x row
-constexpr int kW8TcRedRow = 140;               // floats a row of the warps' sums
+// the tensor-core kernel
+constexpr int kTcStrip = 128;                  // columns a block: a 128-byte TMA box row
+constexpr int kTcConsumers = 4;                // warps that run the products
+constexpr int kTcThreads = 32 * (kTcConsumers + 1);  // and one producer warp
+constexpr int kTcStep = 16;                    // K rows an mma
+constexpr int kTcStageRows = kTcStep * kTcConsumers;  // 64: a step per consumer warp
+constexpr int kTcStageBytes = kTcStageRows * kTcStrip;  // 8 KB
+constexpr int kTcStages = RM_W8_STAGES;
+constexpr int kTcXPad = 8;                     // bf16 pad of a staged x row
+constexpr int kTcRedRow = 140;                 // floats a row of the warps' sums
+constexpr int kTcRedBytes = kTcConsumers * kW8Rows * kTcRedRow * 4;
+constexpr int kTcOut = kW8Rows * kTcStrip;     // a strip's sums: 8 rows x 128 columns
+constexpr int kTcMaxCluster = 8;               // the portable cluster size
+constexpr int kTcMaxChunk = 8192;              // K rows a rank stages of x
+// shared memory from the 1,024-byte aligned base: the ring (once spent, the
+// warps' sums, then the rank's sums that the cluster reads), x, barriers
+constexpr int kTcRing = ((kTcStages * kTcStageBytes > kTcRedBytes + kTcOut * 4
+                              ? kTcStages * kTcStageBytes
+                              : kTcRedBytes + kTcOut * 4) + 1023) / 1024 * 1024;
+static_assert(kTcStages >= 2, "the ring needs two stages");
+
 // W8Params::form: the CUDA cores (N % 8 == 0, q 8-byte aligned) or the
 // tensor cores (bf16, N % 16 == 0, q and s 16-byte aligned)
 enum Form : int32_t { kFormCudaCores = 0, kFormTensor = 1 };
+
+// The tensor-core kernel's parameters: the records' tensor maps and strips.
+struct W8TcArgs {
+  CUtensorMap map[kW8MaxRecords];   // q_r as (N_r, K): box 128 × 64, 128-byte swizzle
+  const __nv_bfloat16* x;
+  const int8_t* q[kW8MaxRecords];    // read only by the probe's cp.async feed
+  const __nv_bfloat16* s[kW8MaxRecords];
+  __nv_bfloat16* y[kW8MaxRecords];
+  int32_t n[kW8MaxRecords];
+  int32_t strip_end[kW8MaxRecords];  // strips of records 0..r
+  int32_t records, M, K, chunk;
+  int32_t x_vec;                     // x 16-byte aligned, K % 8 == 0: staged 16 bytes a load
+};
+
+int tc_smem_bytes(int chunk) {
+  return 1024 + kTcRing + kW8Rows * (chunk + kTcXPad) * 2 + 2 * kTcStages * 8;
+}
 
 template <typename T> __device__ __forceinline__ float to_float(T v);
 template <> __device__ __forceinline__ float to_float<float>(float v) { return v; }
@@ -101,20 +177,20 @@ __device__ __forceinline__ float s8_to_float(uint32_t flipped, int i) {
   return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | i)) - 8388736.0f;
 }
 
-// Where a block's partial sums go: y directly (one K chunk) or its row of
+// Where a CUDA-core block's sums go: y directly (one K chunk) or its row of
 // the split-K partials.
 template <typename T>
 __device__ __forceinline__ void store_sum(const W8Params& p, int row, int col, float v) {
-  const long long at = static_cast<long long>(row) * p.N + col;
+  const long long at = static_cast<long long>(row) * p.n[0] + col;
   if (p.splits == 1)
-    static_cast<T*>(p.y)[at] = from_float<T>(v);
+    static_cast<T*>(p.y[0])[at] = from_float<T>(v);
   else
-    p.partials[static_cast<long long>(blockIdx.y) * p.M * p.N + at] = v;
+    p.partials[static_cast<long long>(blockIdx.y) * p.M * p.n[0] + at] = v;
 }
 
 // Eight int8 weights of row k from column col (col < N, N % 8 == 0).
 __device__ __forceinline__ uint2 load_q(const W8Params& p, int k, int col) {
-  return __ldg(reinterpret_cast<const uint2*>(p.q + static_cast<long long>(k) * p.N + col));
+  return __ldg(reinterpret_cast<const uint2*>(p.q[0] + static_cast<long long>(k) * p.n[0] + col));
 }
 
 template <typename T>
@@ -123,6 +199,7 @@ rm_w8_matmul_kernel(const __grid_constant__ W8Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int N = p.n[0];
   const int strip0 = blockIdx.x * kW8Strip;
   const int col0 = strip0 + lane * kW8Cols;
   const int k0 = blockIdx.y * p.chunk;
@@ -139,7 +216,7 @@ rm_w8_matmul_kernel(const __grid_constant__ W8Params p) {
   float sc[kW8Cols];
 #pragma unroll
   for (int c = 0; c < kW8Cols; ++c)
-    sc[c] = col0 + c < p.N ? __bfloat162float(p.s[col0 + c]) : 0.0f;
+    sc[c] = col0 + c < N ? __bfloat162float(p.s[0][col0 + c]) : 0.0f;
   __syncthreads();
 
   float acc[kW8Rows][kW8Cols];
@@ -148,7 +225,7 @@ rm_w8_matmul_kernel(const __grid_constant__ W8Params p) {
 #pragma unroll
     for (int c = 0; c < kW8Cols; ++c) acc[m][c] = 0.0f;
 
-  if (col0 < p.N) {
+  if (col0 < N) {
     for (int kb = warp; kb < kc; kb += kW8Warps * kW8Unroll) {
       uint2 raw[kW8Unroll];
 #pragma unroll
@@ -186,7 +263,7 @@ rm_w8_matmul_kernel(const __grid_constant__ W8Params p) {
   for (int o = threadIdx.x; o < kW8Rows * kW8Strip; o += kW8Threads) {
     const int m = o / kW8Strip, c = o % kW8Strip;
     const int row = m0 + m, col = strip0 + c;
-    if (row >= p.M || col >= p.N) continue;
+    if (row >= p.M || col >= N) continue;
     float v = 0.0f;
 #pragma unroll
     for (int w = 0; w < kW8Warps; ++w) v += smem[(w * kW8Rows + m) * kW8Strip + c];
@@ -200,124 +277,336 @@ __device__ __forceinline__ uint32_t hmul2_bits(uint32_t a, uint32_t b) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// Rows 4t..4t+3 of k step `step`, columns col..col+15 (zeros past the chunk
-// or past N).
-__device__ __forceinline__ void load_tc(const W8Params& p, int k0, int kc, int step, int t,
-                                        int col, uint4 (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = step * 16 + 4 * t + i;
-    r[i] = (kk < kc && col < p.N)
-               ? __ldg(reinterpret_cast<const uint4*>(p.q + static_cast<long long>(k0 + kk) * p.N + col))
-               : make_uint4(0u, 0u, 0u, 0u);
-  }
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster: shared-memory writes before it are seen by
+// the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+// The shared address `addr` of this block, in the cluster's rank `rank`.
+__device__ __forceinline__ uint32_t at_rank(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t remote) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(kW8Threads, 4)
-rm_w8_matmul_tc_kernel(const __grid_constant__ W8Params p) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  float* red = reinterpret_cast<float*>(smem4);
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory offset of row `row` (0..63), 16-byte column chunk `chunk`
+// of a stage, as the 128-byte swizzle lays it out (the chunk XOR row % 8).
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return row * kTcStrip + ((chunk ^ (row & 7)) << 4);
+}
+
+// The record of the launch's strip `strip` and that strip's first column.
+__device__ __forceinline__ int record_of(const W8TcArgs& a, int strip) {
+  int rec = 0;
+  while (rec + 1 < a.records && strip >= a.strip_end[rec]) ++rec;
+  return rec;
+}
+__device__ __forceinline__ int first_col(const W8TcArgs& a, int rec, int strip) {
+  return (strip - (rec ? a.strip_end[rec - 1] : 0)) * kTcStrip;
+}
+
+#if RM_W8_FEED != 0
+// Probe only: the lane's own four 16-byte pieces of its step of stage `i`
+// (zeros past K and N), copied by cp.async into ring slot `slot` where the
+// TMA box would place them; one commit group, empty past the last stage.
+__device__ __forceinline__ void cp_async_step(uint32_t slot, const W8TcArgs& a, int rec,
+                                              int col, int i, int stages, int k0, int warp,
+                                              int g, int t) {
+  if (i < stages) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = warp * kTcStep + 2 * t + (j & 1) + 8 * (j >> 1);
+      const int k = k0 + i * kTcStageRows + row;
+      const bool in = k < a.K && col < a.n[rec];
+      const int8_t* src = a.q[rec] + (in ? static_cast<long long>(k) * a.n[rec] + col : 0);
+#if RM_W8_FEED == 1
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                   :: "r"(slot + swizzled(row, g)), "l"(src), "r"(in ? 16 : 0) : "memory");
+#else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
+                   :: "r"(slot + swizzled(row, g)), "l"(src), "r"(in ? 16 : 0) : "memory");
+#endif
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+#endif
+
+// Block (strip blockIdx.x, rank r of its cluster, m tile blockIdx.z): K
+// rows [r·chunk, (r+1)·chunk) of the strip's 128 columns, 8 rows of x.
+__global__ void __launch_bounds__(kTcThreads, RM_W8_BLOCKS)
+rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the ring at a 1,024-byte boundary: the swizzle pattern repeats every 1,024 bytes
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* red = reinterpret_cast<float*>(smem);                  // the warps' sums
+  float* part = reinterpret_cast<float*>(smem + kTcRedBytes);   // the rank's sums
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + kTcRing);
+  const int stride = a.chunk + kTcXPad;  // a staged row of x, in bf16
+  const uint32_t bars = base + kTcRing + kW8Rows * stride * 2;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kTcStages + s); };
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int strip0 = blockIdx.x * kW8TcStrip;
-  const int col = strip0 + 16 * g;  // this lane's 16 columns of q
-  const int k0 = blockIdx.y * p.chunk;
-  const int kc = min(p.K - k0, p.chunk);
-  const int steps = (kc + 15) / 16;
-  const int stride = steps * 16 + kW8TcXPad;  // a staged row of x, in bf16
+  const int rec = record_of(a, blockIdx.x);
+  const int col0 = first_col(a, rec, blockIdx.x);
+  const int n = a.n[rec];
+  const uint32_t rank = cluster_rank(), ranks = cluster_size();
+  const int k0 = static_cast<int>(rank) * a.chunk;
+  const int kc = min(a.K - k0, a.chunk);  // >= 1: the wrapper's plan
+  const int stages = (kc + kTcStageRows - 1) / kTcStageRows;
   const int m0 = blockIdx.z * kW8Rows;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
 
-  // the first step's weights are in flight while x is staged
-  uint4 cur[4] = {}, nxt[4] = {};
-  if (warp < steps) load_tc(p, k0, kc, warp, t, col, cur);
-  // x[m0 : m0 + 8, k0 : k0 + kc] in bf16, row-major, zeros past M and kc
-  for (int i = threadIdx.x; i < kW8Rows * steps * 16; i += kW8Threads) {
-    const int m = i / (steps * 16), kk = i - m * (steps * 16);
-    xs[m * stride + kk] = (m0 + m < p.M && kk < kc)
-                              ? x[static_cast<long long>(m0 + m) * p.K + k0 + kk]
-                              : __float2bfloat16_rn(0.0f);
-  }
-  // s of the lane's 16 columns, two bf16 a word
-  uint4 sw[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
-  if (col < p.N) {
-    sw[0] = __ldg(reinterpret_cast<const uint4*>(p.s + col));
-    sw[1] = __ldg(reinterpret_cast<const uint4*>(p.s + col + 8));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kTcConsumers);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // mma j: A rows g and g + 8 are this lane's columns col + 2j and
-  // col + 2j + 1, so C (16 columns x 8 rows of x) has no padding
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 
-  for (int step = warp; step < steps; step += kW8Warps) {
-    if (step + kW8Warps < steps) load_tc(p, k0, kc, step + kW8Warps, t, col, nxt);
-    // B: x row g at the fragment's k 2t, 2t+1 | 2t+8, 2t+9, physical
-    // rows 4t, 4t+1 | 4t+2, 4t+3 of the step
-    const uint2 xb = *reinterpret_cast<const uint2*>(xs + g * stride + step * 16 + 4 * t);
-    const uint32_t fl[4][4] = {
-        {cur[0].x ^ 0x80808080u, cur[0].y ^ 0x80808080u, cur[0].z ^ 0x80808080u, cur[0].w ^ 0x80808080u},
-        {cur[1].x ^ 0x80808080u, cur[1].y ^ 0x80808080u, cur[1].z ^ 0x80808080u, cur[1].w ^ 0x80808080u},
-        {cur[2].x ^ 0x80808080u, cur[2].y ^ 0x80808080u, cur[2].z ^ 0x80808080u, cur[2].w ^ 0x80808080u},
-        {cur[3].x ^ 0x80808080u, cur[3].y ^ 0x80808080u, cur[3].z ^ 0x80808080u, cur[3].w ^ 0x80808080u}};
-    const uint32_t sv[8] = {sw[0].x, sw[0].y, sw[0].z, sw[0].w, sw[1].x, sw[1].y, sw[1].z, sw[1].w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t a[4];  // rows 4t, 4t+1 | 4t+2, 4t+3 of columns 2j (a0, a2), 2j + 1 (a1, a3)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 2 * j + h, wi = c >> 2, b = c & 3;
-        const float q0 = s8_to_float(fl[0][wi], b), q1 = s8_to_float(fl[1][wi], b);
-        const float q2 = s8_to_float(fl[2][wi], b), q3 = s8_to_float(fl[3][wi], b);
-        // the exact bf16 of q (7 significant bits) is a float's upper half
-        const uint32_t s2 = __byte_perm(sv[j], 0u, h ? 0x3232u : 0x1010u);
-        a[h] = hmul2_bits(__byte_perm(__float_as_uint(q0), __float_as_uint(q1), 0x7632u), s2);
-        a[h + 2] = hmul2_bits(__byte_perm(__float_as_uint(q2), __float_as_uint(q3), 0x7632u), s2);
+  if (warp == kTcConsumers) {
+    // ---------------------------------------------------------- producer
+#if RM_W8_FEED == 0
+    if (lane == 0) {
+      const CUtensorMap* map = &a.map[rec];
+      asm volatile("prefetch.tensormap [%0];" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+      for (int i = 0; i < stages; ++i) {
+        const int s = i % kTcStages;
+        mbar_wait(empty(s), ((i / kTcStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), kTcStageBytes);
+        tma_load_2d(base + s * kTcStageBytes, map, full(s), col0, k0 + i * kTcStageRows);
       }
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(xb.x), "r"(xb.y));
     }
+    __syncwarp();
+#endif
+  } else {
+    // ---------------------------------------------------------- consumers
+#if RM_W8_PDL
+    // x is the kernel before's output: wait for it (the weights need not)
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+#if RM_W8_FEED != 0
+    for (int i = 0; i < kTcStages - 1; ++i)
+      cp_async_step(base + i * kTcStageBytes, a, rec, col0 + 16 * g, i, stages, k0, warp, g, t);
+#endif
+    // x[m0 : m0 + 8, k0 : k0 + stages * 64] in bf16, row-major, zeros past M and kc
+    const int xk = stages * kTcStageRows;
+    if (a.x_vec) {
+      const int per_row = xk / 8;
+      for (int i = threadIdx.x; i < kW8Rows * per_row; i += 32 * kTcConsumers) {
+        const int m = i / per_row, kk = (i - m * per_row) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m0 + m < a.M && kk < kc)  // kc is a multiple of 8
+          v = __ldg(reinterpret_cast<const uint4*>(a.x + static_cast<long long>(m0 + m) * a.K +
+                                                   k0 + kk));
+        *reinterpret_cast<uint4*>(xs + m * stride + kk) = v;
+      }
+    } else {
+      for (int i = threadIdx.x; i < kW8Rows * xk; i += 32 * kTcConsumers) {
+        const int m = i / xk, kk = i - m * xk;
+        xs[m * stride + kk] = (m0 + m < a.M && kk < kc)
+                                  ? a.x[static_cast<long long>(m0 + m) * a.K + k0 + kk]
+                                  : __float2bfloat16_rn(0.0f);
+      }
+    }
+    // s of the lane's 16 columns, two bf16 a word (N % 16 == 0)
+    const int col = col0 + 16 * g;
+    uint4 sw[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+    if (col < n) {
+      sw[0] = __ldg(reinterpret_cast<const uint4*>(a.s[rec] + col));
+      sw[1] = __ldg(reinterpret_cast<const uint4*>(a.s[rec] + col + 8));
+    }
+    const uint32_t sv[8] = {sw[0].x, sw[0].y, sw[0].z, sw[0].w, sw[1].x, sw[1].y, sw[1].z, sw[1].w};
+    asm volatile("bar.sync 1, %0;" :: "n"(32 * kTcConsumers) : "memory");  // xs staged
+
+    const __nv_bfloat16* xrow = xs + g * stride + warp * kTcStep + 2 * t;
+    for (int i = 0; i < stages; ++i) {
+      const int s = i % kTcStages;
+      const uint32_t stage = base + s * kTcStageBytes;
+#if RM_W8_FEED == 0
+      mbar_wait(full(s), (i / kTcStages) & 1);
+#else
+      cp_async_step(base + ((i + kTcStages - 1) % kTcStages) * kTcStageBytes, a, rec, col,
+                    i + kTcStages - 1, stages, k0, warp, g, t);
+      asm volatile("cp.async.wait_group %0;" :: "n"(kTcStages - 1) : "memory");
+#endif
+      // rows 2t, 2t+1 | 2t+8, 2t+9 of this warp's step, columns 16g..16g+15
+      uint4 r[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+      for (int j = 0; j < 4; ++j) {
+        const int row = warp * kTcStep + 2 * t + (j & 1) + 8 * (j >> 1);
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(r[j].x), "=r"(r[j].y), "=r"(r[j].z), "=r"(r[j].w)
+                     : "r"(stage + swizzled(row, g)) : "memory");
+      }
+#if RM_W8_FEED == 0
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // the stage's bytes are in registers
+#endif
+      // B: x row g at the fragment's k 2t, 2t+1 | 2t+8, 2t+9
+      const uint32_t xb0 = *reinterpret_cast<const uint32_t*>(xrow + i * kTcStageRows);
+      const uint32_t xb1 = *reinterpret_cast<const uint32_t*>(xrow + i * kTcStageRows + 8);
+      const uint32_t fl[4][4] = {
+          {r[0].x ^ 0x80808080u, r[0].y ^ 0x80808080u, r[0].z ^ 0x80808080u, r[0].w ^ 0x80808080u},
+          {r[1].x ^ 0x80808080u, r[1].y ^ 0x80808080u, r[1].z ^ 0x80808080u, r[1].w ^ 0x80808080u},
+          {r[2].x ^ 0x80808080u, r[2].y ^ 0x80808080u, r[2].z ^ 0x80808080u, r[2].w ^ 0x80808080u},
+          {r[3].x ^ 0x80808080u, r[3].y ^ 0x80808080u, r[3].z ^ 0x80808080u, r[3].w ^ 0x80808080u}};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t af[4];  // rows 2t, 2t+1 | 2t+8, 2t+9 of columns 2j (a0, a2), 2j + 1 (a1, a3)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 2 * j + h, wi = c >> 2, b = c & 3;
+          const float q0 = s8_to_float(fl[0][wi], b), q1 = s8_to_float(fl[1][wi], b);
+          const float q2 = s8_to_float(fl[2][wi], b), q3 = s8_to_float(fl[3][wi], b);
+          // the exact bf16 of q (7 significant bits) is a float's upper half
+          const uint32_t s2 = __byte_perm(sv[j], 0u, h ? 0x3232u : 0x1010u);
+          af[h] = hmul2_bits(__byte_perm(__float_as_uint(q0), __float_as_uint(q1), 0x7632u), s2);
+          af[h + 2] = hmul2_bits(__byte_perm(__float_as_uint(q2), __float_as_uint(q3), 0x7632u), s2);
+        }
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+            : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(xb0), "r"(xb1));
+      }
+    }
   }
 
   // lane (g, t) holds rows 2t, 2t + 1 of x (c0, c1 | c2, c3) times columns
-  // col + 2j (c0, c1) and col + 2j + 1 (c2, c3).  A row of sums keeps
+  // 16g + 2j (c0, c1) and 16g + 2j + 1 (c2, c3).  A row of sums keeps
   // column c at c + c / 16, so the 32 lanes' stores fall in 32 banks.
-  __syncthreads();  // every warp is done with xs: the space holds the sums
+  __syncthreads();  // the ring is spent: its space holds the sums
+  if (warp < kTcConsumers) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = 2 * t + (e & 1), c = 16 * g + 2 * j + (e >> 1);
-      red[(warp * kW8Rows + m) * kW8TcRedRow + c + g] = acc[j][e];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int m = 2 * t + (e & 1), c = 16 * g + 2 * j + (e >> 1);
+        red[(warp * kW8Rows + m) * kTcRedRow + c + g] = acc[j][e];
+      }
+  }
   __syncthreads();
-  for (int o = threadIdx.x; o < kW8Rows * kW8TcStrip; o += kW8Threads) {
-    const int m = o / kW8TcStrip, c = o % kW8TcStrip;
-    const int row = m0 + m, out = strip0 + c;
-    if (row >= p.M || out >= p.N) continue;
+  // the warps' sums in warp order: y (one rank) or the rank's sums
+  const int rows = min(kW8Rows, a.M - m0);
+  __nv_bfloat16* y = a.y[rec];
+  for (int o = threadIdx.x; o < kTcOut; o += kTcThreads) {
+    const int m = o / kTcStrip, c = o % kTcStrip;
     float v = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kW8Warps; ++w) v += red[(w * kW8Rows + m) * kW8TcRedRow + c + (c >> 4)];
-    store_sum<__nv_bfloat16>(p, row, out, v);
+    for (int w = 0; w < kTcConsumers; ++w) v += red[(w * kW8Rows + m) * kTcRedRow + c + (c >> 4)];
+    if (ranks > 1)
+      part[o] = v;
+    else if (m < rows && col0 + c < n)
+      y[static_cast<long long>(m0 + m) * n + col0 + c] = __float2bfloat16_rn(v);
   }
+  if (ranks == 1) return;
+  // the ranks' sums in rank order: rank r writes every ranks-th output
+  cluster_sync();
+  const uint32_t part_addr = static_cast<uint32_t>(__cvta_generic_to_shared(part));
+  for (int o = rank * kTcThreads + threadIdx.x; o < kTcOut; o += ranks * kTcThreads) {
+    const int m = o / kTcStrip, c = o % kTcStrip;
+    if (m >= rows || col0 + c >= n) continue;
+    float pv[kTcMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kTcMaxCluster; ++q)  // every load in flight, then the sum in order
+      pv[q] = q < static_cast<int>(ranks) ? ld_cluster(at_rank(part_addr + 4 * o, q)) : 0.0f;
+    float v = pv[0];
+#pragma unroll
+    for (int q = 1; q < kTcMaxCluster; ++q)
+      if (q < static_cast<int>(ranks)) v += pv[q];
+    y[static_cast<long long>(m0 + m) * n + col0 + c] = __float2bfloat16_rn(v);
+  }
+  cluster_sync();  // no rank leaves while another still reads its sums
 }
 
-void launch_tc(const W8Params& p, cudaStream_t stream) {
-  const dim3 grid((p.N + kW8TcStrip - 1) / kW8TcStrip, p.splits, (p.M + kW8Rows - 1) / kW8Rows);
-  const int steps = (p.chunk + 15) / 16;
-  const int xs = kW8Rows * (steps * 16 + kW8TcXPad) * 2;
-  const int redb = kW8Warps * kW8Rows * kW8TcRedRow * 4;
-  rm_w8_matmul_tc_kernel<<<grid, kW8Threads, xs > redb ? xs : redb, stream>>>(p);
+// A (N, K) view of the int8 (K, N) weight q: a box of 128 columns × 64 rows
+// in the 128-byte swizzle; rows past K and columns past N read as zeros.
+int q_map(CUtensorMap* map, const int8_t* q, int k, int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint32_t box[2] = {kTcStrip, kTcStageRows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                            const_cast<int8_t*>(q), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_tc(const W8Params& p, cudaStream_t stream) {
+  W8TcArgs a = {};
+  int strips = 0;
+  for (int r = 0; r < p.records; ++r) {
+    const int err = q_map(&a.map[r], p.q[r], p.K, p.n[r]);
+    if (err != 0) return err;
+    a.q[r] = p.q[r];
+    a.s[r] = p.s[r];
+    a.y[r] = static_cast<__nv_bfloat16*>(p.y[r]);
+    a.n[r] = p.n[r];
+    strips += (p.n[r] + kTcStrip - 1) / kTcStrip;
+    a.strip_end[r] = strips;
+  }
+  a.x = static_cast<const __nv_bfloat16*>(p.x);
+  a.records = p.records;
+  a.M = p.M;
+  a.K = p.K;
+  a.chunk = p.chunk;
+  a.x_vec = p.K % 8 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(strips, p.splits, (p.M + kW8Rows - 1) / kW8Rows);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = tc_smem_bytes(p.chunk);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = RM_W8_PDL ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, rm_w8_matmul_tc_kernel, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // y = the sum of the split-K partials, in chunk order.
@@ -333,21 +622,43 @@ rm_w8_reduce_kernel(const float* partials, int splits, long long mn, T* y) {
 }
 
 template <typename T>
-cudaError_t launch(const W8Params& p, cudaStream_t stream) {
-  const dim3 grid((p.N + kW8Strip - 1) / kW8Strip, p.splits, (p.M + kW8Rows - 1) / kW8Rows);
+int launch_cuda_cores(const W8Params& p, cudaStream_t stream) {
+  const dim3 grid((p.n[0] + kW8Strip - 1) / kW8Strip, p.splits, (p.M + kW8Rows - 1) / kW8Rows);
   const int smem = p.chunk * kW8Rows * 4 > kW8RedBytes ? p.chunk * kW8Rows * 4 : kW8RedBytes;
-  if (p.form == kFormTensor)
-    launch_tc(p, stream);
-  else
-    rm_w8_matmul_kernel<T><<<grid, kW8Threads, smem, stream>>>(p);
+  rm_w8_matmul_kernel<T><<<grid, kW8Threads, smem, stream>>>(p);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || p.splits == 1) return e;
-  const long long mn = static_cast<long long>(p.M) * p.N;
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  const long long mn = static_cast<long long>(p.M) * p.n[0];
   long long blocks = (mn + kW8ReduceThreads - 1) / kW8ReduceThreads;
   if (blocks > 4096) blocks = 4096;
   rm_w8_reduce_kernel<T><<<static_cast<int>(blocks), kW8ReduceThreads, 0, stream>>>(
-      p.partials, p.splits, mn, static_cast<T*>(p.y));
-  return cudaGetLastError();
+      p.partials, p.splits, mn, static_cast<T*>(p.y[0]));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// A plan either kernel can run: the wrapper's checks, repeated.
+bool valid(const W8Params& p) {
+  if (p.M <= 0 || p.M > kW8Rows * kW8Rows || p.K <= 0 || p.chunk <= 0 ||
+      p.splits != (p.K + p.chunk - 1) / p.chunk || p.x == nullptr ||
+      p.records < 1 || p.records > kW8MaxRecords || (p.dtype != 0 && p.dtype != 1))
+    return false;
+  for (int r = 0; r < p.records; ++r)
+    if (p.q[r] == nullptr || p.s[r] == nullptr || p.y[r] == nullptr || p.n[r] <= 0 ||
+        p.n[r] % 8 != 0 || !aligned(p.q[r], 8))
+      return false;
+  if (p.form == kFormCudaCores)
+    return p.records == 1 && p.chunk <= kW8MaxChunk && p.splits <= 65535 &&
+           (p.splits == 1 || p.partials != nullptr);
+  if (p.form != kFormTensor || p.dtype != 1 || p.chunk % kTcStageRows != 0 ||
+      p.chunk > kTcMaxChunk || p.splits > kTcMaxCluster)
+    return false;
+  for (int r = 0; r < p.records; ++r)
+    if (p.n[r] % 16 != 0 || !aligned(p.q[r], 16) || !aligned(p.s[r], 16)) return false;
+  return true;
 }
 
 }  // namespace
@@ -356,24 +667,25 @@ extern "C" {
 
 int rm_w8_params_size() { return static_cast<int>(sizeof(W8Params)); }
 
+// Allow the tensor-core kernel its largest shared memory (a rank's x at
+// kTcMaxChunk rows) on the current device: once, before any launch, so no
+// launch a CUDA graph captures sets an attribute.
+int rm_w8_init() {
+  return static_cast<int>(cudaFuncSetAttribute(rm_w8_matmul_tc_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               tc_smem_bytes(kTcMaxChunk)));
+}
+
 // Launch on `stream` without synchronising; returns the launches'
 // cudaGetLastError() (0 on success).  The wrapper has checked types,
 // shapes, devices and contiguity and planned chunk and splits; a plan the
 // kernels cannot run is refused here too.
 int rm_w8_matmul(const W8Params* params, void* stream) {
   const W8Params& p = *params;
-  if (p.M <= 0 || p.K <= 0 || p.N <= 0 || p.chunk <= 0 || p.chunk > kW8MaxChunk ||
-      p.splits != (p.K + p.chunk - 1) / p.chunk || p.splits > 65535 ||
-      (p.M + kW8Rows - 1) / kW8Rows > 65535 || (p.splits > 1 && p.partials == nullptr) ||
-      (p.dtype != 0 && p.dtype != 1) || p.N % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(p.q) % 8 != 0 ||
-      (p.form == kFormTensor &&
-       (p.dtype != 1 || p.N % 16 != 0 || reinterpret_cast<uintptr_t>(p.q) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(p.s) % 16 != 0)) ||
-      (p.form != kFormCudaCores && p.form != kFormTensor))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(p.dtype == 1 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
+  if (p.form == kFormTensor) return launch_tc(p, s);
+  return p.dtype == 1 ? launch_cuda_cores<__nv_bfloat16>(p, s) : launch_cuda_cores<float>(p, s);
 }
 
 }  // extern "C"

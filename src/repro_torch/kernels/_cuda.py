@@ -26,8 +26,11 @@ and counts nothing, and the graph's replays launch it without the wrapper
 the calls that a capture recorded instead: a graph replays each once.  ``hash_join`` counts one for each
 probe, which is two kernels on the card: the bucket repack
 (``rm_join_prepare_kernel``), then the probe (``rm_hash_join_kernel``);
-``w8_matmul`` one for each product, which is two kernels when K is split
-(``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``).
+``w8_matmul`` one for each launch: on the tensor cores one kernel for a
+group of products that share x (``rm_w8_matmul_tc_kernel``, split-K summed
+inside its clusters), on the CUDA cores one product, which is two kernels
+when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
+``W8_PRODUCTS`` counts the products those launches and captures took.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
+W8_PRODUCTS = {"launched": 0, "captured": 0}  # products of w8_matmul's launches, captures
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
@@ -65,13 +69,17 @@ MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
 W8_MAX_ROWS = 64  # rows of x the int8-weight matmul takes (a decode step's B)
+W8_MAX_RECORDS = 4  # products one launch takes (kW8MaxRecords)
 W8_STRIP = 256  # output columns a block of rm_w8_matmul_kernel (kW8Strip)
-W8_TC_STRIP = 128  # output columns a block of rm_w8_matmul_tc_kernel (kW8TcStrip)
+W8_TC_STRIP = 128  # output columns a block of rm_w8_matmul_tc_kernel (kTcStrip)
 W8_FORMS = {"cuda_cores": 0, "tensor": 1}  # W8Params::form
 W8_ROWS = 8  # rows of x a block (kW8Rows)
-W8_MIN_CHUNK = 128  # K rows a block at least: 32 a warp
-W8_MAX_CHUNK = 1024  # K rows a block at most (kW8MaxChunk): the staged x
-W8_BLOCKS_PER_SM = 4  # the grid the split of K aims for
+W8_MIN_CHUNK = 128  # K rows a CUDA-core block at least: 32 a warp
+W8_MAX_CHUNK = 1024  # K rows a CUDA-core block at most (kW8MaxChunk): the staged x
+W8_BLOCKS_PER_SM = 4  # the CUDA-core grid the split of K aims for
+W8_STAGE_ROWS = 64  # K rows a stage of the tensor-core ring (kTcStageRows)
+W8_MAX_CLUSTER = 8  # ranks of a tensor-core cluster along K (kTcMaxCluster)
+W8_TC_MAX_CHUNK = 8192  # K rows a tensor-core rank at most (kTcMaxChunk): the staged x
 
 # must match rm_common.cuh
 THREADS = 256
@@ -91,6 +99,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         CAPTURED[k] = 0
+    W8_PRODUCTS.update(launched=0, captured=0)
 
 
 def _launched(kernel: str) -> None:
@@ -147,9 +156,11 @@ class _SelectParams(ctypes.Structure):
 
 
 class _W8Params(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in ("x", "q", "s", "y", "partials")] + [
+    _fields_ = [("x", ctypes.c_void_p)] + [
+        (name, ctypes.c_void_p * W8_MAX_RECORDS) for name in ("q", "s", "y")] + [
+        ("partials", ctypes.c_void_p), ("n", ctypes.c_int32 * W8_MAX_RECORDS)] + [
         (name, ctypes.c_int32) for name in (
-            "M", "K", "N", "chunk", "splits", "dtype", "form", "pad_")]
+            "records", "M", "K", "chunk", "splits", "dtype", "form", "pad_")]
 
 
 class _FlashParams(ctypes.Structure):
@@ -410,7 +421,7 @@ def load() -> ctypes.CDLL:
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_flash_attention, lib.rm_flash_params_size,
-               lib.rm_w8_matmul, lib.rm_w8_params_size):
+               lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
@@ -424,7 +435,26 @@ def load() -> ctypes.CDLL:
                 f"{ctypes.sizeof(struct)} bytes"
             )
     _LIB = lib
+    if torch.cuda.is_available():
+        _w8_init(lib, torch.cuda.current_device())
     return lib
+
+
+_W8_READY: set[int] = set()  # devices where rm_w8_init has run
+
+
+def _w8_init(lib: ctypes.CDLL, dev: int) -> None:
+    """Allow the tensor-core W8 kernel its dynamic shared memory on card
+    ``dev``, once: an attribute is never set inside a launch that a CUDA
+    graph may capture."""
+    if dev in _W8_READY:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"the W8 kernel's first launch on cuda:{dev} is inside a CUDA "
+                           f"graph capture; launch it once before capturing")
+    with torch.cuda.device(dev):
+        _check(lib, lib.rm_w8_init(), "w8_matmul init")
+    _W8_READY.add(dev)
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -786,83 +816,135 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out
 
 
-def w8_form(dtype: torch.dtype, n: int, q_ptr: int, s_ptr: int) -> str:
+def w8_form(dtype: torch.dtype, k: int, n: int, q_ptr: int, s_ptr: int) -> str:
     """Which form of the W8 kernel takes a product (N a multiple of 8 and q
     8-byte aligned, checked by :func:`run_w8`): ``"tensor"`` (bf16 on the
-    tensor cores: N a multiple of 16, q and s 16-byte aligned), else
+    tensor cores: N a multiple of 16, q and s 16-byte aligned, K within
+    ``W8_MAX_CLUSTER`` ranks of ``W8_TC_MAX_CHUNK`` rows), else
     ``"cuda_cores"``."""
-    if dtype == torch.bfloat16 and n % 16 == 0 and q_ptr % 16 == 0 and s_ptr % 16 == 0:
+    if (dtype == torch.bfloat16 and n % 16 == 0 and q_ptr % 16 == 0 and s_ptr % 16 == 0
+            and k <= W8_MAX_CLUSTER * W8_TC_MAX_CHUNK):
         return "tensor"
     return "cuda_cores"
 
 
-def w8_launch(m: int, k: int, n: int, n_sm: int,
-              form: str = "tensor") -> tuple[int, int, int, int]:
-    """The W8 kernel's grid for ``x (m, k) @ q (k, n)`` on a card of
-    ``n_sm`` SMs: ``(strips, splits, m_tiles, chunk)``.  Blocks of 128
-    (tensor cores) or 256 output columns and 8 rows of x; K is split into
-    chunks of ``chunk`` rows (a multiple of ``W8_MIN_CHUNK``, at most
+def w8_launch(m: int, k: int, ns: Sequence[int], n_sm: int, form: str = "tensor",
+              max_cluster: int = W8_MAX_CLUSTER) -> tuple[tuple[int, int, int], int]:
+    """The W8 kernel's plan for ``x (m, k)`` times the records' ``q (k,
+    n)``, ``n`` in ``ns``: ``(grid, chunk)``, the grid (strips, K chunks, m
+    tiles).
+
+    Tensor cores (one launch for the group): a block owns 128 output columns
+    of one record and 8 rows of x; K is cut into at most ``max_cluster``
+    chunks of ``chunk`` rows (a multiple of ``W8_STAGE_ROWS``, each at least
+    one stage), the blocks of one cluster along the grid's y.  The plan depends on K
+    alone, so a product's sums are the same in a group or alone.  CUDA
+    cores (one record): blocks of 256 columns; K split into chunks of
+    ``chunk`` rows (a multiple of ``W8_MIN_CHUNK``, at most
     ``W8_MAX_CHUNK``) so that the grid holds about ``W8_BLOCKS_PER_SM``
-    blocks an SM."""
-    strip = W8_TC_STRIP if form == "tensor" else W8_STRIP
-    strips, m_tiles = -(-n // strip), -(-m // W8_ROWS)
+    blocks an SM of ``n_sm``."""
+    m_tiles = -(-m // W8_ROWS)
+    if form == "tensor":
+        stages = -(-k // W8_STAGE_ROWS)
+        per_rank = -(-stages // max_cluster)
+        strips = sum(-(-n // W8_TC_STRIP) for n in ns)
+        return (strips, -(-stages // per_rank), m_tiles), per_rank * W8_STAGE_ROWS
+    (n,) = ns
+    strips = -(-n // W8_STRIP)
     want = max(1, -(-W8_BLOCKS_PER_SM * n_sm // (strips * m_tiles)))
     chunk = -(-k // want)
     chunk = -(-chunk // W8_MIN_CHUNK) * W8_MIN_CHUNK
     chunk = min(chunk, W8_MAX_CHUNK)
-    return strips, -(-k // chunk), m_tiles, chunk
+    return (strips, -(-k // chunk), m_tiles), chunk
 
 
 _SM_COUNT: dict[int, int] = {}
 
 
-def run_w8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Launch the int8-weight matmul ``y = x @ (q.to(dt) * s.to(dt))``: x
-    ``(M, K)`` float32 or bfloat16 with ``1 <= M <= W8_MAX_ROWS``, q ``(K,
-    N)`` int8 with N a multiple of 8, starting 8-byte aligned, s ``(1, N)``
-    bfloat16, all contiguous on one card; the form by :func:`w8_form`.  Returns a new ``(M, N)`` tensor of x's type; with K
-    split, a float32 scratch of ``(splits, M, N)`` partials.  Enqueues on
-    the current stream without synchronising (a CUDA graph can capture
-    it)."""
+def run_w8(x: torch.Tensor, records: Sequence[tuple[torch.Tensor, torch.Tensor]]
+           ) -> list[torch.Tensor]:
+    """Launch the int8-weight matmul ``y_r = x @ (q_r.to(dt) * s_r.to(dt))``
+    for each record ``(q_r, s_r)`` of a group that shares x: x ``(M, K)``
+    float32 or bfloat16 with ``1 <= M <= W8_MAX_ROWS``, each q ``(K, N)``
+    int8 with N a multiple of 8, starting 8-byte aligned, s ``(1, N)``
+    bfloat16, all contiguous on one card, at most ``W8_MAX_RECORDS``
+    records.  Returns a new ``(M, N)`` tensor of x's type a record.  A group
+    whose records all take the tensor cores (:func:`w8_form`) is one launch;
+    otherwise each record is a launch of its own form (on the CUDA cores
+    with K split, a float32 scratch of ``(splits, M, N)`` partials).
+    Enqueues on the current stream without synchronising (a CUDA graph can
+    capture it)."""
+    if not 1 <= len(records) <= W8_MAX_RECORDS:
+        raise ValueError(f"a group takes 1..{W8_MAX_RECORDS} records, got {len(records)}")
     if x.dtype not in FLASH_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if q.dtype != torch.int8 or s.dtype != torch.bfloat16:
-        raise ValueError(f"want an int8 q and a bfloat16 s, got {q.dtype} and {s.dtype}")
-    if x.dim() != 2 or q.dim() != 2 or s.dim() != 2:
-        raise ValueError(f"want x (M, K), q (K, N), s (1, N); got {tuple(x.shape)}, "
-                         f"{tuple(q.shape)}, {tuple(s.shape)}")
-    (m, k), n = x.shape, q.shape[1]
-    if q.shape[0] != k or tuple(s.shape) != (1, n):
-        raise ValueError(f"x {tuple(x.shape)}, q {tuple(q.shape)} and s {tuple(s.shape)} "
-                         f"do not chain")
-    if not 1 <= m <= W8_MAX_ROWS or k < 1 or n < 1 or n % 8:
-        raise ValueError(f"the kernel takes 1..{W8_MAX_ROWS} rows, K >= 1 and N a multiple "
-                         f"of 8; got M {m}, K {k}, N {n}")
-    for name, t in (("x", x), ("q", q), ("s", s)):
+    if x.dim() != 2:
+        raise ValueError(f"want x (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    if not 1 <= m <= W8_MAX_ROWS or k < 1:
+        raise ValueError(f"the kernel takes 1..{W8_MAX_ROWS} rows and K >= 1; got M {m}, K {k}")
+    tensors = [("x", x)]
+    for i, (q, s) in enumerate(records):
+        if q.dtype != torch.int8 or s.dtype != torch.bfloat16:
+            raise ValueError(f"want an int8 q and a bfloat16 s, got {q.dtype} and {s.dtype}")
+        if q.dim() != 2 or s.dim() != 2 or q.shape[0] != k or tuple(s.shape) != (1, q.shape[1]):
+            raise ValueError(f"x {tuple(x.shape)}, q {tuple(q.shape)} and s {tuple(s.shape)} "
+                             f"do not chain (record {i})")
+        if q.shape[1] < 1 or q.shape[1] % 8:
+            raise ValueError(f"N must be a positive multiple of 8, got {q.shape[1]} (record {i})")
+        if q.data_ptr() % 8:
+            raise ValueError(f"q must start 8-byte aligned (record {i})")
+        tensors += [(f"q[{i}]", q), (f"s[{i}]", s)]
+    for name, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
         if t.device != x.device:
             raise ValueError(f"x on {x.device} but {name} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.data_ptr() % 8:
-        raise ValueError("q must start 8-byte aligned")
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     if dev not in _SM_COUNT:
         _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    form = w8_form(x.dtype, n, q.data_ptr(), s.data_ptr())
-    _, splits, _, chunk = w8_launch(m, k, n, _SM_COUNT[dev], form)
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partials = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-                if splits > 1 else None)
-    params = _W8Params(
-        x=x.data_ptr(), q=q.data_ptr(), s=s.data_ptr(), y=y.data_ptr(),
-        partials=partials.data_ptr() if partials is not None else None,
-        M=m, K=k, N=n, chunk=chunk, splits=splits, dtype=FLASH_DTYPES[x.dtype],
-        form=W8_FORMS[form])
     lib = load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check(lib, lib.rm_w8_matmul(ctypes.byref(params), stream), "w8_matmul launch")
-    _launched("w8_matmul")
-    return y
+    _w8_init(lib, dev)
+
+    forms = [w8_form(x.dtype, k, q.shape[1], q.data_ptr(), s.data_ptr()) for q, s in records]
+    launches = ([("tensor", list(records))] if all(f == "tensor" for f in forms)
+                else [(f, [r]) for f, r in zip(forms, records)])
+    out = []
+    for form, group in launches:
+        params, ys, _partials = w8_params(x, group, form, _SM_COUNT[dev])
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            _check(lib, lib.rm_w8_matmul(ctypes.byref(params), stream), "w8_matmul launch")
+        _launched("w8_matmul")
+        W8_PRODUCTS["captured" if torch.cuda.is_current_stream_capturing()
+                    else "launched"] += len(group)
+        out += ys
+    return out
+
+
+def w8_params(x: torch.Tensor, group, form: str, n_sm: int,
+              max_cluster: int = W8_MAX_CLUSTER
+              ) -> tuple[_W8Params, list[torch.Tensor], torch.Tensor | None]:
+    """The parameter block of one W8 launch of ``group`` (records that
+    :func:`run_w8` has checked) in ``form``, planned by :func:`w8_launch`,
+    with its new outputs and, on the CUDA cores with K split, its float32
+    partials: ``(params, ys, partials)``."""
+    m, k = x.shape
+    ns = [q.shape[1] for q, _ in group]
+    (_, splits, _), chunk = w8_launch(m, k, ns, n_sm, form, max_cluster)
+    ys = [torch.empty((m, n), dtype=x.dtype, device=x.device) for n in ns]
+    partials = (torch.empty((splits, m, ns[0]), dtype=torch.float32, device=x.device)
+                if form == "cuda_cores" and splits > 1 else None)
+    pad = [0] * (W8_MAX_RECORDS - len(group))
+    params = _W8Params(
+        x=x.data_ptr(),
+        q=(ctypes.c_void_p * W8_MAX_RECORDS)(*[q.data_ptr() for q, _ in group], *pad),
+        s=(ctypes.c_void_p * W8_MAX_RECORDS)(*[s.data_ptr() for _, s in group], *pad),
+        y=(ctypes.c_void_p * W8_MAX_RECORDS)(*[y.data_ptr() for y in ys], *pad),
+        partials=partials.data_ptr() if partials is not None else None,
+        n=(ctypes.c_int32 * W8_MAX_RECORDS)(*ns, *pad), records=len(group),
+        M=m, K=k, chunk=chunk, splits=splits, dtype=FLASH_DTYPES[x.dtype],
+        form=W8_FORMS[form])
+    return params, ys, partials

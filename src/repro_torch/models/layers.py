@@ -16,10 +16,12 @@ float32 — the numbers the reference gets from its float32 master copy cast
 at use.  Weights never require grad: this slice serves only.
 
 Every matmul against a weight goes through :func:`linear`: a plain
-``x @ cast(w, dt)``, except for an int8 weight on the card with at most
+``x @ cast(w, dt)``, except for an int8 weight with at most
 ``W8_DECODE_ROWS`` rows of ``x`` (a decode step), which goes to the
 hand-written int8-weight kernel (``kernels/w8_matmul.py``) so that the
-device reads the int8 buffer and never a dequantized copy.
+device reads the int8 buffer and never a dequantized copy.  Products that
+share ``x`` (attention's q, k and v; a gated FFN's gate and up) go through
+:func:`linear_group`: on the card, a decode step's int8 group is one launch.
 
 Dtype discipline is the reference's: compute runs in the activations' dtype,
 and softmax, norms and RoPE run in float32.
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul
+from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul, w8_matmul_group
 
 F32 = torch.float32
 
@@ -88,6 +90,22 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
             y = w8_matmul(x.reshape(rows, k).contiguous(), w.q, w.s)
             return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ cast(w, x.dtype)
+
+
+def linear_group(x: torch.Tensor, ws) -> list[torch.Tensor]:
+    """``[linear(x, w) for w in ws]`` for weights that share ``x``.  On the
+    card, when every weight is a :class:`QuantizedWeight` and ``x`` has at
+    most ``W8_DECODE_ROWS`` rows (a decode step), the group is one call of
+    :func:`w8_matmul_group` (one W8 launch in bf16), each output bit-equal
+    to its product alone; otherwise (a prefill, float weights, the CPU) it
+    is exactly ``[linear(x, w) for w in ws]``."""
+    k = x.shape[-1]
+    rows = x.numel() // k
+    if (x.device.type == "cuda" and rows <= W8_DECODE_ROWS
+            and all(isinstance(w, QuantizedWeight) for w in ws)):
+        ys = w8_matmul_group(x.reshape(rows, k).contiguous(), [(w.q, w.s) for w in ws])
+        return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
+    return [linear(x, w) for w in ws]
 
 
 @torch.no_grad()
@@ -265,9 +283,7 @@ def _qkv(params: Attention, spec: AttnSpec, x: torch.Tensor, cos, sin):
     """Project + rope; returns q (B,S,H,Dh), k/v (B,S,K,Dh)."""
     b, s, _ = x.shape
     dt = x.dtype
-    q = linear(x, params.wq)
-    k = linear(x, params.wk)
-    v = linear(x, params.wv)
+    q, k, v = linear_group(x, [params.wq, params.wk, params.wv])
     if spec.qkv_bias:
         q = q + cast(params.bq, dt)
         k = k + cast(params.bk, dt)
@@ -441,7 +457,8 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 def mlp(params: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu_tanh
-        h = act(linear(x, params.w_gate)) * linear(x, params.w_up)
+        gate, up = linear_group(x, [params.w_gate, params.w_up])
+        h = act(gate) * up
         return linear(h, params.w_down)
     h = _gelu_tanh(linear(x, params.w_in))
     return linear(h, params.w_down)

@@ -79,8 +79,9 @@ class GraphedDecodeStep:
     launches only: the capture records kernels without launching them, and
     a replay launches them without their wrappers.  ``captured`` holds what
     the wrappers recorded into the graph (``_cuda.CAPTURED`` over the
-    capture), which each replay launches once; ``replays`` counts the
-    replays, one a call."""
+    capture), which each replay launches once, and ``captured_w8_products``
+    the int8 products those W8 launches take (``_cuda.W8_PRODUCTS``);
+    ``replays`` counts the replays, one a call."""
 
     def __init__(self, model):
         self.model = model
@@ -90,6 +91,7 @@ class GraphedDecodeStep:
         self.weights: list[tuple[dict, str, torch.Tensor, int]] = []
         self.capture_seconds: dict[str, float] = {}  # host clock, synced
         self.captured: dict[str, int] = {}
+        self.captured_w8_products = 0
         self.replays = 0
 
     def _weights_unchanged(self) -> bool:
@@ -112,9 +114,11 @@ class GraphedDecodeStep:
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = dict(_cuda.CAPTURED)
+        products = _cuda.W8_PRODUCTS["captured"]
         with torch.cuda.graph(graph):
             self.logits, _ = self.model.decode_step(cache, self.tokens, self.pos)
         self.captured = {k: n - before[k] for k, n in _cuda.CAPTURED.items()}
+        self.captured_w8_products = _cuda.W8_PRODUCTS["captured"] - products
         self.weights = [(d, name, t, t.data_ptr()) for m in self.model.modules()
                         for d in (m._parameters, m._buffers)
                         for name, t in d.items() if t is not None]

@@ -884,6 +884,88 @@ def test_w8_launch_count_and_refusals(dev):
     assert _cuda.LAUNCHES["w8_matmul"] == 3
 
 
+# (M, K, (N, ...)): a group of records that share x — a qwen3-8b layer's
+# wq, wk, wv and w_gate, w_up; N not a multiple of the 128-column strip, a
+# K of 5 cluster ranks of one stage; one record that takes the CUDA cores
+# (N % 16 != 0), so the group is a launch a record
+W8_GROUPS = [(8, 4096, (4096, 1024, 1024)), (8, 4096, (12288, 12288)),
+             (1, 300, (528, 48, 16)), (64, 300, (528, 48, 16)), (8, 129, (48, 16, 32, 64)),
+             (8, 300, (528, 72))]
+
+
+def w8_group_inputs(m, k, ns, dev, seed=0):
+    x = w8_inputs(m, k, 8, torch.bfloat16, dev, seed)[0]
+    return x, [w8_inputs(m, k, n, torch.bfloat16, dev, seed + i)[1:] for i, n in enumerate(ns)]
+
+
+@pytest.mark.parametrize("case", W8_GROUPS, ids=lambda c: "-".join(map(str, c[:2] + c[2])))
+def test_w8_group_equals_its_products_alone(dev, case):
+    """A group's outputs bit-equal to each product launched alone through
+    the same wrapper (the plan depends on K alone), equal on a rerun, and
+    each within the kernel's limits of the exact product; one launch for a
+    group that takes the tensor cores, one a record otherwise."""
+    from repro_torch.kernels import w8_matmul as W8
+
+    m, k, ns = case
+    x, records = w8_group_inputs(m, k, ns, dev)
+    _cuda.reset_launches()
+    got = W8.w8_matmul_group(x, records)
+    torch.cuda.synchronize()
+    tensor = all(n % 16 == 0 for n in ns)
+    assert _cuda.LAUNCHES["w8_matmul"] == (1 if tensor else len(ns))
+    assert _cuda.W8_PRODUCTS["launched"] == len(ns)
+    assert [tuple(y.shape) for y in got] == [(m, n) for n in ns]
+    again = W8.w8_matmul_group(x, records)
+    for y, y2, (q, s) in zip(got, again, records):
+        assert torch.equal(y, y2)
+        assert torch.equal(y, W8.w8_matmul(x, q, s))
+        w8_check(y, x, q, s)
+
+
+def test_w8_group_graph_replay_equals_eager(dev):
+    """A group captured in a CUDA graph: the capture launches nothing and
+    records one launch of three products; a replay writes what the eager
+    launch returned, bit for bit."""
+    from repro_torch.kernels import w8_matmul as W8
+
+    x, records = w8_group_inputs(8, 4096, (4096, 1024, 1024), dev, seed=5)
+    eager = W8.w8_matmul_group(x, records)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    _cuda.reset_launches()
+    with torch.cuda.graph(graph, stream=side):
+        out = W8.w8_matmul_group(x, records)
+    assert _cuda.LAUNCHES["w8_matmul"] == 0 and _cuda.CAPTURED["w8_matmul"] == 1
+    assert _cuda.W8_PRODUCTS == {"launched": 0, "captured": 3}
+    for y in out:
+        y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_w8_group_refusals(dev):
+    """Records that differ in K, device or dtype, an empty group and five
+    records are refused before any launch."""
+    from repro_torch.kernels import w8_matmul as W8
+
+    x, records = w8_group_inputs(8, 300, (528, 48), dev)
+    (q, s), (q2, s2) = records
+    other_k = w8_inputs(8, 301, 48, torch.bfloat16, dev)[1:]
+    _cuda.reset_launches()
+    for group in [[(q, s), other_k],  # K differs
+                  [(q, s), (q2.cpu(), s2)],  # a record on the host
+                  [(q, s), (q2.float(), s2)],  # q not int8
+                  [(q, s), (q2, s2.float())],  # s not bf16
+                  [], [(q, s)] * 5]:
+        with pytest.raises(ValueError):
+            W8.w8_matmul_group(x, group)
+    with pytest.raises(ValueError):
+        W8.w8_matmul_group(x.float().cpu(), records)  # x on the host, the records on the card
+    assert _cuda.LAUNCHES["w8_matmul"] == 0 and _cuda.W8_PRODUCTS["launched"] == 0
+
+
 def smoke_model(arch, dtype, dev, int8, seed=3):
     import dataclasses
 
@@ -951,11 +1033,12 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     model: equal tokens and bit-equal logits tick by tick, across three
     admissions (the second and third copy their prefill's cache into the
     captured one).  The W8 kernel's wrapper counts the warm-up step before
-    the capture only, 7 launches a layer: the capture launches nothing, the
-    replays launch without the wrapper, and the prompts are long enough,
-    2 × 33 rows and more, that no prefill's products take the kernel.  The
-    capture records as many products as the warm-up launched, and the graph
-    replays once a tick."""
+    the capture only, 4 launches a layer (q, k and v one group; gate and
+    up one) for its 7 products: the capture launches nothing, the replays
+    launch without the wrapper, and the prompts are long enough, 2 × 33
+    rows and more, that no prefill's products take the kernel.  The capture
+    records as many launches and products as the warm-up launched, and the
+    graph replays once a tick."""
     from repro_torch.serve.engine import GraphedDecodeStep
 
     cfg, _, card = smoke_model("qwen3-8b", "bfloat16", dev, int8)
@@ -969,8 +1052,10 @@ def test_graph_replay_equals_eager_over_readmissions(dev, int8):
     assert len(logits) == len(eager_logits) > 6
     for a, b in zip(logits, eager_logits):
         assert torch.equal(a, b)
-    assert _cuda.LAUNCHES["w8_matmul"] == (7 * cfg.n_layers if int8 else 0)
+    assert _cuda.LAUNCHES["w8_matmul"] == (4 * cfg.n_layers if int8 else 0)
+    assert _cuda.W8_PRODUCTS["launched"] == (7 * cfg.n_layers if int8 else 0)
     assert step.captured["w8_matmul"] == _cuda.LAUNCHES["w8_matmul"]
+    assert step.captured_w8_products == _cuda.W8_PRODUCTS["launched"]
     assert step.captured["flash_attention"] == 0
     assert step.replays == len(logits)
 

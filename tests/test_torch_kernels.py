@@ -380,28 +380,46 @@ def test_join_launch_geometry(n, row_words, buckets, cap, stream):
     assert params.words is params.fps is params.recs is None  # filled at launch
 
 
-@pytest.mark.parametrize("m,k,n,form", [
-    (8, 4096, 4096, "tensor"), (8, 4096, 1024, "tensor"), (8, 4096, 12288, "tensor"),
-    (8, 12288, 4096, "tensor"), (1, 129, 72, "cuda_cores"), (64, 1100, 528, "tensor"),
-    (8, 300, 1000, "cuda_cores"), (3, 20000, 64, "tensor"),
+@pytest.mark.parametrize("m,k,ns,form", [
+    (8, 4096, (4096,), "tensor"), (8, 4096, (1024,), "tensor"), (8, 4096, (12288,), "tensor"),
+    (8, 12288, (4096,), "tensor"), (1, 129, (72,), "cuda_cores"), (64, 1100, (528,), "tensor"),
+    (8, 300, (1000,), "cuda_cores"), (3, 20000, (64,), "tensor"),
+    # the grouped decode products of a qwen3-8b layer: wq, wk, wv; w_gate, w_up
+    (8, 4096, (4096, 1024, 1024), "tensor"), (8, 4096, (12288, 12288), "tensor"),
 ])
-def test_w8_launch_geometry(m, k, n, form):
-    """The W8 kernel's form and grid, as rm_w8.cu expects them, without the
-    library: chunks of K that are multiples of 128 rows, at most 1,024 (the
-    staged x), covering K in ``splits`` blocks; three to four blocks an SM on
-    a 132-SM card where K allows; the ctypes block the C struct's size."""
+def test_w8_launch_geometry(m, k, ns, form):
+    """The W8 kernel's form and plan, as rm_w8.cu expects them, without the
+    library.  Tensor cores: one launch for the group, a block a 128-column
+    strip of one record, the records' strips side by side along x; K cut
+    into at most 8 cluster ranks (the grid's y) of whole 64-row stages, none
+    empty, depending on K alone; the staged x within its cap.  CUDA cores
+    (one record): chunks of K that are multiples of 128 rows, at most 1,024,
+    covering K in ``splits`` blocks, three to four blocks an SM on a 132-SM
+    card where K allows.  The ctypes block the C struct's size."""
     dtype = torch.bfloat16
-    assert _cuda.w8_form(dtype, n, 0, 0) == form
-    assert _cuda.w8_form(torch.float32, n, 0, 0) != "tensor"
-    assert _cuda.w8_form(torch.bfloat16, n, 8, 0) != "tensor"  # q not 16-byte aligned
-    strips, splits, m_tiles, chunk = _cuda.w8_launch(m, k, n, 132, form)
-    strip = 128 if form == "tensor" else 256
-    assert strips == -(-n // strip) and m_tiles == -(-m // 8)
-    assert chunk % 128 == 0 and 128 <= chunk <= 1024
-    assert splits == -(-k // chunk) and (splits - 1) * chunk < k
-    blocks = strips * splits * m_tiles
-    assert blocks >= 3 * 132 or chunk == 128  # the 128-row floor on chunks
-    assert ctypes.sizeof(_cuda._W8Params) == 72  # sizeof(W8Params) on x86-64
+    assert all(_cuda.w8_form(dtype, k, n, 0, 0) == form for n in ns)
+    assert _cuda.w8_form(torch.float32, k, ns[0], 0, 0) != "tensor"
+    assert _cuda.w8_form(dtype, k, ns[0], 8, 0) != "tensor"  # q not 16-byte aligned
+    assert _cuda.w8_form(dtype, 65537, 64, 0, 0) != "tensor"  # x past 8 ranks' cap
+    grid, chunk = _cuda.w8_launch(m, k, ns, 132, form)
+    assert grid[2] == -(-m // 8)
+    if form == "tensor":
+        cluster = grid[1]
+        assert grid[0] == sum(-(-n // 128) for n in ns)
+        assert 1 <= cluster <= 8 and chunk % 64 == 0 and chunk <= _cuda.W8_TC_MAX_CHUNK
+        assert (cluster - 1) * chunk < k <= cluster * chunk  # every rank holds rows
+        assert chunk == 64 * -(-(-(-k // 64)) // 8)  # the fewest stages a rank over 8 ranks
+        for n in ns:  # a record alone: the same cluster and chunk
+            alone, alone_chunk = _cuda.w8_launch(m, k, [n], 132, form)
+            assert alone[1:] == grid[1:] and alone_chunk == chunk
+    else:
+        (n,) = ns
+        assert grid[0] == -(-n // 256)
+        assert chunk % 128 == 0 and 128 <= chunk <= 1024
+        assert grid[1] == -(-k // chunk) and (grid[1] - 1) * chunk < k
+        assert grid[0] * grid[1] * grid[2] >= 3 * 132 or chunk == 128  # the 128-row floor
+    assert ctypes.sizeof(_cuda._W8Params) == 160  # sizeof(W8Params) on x86-64
+    assert _cuda._W8Params.q.size == 8 * _cuda.W8_MAX_RECORDS
 
 
 def test_cuda_path_refuses_cpu_and_unported_revisions():

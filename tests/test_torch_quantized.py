@@ -264,3 +264,53 @@ def test_converter_refuses_an_int8_tree_that_does_not_match(fault):
         rec["s"] = rec["s"][:, :, :-1]
     with pytest.raises(ValueError):
         params_from_reference(tcfg, tree)
+
+
+def per_product(x, ws):
+    """What every grouped call site did before groups: a product a weight."""
+    return [TL.linear(x, w) for w in ws]
+
+
+@pytest.mark.parametrize("rows", [8, 80], ids=["decode", "prefill"])  # both sides of 64
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen1.5-110b"], ids=["no-bias", "qkv-bias"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_linear_group_equals_its_products(int8, arch, rows, monkeypatch):
+    """``linear_group`` against ``[linear(x, w) for w in ws]``, bit for bit on
+    the CPU: the group alone (q / k / v and gate / up), then attention's
+    projections with their QKV biases (drawn nonzero) and RoPE, and the
+    gated FFN, each against the same code with the group replaced by the
+    products one at a time."""
+    cfg = dataclasses.replace(tget_smoke(arch), compute_dtype="bfloat16")
+    model = DecoderLM(cfg, device="cpu", seed=7)
+    block = model.layers[0]
+    rng = np.random.default_rng(rows)
+    with torch.no_grad():
+        for name in ("bq", "bk", "bv"):
+            if hasattr(block.mixer, name):
+                b = getattr(block.mixer, name)
+                b.copy_(torch.from_numpy(rng.normal(0, 0.5, b.shape)).to(b.dtype))
+    if int8:
+        TL.quantize_for_serving(model)
+    x = torch.from_numpy(rng.normal(0, 1, (rows // 4, 4, cfg.d_model))).to(torch.bfloat16)
+    for ws in ([block.mixer.wq, block.mixer.wk, block.mixer.wv],
+               [block.mlp.w_gate, block.mlp.w_up]):
+        got, want = TL.linear_group(x, ws), per_product(x, ws)
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cos, sin = TL.rope_cos_sin(torch.arange(4)[None].expand(rows // 4, 4), block.spec.head_dim,
+                               block.spec.rope_theta)
+    grouped = (TL._qkv(block.mixer, block.spec, x, cos, sin),
+               TL.mlp(block.mlp, x, cfg.mlp_kind))
+    monkeypatch.setattr(TL, "linear_group", per_product)
+    alone = (TL._qkv(block.mixer, block.spec, x, cos, sin), TL.mlp(block.mlp, x, cfg.mlp_kind))
+    assert all(torch.equal(a, b) for a, b in zip(grouped[0], alone[0]))
+    assert torch.equal(grouped[1], alone[1])
+
+
+@pytest.mark.parametrize("records", [0, 5], ids=["empty", "five"])
+def test_w8_group_refuses_an_empty_or_oversized_group(records):
+    from repro_torch.kernels.w8_matmul import w8_matmul_group
+
+    rec = TL.quantize_weight(torch.ones((16, 16)))
+    with pytest.raises(ValueError, match="records"):
+        w8_matmul_group(torch.ones((2, 16)), [(rec.q, rec.s)] * records)
