@@ -818,9 +818,21 @@ def lm_prompts(rng, n: int, lo: int, hi: int, vocab: int) -> list:
 
 def host_usage() -> dict:
     """This process's host counters (all its threads): CPU seconds in user
-    and kernel mode, and the times a thread gave up its core to wait."""
+    and kernel mode, the times a thread gave up its core to wait, and page
+    faults; the calling thread's own kernel-mode seconds; and the caching
+    allocator's counters on the card: device allocations and frees
+    (``cudaMalloc`` / ``cudaFree``, each a call into the driver) and the
+    allocations it retried after freeing its cache."""
+    import torch
+
     r = resource.getrusage(resource.RUSAGE_SELF)
-    return {"user_s": r.ru_utime, "sys_s": r.ru_stime, "voluntary_switches": r.ru_nvcsw}
+    me = resource.getrusage(resource.RUSAGE_THREAD)
+    mem = torch.cuda.memory_stats()
+    return {"user_s": r.ru_utime, "sys_s": r.ru_stime, "voluntary_switches": r.ru_nvcsw,
+            "minor_faults": r.ru_minflt, "calling_thread_sys_s": me.ru_stime,
+            "device_allocs": mem.get("num_device_alloc", 0),
+            "device_frees": mem.get("num_device_free", 0),
+            "alloc_retries": mem.get("num_alloc_retries", 0)}
 
 
 def recorded(torch, fn, log: list, sync: bool, usage: list):
@@ -1143,9 +1155,12 @@ def w8_phase(torch, seed: int) -> dict:
     return {"w8_matmul": layer}
 
 
-def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
+def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce"),
+                 replays: int = 0) -> dict:
     """One step's time: ``fn`` once to warm up, once on the host clock
-    (synced), then once more under ``torch.profiler`` — the sum of its
+    (synced); with ``replays``, the mean over ``replays`` calls between CUDA
+    events, five times (``replayed_ms`` their median, ``replayed_ms_runs``
+    all five); then once more under ``torch.profiler`` — the sum of its
     kernels' device times (one stream, so they do not overlap), its
     launches, the top five kernels, the launches and the device time of the
     kernels whose names hold one of ``count``, and the idle share of that
@@ -1160,6 +1175,16 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
     fn()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    if replays:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(5):
+            start.record()
+            for _ in range(replays):
+                fn()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / replays)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -1174,6 +1199,8 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce")) -> dict:
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
     return {"profiled_wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms,
+            "replayed_ms": statistics.median(runs) if runs else None,
+            "replayed_ms_runs": runs,
             "device_busy_ms": busy_ms or None,
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
@@ -1273,7 +1300,7 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     del twin, replayed, eager
     profiles = {
         "prefill": profile_step(torch, lambda: model.prefill({"tokens": toks}, LM_MAX_LEN)),
-        "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos)),
+        "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos), replays=50),
         "decode_eager": profile_step(torch, lambda: model.decode_step(cache, nxt, pos)),
     }
     # the W8 launches and products the serving run ran: the wrapper's (the
@@ -2258,7 +2285,8 @@ def main(argv=None) -> int:
           "library": str(_cuda.library_path().name),
           "flash_ptxas": _cuda.ptxas_report("rm_flash.cu"),
           "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
-          "scan_ptxas": _cuda.ptxas_report("rm_scan.cu")})
+          "scan_ptxas": _cuda.ptxas_report("rm_scan.cu"),
+          "w8_ptxas": _cuda.ptxas_report("rm_w8.cu")})
 
     breakers: list = []  # every engine's breaker; the engines themselves are freed
     small_reference_check(torch, args.seed, breakers)

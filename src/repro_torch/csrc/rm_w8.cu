@@ -20,16 +20,12 @@
 // record, 8 rows of x and one rank's chunk of K; the chunks of a strip are
 // the blocks of one thread-block cluster along K (at most 8), so the grid
 // fills the card for N as small as 1,024:
-//   * a ring of RM_W8_STAGES (4) stages of 64 K rows × 128 columns (8 KB) in
-//     shared memory, fed by TMA from a tensor map of q (box 128 × 64, the
-//     128-byte swizzle) by one producer thread, with full / empty mbarriers:
-//     32 KB in flight a block whatever its chunk, up to RM_W8_BLOCKS (4)
-//     blocks an SM (the ~25 KB an SM that 3.35 TB/s × ~1 µs of latency asks
-//     for over 132 SMs); rows past K and columns past N arrive as zeros;
-//   * launched as a programmatic dependent of the kernel before it (in a
-//     decode step an elementwise pass that writes x): the weights start to
-//     stream while that kernel finishes; the consumers wait for it
-//     (griddepcontrol.wait) before they read x or s or write y;
+//   * a ring of 4 stages of 64 K rows × 128 columns (8 KB) in shared
+//     memory, fed by TMA from a tensor map of q (box 128 × 64, the 128-byte
+//     swizzle) by one producer thread, with full / empty mbarriers: 32 KB in
+//     flight a block whatever its chunk, up to 4 blocks an SM (the ~25 KB an
+//     SM that 3.35 TB/s × ~1 µs of latency asks for over 132 SMs); rows past
+//     K and columns past N arrive as zeros;
 //   * four consumer warps take one 16-row k step of every stage each and
 //     run mma.sync m16n8k16, y^T = W^T x^T: the dequantized q^T as A, 16
 //     columns a tile, x^T as B (its 8 rows the tile's n: no padding).  Lane
@@ -61,28 +57,12 @@
 // above 48 KB is allowed once, by rm_w8_init, when the library is loaded.
 // The layout of W8Params is mirrored by ctypes in
 // repro_torch/kernels/_cuda.py (_W8Params), checked at load time.
-// RM_W8_STAGES, RM_W8_FEED and RM_W8_BLOCKS are build-time knobs for the
-// design probe (repro_torch/launch/w8_probe.py); the library is built with
-// the defaults.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "rm_tma.cuh"  // mbarriers, the tensor-map encoder (CUtensorMap via <cuda.h>)
-
-#ifndef RM_W8_STAGES
-#define RM_W8_STAGES 4  // stages of the tensor-core kernel's ring
-#endif
-#ifndef RM_W8_FEED
-#define RM_W8_FEED 0  // the ring's feed: 0 TMA; probe only: 1 cp.async.cg, 2 cp.async.ca
-#endif
-#ifndef RM_W8_BLOCKS
-#define RM_W8_BLOCKS 4  // tensor-core blocks an SM (__launch_bounds__): the register cap
-#endif
-#ifndef RM_W8_PDL
-#define RM_W8_PDL 1  // launched as a programmatic dependent of the kernel before it
-#endif
 
 constexpr int kW8MaxRecords = 4;  // products one launch takes
 
@@ -124,7 +104,8 @@ constexpr int kTcThreads = 32 * (kTcConsumers + 1);  // and one producer warp
 constexpr int kTcStep = 16;                    // K rows an mma
 constexpr int kTcStageRows = kTcStep * kTcConsumers;  // 64: a step per consumer warp
 constexpr int kTcStageBytes = kTcStageRows * kTcStrip;  // 8 KB
-constexpr int kTcStages = RM_W8_STAGES;
+constexpr int kTcStages = 4;                   // stages of the ring
+constexpr int kTcBlocks = 4;                   // blocks an SM (__launch_bounds__): the register cap
 constexpr int kTcXPad = 8;                     // bf16 pad of a staged x row
 constexpr int kTcRedRow = 140;                 // floats a row of the warps' sums
 constexpr int kTcRedBytes = kTcConsumers * kW8Rows * kTcRedRow * 4;
@@ -146,7 +127,6 @@ enum Form : int32_t { kFormCudaCores = 0, kFormTensor = 1 };
 struct W8TcArgs {
   CUtensorMap map[kW8MaxRecords];   // q_r as (N_r, K): box 128 × 64, 128-byte swizzle
   const __nv_bfloat16* x;
-  const int8_t* q[kW8MaxRecords];    // read only by the probe's cp.async feed
   const __nv_bfloat16* s[kW8MaxRecords];
   __nv_bfloat16* y[kW8MaxRecords];
   int32_t n[kW8MaxRecords];
@@ -330,36 +310,9 @@ __device__ __forceinline__ int first_col(const W8TcArgs& a, int rec, int strip) 
   return (strip - (rec ? a.strip_end[rec - 1] : 0)) * kTcStrip;
 }
 
-#if RM_W8_FEED != 0
-// Probe only: the lane's own four 16-byte pieces of its step of stage `i`
-// (zeros past K and N), copied by cp.async into ring slot `slot` where the
-// TMA box would place them; one commit group, empty past the last stage.
-__device__ __forceinline__ void cp_async_step(uint32_t slot, const W8TcArgs& a, int rec,
-                                              int col, int i, int stages, int k0, int warp,
-                                              int g, int t) {
-  if (i < stages) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = warp * kTcStep + 2 * t + (j & 1) + 8 * (j >> 1);
-      const int k = k0 + i * kTcStageRows + row;
-      const bool in = k < a.K && col < a.n[rec];
-      const int8_t* src = a.q[rec] + (in ? static_cast<long long>(k) * a.n[rec] + col : 0);
-#if RM_W8_FEED == 1
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                   :: "r"(slot + swizzled(row, g)), "l"(src), "r"(in ? 16 : 0) : "memory");
-#else
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
-                   :: "r"(slot + swizzled(row, g)), "l"(src), "r"(in ? 16 : 0) : "memory");
-#endif
-    }
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-#endif
-
 // Block (strip blockIdx.x, rank r of its cluster, m tile blockIdx.z): K
 // rows [r·chunk, (r+1)·chunk) of the strip's 128 columns, 8 rows of x.
-__global__ void __launch_bounds__(kTcThreads, RM_W8_BLOCKS)
+__global__ void __launch_bounds__(kTcThreads, kTcBlocks)
 rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the ring at a 1,024-byte boundary: the swizzle pattern repeats every 1,024 bytes
@@ -402,7 +355,6 @@ rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
 
   if (warp == kTcConsumers) {
     // ---------------------------------------------------------- producer
-#if RM_W8_FEED == 0
     if (lane == 0) {
       const CUtensorMap* map = &a.map[rec];
       asm volatile("prefetch.tensormap [%0];" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -414,17 +366,8 @@ rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
       }
     }
     __syncwarp();
-#endif
   } else {
     // ---------------------------------------------------------- consumers
-#if RM_W8_PDL
-    // x is the kernel before's output: wait for it (the weights need not)
-    asm volatile("griddepcontrol.wait;" ::: "memory");
-#endif
-#if RM_W8_FEED != 0
-    for (int i = 0; i < kTcStages - 1; ++i)
-      cp_async_step(base + i * kTcStageBytes, a, rec, col0 + 16 * g, i, stages, k0, warp, g, t);
-#endif
     // x[m0 : m0 + 8, k0 : k0 + stages * 64] in bf16, row-major, zeros past M and kc
     const int xk = stages * kTcStageRows;
     if (a.x_vec) {
@@ -459,13 +402,7 @@ rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
     for (int i = 0; i < stages; ++i) {
       const int s = i % kTcStages;
       const uint32_t stage = base + s * kTcStageBytes;
-#if RM_W8_FEED == 0
       mbar_wait(full(s), (i / kTcStages) & 1);
-#else
-      cp_async_step(base + ((i + kTcStages - 1) % kTcStages) * kTcStageBytes, a, rec, col,
-                    i + kTcStages - 1, stages, k0, warp, g, t);
-      asm volatile("cp.async.wait_group %0;" :: "n"(kTcStages - 1) : "memory");
-#endif
       // rows 2t, 2t+1 | 2t+8, 2t+9 of this warp's step, columns 16g..16g+15
       uint4 r[4];
 #pragma unroll
@@ -475,10 +412,8 @@ rm_w8_matmul_tc_kernel(const __grid_constant__ W8TcArgs a) {
                      : "=r"(r[j].x), "=r"(r[j].y), "=r"(r[j].z), "=r"(r[j].w)
                      : "r"(stage + swizzled(row, g)) : "memory");
       }
-#if RM_W8_FEED == 0
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));  // the stage's bytes are in registers
-#endif
       // B: x row g at the fragment's k 2t, 2t+1 | 2t+8, 2t+9
       const uint32_t xb0 = *reinterpret_cast<const uint32_t*>(xrow + i * kTcStageRows);
       const uint32_t xb1 = *reinterpret_cast<const uint32_t*>(xrow + i * kTcStageRows + 8);
@@ -578,7 +513,6 @@ int launch_tc(const W8Params& p, cudaStream_t stream) {
   for (int r = 0; r < p.records; ++r) {
     const int err = q_map(&a.map[r], p.q[r], p.K, p.n[r]);
     if (err != 0) return err;
-    a.q[r] = p.q[r];
     a.s[r] = p.s[r];
     a.y[r] = static_cast<__nv_bfloat16*>(p.y[r]);
     a.n[r] = p.n[r];
@@ -596,15 +530,13 @@ int launch_tc(const W8Params& p, cudaStream_t stream) {
   cfg.blockDim = dim3(kTcThreads);
   cfg.dynamicSmemBytes = tc_smem_bytes(p.chunk);
   cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = p.splits;
   attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = RM_W8_PDL ? 2 : 1;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, rm_w8_matmul_tc_kernel, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

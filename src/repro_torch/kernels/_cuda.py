@@ -435,7 +435,8 @@ def load() -> ctypes.CDLL:
                 f"{ctypes.sizeof(struct)} bytes"
             )
     _LIB = lib
-    if torch.cuda.is_available():
+    # a load inside a capture leaves it to the W8 wrapper (which raises there)
+    if torch.cuda.is_available() and not torch.cuda.is_current_stream_capturing():
         _w8_init(lib, torch.cuda.current_device())
     return lib
 
@@ -828,14 +829,14 @@ def w8_form(dtype: torch.dtype, k: int, n: int, q_ptr: int, s_ptr: int) -> str:
     return "cuda_cores"
 
 
-def w8_launch(m: int, k: int, ns: Sequence[int], n_sm: int, form: str = "tensor",
-              max_cluster: int = W8_MAX_CLUSTER) -> tuple[tuple[int, int, int], int]:
+def w8_launch(m: int, k: int, ns: Sequence[int], n_sm: int, form: str = "tensor"
+              ) -> tuple[tuple[int, int, int], int]:
     """The W8 kernel's plan for ``x (m, k)`` times the records' ``q (k,
     n)``, ``n`` in ``ns``: ``(grid, chunk)``, the grid (strips, K chunks, m
     tiles).
 
     Tensor cores (one launch for the group): a block owns 128 output columns
-    of one record and 8 rows of x; K is cut into at most ``max_cluster``
+    of one record and 8 rows of x; K is cut into at most ``W8_MAX_CLUSTER``
     chunks of ``chunk`` rows (a multiple of ``W8_STAGE_ROWS``, each at least
     one stage), the blocks of one cluster along the grid's y.  The plan depends on K
     alone, so a product's sums are the same in a group or alone.  CUDA
@@ -846,7 +847,7 @@ def w8_launch(m: int, k: int, ns: Sequence[int], n_sm: int, form: str = "tensor"
     m_tiles = -(-m // W8_ROWS)
     if form == "tensor":
         stages = -(-k // W8_STAGE_ROWS)
-        per_rank = -(-stages // max_cluster)
+        per_rank = -(-stages // W8_MAX_CLUSTER)
         strips = sum(-(-n // W8_TC_STRIP) for n in ns)
         return (strips, -(-stages // per_rank), m_tiles), per_rank * W8_STAGE_ROWS
     (n,) = ns
@@ -924,8 +925,7 @@ def run_w8(x: torch.Tensor, records: Sequence[tuple[torch.Tensor, torch.Tensor]]
     return out
 
 
-def w8_params(x: torch.Tensor, group, form: str, n_sm: int,
-              max_cluster: int = W8_MAX_CLUSTER
+def w8_params(x: torch.Tensor, group, form: str, n_sm: int
               ) -> tuple[_W8Params, list[torch.Tensor], torch.Tensor | None]:
     """The parameter block of one W8 launch of ``group`` (records that
     :func:`run_w8` has checked) in ``form``, planned by :func:`w8_launch`,
@@ -933,7 +933,7 @@ def w8_params(x: torch.Tensor, group, form: str, n_sm: int,
     partials: ``(params, ys, partials)``."""
     m, k = x.shape
     ns = [q.shape[1] for q, _ in group]
-    (_, splits, _), chunk = w8_launch(m, k, ns, n_sm, form, max_cluster)
+    (_, splits, _), chunk = w8_launch(m, k, ns, n_sm, form)
     ys = [torch.empty((m, n), dtype=x.dtype, device=x.device) for n in ns]
     partials = (torch.empty((splits, m, ns[0]), dtype=torch.float32, device=x.device)
                 if form == "cuda_cores" and splits > 1 else None)

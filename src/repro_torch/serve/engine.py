@@ -89,7 +89,9 @@ class GraphedDecodeStep:
         self.cache: list[dict] | None = None
         # each captured weight: its module's dict, name, tensor and address
         self.weights: list[tuple[dict, str, torch.Tensor, int]] = []
-        self.capture_seconds: dict[str, float] = {}  # host clock, synced
+        # host clock: the warm-up (synced), the capture and, of it, the
+        # graph context's entry and the recording
+        self.capture_seconds: dict[str, float] = {}
         self.captured: dict[str, int] = {}
         self.captured_w8_products = 0
         self.replays = 0
@@ -115,15 +117,18 @@ class GraphedDecodeStep:
         graph = torch.cuda.CUDAGraph()
         before = dict(_cuda.CAPTURED)
         products = _cuda.W8_PRODUCTS["captured"]
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph):  # entered: synced, gc.collect(), empty_cache()
+            t2 = time.perf_counter()
             self.logits, _ = self.model.decode_step(cache, self.tokens, self.pos)
+            t3 = time.perf_counter()  # recorded; the capture's end instantiates the graph
         self.captured = {k: n - before[k] for k, n in _cuda.CAPTURED.items()}
         self.captured_w8_products = _cuda.W8_PRODUCTS["captured"] - products
         self.weights = [(d, name, t, t.data_ptr()) for m in self.model.modules()
                         for d in (m._parameters, m._buffers)
                         for name, t in d.items() if t is not None]
         self.graph = graph
-        self.capture_seconds = {"warm_up": t1 - t0, "capture": time.perf_counter() - t1}
+        self.capture_seconds = {"warm_up": t1 - t0, "capture": time.perf_counter() - t1,
+                                "enter": t2 - t1, "record": t3 - t2}
 
     def _set_pos(self, pos) -> None:
         if isinstance(pos, torch.Tensor):

@@ -945,6 +945,36 @@ def test_w8_group_graph_replay_equals_eager(dev):
     assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
+def test_library_first_loaded_inside_a_capture(dev, monkeypatch):
+    """A process whose first use of the library is a flash launch inside a
+    graph capture loads it there without the W8 set-up (an attribute is
+    never set inside a capture); the graph replays the eager result, and a
+    later W8 launch outside the capture does the set-up once."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import w8_matmul as W8
+
+    q, k, v = flash_inputs(FLASH_CASES[1], torch.bfloat16, dev)
+    eager = F.flash_attention(q, k, v)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    monkeypatch.setattr(_cuda, "_LIB", None)  # as a fresh process: not loaded
+    monkeypatch.setattr(_cuda, "_W8_READY", set())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = F.flash_attention(q, k, v)
+    assert _cuda._LIB is not None and _cuda._W8_READY == set()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x, records = w8_group_inputs(8, 512, (256, 128), dev, seed=7)
+    got = W8.w8_matmul_group(x, records)
+    assert _cuda._W8_READY == {index}
+    for y, (qw, s) in zip(got, records):
+        w8_check(y, x, qw, s)
+
+
 def test_w8_group_refusals(dev):
     """Records that differ in K, device or dtype, an empty group and five
     records are refused before any launch."""
