@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
 sharded backend, the paper's three projection revisions, the selection
 entry points and the LM serving path (``qwen3-8b`` at full width, bf16 and
-int8) on one NVIDIA GPU.
+int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -82,7 +83,12 @@ probe rows matching — all made from ``--seed``:
       5e-2 (the card's kernel scales q in float32, the CPU's blockwise path
       in bf16, and the two frameworks round bf16 matmuls apart); then
       ``qwen3-8b-smoke`` int8-quantized at float32 compute (the W8 kernel
-      in its decode steps), tokens equal and logits within 1e-4;
+      in its decode steps), tokens equal and logits within 1e-4; then the
+      two MoE smokes (``qwen3-moe-235b-a22b``'s and
+      ``llama4-maverick-400b-a17b``'s) at float32, tokens equal and logits
+      within 1e-4, the MoE kernel launched twice a layer in every decode
+      step and every prefill of at most 16 rows an expert, its plain
+      version never;
    b. the flash-attention kernel against its plain version on the card
       (bf16 within 2^-7 of each value plus 2e-3) at the serving path's
       prefill shape (B 8, S 2,048, 32 query / 8 KV heads, D 128, causal),
@@ -102,6 +108,16 @@ probe rows matching — all made from ``--seed``:
       transposed copy of the int8 weight (two yardsticks the port never
       calls), all as a decode step runs them: weights cold, launches
       replayed from a CUDA graph; a layer's sum against its bound;
+   c2. the MoE kernel (``csrc/rm_moe.cu``) at one ``qwen3-moe-235b-a22b``
+      layer's decode step (128 experts of d 4,096 and f 1,536, cap 4, the
+      buffer dispatched from 8 tokens routed through a router drawn from
+      ``--seed``), bf16 and float32: each of its two stages against the
+      exact product of the touched experts and against its plain version
+      (``MOE_SUM_RTOL``, carried through ``silu``), rows past each count and
+      untouched experts exactly zero, equal on a rerun and in a graph's
+      replay; timed beside its bound (the touched experts' bytes), its plain
+      version and the dense form's three ``torch.bmm`` (a yardstick the
+      port's decode step never calls);
    d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
@@ -128,6 +144,16 @@ probe rows matching — all made from ``--seed``:
       and no split-K reduction in the trace of a replayed step (taken once
       more if it lost records) with their device time, some in the traced
       serving run, and the dequant's device time in an int8 prefill;
+   f. ``qwen3-moe-235b-a22b`` at full width (d_model 4,096, 64 / 4 heads of
+      128, qk-norm, 128 experts of 1,536, top-8), its depth cut to 12 of 94
+      layers (printed as ``reduced``), initialised on the card from
+      ``--seed`` and serving the same 16 requests as in d, checked as there
+      (the flash kernel at a GQA group of 16 on layers 0 and 11): 24 MoE
+      launches in the warm-up step and 24 recorded by the capture, none
+      from the plain version, the MoE kernels in the trace of a replayed
+      step with their device time, each layer's touched experts (read back
+      from the eager step) and the step's bound by bytes; the serving run's
+      peak must leave 4 GiB of the card;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -136,11 +162,13 @@ Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
-LM serve phase's two runs for ``flash_attention`` and its int8 run for
+LM serve phases' three runs for ``flash_attention`` and the int8 run for
 ``w8_matmul`` — its wrapper launches in the warm-up step before the graph's
 capture; the graph's replays launch it without the wrapper, and the
 line's ``w8_kernels_run`` (launches) and ``w8_products_run`` (products)
-add them from the capture's records and the replay count —; the sharded
+add them from the capture's records and the replay count —, the MoE serve
+phase for ``moe_ffn`` (its warm-up step's launches; ``moe_kernels_run``
+adds the replays'); the sharded
 phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
@@ -154,6 +182,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import gc
 import json
@@ -194,10 +223,12 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:36",
 }
 # kernels with no Pallas counterpart: what of the reference each replaces
-FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51"}
+FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51",
+           "moe_ffn": "src/repro/models/layers.py:583"}
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
            "w8_matmul": "src/repro_torch/csrc/rm_w8.cu",
+           "moe_ffn": "src/repro_torch/csrc/rm_moe.cu",
            "project_pck": "src/repro_torch/csrc/rm_project.cu",
            "project_bsl": "src/repro_torch/csrc/rm_project.cu",
            "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
@@ -221,8 +252,23 @@ LM_PROMPT = (1024, 2048)
 LM_MAX_NEW = 16
 LM_REQUESTS = 16
 LM_CHECK_LAYERS = (0, 35)
-# the card-against-CPU smokes: qwen3-8b's, then the two QKV-bias decoders'
-LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b")
+# the card-against-CPU smokes: qwen3-8b's, the two QKV-bias decoders', then
+# the two MoE decoders' — at float32 only: at bf16 an MoE decoder's routing
+# follows the router's bf16 logits, which the card's and the CPU's other
+# roundings upstream can flip from one expert to another
+LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b", "qwen3-moe-235b-a22b",
+                      "llama4-maverick-400b-a17b")
+LM_MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+# the MoE serving cell: qwen3-moe-235b-a22b at full width, its depth cut to
+# fit one card (12 of 94 layers: 62.2 GB of bf16 weights), the dense cell's
+# traffic; its peak must leave MOE_FREE_BYTES of the card
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_LAYERS = 12
+MOE_FREE_BYTES = 4 << 30
+# the MoE kernel phase: one qwen3-moe-235b layer's decode step, E 128 experts
+# of d 4,096 and f 1,536 with cap 4 rows (8 tokens, top-8), the counts from
+# a routing of 8 tokens through a router drawn from --seed
+MOE_SHAPE = {"E": 128, "d": 4096, "f": 1536, "top_k": 8, "tokens": 8}
 # a qwen3-8b layer's decode products at M = 8 rows, as the layer launches
 # them: (name, K, N of each record of the launch) — wq, wk, wv one group;
 # wo; w_gate, w_up one group; w_down
@@ -250,6 +296,12 @@ FLASH_TOL = {"bfloat16": (2.0 ** -7, 2e-3), "float32": (0.0, 1e-4)}
 # the plain version (cuBLAS, reduced-precision bf16 reductions off) the same
 # sum term twice and one whole bf16 step (two roundings)
 W8_SUM_RTOL = 1e-5
+# the MoE kernel's two products held as the W8 kernel's (moe_limits): each
+# float32 sum within MOE_SUM_RTOL of sum(|x| |w|) plus half a step of the
+# dtype; silu's slope is at most 1.1 (SILU_SLOPE); against the plain
+# version each limit twice
+MOE_SUM_RTOL = W8_SUM_RTOL
+SILU_SLOPE = 1.1
 
 
 def emit(obj) -> None:
@@ -875,23 +927,48 @@ def serve_session(torch, model, prompts, slots: int, max_len: int, max_new: int,
     return reqs, prefills, decodes, step, usage
 
 
+@contextlib.contextmanager
+def counted_plain_moe():
+    """Count the calls of the MoE kernel's plain version inside the block:
+    yields a one-element list that holds the count when the block ends."""
+    from repro_torch.kernels import moe_ffn as MF
+
+    calls = [0]
+    real = MF.moe_ffn_torch
+
+    def plain(*args):
+        calls[0] += 1
+        return real(*args)
+
+    MF.moe_ffn_torch = plain
+    try:
+        yield calls
+    finally:
+        MF.moe_ffn_torch = real
+
+
 def lm_reference_phase(torch, seed: int) -> dict:
     """Each smoke of ``LM_REFERENCE_ARCHS`` served on the card (graphed
     decode steps) and on the CPU (eager) with the same weights: float32
     compute token lists equal and logits within 1e-4; bfloat16 compute
-    prefill logits within 5e-2.  Then qwen3-8b-smoke int8-quantized at
-    float32 compute (the W8 kernel in every decode step and the prefill of
-    rows <= 64): tokens equal and logits within 1e-4."""
+    prefill logits within 5e-2 (the MoE decoders at float32 only).  Then
+    qwen3-8b-smoke int8-quantized at float32 compute (the W8 kernel in every
+    decode step and the prefill of rows <= 64): tokens equal and logits
+    within 1e-4.  The MoE decoders' expert FFN runs the MoE kernel in every
+    decode step and in each prefill whose capacity is at most
+    ``MOE_DECODE_ROWS`` rows an expert, and its plain version never."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import _cuda
-    from repro_torch.models.layers import W8_DECODE_ROWS, quantize_for_serving
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.layers import (MOE_DECODE_ROWS, W8_DECODE_ROWS, moe_capacity,
+                                           quantize_for_serving)
+    from repro_torch.models.lm import DecoderLM, moe_spec
 
     out = {"phase": "lm_reference"}
     runs = [(arch, dtype, tol, False) for arch in LM_REFERENCE_ARCHS
-            for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2))]
+            for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2))
+            if arch not in LM_MOE_ARCHS or dtype == "float32"]
     runs.append((LM_ARCH, "float32", 1e-4, True))
     for arch, dtype, tol, int8 in runs:
         cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
@@ -903,7 +980,8 @@ def lm_reference_phase(torch, seed: int) -> dict:
         card.load_state_dict(cpu.state_dict())
         prompts = lm_prompts(np.random.default_rng(seed + 5), 5, 3, 24, cfg.vocab)
         _cuda.reset_launches()
-        got = serve_session(torch, card, prompts, 2, 64, 6, True)
+        with counted_plain_moe() as plain_calls:
+            got = serve_session(torch, card, prompts, 2, 64, 6, True)
         launches = dict(_cuda.LAUNCHES)
         want = serve_session(torch, cpu, prompts, 2, 64, 6, False)
         assert launches["flash_attention"] == cfg.n_layers * len(got[1]), (
@@ -914,6 +992,11 @@ def lm_reference_phase(torch, seed: int) -> dict:
         rows = [2 * max(len(p) for p in prompts[i:i + 2]) for i in range(0, len(prompts), 2)]
         want_w8 = 7 * cfg.n_layers * (1 + sum(r <= W8_DECODE_ROWS for r in rows))
         assert launches["w8_matmul"] == (want_w8 if int8 else 0), (launches, rows)
+        # two MoE launches a layer in the warm-up step and in each prefill of
+        # at most MOE_DECODE_ROWS rows an expert
+        want_moe = (2 * cfg.n_layers * (1 + sum(moe_capacity(moe_spec(cfg), r) <= MOE_DECODE_ROWS
+                                                for r in rows)) if cfg.n_experts else 0)
+        assert launches["moe_ffn"] == want_moe and plain_calls == [0], (launches, plain_calls)
         tokens_equal = [r.out for r in got[0]] == [r.out for r in want[0]]
         pairs = list(zip(got[1], want[1]))
         if dtype == "float32":
@@ -928,7 +1011,7 @@ def lm_reference_phase(torch, seed: int) -> dict:
             "tokens_equal": tokens_equal, "max_abs_err": err,
             "logit_sets": len(pairs), "tolerance": tol,
             "flash_launches": launches["flash_attention"],
-            "w8_launches": launches["w8_matmul"]}
+            "w8_launches": launches["w8_matmul"], "moe_launches": launches["moe_ffn"]}
         del cpu, card
     emit(out)
     return out
@@ -1155,7 +1238,161 @@ def w8_phase(torch, seed: int) -> dict:
     return {"w8_matmul": layer}
 
 
-def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce"),
+def moe_limits(torch, buf, count, wg, wu) -> tuple:
+    """The exact gate/up output (float64) of ``buf``'s kept rows and each
+    element's limit: each of the two products within ``MOE_SUM_RTOL ·
+    sum(|x| |w|)`` (its float32 sum) plus half a step of the dtype (its
+    rounding), carried through ``silu`` (slope at most ``SILU_SLOPE``),
+    rounded once more, and the product of the two, rounded once more."""
+    hs = 2.0 ** -8 if buf.dtype == torch.bfloat16 else 0.0
+    rows = torch.arange(buf.shape[1], device=buf.device)
+    x = buf.double() * (rows[None, :] < count[:, None])[..., None]
+    wg, wu = wg.double(), wu.double()
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    eg = MOE_SUM_RTOL * torch.bmm(x.abs(), wg.abs()) + hs * g.abs()
+    eu = MOE_SUM_RTOL * torch.bmm(x.abs(), wu.abs()) + hs * u.abs()
+    silu = g * torch.sigmoid(g)
+    es = SILU_SLOPE * eg + hs * (silu.abs() + SILU_SLOPE * eg)
+    limit = es * (u.abs() + eu) + silu.abs() * eu + hs * (silu.abs() + es) * (u.abs() + eu)
+    return silu * u, limit
+
+
+def moe_check(torch, buf, count, wg, wu, wd) -> dict:
+    """Both stages of the MoE kernel on ``buf`` against the exact products
+    of its touched experts (float64) and against their plain versions on the
+    same inputs, with the limits of :func:`moe_limits` (the down product's:
+    ``MOE_SUM_RTOL · sum(|h| |w|)`` plus half a step of the value); the
+    rows past each count, and every row of an untouched expert, exactly
+    zero.  Raises on a miss."""
+    from repro_torch.kernels import moe_ffn as MF
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    h = MF.moe_gate_up(buf, count, wg, wu)
+    out = MF.moe_down(h, count, wd)
+    h_plain = MF.moe_gate_up_torch(buf, count, wg, wu)
+    out_plain = MF.moe_down_torch(h, count, wd)
+    end_to_end = MF.moe_ffn_torch(buf, count, wg, wu, wd)
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    rows = torch.arange(buf.shape[1], device=buf.device)
+    past = rows[None, :] >= count[:, None]
+    assert not h[past].any() and not out[past].any()
+    t = torch.nonzero(count).flatten()  # the touched experts
+    hs = 2.0 ** -8 if buf.dtype == torch.bfloat16 else 0.0
+    h_exact, h_limit = moe_limits(torch, buf[t], count[t], wg[t], wu[t])
+    ht, wdt = h[t].double(), wd[t].double()
+    o_exact = torch.bmm(ht, wdt)
+    o_limit = MOE_SUM_RTOL * torch.bmm(ht.abs(), wdt.abs()) + hs * o_exact.abs()
+
+    def share(err, limit):
+        return float((err / (limit + 1e-30)).max())
+
+    out = {"touched_experts": int(t.numel()), "kept_rows": int(count.sum()),
+           "max_abs_err": float((out.double() - end_to_end.double()).abs().max()),
+           "limit_share_gate_up": share((h[t].double() - h_exact).abs(), h_limit),
+           "limit_share_down": share((out[t].double() - o_exact).abs(), o_limit),
+           "plain_limit_share_gate_up": share((h - h_plain).double().abs()[t], 2 * h_limit),
+           "plain_limit_share_down": share((out - out_plain).double().abs()[t], 2 * o_limit)}
+    assert max(v for k, v in out.items() if "share" in k) <= 1.0, out
+    return out
+
+
+def moe_bound(touched: int, e: int, cap: int, d: int, f: int, elem: int) -> tuple[float, str]:
+    """The least time of the expert FFN: the touched experts' three weights,
+    the buffer and the output moved once over the memory rate, against the
+    kept rows' products (at most ``cap`` a touched expert, 6·d·f operations
+    a row) over the inputs' rate."""
+    t_bytes = (touched * 3 * d * f + 2 * e * cap * d) * elem / HBM_BYTES_PER_S
+    t_ops = touched * cap * 6 * d * f / (BF16_OPS_PER_S if elem == 2 else FP32_OPS_PER_S)
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+def moe_phase(torch, seed: int, reps: int) -> dict:
+    """The MoE kernel against its plain version at one qwen3-moe-235b
+    layer's decode step (``MOE_SHAPE``: the buffer dispatched from 8 tokens
+    routed through a router drawn from ``--seed``, cap 4), bf16 and
+    float32: each stage within :func:`moe_check`'s limits, equal on a rerun
+    and in a CUDA graph's replay.  Timed beside its bound (by bytes: the
+    touched experts' weights), its plain version and ``library_ms``: the
+    dense form, three ``torch.bmm`` over every expert (the same function,
+    reading every expert's weights; the port's decode step never calls
+    it).  Returns the bf16 line as ``moe_ffn``."""
+    from repro_torch.kernels import moe_ffn as MF
+    from repro_torch.models import layers as L
+
+    e, d, f, k, t = (MOE_SHAPE[n] for n in ("E", "d", "f", "top_k", "tokens"))
+    spec = L.MoESpec(d_model=d, d_ff=f, n_experts=e, top_k=k)
+    cap = L.moe_capacity(spec, t)
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    router = torch.randn((d, e), generator=g, device="cuda") * d ** -0.5
+    xt = torch.randn((t, d), generator=g, device="cuda")
+    r = L.moe_route(spec, torch.softmax(xt @ router, dim=-1), e, 0, cap)
+    lines = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        weights = [(torch.randn((e, a, b), generator=g, device="cuda") * a ** -0.5).to(dtype)
+                   for a, b in ((d, f), (d, f), (f, d))]
+        x = xt.to(dtype)
+        buf = x.new_zeros((e * cap + 1, d))
+        buf.index_copy_(0, r.dest, x.index_select(0, r.st))
+        buf = buf[:-1].view(e, cap, d)
+        check = moe_check(torch, buf, r.count, *weights)
+        run = lambda: MF.moe_ffn(buf, r.count, *weights)  # noqa: E731
+        got, again = run(), run()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            replayed = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, replayed)
+        del graph, replayed, again
+        elem = x.element_size()
+        bound_ms, bound_by = moe_bound(check["touched_experts"], e, cap, d, f, elem)
+        name = f"moe_ffn_{str(dtype).split('.')[1]}"
+        line = {"phase": "kernel", "name": name,
+                "kernel_ms": time_ms(torch, run, reps),
+                "kernel_graph_ms": graph_ms(torch, [run], W8_GRAPH_REPS),
+                **device_fields(torch, run, reps),
+                "plain_ms": time_ms(torch, lambda: MF.moe_ffn_torch(buf, r.count, *weights),
+                                    max(3, reps // 3)),
+                "library_ms": time_ms(torch, lambda: MF.expert_ffn_dense(buf, *weights), reps),
+                **device_fields(torch, lambda: MF.expert_ffn_dense(buf, *weights), reps,
+                                "library_"),
+                "library_call": "torch.bmm x3 over every expert (the dense form)",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "dense_bytes": (3 * e * d * f + 2 * e * cap * d) * elem, **check,
+                "rerun_and_replay_equal": True,
+                "shape": {"E": e, "cap": cap, "d": d, "f": f, "tokens": t, "top_k": k,
+                          "dtype": str(dtype)}}
+        line["bound_share"] = bound_ms / line["kernel_ms"]
+        emit(line)
+        lines[name] = line
+        del weights, x, buf, got
+        torch.cuda.empty_cache()
+    emit(read_rate(torch, int(lines["moe_ffn_float32"]["bound_ms"] * 1e-3 * HBM_BYTES_PER_S),
+                   reps))
+    return {"moe_ffn": lines["moe_ffn_bfloat16"]}
+
+
+def read_rate(torch, nbytes: int, reps: int) -> dict:
+    """The rate at which one ``torch.sum`` reads ``nbytes`` of float32 on
+    this card, timed as the kernel lines are (a graph replayed between CUDA
+    events, and ``torch.profiler``'s device time): what the card reads
+    against the data sheet's rate, and whether the two timings agree."""
+    t = torch.ones(nbytes // 4, device="cuda")
+    run = lambda: t.sum()  # noqa: E731
+    out = {"phase": "read_rate", "bytes": t.numel() * 4, "call": "torch.sum (float32)",
+           "graph_ms": graph_ms(torch, [run], W8_GRAPH_REPS), **device_fields(torch, run, reps)}
+    out["graph_rate"] = out["bytes"] / (out["graph_ms"] * 1e-3)
+    if out["device_ms"]:
+        out["device_rate"] = out["bytes"] / (out["device_ms"] * 1e-3)
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce", "rm_moe_ffn"),
                  replays: int = 0) -> dict:
     """One step's time: ``fn`` once to warm up, once on the host clock
     (synced); with ``replays``, the mean over ``replays`` calls between CUDA
@@ -1210,18 +1447,22 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce"),
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
-def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
+def serve_cell(torch, model, cfg, prompts, int8: bool,
+               check_layers=LM_CHECK_LAYERS) -> dict:
     """Serve ``prompts`` through ``ServeSession`` (graphed decode steps) on
     ``model`` and check what came out; then, on the first admission's
     prompts again, one replayed step against an eager ``decode_step`` on a
     copy of the same cache (bit-equal logits and caches), and one prefill,
     one replayed and one eager decode step timed and profiled; then the
     requests served again under the profiler (:func:`traced_serve`).  The
-    wrappers' flash and W8 launches are counted on the first serving run
-    alone; its host counters (:func:`host_usage`) are kept for each prefill
-    and the first tick (warm-up, capture, replay)."""
+    wrappers' flash, W8 and MoE launches are counted on the first serving
+    run alone, and the MoE kernel's plain version must not run; its host
+    counters (:func:`host_usage`) are kept for each prefill and the first
+    tick (warm-up, capture, replay).  An MoE model's eager step also reads
+    back each layer's touched experts (``touched_experts``)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
     from repro_torch.serve.engine import make_decode_step
 
     captured: dict = {}
@@ -1233,18 +1474,19 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
         return hook
 
     hooks = [model.layers[i].mixer.attend.register_forward_hook(capture(i))
-             for i in LM_CHECK_LAYERS]
+             for i in check_layers]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs, prefills, decodes, session_step, usage = serve_session(
-        torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
-    torch.cuda.synchronize()
+    with counted_plain_moe() as plain_moe:
+        reqs, prefills, decodes, session_step, usage = serve_session(
+            torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
+        torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {k: _cuda.LAUNCHES[k] for k in ("flash_attention", "w8_matmul")}
+    launches = {k: _cuda.LAUNCHES[k] for k in ("flash_attention", "w8_matmul", "moe_ffn")}
     w8_products = _cuda.W8_PRODUCTS["launched"]
     capture_s = session_step.capture_seconds
     replays, recorded = session_step.replays, session_step.captured
@@ -1258,8 +1500,16 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     # (every prefill has more than W8_DECODE_ROWS rows): 7 products a layer
     # in 4 launches (q, k, v one; wo; gate, up one; w_down); the capture
     # records as many, which each replay launches without the wrapper
-    assert launches["w8_matmul"] == (4 * cfg.n_layers if int8 else 0), launches
-    assert w8_products == (7 * cfg.n_layers if int8 else 0), w8_products
+    moe_layers = sum(layer.kind == "moe" for layer in model.layers)
+    dense_layers = cfg.n_layers - moe_layers
+    # 4 W8 launches (7 products) a dense layer, 2 (4 products: q, k, v; wo)
+    # an MoE layer, whose experts stay bf16
+    assert launches["w8_matmul"] == ((4 * dense_layers + 2 * moe_layers) if int8 else 0), launches
+    assert w8_products == ((7 * dense_layers + 4 * moe_layers) if int8 else 0), w8_products
+    # the MoE kernel: two launches a layer in the warm-up step (every prefill's
+    # capacity is above MOE_DECODE_ROWS); its plain version never
+    assert launches["moe_ffn"] == 2 * moe_layers and plain_moe == [0], (launches, plain_moe)
+    assert recorded["moe_ffn"] == launches["moe_ffn"], recorded
     assert replays == len(decodes), (replays, len(decodes))  # every tick a replay
     assert recorded["w8_matmul"] == launches["w8_matmul"], recorded  # as the warm-up
     assert recorded_products == w8_products, (recorded_products, w8_products)
@@ -1269,7 +1519,7 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
         assert logits.shape == (LM_SLOTS, cfg.padded_vocab)
         assert bool(torch.isfinite(logits).all())
     checked = {}
-    for idx in LM_CHECK_LAYERS:
+    for idx in check_layers:
         (q, k, v), result = captured[idx]
         again = FA.flash_attention(q, k, v)  # a compare launch, not counted above
         want = FA.flash_attention_torch(q, k, v)
@@ -1292,8 +1542,16 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     twin = [{n: t.clone() for n, t in c.items()} for c in cache]
     step = make_decode_step(model)
     replayed, _ = step(cache, nxt, pos)
-    eager, _ = model.decode_step(twin, nxt, pos)
+    counts = []  # each MoE layer's kept rows an expert, in the eager step
+    real_ffn = L.moe_ffn
+    L.moe_ffn = lambda buf, count, *w: counts.append(count) or real_ffn(buf, count, *w)
+    try:
+        eager, _ = model.decode_step(twin, nxt, pos)
+    finally:
+        L.moe_ffn = real_ffn
     torch.cuda.synchronize()
+    touched = [int((c > 0).sum()) for c in counts]
+    assert len(touched) == moe_layers, touched
     replay_equal = torch.equal(replayed, eager) and all(
         torch.equal(a[n], b[n]) for a, b in zip(cache, twin) for n in a)
     assert replay_equal, float((replayed - eager).abs().max())
@@ -1309,15 +1567,20 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
     # in bf16 (taken once more if it lost records)
     w8_run = launches["w8_matmul"] + replays * recorded["w8_matmul"]
     w8_products_run = w8_products + replays * recorded_products
-    if profiles["decode_replayed"]["counted"]["rm_w8_matmul"] != recorded["w8_matmul"]:
+    moe_run = launches["moe_ffn"] + replays * recorded["moe_ffn"]
+    counted = profiles["decode_replayed"]["counted"]
+    if (counted["rm_w8_matmul"], counted["rm_moe_ffn"]) != (recorded["w8_matmul"],
+                                                            recorded["moe_ffn"]):
         profiles["decode_replayed"] = profile_step(torch, lambda: step(cache, nxt, pos))
     counted = profiles["decode_replayed"]["counted"]
     assert counted["rm_w8_matmul"] == recorded["w8_matmul"], (counted, recorded)
+    assert counted["rm_moe_ffn"] == recorded["moe_ffn"], (counted, recorded)
     assert counted["rm_w8_reduce"] == 0, counted
     del cache, step
-    traced = traced_serve(torch, model, prompts, [r.out for r in reqs],
-                          {"rm_flash_attention": launches["flash_attention"],
-                           "rm_w8_matmul": w8_run})
+    ran = {"rm_flash_attention": launches["flash_attention"], "rm_w8_matmul": w8_run}
+    if moe_layers:
+        ran["rm_moe_ffn"] = moe_run
+    traced = traced_serve(torch, model, prompts, [r.out for r in reqs], ran)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "weights": "int8" if int8 else cfg.compute_dtype, "dtype": cfg.compute_dtype,
            "slots": LM_SLOTS, "max_len": LM_MAX_LEN, "requests": len(reqs),
@@ -1338,7 +1601,11 @@ def serve_cell(torch, model, cfg, prompts, int8: bool) -> dict:
            "w8_products": w8_products, "captured_w8_products": recorded_products,
            "w8_products_run": w8_products_run,
            # every W8 kernel's device time in the traced replayed step
-           "w8_step_device_ms": sum(profiles["decode_replayed"]["counted_ms"].values()),
+           "w8_step_device_ms": sum(v for n, v in profiles["decode_replayed"]["counted_ms"]
+                                    .items() if n.startswith("rm_w8")),
+           "moe_kernels_run": moe_run,
+           "moe_step_device_ms": profiles["decode_replayed"]["counted_ms"]["rm_moe_ffn"],
+           "touched_experts": touched,
            "replayed_step_bit_equal_to_eager": replay_equal,
            "kernel_check": checked, "profiles": profiles, "traced_run": traced}
     del prefills, decodes
@@ -1447,6 +1714,76 @@ def lm_serve_phase(torch, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"bf16": out, "int8": int8_line}
+
+
+def moe_step_bound(cfg, touched: list, slots: int, max_len: int) -> tuple[float, dict]:
+    """The least time of one decode step of an MoE model, by bytes: every
+    layer's attention weights and router, its touched experts' weights, the
+    whole KV cache (attention reads every position) and ``lm_head``, read
+    once over the memory rate, in bf16."""
+    d, hd, h, kh = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    parts = {"attention": cfg.n_layers * (d * hd * (h + 2 * kh) + h * hd * d) * 2,
+             "router": cfg.n_layers * d * cfg.n_experts * 2,
+             "experts": sum(touched) * 3 * d * cfg.d_ff * 2,
+             "kv_cache": cfg.n_layers * 2 * slots * kh * max_len * hd * 2,
+             "lm_head": d * cfg.padded_vocab * 2}
+    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+
+
+def lm_serve_moe_phase(torch, seed: int) -> dict:
+    """``qwen3-moe-235b-a22b`` at full width on the card, its depth cut to
+    ``MOE_LAYERS`` of 94 layers (one card holds 12: 62.2 GB of bf16
+    weights), weights drawn from ``--seed``, serving the dense cell's 16
+    requests through ``ServeSession`` (:func:`serve_cell`): every decode
+    step's expert FFN on the MoE kernel, two launches a layer, and its plain
+    version never; the serving run's peak must leave ``MOE_FREE_BYTES`` of
+    the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import DecoderLM
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    reduced = {"n_layers": [full.n_layers, cfg.n_layers]}
+    emit({"phase": "lm_serve_moe_config", "arch": cfg.name, "reduced": reduced,
+          "reason": "one card's 80 GB holds 12 layers of 2.49 B bf16 weights (4.98 GB) "
+                    "beside the embedding and lm_head (2.49 GB) and the prefill's transients"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed)  # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() for p in model.parameters())
+    assert weights == cfg.param_count() and len(model.layers) == MOE_LAYERS, weights
+    rng = np.random.default_rng(seed + 11)
+    prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
+    cell = serve_cell(torch, model, cfg, prompts, int8=False,
+                      check_layers=(0, MOE_LAYERS - 1))
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = max(cell["max_memory_allocated"], init_peak)
+    reserved = torch.cuda.max_memory_reserved()
+    bound_ms, parts = moe_step_bound(cfg, cell["touched_experts"], LM_SLOTS, LM_MAX_LEN)
+    replayed = cell["profiles"]["decode_replayed"]
+    out = {"phase": "lm_serve_moe", "weights": weights,
+           "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "reduced": reduced, "init_seconds": init_s, "init_peak_memory": init_peak,
+           "baseline_memory_allocated": baseline, "total_memory": total,
+           "free_at_peak": total - peak, "max_memory_reserved": reserved,
+           "decode_step_bound_ms": bound_ms, "decode_step_bound_bytes": parts,
+           "replayed_bound_share": (bound_ms / replayed["replayed_ms"]
+                                    if replayed["replayed_ms"] else None), **cell}
+    emit(out)
+    assert total - peak >= MOE_FREE_BYTES, (total, peak)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # the words the mixed batch (and the engine's solo steps) read
@@ -2286,7 +2623,8 @@ def main(argv=None) -> int:
           "flash_ptxas": _cuda.ptxas_report("rm_flash.cu"),
           "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
           "scan_ptxas": _cuda.ptxas_report("rm_scan.cu"),
-          "w8_ptxas": _cuda.ptxas_report("rm_w8.cu")})
+          "w8_ptxas": _cuda.ptxas_report("rm_w8.cu"),
+          "moe_ptxas": _cuda.ptxas_report("rm_moe.cu")})
 
     breakers: list = []  # every engine's breaker; the engines themselves are freed
     small_reference_check(torch, args.seed, breakers)
@@ -2332,16 +2670,20 @@ def main(argv=None) -> int:
     lm_reference_phase(torch, args.seed)
     kernels.update(flash_phase(torch, args.seed, args.reps))
     kernels.update(w8_phase(torch, args.seed))
+    kernels.update(moe_phase(torch, args.seed, args.reps))
     lm = lm_serve_phase(torch, args.seed)
+    moe = lm_serve_moe_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);
-    # the flash kernel's in both serving runs (bf16 and int8), the W8
-    # kernel's in the int8 run
+    # the flash kernel's in the three serving runs (bf16, int8, MoE), the W8
+    # kernel's in the int8 run, the MoE kernel's in the MoE run
     launches = {**revisions["launches"], **selection["launches"],
                 **engine["launches"], "hash_join": server["launches"]["hash_join"],
                 "flash_attention": sum(lm[w]["launches"]["flash_attention"]
-                                       for w in ("bf16", "int8")),
-                "w8_matmul": lm["int8"]["launches"]["w8_matmul"]}
+                                       for w in ("bf16", "int8"))
+                + moe["launches"]["flash_attention"],
+                "w8_matmul": lm["int8"]["launches"]["w8_matmul"],
+                "moe_ffn": moe["launches"]["moe_ffn"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
     breaker = {k: sum(b.snapshot()[k] for b in breakers)

@@ -2,11 +2,12 @@
 
 ``ArchConfig`` (with ``param_count``), ``ShapeSpec``, ``SHAPES`` and
 ``ARCH_NAMES`` are copied unchanged.  Of the ten architectures the port
-serves the dense attention-only ones it has modules for: ``qwen3-8b``,
+serves the ones it has modules for: the dense attention-only ``qwen3-8b``,
 ``gemma3-27b`` and the two with QKV bias, ``qwen1.5-110b`` and
-``internlm2-20b``.  ``get_config`` / ``get_smoke_config`` of another name raise
-``NotImplementedError`` naming ROADMAP queue 1 item 8 (the rest of the LM
-stack: MoE, SSD, RG-LRU, M-RoPE and enc-dec blocks).
+``internlm2-20b``, and the two MoE decoders, ``qwen3-moe-235b-a22b`` and
+``llama4-maverick-400b-a17b``.  ``get_config`` / ``get_smoke_config`` of
+another name raise ``NotImplementedError`` naming ROADMAP queue 1 item 8
+(the rest of the LM stack: SSD, RG-LRU, M-RoPE and enc-dec blocks).
 """
 
 from __future__ import annotations
@@ -181,6 +182,8 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "internlm2-20b": "internlm2_20b",
     "gemma3-27b": "gemma3_27b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
 }
 
 

@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
 ``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``,
-``csrc/rm_w8.cu``).
+``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -16,9 +16,10 @@ height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
 and raises if the launch reports a CUDA error.  The hash-join probe, the
 BSL / PCK projection revisions, the compacting selection, the GQA
-flash-attention forward and the int8-weight decode matmul have their own
-parameter blocks and launchers (:func:`run_hash_join`, :func:`run_columns`,
-:func:`run_select`, :func:`run_flash`, :func:`run_w8`) under the same rules.
+flash-attention forward, the int8-weight decode matmul and the MoE expert
+FFN have their own parameter blocks and launchers (:func:`run_hash_join`,
+:func:`run_columns`, :func:`run_select`, :func:`run_flash`, :func:`run_w8`,
+:func:`run_moe`) under the same rules.
 ``LAUNCHES`` counts the launches each wrapper makes, and nothing else: a
 call inside a CUDA graph's capture records its kernel without launching it
 and counts nothing, and the graph's replays launch it without the wrapper
@@ -30,7 +31,9 @@ probe, which is two kernels on the card: the bucket repack
 group of products that share x (``rm_w8_matmul_tc_kernel``, split-K summed
 inside its clusters), on the CUDA cores one product, which is two kernels
 when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
-``W8_PRODUCTS`` counts the products those launches and captures took.
+``W8_PRODUCTS`` counts the products those launches and captures took;
+``moe_ffn`` one for each launch of ``rm_moe_ffn_kernel``, two an expert FFN
+(the gate/up stage, then the down stage).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
-                          "select_compact", "flash_attention", "w8_matmul")
+                          "select_compact", "flash_attention", "w8_matmul", "moe_ffn")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
@@ -80,6 +83,8 @@ W8_BLOCKS_PER_SM = 4  # the CUDA-core grid the split of K aims for
 W8_STAGE_ROWS = 64  # K rows a stage of the tensor-core ring (kTcStageRows)
 W8_MAX_CLUSTER = 8  # ranks of a tensor-core cluster along K (kTcMaxCluster)
 W8_TC_MAX_CHUNK = 8192  # K rows a tensor-core rank at most (kTcMaxChunk): the staged x
+MOE_ROWS = (4, 8, 16)  # the rows rm_moe_ffn_kernel instantiates (MoeParams::rows)
+MOE_MAX_ROWS = MOE_ROWS[-1]  # rows of an expert's buffer (cap) the kernel takes
 
 # must match rm_common.cuh
 THREADS = 256
@@ -161,6 +166,12 @@ class _W8Params(ctypes.Structure):
         ("partials", ctypes.c_void_p), ("n", ctypes.c_int32 * W8_MAX_RECORDS)] + [
         (name, ctypes.c_int32) for name in (
             "records", "M", "K", "chunk", "splits", "dtype", "form", "pad_")]
+
+
+class _MoeParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("x", "count", "w0", "w1", "y")] + [
+        (name, ctypes.c_int32) for name in (
+            "experts", "cap", "K", "N", "rows", "dtype", "gated", "pad_")]
 
 
 class _FlashParams(ctypes.Structure):
@@ -418,17 +429,20 @@ def load() -> ctypes.CDLL:
                                       ctypes.c_longlong, ctypes.c_void_p]
     lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
     lib.rm_w8_matmul.argtypes = [ctypes.POINTER(_W8Params), ctypes.c_void_p]
+    lib.rm_moe_ffn.argtypes = [ctypes.POINTER(_MoeParams), ctypes.c_void_p]
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_flash_attention, lib.rm_flash_params_size,
-               lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init):
+               lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init,
+               lib.rm_moe_ffn, lib.rm_moe_params_size):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
                            (lib.rm_col_params_size(), _ColParams),
                            (lib.rm_select_params_size(), _SelectParams),
                            (lib.rm_flash_params_size(), _FlashParams),
-                           (lib.rm_w8_params_size(), _W8Params)):
+                           (lib.rm_w8_params_size(), _W8Params),
+                           (lib.rm_moe_params_size(), _MoeParams)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
@@ -948,3 +962,65 @@ def w8_params(x: torch.Tensor, group, form: str, n_sm: int
         M=m, K=k, chunk=chunk, splits=splits, dtype=FLASH_DTYPES[x.dtype],
         form=W8_FORMS[form])
     return params, ys, partials
+
+
+def moe_rows(cap: int) -> int:
+    """The rows of ``rm_moe_ffn_kernel`` that take ``cap`` rows an expert:
+    the least of ``MOE_ROWS`` at or above it."""
+    for rows in MOE_ROWS:
+        if cap <= rows:
+            return rows
+    raise ValueError(f"the MoE kernel takes at most {MOE_MAX_ROWS} rows an expert, got {cap}")
+
+
+def run_moe(x: torch.Tensor, count: torch.Tensor, w0: torch.Tensor,
+            w1: torch.Tensor | None) -> torch.Tensor:
+    """Launch one stage of the expert FFN over ``x (E, cap, K)`` with
+    ``count (E,)`` int64 kept rows an expert: with ``w1`` the gate/up stage,
+    ``silu(x @ w0) * (x @ w1)``, else the down stage, ``x @ w0``; each
+    weight ``(E, K, N)``; rows at or past an expert's count come out zero.
+    All float32 or all bfloat16, contiguous, on one card, 16-byte aligned,
+    ``1 <= cap <= MOE_MAX_ROWS``, K and N positive multiples of 8.  Returns
+    a new ``(E, cap, N)`` tensor of x's type; enqueues on the current stream
+    without synchronising (a CUDA graph can capture it)."""
+    if x.dtype not in FLASH_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"want x (E, cap, K), got {tuple(x.shape)}")
+    e, cap, k = x.shape
+    if not 1 <= e <= 65535:
+        raise ValueError(f"the grid takes 1..65,535 experts, got {e}")
+    rows = moe_rows(cap)
+    weights = [("w0", w0)] + ([("w1", w1)] if w1 is not None else [])
+    n = w0.shape[-1] if w0.dim() == 3 else -1
+    for name, w in weights:
+        if w.dtype != x.dtype:
+            raise ValueError(f"{name} is {w.dtype}, x {x.dtype}: one type for all")
+        if w.dim() != 3 or tuple(w.shape) != (e, k, n):
+            raise ValueError(f"x {tuple(x.shape)} and {name} {tuple(w.shape)} do not chain "
+                             f"(want ({e}, {k}, N), one N for both weights)")
+    if k < 8 or k % 8 or n < 8 or n % 8:
+        raise ValueError(f"K and N must be positive multiples of 8, got K {k}, N {n}")
+    if count.dtype != torch.int64 or tuple(count.shape) != (e,):
+        raise ValueError(f"want count ({e},) int64, got {count.dtype} {tuple(count.shape)}")
+    for name, t in [("x", x), ("count", count), *weights]:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if t.device != x.device:
+            raise ValueError(f"x on {x.device} but {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "count" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+    y = torch.empty((e, cap, n), dtype=x.dtype, device=x.device)
+    params = _MoeParams(
+        x=x.data_ptr(), count=count.data_ptr(), w0=w0.data_ptr(),
+        w1=w1.data_ptr() if w1 is not None else None, y=y.data_ptr(),
+        experts=e, cap=cap, K=k, N=n, rows=rows, dtype=FLASH_DTYPES[x.dtype],
+        gated=int(w1 is not None))
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib, lib.rm_moe_ffn(ctypes.byref(params), stream), "moe_ffn launch")
+    _launched("moe_ffn")
+    return y

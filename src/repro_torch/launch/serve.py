@@ -4,9 +4,13 @@
       --requests 8 --slots 4 --max-new 16 [--int8] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given; without a card the
-default raises.  Weights and prompts are drawn from ``--seed``.  ``--int8``
-serves with ``quantize_for_serving``'s int8 matmul weights (on the card a
-decode step's products run the W8 kernel).  The rate is printed beside the
+default raises.  ``--arch`` is any architecture the port has: the dense
+decoders and the MoE ones (``qwen3-moe-235b-a22b``,
+``llama4-maverick-400b-a17b``; on the card a decode step's expert FFN runs
+the MoE kernel).  Weights and prompts are drawn from ``--seed``.
+``--int8`` serves with ``quantize_for_serving``'s int8 matmul weights (on
+the card a decode step's products run the W8 kernel; MoE experts stay
+bf16).  The rate is printed beside the
 device it was measured on (the card's name) and the weights it served with.
 """
 

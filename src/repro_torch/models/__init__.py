@@ -1,8 +1,9 @@
-"""The LM stack of the port: the dense decoder's serving path on PyTorch.
+"""The LM stack of the port: the dense and MoE decoders' serving path on PyTorch.
 
-``layers.py`` holds the dense layer subset (norms, RoPE, GQA attention with
-the hand-written flash kernel on the card, FFNs), ``lm.py`` the decoder-only
-LM (``attn`` / ``local`` block kinds), ``convert.py`` carries the reference
+``layers.py`` holds the dense and MoE layers (norms, RoPE, GQA attention
+with the hand-written flash kernel on the card, FFNs, the MoE block with the
+hand-written expert-FFN kernel on the card), ``lm.py`` the decoder-only LM
+(``attn`` / ``local`` / ``moe`` block kinds), ``convert.py`` carries the reference
 package's weights across, and ``registry.py`` builds a model from a config.
 """
 

@@ -6,7 +6,10 @@ gives the port's ``state_dict``: the stacked unit leaves
 ``units/b{i}/...`` (leading axis ``n_units``) are unstacked into
 ``layers.{u * len(pattern) + i}...``, the tail's ``tail/b{i}/...`` follow
 them, and ``token_embedding``, ``final_norm/scale`` and ``lm_head`` keep
-their names.  A leaf the port does not use, a missing one, or one of the
+their names.  An MoE layer's leaves (``moe/router``, ``moe/expert_gate``,
+``moe/expert_up``, ``moe/expert_down``: stacked ``(n_units, E, d, f)``)
+unstack on the first axis like the others; a pattern of several kinds
+(llama4's ``("attn", "moe")``) puts unit ``u``'s ``b1`` at layer ``2u + 1``.  A leaf the port does not use, a missing one, or one of the
 wrong shape raises.  The values stay float32: ``load_state_dict`` casts the
 matmul weights to the model's compute dtype, as the reference casts them at
 use.  Nothing here imports JAX: callers hand over numpy.
@@ -16,7 +19,9 @@ A tree that ``repro``'s ``quantize_for_serving`` made holds an int8 record
 weight (stacked units: ``(n_units, in, out)`` and ``(n_units, 1, out)``);
 its ``q`` stays int8 and its ``s`` becomes float32 holding the bf16 values.
 Such a tree loads into a model that ``layers.quantize_for_serving`` has
-quantized, whose state names are ``<weight>.q`` and ``<weight>.s``.
+quantized, whose state names are ``<weight>.q`` and ``<weight>.s``.  The
+router and expert tensors are not quantized (their names are not in
+``_QUANT_NAMES``): in such a tree they are bf16 leaves, carried as float32.
 """
 
 from __future__ import annotations

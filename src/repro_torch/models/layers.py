@@ -1,17 +1,19 @@
-"""The dense layer subset of ``repro.models.layers`` on PyTorch.
+"""The dense and MoE layers of ``repro.models.layers`` on PyTorch.
 
 Blocks: RMSNorm, RoPE, GQA attention (the blockwise online-softmax form on
 the CPU, the hand-written flash kernel on the card, cached attention for
-decode, optional sliding window / qk-norm / QKV bias) and the
-SwiGLU / GeGLU / vanilla FFNs, plus the int8 serving weights
-(:class:`QuantizedWeight`, :func:`quantize_weight`,
-:func:`quantize_for_serving`).  MoE, Mamba-2 SSD, RG-LRU and M-RoPE raise
+decode, optional sliding window / qk-norm / QKV bias), the
+SwiGLU / GeGLU / vanilla FFNs and the token-choice top-k MoE block with its
+sort-based, capacity-bounded dispatch (its expert FFN at a decode step's
+size on the hand-written kernel of ``kernels/moe_ffn.py``), plus the int8
+serving weights (:class:`QuantizedWeight`, :func:`quantize_weight`,
+:func:`quantize_for_serving`).  Mamba-2 SSD, RG-LRU and M-RoPE raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
-:class:`Attention`, :class:`MLP`) whose attribute names are the reference's
-parameter-tree keys, so a layer's ``state_dict`` names are the reference's
-paths.  Matmul weights are stored in the compute dtype and norm scales in
+:class:`Attention`, :class:`MLP`, :class:`MoE`) whose attribute names are
+the reference's parameter-tree keys, so a layer's ``state_dict`` names are
+the reference's paths.  Matmul weights are stored in the compute dtype and norm scales in
 float32 — the numbers the reference gets from its float32 master copy cast
 at use.  Weights never require grad: this slice serves only.
 
@@ -30,12 +32,16 @@ and softmax, norms and RoPE run in float32.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_ffn import MAX_ROWS as MOE_MAX_ROWS
+from repro_torch.kernels.moe_ffn import expert_ffn_dense, moe_ffn
 from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul, w8_matmul_group
 
 F32 = torch.float32
@@ -45,6 +51,13 @@ MASK_VALUE = -1e30
 # kernel (a decode step: B x 1 rows); above it (a prefill) the weight is
 # dequantized once and multiplied by torch.matmul
 W8_DECODE_ROWS = MAX_ROWS
+# rows an expert (the dispatch's capacity) up to which the expert FFN runs
+# moe_ffn (on the card the MoE kernel: a decode step); above it (a prefill)
+# the reference's three einsums over every expert, as torch.bmm
+MOE_DECODE_ROWS = MOE_MAX_ROWS
+# experts drawn at a time by init_moe: a slice's float32 draw, not a whole
+# expert tensor's (3.2 GB at qwen3-moe-235b's widths)
+MOE_INIT_EXPERTS = 16
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
@@ -463,3 +476,179 @@ def mlp(params: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     h = _gelu_tanh(linear(x, params.w_in))
     return linear(h, params.w_down)
 
+
+
+
+# -------------------------------------------------------------------- MoE
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    d_ff: int  # per-expert hidden
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+class MoE(nn.Module):
+    """One MoE layer's weights, named as the reference's keys: ``router (d,
+    E)``, ``expert_gate`` and ``expert_up (E, d, f)``, ``expert_down (E, f,
+    d)``."""
+
+    def __init__(self, spec: MoESpec, dtype: torch.dtype, device=None):
+        super().__init__()
+        e, d, f = spec.n_experts, spec.d_model, spec.d_ff
+        empty = dict(dtype=dtype, device=device)
+        self.router = _weight(torch.empty((d, e), **empty))
+        self.expert_gate = _weight(torch.empty((e, d, f), **empty))
+        self.expert_up = _weight(torch.empty((e, d, f), **empty))
+        self.expert_down = _weight(torch.empty((e, f, d), **empty))
+
+
+@torch.no_grad()
+def init_moe(gen: torch.Generator, params: MoE) -> MoE:
+    """Draw an MoE layer's weights in place at the reference's scales:
+    ``d^-0.5`` for the router, gate and up, ``f^-0.5`` for down; each expert
+    tensor ``MOE_INIT_EXPERTS`` experts at a time."""
+    d, f = params.router.shape[0], params.expert_down.shape[1]
+    w = params.router
+    w.copy_(normal(gen, w.shape, d**-0.5, w.dtype, w.device))
+    for w, scale in ((params.expert_gate, d**-0.5), (params.expert_up, d**-0.5),
+                     (params.expert_down, f**-0.5)):
+        for e0 in range(0, w.shape[0], MOE_INIT_EXPERTS):
+            part = w[e0:e0 + MOE_INIT_EXPERTS]
+            part.copy_(normal(gen, part.shape, scale, w.dtype, w.device))
+    return params
+
+
+def moe_capacity(spec: MoESpec, tokens: int) -> int:
+    """Rows an expert keeps: ``max(ceil(capacity_factor * k * T / E), 4)``."""
+    return max(int(math.ceil(spec.capacity_factor * spec.top_k * tokens / spec.n_experts)), 4)
+
+
+class Routing(NamedTuple):
+    """The dispatch's arrays, the reference's names: ``idx (T, k)``, the
+    chosen experts; over the ``T * k`` slots in sorted order ``order``,
+    ``st``, ``sg``, ``keep``, ``dest``; ``count (E,)`` the kept slots of
+    each expert (int64)."""
+
+    idx: torch.Tensor
+    order: torch.Tensor
+    st: torch.Tensor
+    sg: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    count: torch.Tensor
+
+
+def moe_route(spec: MoESpec, probs: torch.Tensor, n_experts: int, expert_base: int,
+              cap: int) -> Routing:
+    """The reference's top-k routing and capacity ranks, step for step
+    (``repro/models/layers.py:560-578``), with no value read to the host:
+    top-k over the full expert range as the first ``k`` of a stable
+    descending sort (``lax.top_k`` breaks ties toward the lower index), the
+    gates normalised in float32, token-major slots, a stable sort of the
+    slots by expert, segment starts by ``searchsorted`` (left), and each
+    slot's rank in its expert; a slot past ``cap`` (or of an expert outside
+    ``[expert_base, expert_base + n_experts)``) is dropped, its ``dest`` the
+    row ``n_experts * cap``."""
+    t = probs.shape[0]
+    k = spec.top_k
+    dev = probs.device
+    vals, ranked = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[:, :k], ranked[:, :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    local = idx - expert_base
+    mine = (local >= 0) & (local < n_experts)
+    slot_expert = torch.where(mine, local, n_experts).reshape(t * k)
+    slot_token = torch.arange(t * k, device=dev) // k
+    slot_gate = gate.reshape(t * k)
+    order = torch.argsort(slot_expert, stable=True)
+    se, st, sg = slot_expert[order], slot_token[order], slot_gate[order]
+    experts = torch.arange(n_experts, device=dev)
+    seg_start = torch.searchsorted(se, experts)
+    rank = torch.arange(t * k, device=dev) - seg_start[torch.clamp_max(se, n_experts - 1)]
+    keep = (rank < cap) & (se < n_experts)
+    dest = torch.where(keep, se * cap + rank, n_experts * cap)
+    count = torch.clamp_max(torch.searchsorted(se, experts, right=True) - seg_start, cap)
+    return Routing(idx, order, st, sg, keep, dest, count)
+
+
+def _moe_dispatch_compute(
+    spec: MoESpec, xt: torch.Tensor, probs: torch.Tensor, wg, wu, wd,
+    n_experts: int, expert_base: int, cap: int,
+) -> torch.Tensor:
+    """Capacity-bounded top-k dispatch + expert FFN + weighted combine over
+    the expert range ``[expert_base, expert_base + n_experts)``, as the
+    reference's.  No shape depends on the data, and nothing is read back to
+    the host, so a CUDA graph can hold it:
+
+    * the buffers have one row more than the reference's, ``n_experts *
+      cap``, which takes the dropped slots (the reference's out-of-bounds
+      ``mode="drop"`` scatter and ``mode="fill"`` gather) and is sliced away
+      or is zero;
+    * the expert FFN is :func:`moe_ffn` for ``cap <= MOE_DECODE_ROWS`` (on
+      the card the MoE kernel, which reads only the experts whose ``count``
+      is not 0), else the dense three products over every expert;
+    * the combine (:func:`moe_combine`) is deterministic, where
+      ``index_add_`` on the card would add a token's rows by atomics."""
+    t, d = xt.shape
+    r = moe_route(spec, probs, n_experts, expert_base, cap)
+    buf = xt.new_zeros((n_experts * cap + 1, d))
+    buf.index_copy_(0, r.dest, xt.index_select(0, r.st))
+    buf = buf[:-1].view(n_experts, cap, d)
+    if cap <= MOE_DECODE_ROWS:
+        out = moe_ffn(buf, r.count, wg, wu, wd)
+    else:
+        out = expert_ffn_dense(buf, wg, wu, wd)
+    return moe_combine(out.reshape(n_experts * cap, d), r, t)
+
+
+def moe_combine(out: torch.Tensor, r: Routing, tokens: int) -> torch.Tensor:
+    """``y (T, d)``: each token's kept slots' rows of ``out (E * cap, d)``
+    times their gates, in ``out``'s dtype — the reference's ``zeros.at[st]
+    .add(gathered * sg)``, deterministic: a token's ``k`` weighted rows are
+    gathered in the sorted order (increasing expert) and added one at a time,
+    the order of the reference's scatter-add on the CPU; a dropped slot
+    gathers the zero row appended to ``out``."""
+    k = r.idx.shape[1]
+    dt = out.dtype
+    rows = torch.cat([out, out.new_zeros((1, out.shape[1]))])
+    # each slot's place in the sorted order; a token's k places in increasing
+    # order are its slots by increasing expert
+    place = torch.empty_like(r.order)
+    place.scatter_(0, r.order, torch.arange(tokens * k, device=out.device))
+    place = place.view(tokens, k).sort(dim=1).values
+    part = rows[r.dest[place]] * r.sg[place].to(dt)[..., None]  # (T, k, d)
+    y = torch.zeros((tokens, out.shape[1]), dtype=dt, device=out.device)
+    for j in range(k):
+        y = y + part[:, j]
+    return y
+
+
+def moe_block(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
+    """Token-choice top-k MoE with sort-based, capacity-bounded dispatch: the
+    reference's single-device branch.  Its expert-parallel ``shard_map``
+    forms (``local_gather``, ``local_stationary``) wait for the port's
+    sharding rules (ROADMAP queue 1 item 8.12, ``distributed/``); the port
+    has none, so there is no branch to take."""
+    b, s, d = x.shape
+    dt = x.dtype
+    t = b * s
+    cap = moe_capacity(spec, t)
+    xt = x.reshape(t, d)
+    probs = torch.softmax(linear(xt, params.router).float(), dim=-1)
+    y = _moe_dispatch_compute(
+        spec, xt, probs, cast(params.expert_gate, dt), cast(params.expert_up, dt),
+        cast(params.expert_down, dt), spec.n_experts, 0, cap)
+    return y.reshape(b, s, d)
+
+
+def moe_aux_loss(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss (mean over tokens), float32."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs = torch.softmax(linear(xt, params.router).float(), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = F.one_hot(top1, spec.n_experts).float().mean(dim=0)
+    imp = probs.mean(dim=0)
+    return spec.n_experts * torch.sum(frac * imp)

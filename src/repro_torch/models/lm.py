@@ -12,9 +12,10 @@ Interface (the reference's, with the weights held by the module):
   decode_step(cache, tokens, pos) -> (logits, cache)  pos an int or a
                                                     0-d device tensor
 
-Only the block kinds ``attn`` and ``local`` are ported (the dense families);
-``moe``, ``ssd``, ``rglru``, M-RoPE, precomputed input embeddings and the
-training loss raise ``NotImplementedError`` naming their ROADMAP item.
+The block kinds ``attn``, ``local`` (the dense families) and ``moe`` (global
+attention with the MoE block in place of the FFN) are ported; ``ssd``,
+``rglru``, M-RoPE, precomputed input embeddings and the training loss raise
+``NotImplementedError`` naming their ROADMAP item.
 The default device is the card; without one the constructor raises unless
 the caller passes ``device="cpu"``.
 """
@@ -29,9 +30,8 @@ from repro_torch.kernels.common import resolve_device
 
 from . import layers as L
 
-ATTN_KINDS = ("attn", "local")
+ATTN_KINDS = ("attn", "local", "moe")
 NOT_PORTED = {
-    "moe": "8.3 (MoE)",
     "ssd": "8.4 (Mamba-2 SSD)",
     "rglru": "8.5 (RG-LRU)",
 }
@@ -52,6 +52,9 @@ def check_config(cfg: ArchConfig) -> None:
             raise _not_ported(f"block kind {kind!r}", NOT_PORTED[kind])
         if kind not in ATTN_KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
+        if kind == "moe" and not (cfg.n_experts > 0 and 0 < cfg.top_k <= cfg.n_experts):
+            raise ValueError(f"a moe layer needs 0 < top_k <= n_experts, got top_k "
+                             f"{cfg.top_k} of {cfg.n_experts} experts")
     if cfg.mrope:
         raise _not_ported("M-RoPE", "8.6 (M-RoPE/VLM)")
     if not cfg.embed_inputs:
@@ -65,7 +68,13 @@ def attn_specs(cfg: ArchConfig) -> dict[str, L.AttnSpec]:
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta, mrope=cfg.mrope,
     )
-    return {"attn": L.AttnSpec(**base), "local": L.AttnSpec(**base, window=cfg.window)}
+    return {"attn": L.AttnSpec(**base), "local": L.AttnSpec(**base, window=cfg.window),
+            "moe": L.AttnSpec(**base)}
+
+
+def moe_spec(cfg: ArchConfig) -> L.MoESpec:
+    return L.MoESpec(d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -75,16 +84,28 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
 
 class Block(nn.Module):
     """One pre-norm residual layer: ``ln1``, ``mixer`` (attention), ``ln2``,
-    ``mlp`` — the reference's per-layer parameter tree."""
+    then ``mlp`` or, for a ``moe`` layer, ``moe`` — the reference's
+    per-layer parameter tree."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
         self.kind = kind
+        self.mlp_kind = cfg.mlp_kind
         self.spec = attn_specs(cfg)[kind]
         self.ln1 = L.RMSNorm(cfg.d_model, device)
         self.mixer = L.Attention(self.spec, dtype, device, chunk=cfg.attn_chunk)
         self.ln2 = L.RMSNorm(cfg.d_model, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        if kind == "moe":
+            self.moe_spec = moe_spec(cfg)
+            self.moe = L.MoE(self.moe_spec, dtype, device)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer's FFN on the normed residual: the MoE block or the MLP."""
+        if self.kind == "moe":
+            return L.moe_block(self.moe, self.moe_spec, x)
+        return L.mlp(self.mlp, x, self.mlp_kind)
 
 
 class DecoderLM(nn.Module):
@@ -124,7 +145,10 @@ class DecoderLM(nn.Module):
             layer.ln1.scale.zero_()
             layer.ln2.scale.zero_()
             L.init_attention(gen, layer.mixer)
-            L.init_mlp(gen, layer.mlp)
+            if layer.kind == "moe":
+                L.init_moe(gen, layer.moe)
+            else:
+                L.init_mlp(gen, layer.mlp)
         self.final_norm.scale.zero_()
         draw(self.lm_head, self.cfg.d_model**-0.5)
         return self
@@ -151,14 +175,14 @@ class DecoderLM(nn.Module):
         mix, cache = L.attention_prefill(layer.mixer, spec, hn, positions, cache_len)
         h = h + mix
         hn = L.rms_norm(h, layer.ln2.scale)
-        return h + L.mlp(layer.mlp, hn, self.cfg.mlp_kind), cache
+        return h + layer.ffn(hn), cache
 
     def _decode_layer(self, layer: Block, h, cache: dict, pos: torch.Tensor):
         hn = L.rms_norm(h, layer.ln1.scale)
         mix, cache = L.attention_decode(layer.mixer, layer.spec, hn, cache, pos)
         h = h + mix
         hn = L.rms_norm(h, layer.ln2.scale)
-        return h + L.mlp(layer.mlp, hn, self.cfg.mlp_kind), cache
+        return h + layer.ffn(hn), cache
 
     def _logits(self, h_last: torch.Tensor) -> torch.Tensor:
         """(B, S, D) -> (B, V) float32 logits of the last position: compute-

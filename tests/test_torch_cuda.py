@@ -705,6 +705,8 @@ FLASH_CASES = [
     (1, 384, 4, 2, 128, False, 200),
     (2, 300, 4, 2, 16, True, None),  # D 16 (32-byte swizzle) over three tiles
     (1, 260, 2, 1, 256, False, 100),  # D 256 (64-key tiles), bidirectional window
+    (1, 256, 64, 4, 128, True, None),  # G = 16: qwen3-moe-235b's 64 / 4 heads
+    (2, 200, 64, 4, 128, True, None),  # and over a ragged second tile
 ]
 # (rtol, atol): float32, the kernel and the plain version sum the same terms
 # in another order; bfloat16, one rounding step of the output (2^-7 of its
@@ -769,7 +771,8 @@ def test_flash_launch_count_and_refusals(dev):
     assert _cuda.LAUNCHES["flash_attention"] == 3
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b",
+                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
 def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
     """A smoke decoder's prefill on the card launches the kernel once per
     layer; at float32 its logits and caches match the CPU model's within
@@ -1119,6 +1122,178 @@ def test_decode_step_cache_of_other_shapes_raises(dev):
     step(card.init_cache(2, 32), toks, 3)
     with pytest.raises(ValueError):
         step(card.init_cache(2, 48), toks, 4)
+
+
+# ------------------------------------------------- the MoE expert FFN
+# (E, cap, d, f): caps 1-16 across the kernel's three row counts (4, 8, 16),
+# d and f multiples of 8 but not of a block's strip (256 columns in bf16,
+# 128 in float32), K past one 512-row staging chunk; and 16 experts at
+# qwen3-moe-235b's widths
+MOE_CASES = [(6, 1, 64, 96), (6, 3, 200, 72), (5, 4, 264, 520), (5, 5, 136, 40),
+             (4, 8, 1032, 24), (4, 9, 48, 200), (3, 16, 520, 264), (16, 4, 4096, 1536)]
+MOE_COUNTS = ("zero", "one", "cap", "mixed")
+MOE_SUM_RTOL, SILU_SLOPE = 1e-5, 1.1  # chip_smoke.py's limits
+
+
+def moe_inputs(case, counts, dtype, dev, seed=0):
+    e, cap, d, f = case
+    g = torch.Generator(device="cpu").manual_seed(seed + sum(case))
+    buf = torch.randn((e, cap, d), generator=g)  # rows past a count hold values too
+    ws = [(torch.randn((e, a, b), generator=g) * a ** -0.5) for a, b in ((d, f), (d, f), (f, d))]
+    count = {"zero": [0] * e, "one": [1] * e, "cap": [cap] * e,
+             "mixed": [(i * 7) % (cap + 1) for i in range(e)]}[counts]
+    return ([t.to(dtype).to(dev) for t in (buf, *ws)],
+            torch.tensor(count, dtype=torch.int64, device=dev))
+
+
+def moe_check(h, out, buf, count, wg, wu, wd):
+    """Both stages against the exact products of the kept rows (float64):
+    each product within ``1e-5 * sum(|x| |w|)`` (its float32 sum) plus half
+    a step of the dtype (its rounding), the gate/up bound carried through
+    silu (slope at most 1.1) and the product, each rounded once more — the
+    W8 kernel's limit on each product, as chip_smoke.py holds it."""
+    hs = 2.0 ** -8 if buf.dtype == torch.bfloat16 else 0.0
+    rows = torch.arange(buf.shape[1], device=buf.device)
+    keep = (rows[None, :] < count[:, None])[..., None]
+    x = buf.double() * keep
+    wg, wu, wd = wg.double(), wu.double(), wd.double()
+    g, u = torch.bmm(x, wg), torch.bmm(x, wu)
+    eg = MOE_SUM_RTOL * torch.bmm(x.abs(), wg.abs()) + hs * g.abs()
+    eu = MOE_SUM_RTOL * torch.bmm(x.abs(), wu.abs()) + hs * u.abs()
+    silu = g * torch.sigmoid(g)
+    es = SILU_SLOPE * eg + hs * (silu.abs() + SILU_SLOPE * eg)
+    h_limit = es * (u.abs() + eu) + silu.abs() * eu + hs * (silu.abs() + es) * (u.abs() + eu)
+    assert bool(((h.double() - silu * u).abs() <= h_limit).all())
+    o_exact = torch.bmm(h.double(), wd)
+    o_limit = MOE_SUM_RTOL * torch.bmm(h.double().abs(), wd.abs()) + hs * o_exact.abs()
+    assert bool(((out.double() - o_exact).abs() <= o_limit).all())
+    assert not h[~keep[..., 0]].any() and not out[~keep[..., 0]].any()
+    return h_limit, o_limit
+
+
+@pytest.mark.parametrize("counts", MOE_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", MOE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_moe_kernel_matches_plain(dev, case, dtype, counts):
+    """The two stages against the exact products and the plain version on
+    the same inputs (each limit twice: both round), rows past each count
+    zero, two launches, equal on a rerun."""
+    from repro_torch.kernels import moe_ffn as MF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (buf, wg, wu, wd), count = moe_inputs(case, counts, dtype, dev)
+    _cuda.reset_launches()
+    h = MF.moe_gate_up(buf, count, wg, wu)
+    out = MF.moe_down(h, count, wd)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["moe_ffn"] == 2
+    assert out.dtype == dtype and out.shape == buf.shape[:2] + (wd.shape[2],)
+    h_limit, o_limit = moe_check(h, out, buf, count, wg, wu, wd)
+    assert torch.equal(MF.moe_ffn(buf, count, wg, wu, wd), out)  # a fixed order
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        h_plain = MF.moe_gate_up_torch(buf, count, wg, wu)
+        out_plain = MF.moe_down_torch(h, count, wd)  # the down stage on the kernel's h
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    assert bool(((h - h_plain).double().abs() <= 2 * h_limit).all())
+    assert bool(((out - out_plain).double().abs() <= 2 * o_limit).all())
+
+
+def test_moe_launch_count_and_refusals(dev):
+    from repro_torch.kernels import moe_ffn as MF
+
+    (buf, wg, wu, wd), count = moe_inputs(MOE_CASES[1], "mixed", torch.bfloat16, dev)
+    _cuda.reset_launches()
+    for _ in range(3):
+        MF.moe_ffn(buf, count, wg, wu, wd)
+    assert _cuda.LAUNCHES["moe_ffn"] == 6
+    e, cap, d = buf.shape
+    big = torch.zeros((e, 17, d), dtype=buf.dtype, device=dev)
+    for args in [(big, count, wg, wu),  # more rows an expert than the kernel takes
+                 (buf.half(), count, wg.half(), wu.half()),  # float16 is not instantiated
+                 (buf, count, wg.float(), wu),  # mixed types
+                 (buf, count, wg.cpu(), wu),  # a weight on the host
+                 (buf, count.int(), wg, wu),  # int32 counts
+                 (buf, count[:-1], wg, wu),  # a count short
+                 (buf[:, :, ::2], count, wg[:, ::2], wu[:, ::2]),  # not contiguous
+                 (buf[:, :, :-4].contiguous(), count, wg[:, :-4].contiguous(),
+                  wu[:, :-4].contiguous()),  # K % 8 != 0
+                 (buf, count, wg, wu[:, :, :-8].contiguous())]:  # N differs
+        with pytest.raises(ValueError):
+            MF.moe_gate_up(*args)
+    assert _cuda.LAUNCHES["moe_ffn"] == 6
+
+
+def test_moe_kernel_graph_replay_equals_eager(dev):
+    """The two stages captured in a CUDA graph launch nothing and record
+    two launches; a replay writes what the eager launches returned."""
+    from repro_torch.kernels import moe_ffn as MF
+
+    (buf, wg, wu, wd), count = moe_inputs(MOE_CASES[-1], "mixed", torch.bfloat16, dev)
+    eager = MF.moe_ffn(buf, count, wg, wu, wd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    _cuda.reset_launches()
+    with torch.cuda.graph(graph, stream=side):
+        out = MF.moe_ffn(buf, count, wg, wu, wd)
+    assert _cuda.LAUNCHES["moe_ffn"] == 0 and _cuda.CAPTURED["moe_ffn"] == 2
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+def test_moe_graph_replay_equals_eager_over_readmissions(dev, arch, monkeypatch):
+    """An MoE smoke's graphed decode step against the eager step: equal
+    tokens and bit-equal logits tick by tick across three admissions (a
+    capture with the routing's sorts and searches inside it).  The MoE
+    kernel's wrapper launches twice a layer in the warm-up step, which the
+    capture records, and in each prefill whose capacity is at most 16 rows
+    an expert (top-1's, not top-2's, at these prompts); its plain version
+    never runs."""
+    from repro_torch.kernels import moe_ffn as MF
+    from repro_torch.models.layers import MOE_DECODE_ROWS, moe_capacity
+    from repro_torch.models.lm import moe_spec
+    from repro_torch.serve.engine import GraphedDecodeStep
+
+    cfg, _, card = smoke_model(arch, "bfloat16", dev, int8=False)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, 33 + 2 * i).astype(np.int32) for i in range(5)]
+    eager_tokens, eager_logits, _ = serve_logged(card, prompts, eager=True)
+    plain = []
+    real = MF.moe_ffn_torch
+    monkeypatch.setattr(MF, "moe_ffn_torch", lambda *a: plain.append(1) or real(*a))
+    _cuda.reset_launches()
+    tokens, logits, step = serve_logged(card, prompts, eager=False)
+    assert isinstance(step, GraphedDecodeStep) and step.graph is not None
+    assert tokens == eager_tokens
+    assert len(logits) == len(eager_logits) > 6
+    for a, b in zip(logits, eager_logits):
+        assert torch.equal(a, b)
+    admissions = [max(len(p) for p in prompts[i:i + 2]) for i in range(0, len(prompts), 2)]
+    small = sum(moe_capacity(moe_spec(cfg), 2 * s) <= MOE_DECODE_ROWS for s in admissions)
+    assert small == (3 if cfg.top_k == 1 else 0)
+    assert _cuda.LAUNCHES["moe_ffn"] == 2 * cfg.n_layers * (1 + small)
+    assert step.captured["moe_ffn"] == 2 * cfg.n_layers
+    assert not plain
+
+
+def test_moe_decode_step_raises_after_an_expert_weight_changes(dev):
+    """The captured step holds the MoE weights' addresses too."""
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg, _, card = smoke_model("qwen3-moe-235b-a22b", "bfloat16", dev, int8=False)
+    step = make_decode_step(card)
+    toks = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    cache = card.init_cache(2, 32)
+    step(cache, toks, 3)
+    moe = card.layers[1].moe
+    moe.expert_down = torch.nn.Parameter(moe.expert_down.detach().clone(), requires_grad=False)
+    with pytest.raises(RuntimeError, match="weights changed"):
+        step(cache, toks, 4)
 
 
 # ------------------------------------------------------- sharded backend

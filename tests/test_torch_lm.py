@@ -17,11 +17,23 @@ the same tokens:
 * models: ``qwen3-8b-smoke`` (global attention, qk-norm, SwiGLU; an 80-token
   prompt, two 64-key chunks with a padded tail), ``gemma3-27b-smoke``
   (one 5-local + 1-global unit and a 2-layer tail, window 32, GeGLU; a
-  40-token prompt, longer than the window, so the ring buffer wraps) and
-  the two QKV-bias decoders, ``qwen1.5-110b-smoke`` (4 layers, 8 / 2 heads;
+  40-token prompt, longer than the window, so the ring buffer wraps), the
+  two QKV-bias decoders, ``qwen1.5-110b-smoke`` (4 layers, 8 / 2 heads;
   a 72-token prompt) and ``internlm2-20b-smoke`` (3 layers, 6 / 3 heads; a
-  48-token prompt);
-* the converter refuses a tree with a leaf missing or left over.
+  48-token prompt), and the two MoE decoders at float32 only,
+  ``qwen3-moe-smoke`` (2 ``moe`` layers, 8 experts, top-2, qk-norm; an
+  80-token prompt: a prefill capacity of 50 rows an expert, with drops, on
+  the dense form, decode steps of 4 rows on the expert-FFN path) and
+  ``llama4-maverick-smoke`` (top-1, expert width 96; a 64-token prompt).  At
+  bf16 an MoE decoder's routing follows the router's bf16 logits, which the
+  two frameworks' other rounding upstream can flip between experts, so its
+  bf16 parity is held at the layer, on equal inputs (``test_torch_moe.py``);
+* every decoder's own decode matches its own forward (the reference's
+  ``test_decode_matches_forward``: drop-free MoE capacity, float32);
+* an ``("attn", "moe")`` pattern (llama4's) carries unit ``u``'s ``b1`` to
+  layer ``2u + 1``;
+* the converter refuses a tree with a leaf missing or left over, dense or
+  MoE.
 """
 
 import dataclasses
@@ -43,7 +55,9 @@ from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.lm import DecoderLM, layer_kinds  # noqa: E402
 
 MODELS = {"qwen3-8b": 80, "gemma3-27b": 40, "qwen1.5-110b": 72,
-          "internlm2-20b": 48}  # arch -> prompt length
+          "internlm2-20b": 48, "qwen3-moe-235b-a22b": 80,
+          "llama4-maverick-400b-a17b": 64}  # arch -> prompt length
+MOE = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 BATCH = 2
 DECODE_STEPS = 6
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # prefill logits
@@ -88,7 +102,8 @@ def close(got: torch.Tensor, want, tol: float) -> None:
                                rtol=tol, atol=tol)
 
 
-@pytest.fixture(scope="module", params=[(a, d) for a in MODELS for d in TOL],
+@pytest.fixture(scope="module",
+                params=[(a, d) for a in MODELS for d in TOL if a not in MOE or d == "float32"],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def served(request):
     """Prefill and decode through both packages; what each returned."""
@@ -195,7 +210,6 @@ def test_converter_refuses_a_tree_that_does_not_match(fault):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(block_pattern=("moe",), n_experts=4, top_k=2), "8.3"),
     (dict(block_pattern=("ssd",)), "8.4"),
     (dict(block_pattern=("rglru",)), "8.5"),
     (dict(mrope=True), "8.6"),
@@ -207,6 +221,25 @@ def test_unported_kinds_raise_naming_their_item(change, item):
     assert isinstance(cfg, ArchConfig)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tbuild(cfg, device="cpu")
+
+
+def test_moe_kind_is_ported():
+    """Item 8.3 is ported: the ``moe`` kind builds (MoE in place of the
+    FFN, the reference's parameter names) and serves, and a ``moe`` layer
+    without experts is refused."""
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), block_pattern=("moe",), n_experts=4,
+                              top_k=2)
+    model = tbuild(cfg, device="cpu")
+    assert [layer.kind for layer in model.layers] == ["moe"] * cfg.n_layers
+    assert not hasattr(model.layers[0], "mlp")
+    names = set(model.layers[0].state_dict())
+    assert {"moe.router", "moe.expert_gate", "moe.expert_up", "moe.expert_down"} <= names
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    logits, cache = model.prefill({"tokens": torch.zeros((1, 5), dtype=torch.long)}, 8)
+    logits, _ = model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long), 5)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="top_k"):
+        tbuild(dataclasses.replace(cfg, n_experts=0), device="cpu")
 
 
 def test_loss_and_other_architectures_raise():
@@ -221,3 +254,68 @@ def test_loss_and_other_architectures_raise():
             continue
         with pytest.raises(NotImplementedError, match="item 8"):
             get_config(name)
+
+
+@pytest.mark.parametrize("arch", list(MODELS))
+def test_port_decode_matches_forward(arch):
+    """The reference's ``test_decode_matches_forward`` on the port alone: a
+    prefill of S tokens and four decode steps end at the logits of a prefill
+    of all S + 4 (float32; MoE at drop-free capacity, so both paths route
+    alike), within 2e-3 of the largest logit."""
+    cfg = dataclasses.replace(tget_smoke(arch), compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts / cfg.top_k))
+    model = tbuild(cfg, device="cpu", seed=1)
+    b, s, extra = 2, 64, 4
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (b, s + extra)))
+    want, _ = model.prefill({"tokens": toks}, s + 16)
+    logits, cache = model.prefill({"tokens": toks[:, :s]}, s + 16)
+    for t in range(s, s + extra):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+    err = float((logits - want).abs().max())
+    assert err / (float(want.abs().max()) + 1e-9) < 2e-3, (arch, err)
+
+
+def test_attn_moe_pattern_maps_units_to_layers():
+    """llama4's ``("attn", "moe")`` pattern, two units and an ``attn`` tail:
+    unit ``u``'s ``b1`` (the MoE layer) lands at layer ``2u + 1``, and the
+    port's float32 prefill and a decode step match the reference's."""
+    jcfg, tcfg = configs("llama4-maverick-400b-a17b", "float32")
+    change = dict(block_pattern=("attn", "moe"), n_layers=5)
+    jcfg, tcfg = dataclasses.replace(jcfg, **change), dataclasses.replace(tcfg, **change)
+    jmodel = jbuild(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(2))
+    tree = jax.tree.map(np.asarray, params)
+    state = params_from_reference(tcfg, tree)
+    assert layer_kinds(tcfg) == ["attn", "moe", "attn", "moe", "attn"]
+    for u in range(2):
+        np.testing.assert_array_equal(state[f"layers.{2 * u + 1}.moe.expert_up"].numpy(),
+                                      tree["units"]["b1"]["moe"]["expert_up"][u])
+        assert f"layers.{2 * u}.mlp.w_up" in state
+    model = port_model(tcfg, tree)
+    toks = np.random.default_rng(8).integers(0, jcfg.vocab, (2, 24)).astype(np.int32)
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, 32)
+    tl, tc = model.prefill({"tokens": torch.from_numpy(toks)}, 32)
+    close(tl, jl, 1e-4)
+    nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
+    jl, _ = jmodel.decode_step(params, jc, jnp.asarray(nxt), jnp.asarray(24, jnp.int32))
+    tl, _ = model.decode_step(tc, torch.from_numpy(nxt), 24)
+    close(tl, jl, 1e-4)
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape", "experts"])
+def test_converter_refuses_a_moe_tree_that_does_not_match(fault):
+    jcfg, tcfg = configs("qwen3-moe-235b-a22b", "float32")
+    tree = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(0)))
+    params_from_reference(tcfg, tree)  # the tree as it comes is accepted
+    moe = tree["units"]["b0"]["moe"]
+    if fault == "missing":
+        del moe["expert_up"]
+    elif fault == "extra":
+        moe["shared_expert"] = moe["expert_up"]
+    elif fault == "shape":
+        moe["expert_down"] = moe["expert_down"][:, :, :, :-1]
+    else:  # one expert fewer
+        moe["expert_gate"] = moe["expert_gate"][:, 1:]
+    with pytest.raises(ValueError):
+        params_from_reference(tcfg, tree)

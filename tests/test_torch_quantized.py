@@ -7,15 +7,17 @@
 * ``quantize_for_serving`` quantizes the same leaves as the reference's and
   rounds every other float weight to bf16 values: the port's state after
   quantizing equals the reference's quantized tree carried across by
-  ``params_from_reference``, bit for bit;
+  ``params_from_reference``, bit for bit — an MoE layer's router and expert
+  tensors too, which stay float weights (rounded to bf16 values), not
+  records, as in the reference;
 * the reference's three ``tests/test_quantized_serving.py`` tests side by
   side, on the architectures the port has (``qwen3-8b``; the tree-size one
   on ``qwen1.5-110b``; its ``recurrentgemma-9b`` and ``mamba2-1.3b`` cases
   wait for their blocks, ROADMAP items 8.4 and 8.5);
 * a tree the reference quantized, carried across: float32 prefill logits,
   caches and six decode steps within 1e-4 of the reference's (the two sum
-  in other orders), for ``qwen3-8b``, ``qwen1.5-110b`` and
-  ``internlm2-20b``;
+  in other orders), for ``qwen3-8b``, ``qwen1.5-110b``, ``internlm2-20b``
+  and the two MoE decoders;
 * ``decode_step`` with a 0-d tensor ``pos`` gives what an int ``pos`` gives;
   the decode products take ``w8_matmul`` (on the CPU its plain version),
   the prefill's the cast;
@@ -41,8 +43,11 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 
-ARCHS = ("qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b")
-PARITY = {"qwen3-8b": 80, "qwen1.5-110b": 72, "internlm2-20b": 48}  # prompt lengths
+ARCHS = ("qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b", "qwen3-moe-235b-a22b",
+         "llama4-maverick-400b-a17b")
+PARITY = {"qwen3-8b": 80, "qwen1.5-110b": 72, "internlm2-20b": 48,
+          "qwen3-moe-235b-a22b": 80, "llama4-maverick-400b-a17b": 64}  # prompt lengths
+MOE_NAMES = ("router", "expert_gate", "expert_up", "expert_down")
 BATCH, DECODE_STEPS = 2, 6
 
 
@@ -132,7 +137,12 @@ def test_quantize_for_serving_matches_the_reference(arch):
     got = model.state_dict()
     assert set(got) == set(want)
     records = [k for k in got if k.endswith(".q")]
-    assert len(records) == (7 if tcfg.mlp_kind != "gelu" else 6) * tcfg.n_layers
+    ffn = {"moe": 0, "gelu": 2}.get("moe" if tcfg.n_experts else tcfg.mlp_kind, 3)
+    assert len(records) == (4 + ffn) * tcfg.n_layers  # wq, wk, wv, wo and the FFN's
+    moe = [k for k in got if k.rpartition(".")[2] in MOE_NAMES]
+    assert len(moe) == (4 * tcfg.n_layers if tcfg.n_experts else 0)
+    for name in moe:  # float weights of bf16 values, not records
+        assert got[name].dtype == torch.float32 and got[name].dim() in (2, 3), name
     for name, t in got.items():
         w = want[name].to(t.dtype)
         assert torch.equal(t, w), name

@@ -9,8 +9,10 @@ must retire that request early, in both.  ``internlm2-20b-smoke`` (QKV
 bias) serves one request through each package's session and each session's
 tokens equal a hand-rolled prefill and decode (the reference's
 ``tests/test_serve.py::test_serve_greedy_matches_manual_decode``), equal
-across the packages at float32.  Then the launcher runs on the CPU, with
-bf16 and with int8 weights.
+across the packages at float32.  The two MoE smokes serve the same five
+requests through both packages' sessions to the same token lists (float32).
+Then the launcher runs on the CPU, with bf16 and with int8 weights, for
+``qwen3-8b`` and the two MoE smokes.
 """
 
 import dataclasses
@@ -38,15 +40,19 @@ REPO = Path(__file__).resolve().parents[1]
 N_REQUESTS, SLOTS, MAX_NEW, MAX_LEN = 5, 2, 4, 32
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = dataclasses.replace(jget_smoke("qwen3-8b"), compute_dtype="float32")
-    tcfg = dataclasses.replace(tget_smoke("qwen3-8b"), compute_dtype="float32")
+def build_models(arch: str = "qwen3-8b"):
+    jcfg = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
+    tcfg = dataclasses.replace(tget_smoke(arch), compute_dtype="float32")
     jmodel = jbuild(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0))
     tmodel = DecoderLM(tcfg, device="cpu", seed=None)
     tmodel.load_state_dict(params_from_reference(tcfg, jax.tree.map(np.asarray, params)))
     return jmodel, params, tmodel
+
+
+@pytest.fixture(scope="module")
+def models():
+    return build_models()
 
 
 def prompts(vocab: int) -> list[np.ndarray]:
@@ -106,6 +112,26 @@ def test_session_state_matches_reference(models):
     k = np.asarray(jsess.cache["units"]["b0"]["k"])  # (n_units, B, KH, S, Dh)
     for u in range(k.shape[0]):
         np.testing.assert_allclose(tsess.cache[u]["k"].numpy(), k[u], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+def test_moe_sessions_give_the_same_tokens(arch):
+    want, got, sess, reqs = serve(build_models(arch))
+    assert got == want
+    assert all(len(o) == MAX_NEW for o in got) and not sess.live
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+def test_launcher_serves_moe_on_the_cpu(arch, int8):
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
+         "--device", "cpu", "--requests", "3", "--max-new", "4", *(["--int8"] if int8 else [])],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert "12 tokens" in proc.stdout and "-smoke:" in proc.stdout
+    assert f"on cpu ({'int8' if int8 else 'bfloat16'} weights" in proc.stdout
 
 
 def test_launcher_runs_on_the_cpu():
