@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
 sharded backend, the paper's three projection revisions, the selection
 entry points and the LM serving path (``qwen3-8b`` at full width, bf16 and
-int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers) on one
+int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers;
+``mamba2-1.3b`` and ``recurrentgemma-9b`` at full width and depth) on one
 NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
@@ -18,8 +19,9 @@ probe rows matching — all made from ``--seed``:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
 2. times the kernel build (one ``nvcc`` a source, all at once) and prints
-   the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_join.cu`` and
-   ``rm_scan.cu``: each kernel's registers, shared memory and spills;
+   the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_join.cu``,
+   ``rm_scan.cu``, ``rm_w8.cu``, ``rm_moe.cu`` and ``rm_rglru.cu``: each
+   kernel's registers, shared memory and spills;
 3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
    engine batch and the tick script below on a card engine and server and a
    CPU one and holds their results equal; then a WAL round: a card server
@@ -88,12 +90,20 @@ probe rows matching — all made from ``--seed``:
       ``llama4-maverick-400b-a17b``'s) at float32, tokens equal and logits
       within 1e-4, the MoE kernel launched twice a layer in every decode
       step and every prefill of at most 16 rows an expert, its plain
-      version never;
+      version never; then the two recurrent smokes (``mamba2-1.3b``'s and
+      ``recurrentgemma-9b``'s) at float32 (tokens equal, logits within
+      1e-4) and bf16 (prefill logits within 5e-2), the flash kernel once per
+      attention layer and prefill, the scan kernel once per RG-LRU layer
+      and prefill, and ``mamba2-1.3b``'s smoke int8-quantized at float32
+      (the W8 kernel on ``w_zx`` and ``w_out``), tokens equal and logits
+      within 1e-4;
    b. the flash-attention kernel against its plain version on the card
       (bf16 within 2^-7 of each value plus 2e-3) at the serving path's
       prefill shape (B 8, S 2,048, 32 query / 8 KV heads, D 128, causal),
       there also its float32 build (within 1e-4), and at a ``gemma3-27b``
-      local layer's (32 / 16 heads, window 1,024), timed beside its bound
+      local layer's (32 / 16 heads, window 1,024) and a
+      ``recurrentgemma-9b`` local layer's (16 query heads on one KV head, D
+      256, window 2,048: ``flash_attention_d256``), timed beside its bound
       and one ``scaled_dot_product_attention`` call (a yardstick the port
       never calls);
    c. the W8 kernel (``csrc/rm_w8.cu``) against its plain version (the
@@ -118,6 +128,12 @@ probe rows matching — all made from ``--seed``:
       replay; timed beside its bound (the touched experts' bytes), its plain
       version and the dense form's three ``torch.bmm`` (a yardstick the
       port's decode step never calls);
+   c3. the RG-LRU scan kernel (``csrc/rm_rglru.cu``) at
+      ``recurrentgemma-9b``'s prefill (B 8, S 2,048, W 4,096, float32, ``a``
+      in (0, 1)): bit-equal to its plain version (the sequential float32
+      loop) and on a rerun, timed beside its bound by bytes (3 · B · S · W ·
+      4 B over the memory rate: 0.2404 ms) and its plain version; no library
+      call computes it (``library_ms`` null);
    d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
@@ -154,6 +170,19 @@ probe rows matching — all made from ``--seed``:
       step with their device time, each layer's touched experts (read back
       from the eager step) and the step's bound by bytes; the serving run's
       peak must leave 4 GiB of the card;
+   g. ``mamba2-1.3b`` at full width and depth (48 ``ssd`` layers, d_model
+      2,048, 1,446,603,776 weights in bf16; ``lm_serve_ssm``) and
+   h. ``recurrentgemma-9b`` at full width and depth (26 ``rglru`` and 12
+      ``local`` layers, d_model 4,096, 10,444,877,824 weights, the RG-LRU
+      gates float32; ``lm_serve_hybrid``), each serving the same 16
+      requests and checked as in d (no flash launch in the SSM; in the
+      hybrid the flash kernel on attention layers 2 and 35 and the scan
+      kernel on RG-LRU layer 0 against their plain versions, one scan
+      launch per RG-LRU layer and prefill, none in a decode step), with
+      each step's bound by bytes (every weight but the embedding, the KV
+      rings read, the recurrent states read and written), the peak memory
+      of a prefill and of the run, and the hybrid's float32 gate products'
+      share of its profiled prefill;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -162,7 +191,8 @@ Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
-LM serve phases' three runs for ``flash_attention`` and the int8 run for
+LM serve phases' runs for ``flash_attention`` (none in the SSM's), the
+hybrid serve phase for ``rglru_scan`` and the int8 run for
 ``w8_matmul`` — its wrapper launches in the warm-up step before the graph's
 capture; the graph's replays launch it without the wrapper, and the
 line's ``w8_kernels_run`` (launches) and ``w8_products_run`` (products)
@@ -175,8 +205,9 @@ engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe.
 
 Every phase prints one JSON line.  Any failure ends the run with a
-traceback and a non-zero exit; without a CUDA device it exits non-zero
-before printing any result.
+traceback and a non-zero exit; without a CUDA device, or without the port
+beside it (the script alone in a directory), it exits 2 before printing
+any result.
 """
 
 from __future__ import annotations
@@ -224,11 +255,13 @@ REPLACES = {
 }
 # kernels with no Pallas counterpart: what of the reference each replaces
 FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51",
-           "moe_ffn": "src/repro/models/layers.py:583"}
+           "moe_ffn": "src/repro/models/layers.py:583",
+           "rglru_scan": "src/repro/models/layers.py:1031"}
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
            "w8_matmul": "src/repro_torch/csrc/rm_w8.cu",
            "moe_ffn": "src/repro_torch/csrc/rm_moe.cu",
+           "rglru_scan": "src/repro_torch/csrc/rm_rglru.cu",
            "project_pck": "src/repro_torch/csrc/rm_project.cu",
            "project_bsl": "src/repro_torch/csrc/rm_project.cu",
            "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
@@ -257,7 +290,10 @@ LM_CHECK_LAYERS = (0, 35)
 # follows the router's bf16 logits, which the card's and the CPU's other
 # roundings upstream can flip from one expert to another
 LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b", "qwen3-moe-235b-a22b",
-                      "llama4-maverick-400b-a17b")
+                      "llama4-maverick-400b-a17b", "mamba2-1.3b", "recurrentgemma-9b")
+# the int8 smokes compared card against CPU at float32: the W8 kernel on a
+# dense decoder's products and on the SSD's w_zx / w_out
+LM_INT8_ARCHS = ("qwen3-8b", "mamba2-1.3b")
 LM_MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 # the MoE serving cell: qwen3-moe-235b-a22b at full width, its depth cut to
 # fit one card (12 of 94 layers: 62.2 GB of bf16 weights), the dense cell's
@@ -269,6 +305,17 @@ MOE_FREE_BYTES = 4 << 30
 # of d 4,096 and f 1,536 with cap 4 rows (8 tokens, top-8), the counts from
 # a routing of 8 tokens through a router drawn from --seed
 MOE_SHAPE = {"E": 128, "d": 4096, "f": 1536, "top_k": 8, "tokens": 8}
+# the recurrent serving cells, at full width and depth on the dense cell's
+# traffic: the SSM (48 ssd layers) and the hybrid (26 rglru + 12 local
+# layers, MQA at head_dim 256, window 2,048), whose flash check hooks
+# attention layers 2 and 35 and whose scan check hooks RG-LRU layer 0
+SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_CHECK_LAYERS = (2, 35)
+HYBRID_SCAN_LAYERS = (0,)
+# the scan kernel phase: recurrentgemma-9b's prefill of the serving cells,
+# B 8 slots, S 2,048, W 4,096 lanes
+RGLRU_SHAPE = (8, 2048, 4096)
 # a qwen3-8b layer's decode products at M = 8 rows, as the layer launches
 # them: (name, K, N of each record of the launch) — wq, wk, wv one group;
 # wo; w_gate, w_up one group; w_down
@@ -280,10 +327,12 @@ W8_ROWS = LM_SLOTS
 # replayed W8_GRAPH_REPS times
 W8_COPIES = 8
 W8_GRAPH_REPS = 20
-# (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer
-# and of a gemma3-27b local layer on the path's batch
+# (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer,
+# of a gemma3-27b local layer and of a recurrentgemma-9b local layer (MQA:
+# 16 query heads on one KV head, D 256) on the path's batch
 FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
-                ("flash_attention_window", 8, 2048, 32, 16, 128, True, 1024))
+                ("flash_attention_window", 8, 2048, 32, 16, 128, True, 1024),
+                ("flash_attention_d256", 8, 2048, 16, 1, 256, True, 2048))
 # the kernel against its plain version, |got - want| <= atol + rtol·|want|:
 # bf16 output, one rounding step of the output (2^-7 of its value) plus the
 # rounding of p to bf16 before PV, which the two take at other running maxima
@@ -947,14 +996,40 @@ def counted_plain_moe():
         MF.moe_ffn_torch = real
 
 
+def w8_per_step(model) -> tuple[int, int]:
+    """The W8 kernel's launches and products in one decode step of
+    ``model`` int8-quantized, at bf16 (a group of int8 products that share x
+    is one launch: q, k and v; a gated FFN's gate and up): an attention
+    layer's wq, wk, wv and wo, an SSD's w_zx and w_out, an RG-LRU's w_branch
+    and w_out, then the FFN's (an MoE layer's experts stay bf16).  At
+    float32 each product is a launch of its own."""
+    launches = products = 0
+    for layer in model.layers:
+        groups = [1, 1] if layer.kind in ("ssd", "rglru") else [3, 1]
+        if layer.kind not in ("ssd", "moe"):
+            groups += [2, 1] if layer.mlp_kind in ("swiglu", "geglu") else [1, 1]
+        launches += len(groups)
+        products += sum(groups)
+    return launches, products
+
+
+def layer_counts(model) -> tuple[int, int]:
+    """The flash kernel's layers (attention: ``attn``, ``local``, ``moe``)
+    and the scan kernel's (``rglru``) in ``model``."""
+    kinds = [layer.kind for layer in model.layers]
+    return sum(k not in ("ssd", "rglru") for k in kinds), kinds.count("rglru")
+
+
 def lm_reference_phase(torch, seed: int) -> dict:
     """Each smoke of ``LM_REFERENCE_ARCHS`` served on the card (graphed
     decode steps) and on the CPU (eager) with the same weights: float32
     compute token lists equal and logits within 1e-4; bfloat16 compute
     prefill logits within 5e-2 (the MoE decoders at float32 only).  Then
-    qwen3-8b-smoke int8-quantized at float32 compute (the W8 kernel in every
-    decode step and the prefill of rows <= 64): tokens equal and logits
-    within 1e-4.  The MoE decoders' expert FFN runs the MoE kernel in every
+    the smokes of ``LM_INT8_ARCHS`` int8-quantized at float32 compute (the
+    W8 kernel in every decode step and the prefill of rows <= 64): tokens
+    equal and logits within 1e-4.  The flash kernel launches once per
+    attention layer and prefill, the scan kernel once per RG-LRU layer and
+    prefill.  The MoE decoders' expert FFN runs the MoE kernel in every
     decode step and in each prefill whose capacity is at most
     ``MOE_DECODE_ROWS`` rows an expert, and its plain version never."""
     import dataclasses
@@ -969,7 +1044,7 @@ def lm_reference_phase(torch, seed: int) -> dict:
     runs = [(arch, dtype, tol, False) for arch in LM_REFERENCE_ARCHS
             for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2))
             if arch not in LM_MOE_ARCHS or dtype == "float32"]
-    runs.append((LM_ARCH, "float32", 1e-4, True))
+    runs += [(arch, "float32", 1e-4, True) for arch in LM_INT8_ARCHS]
     for arch, dtype, tol, int8 in runs:
         cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
         cpu = DecoderLM(cfg, device="cpu", seed=seed)
@@ -984,13 +1059,14 @@ def lm_reference_phase(torch, seed: int) -> dict:
             got = serve_session(torch, card, prompts, 2, 64, 6, True)
         launches = dict(_cuda.LAUNCHES)
         want = serve_session(torch, cpu, prompts, 2, 64, 6, False)
-        assert launches["flash_attention"] == cfg.n_layers * len(got[1]), (
-            launches, len(got[1]))
+        attention, rglru = layer_counts(card)
+        assert launches["flash_attention"] == attention * len(got[1]), (launches, len(got[1]))
+        assert launches["rglru_scan"] == rglru * len(got[1]), (launches, len(got[1]))
         # the wrapper's launches: each prefill of at most W8_DECODE_ROWS rows
         # (2 slots x its longest prompt) and the warm-up step before the
-        # capture; the replays launch without it
+        # capture, a launch a product at float32; the replays launch without it
         rows = [2 * max(len(p) for p in prompts[i:i + 2]) for i in range(0, len(prompts), 2)]
-        want_w8 = 7 * cfg.n_layers * (1 + sum(r <= W8_DECODE_ROWS for r in rows))
+        want_w8 = w8_per_step(card)[1] * (1 + sum(r <= W8_DECODE_ROWS for r in rows))
         assert launches["w8_matmul"] == (want_w8 if int8 else 0), (launches, rows)
         # two MoE launches a layer in the warm-up step and in each prefill of
         # at most MOE_DECODE_ROWS rows an expert
@@ -1011,7 +1087,8 @@ def lm_reference_phase(torch, seed: int) -> dict:
             "tokens_equal": tokens_equal, "max_abs_err": err,
             "logit_sets": len(pairs), "tolerance": tol,
             "flash_launches": launches["flash_attention"],
-            "w8_launches": launches["w8_matmul"], "moe_launches": launches["moe_ffn"]}
+            "w8_launches": launches["w8_matmul"], "moe_launches": launches["moe_ffn"],
+            "rglru_launches": launches["rglru_scan"]}
         del cpu, card
     emit(out)
     return out
@@ -1375,6 +1452,45 @@ def moe_phase(torch, seed: int, reps: int) -> dict:
     return {"moe_ffn": lines["moe_ffn_bfloat16"]}
 
 
+def rglru_phase(torch, seed: int, reps: int) -> dict:
+    """The RG-LRU scan kernel against its plain version (the sequential
+    float32 loop, two launches a step) at recurrentgemma-9b's prefill shape
+    (``RGLRU_SHAPE``), ``a`` in (0, 1) and ``x`` normal, drawn from
+    ``--seed``: bit-equal, and equal on a rerun.  Timed beside its bound (by
+    bytes: a and x read once, h written once); ``library_ms`` is null: no
+    one torch call computes a linear recurrence.  Returns the line as
+    ``rglru_scan``."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    b, s, w = RGLRU_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+    a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6)
+    x = torch.randn((b, s, w), generator=g, device="cuda")
+    run = lambda: RS.rglru_scan(a, x)  # noqa: E731
+    plain = lambda: RS.rglru_scan_torch(a, x)  # noqa: E731
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(got, want)
+    assert bit_equal and torch.equal(got, again), float((got - want).abs().max())
+    nbytes = 3 * b * s * w * 4
+    line = {"phase": "kernel", "name": "rglru_scan_float32",
+            "kernel_ms": time_ms(torch, run, reps),
+            "kernel_graph_ms": graph_ms(torch, [run], W8_GRAPH_REPS),
+            **device_fields(torch, run, reps),
+            "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
+            "library_ms": None,
+            "library_call": "none: no one torch call computes a linear recurrence",
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": nbytes, "max_abs_err": float((got - want).abs().max()),
+            "bit_equal_to_plain": bit_equal, "rerun_equal": True,
+            "shape": {"B": b, "S": s, "W": w, "dtype": "float32"}}
+    line["bound_share"] = line["bound_ms"] / line["kernel_ms"]
+    emit(line)
+    del a, x, got, again, want
+    torch.cuda.empty_cache()
+    return {"rglru_scan": line}
+
+
 def read_rate(torch, nbytes: int, reps: int) -> dict:
     """The rate at which one ``torch.sum`` reads ``nbytes`` of float32 on
     this card, timed as the kernel lines are (a graph replayed between CUDA
@@ -1447,34 +1563,51 @@ def profile_step(torch, fn, count=("rm_w8_matmul", "rm_w8_reduce", "rm_moe_ffn")
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
+def first_admission(torch, prompts, device):
+    """The session's first prefill batch: the first ``LM_SLOTS`` prompts,
+    left-padded with zeros to the longest, on ``device``."""
+    first = prompts[:LM_SLOTS]
+    toks = np.zeros((LM_SLOTS, max(len(p) for p in first)), np.int32)
+    for slot, p in enumerate(first):
+        toks[slot, -len(p):] = p
+    return torch.from_numpy(toks).to(device)
+
+
 def serve_cell(torch, model, cfg, prompts, int8: bool,
-               check_layers=LM_CHECK_LAYERS) -> dict:
+               check_layers=LM_CHECK_LAYERS, scan_layers=()) -> dict:
     """Serve ``prompts`` through ``ServeSession`` (graphed decode steps) on
     ``model`` and check what came out; then, on the first admission's
     prompts again, one replayed step against an eager ``decode_step`` on a
-    copy of the same cache (bit-equal logits and caches), and one prefill,
-    one replayed and one eager decode step timed and profiled; then the
-    requests served again under the profiler (:func:`traced_serve`).  The
-    wrappers' flash, W8 and MoE launches are counted on the first serving
-    run alone, and the MoE kernel's plain version must not run; its host
-    counters (:func:`host_usage`) are kept for each prefill and the first
-    tick (warm-up, capture, replay).  An MoE model's eager step also reads
-    back each layer's touched experts (``touched_experts``)."""
+    copy of the same cache (bit-equal logits and caches: KV caches and
+    recurrent states), and one prefill, one replayed and one eager decode
+    step timed and profiled; then the requests served again under the
+    profiler (:func:`traced_serve`).  The wrappers' flash, W8, MoE and scan
+    launches are counted on the first serving run alone, and the MoE
+    kernel's plain version must not run; its host counters
+    (:func:`host_usage`) are kept for each prefill and the first tick
+    (warm-up, capture, replay).  The flash kernel's output on the attention
+    layers ``check_layers`` and the scan kernel's on the RG-LRU layers
+    ``scan_layers`` (taken with forward hooks in the first prefill) are
+    held against their plain versions.  An MoE model's eager step also
+    reads back each layer's touched experts (``touched_experts``)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RS
     from repro_torch.models import layers as L
     from repro_torch.serve.engine import make_decode_step
 
     captured: dict = {}
 
-    def capture(idx):
+    def capture(key):
         def hook(module, args, result):
-            if idx not in captured:  # the first prefill's q, k, v and output
-                captured[idx] = (args, result)
+            if key not in captured:  # the first prefill's inputs and output
+                captured[key] = (args, result)
         return hook
 
-    hooks = [model.layers[i].mixer.attend.register_forward_hook(capture(i))
+    hooks = [model.layers[i].mixer.attend.register_forward_hook(capture(("flash", i)))
              for i in check_layers]
+    hooks += [model.layers[i].mixer.scan.register_forward_hook(capture(("scan", i)))
+              for i in scan_layers]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1486,7 +1619,8 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
             torch, model, prompts, LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW, True)
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {k: _cuda.LAUNCHES[k] for k in ("flash_attention", "w8_matmul", "moe_ffn")}
+    launches = {k: _cuda.LAUNCHES[k]
+                for k in ("flash_attention", "w8_matmul", "moe_ffn", "rglru_scan")}
     w8_products = _cuda.W8_PRODUCTS["launched"]
     capture_s = session_step.capture_seconds
     replays, recorded = session_step.replays, session_step.captured
@@ -1495,17 +1629,21 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
     for hk in hooks:
         hk.remove()
     peak = torch.cuda.max_memory_allocated()
-    assert launches["flash_attention"] == cfg.n_layers * len(prefills), (launches, len(prefills))
+    attention, rglru = layer_counts(model)
+    # each prefill: the flash kernel once per attention layer, the scan
+    # kernel once per RG-LRU layer; a decode step runs neither
+    assert launches["flash_attention"] == attention * len(prefills), (launches, len(prefills))
+    assert launches["rglru_scan"] == rglru * len(prefills), (launches, len(prefills))
+    assert recorded["flash_attention"] == recorded["rglru_scan"] == 0, recorded
     # the W8 wrapper launches in the warm-up step before the capture alone
-    # (every prefill has more than W8_DECODE_ROWS rows): 7 products a layer
-    # in 4 launches (q, k, v one; wo; gate, up one; w_down); the capture
-    # records as many, which each replay launches without the wrapper
+    # (every prefill has more than W8_DECODE_ROWS rows): a dense layer's 7
+    # products in 4 launches (q, k, v one; wo; gate, up one; w_down), an MoE
+    # layer's 4 in 2 (its experts stay bf16); the capture records as many,
+    # which each replay launches without the wrapper
     moe_layers = sum(layer.kind == "moe" for layer in model.layers)
-    dense_layers = cfg.n_layers - moe_layers
-    # 4 W8 launches (7 products) a dense layer, 2 (4 products: q, k, v; wo)
-    # an MoE layer, whose experts stay bf16
-    assert launches["w8_matmul"] == ((4 * dense_layers + 2 * moe_layers) if int8 else 0), launches
-    assert w8_products == ((7 * dense_layers + 4 * moe_layers) if int8 else 0), w8_products
+    w8_step = w8_per_step(model) if int8 else (0, 0)
+    assert launches["w8_matmul"] == w8_step[0], launches
+    assert w8_products == w8_step[1], w8_products
     # the MoE kernel: two launches a layer in the warm-up step (every prefill's
     # capacity is above MOE_DECODE_ROWS); its plain version never
     assert launches["moe_ffn"] == 2 * moe_layers and plain_moe == [0], (launches, plain_moe)
@@ -1518,25 +1656,27 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
     for _, logits in prefills + decodes:
         assert logits.shape == (LM_SLOTS, cfg.padded_vocab)
         assert bool(torch.isfinite(logits).all())
-    checked = {}
+    checked, scan_checked = {}, {}
     for idx in check_layers:
-        (q, k, v), result = captured[idx]
-        again = FA.flash_attention(q, k, v)  # a compare launch, not counted above
-        want = FA.flash_attention_torch(q, k, v)
-        torch.cuda.synchronize()
+        (q, k, v), result = captured[("flash", idx)]
+        again = FA.flash_attention(q, k, v, window=model.layers[idx].spec.window)
+        want = FA.flash_attention_torch(q, k, v, window=model.layers[idx].spec.window)
+        torch.cuda.synchronize()  # a compare launch, not counted above
         assert torch.equal(again, result), idx  # the path's output is the kernel's
-        checked[idx] = {"shape": list(q.shape),
+        checked[idx] = {"shape": list(q.shape), "window": model.layers[idx].spec.window,
                         **flash_check(result, want, cfg.compute_dtype)}
+    for idx in scan_layers:
+        (a, x), result = captured[("scan", idx)]
+        again, want = RS.rglru_scan(a, x), RS.rglru_scan_torch(a, x)
+        torch.cuda.synchronize()
+        assert torch.equal(again, result) and torch.equal(result, want), idx
+        scan_checked[idx] = {"shape": list(a.shape), "bit_equal_to_plain": True}
     del captured
     tokens = sum(len(r.out) for r in reqs)
     decode_ms = [1e3 * t for t, _ in decodes]
     # where a step's time goes: the first admission's prefill and one decode
     # step again, after the counts were read
-    first = prompts[:LM_SLOTS]
-    toks = np.zeros((LM_SLOTS, max(len(p) for p in first)), np.int32)
-    for slot, p in enumerate(first):
-        toks[slot, -len(p):] = p
-    toks = torch.from_numpy(toks).to(model.device)
+    toks = first_admission(torch, prompts, model.device)
     nxt, pos = toks[:, -1:].contiguous(), toks.shape[1]
     _, cache = model.prefill({"tokens": toks}, LM_MAX_LEN)
     twin = [{n: t.clone() for n, t in c.items()} for c in cache]
@@ -1557,7 +1697,8 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
     assert replay_equal, float((replayed - eager).abs().max())
     del twin, replayed, eager
     profiles = {
-        "prefill": profile_step(torch, lambda: model.prefill({"tokens": toks}, LM_MAX_LEN)),
+        "prefill": profile_step(torch, lambda: model.prefill({"tokens": toks}, LM_MAX_LEN),
+                                count=("rm_flash_attention", "rm_rglru_scan", "gemm")),
         "decode_replayed": profile_step(torch, lambda: step(cache, nxt, pos), replays=50),
         "decode_eager": profile_step(torch, lambda: model.decode_step(cache, nxt, pos)),
     }
@@ -1580,6 +1721,8 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
     ran = {"rm_flash_attention": launches["flash_attention"], "rm_w8_matmul": w8_run}
     if moe_layers:
         ran["rm_moe_ffn"] = moe_run
+    if rglru:
+        ran["rm_rglru_scan"] = launches["rglru_scan"]
     traced = traced_serve(torch, model, prompts, [r.out for r in reqs], ran)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "weights": "int8" if int8 else cfg.compute_dtype, "dtype": cfg.compute_dtype,
@@ -1607,7 +1750,8 @@ def serve_cell(torch, model, cfg, prompts, int8: bool,
            "moe_step_device_ms": profiles["decode_replayed"]["counted_ms"]["rm_moe_ffn"],
            "touched_experts": touched,
            "replayed_step_bit_equal_to_eager": replay_equal,
-           "kernel_check": checked, "profiles": profiles, "traced_run": traced}
+           "kernel_check": checked, "scan_check": scan_checked,
+           "profiles": profiles, "traced_run": traced}
     del prefills, decodes
     return out
 
@@ -1777,9 +1921,104 @@ def lm_serve_moe_phase(torch, seed: int) -> dict:
            "free_at_peak": total - peak, "max_memory_reserved": reserved,
            "decode_step_bound_ms": bound_ms, "decode_step_bound_bytes": parts,
            "replayed_bound_share": (bound_ms / replayed["replayed_ms"]
-                                    if replayed["replayed_ms"] else None), **cell}
+                                    if replayed["replayed_ms"] else None), **cell,
+           "weight_count": weights}  # the cell's "weights" names their dtype
     emit(out)
     assert total - peak >= MOE_FREE_BYTES, (total, peak)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_bound(model, cache) -> tuple[float, dict]:
+    """The least time of one decode step of ``model`` over ``cache``, by
+    bytes: every weight read once but the embedding table (its ``LM_SLOTS``
+    rows gathered), each attention layer's KV cache read whole (a step
+    attends over every slot), each recurrent state read and written, over
+    the memory rate."""
+    kv = ("k", "v")
+    emb = model.token_embedding
+    parts = {"layers": sum(p.numel() * p.element_size() for p in model.layers.parameters()),
+             "lm_head": model.lm_head.numel() * model.lm_head.element_size(),
+             "embedding_rows": LM_SLOTS * emb.shape[1] * emb.element_size(),
+             "kv_cache": sum(t.nbytes for c in cache for n, t in c.items() if n in kv),
+             "state_read_written": 2 * sum(t.nbytes for c in cache for n, t in c.items()
+                                          if n not in kv)}
+    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+
+
+def lm_serve_recurrent_phase(torch, seed: int, arch: str, phase: str,
+                             check_layers=(), scan_layers=()) -> dict:
+    """``arch`` at full width and depth on the card (nothing cut), weights
+    drawn from ``--seed``, serving the dense cell's 16 requests through
+    ``ServeSession`` (:func:`serve_cell`: a replayed step bit-equal to an
+    eager one, states included; the flash kernel on ``check_layers`` and the
+    scan kernel on ``scan_layers`` against their plain versions; launch
+    counts; a profiled prefill and replayed step).  Adds the step's bound by
+    bytes (:func:`step_bound`), the peak memory of one prefill of the first
+    admission alone and of the whole run, and for a model with RG-LRU layers
+    the float32 gate products' share of the profiled prefill: one ``xr @
+    w_a`` at the prefill's shape timed by CUDA events, times two gates and
+    the RG-LRU layers, against the prefill's device-busy time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, seed=seed)  # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() for p in model.parameters())
+    assert weights == cfg.param_count() and len(model.layers) == cfg.n_layers, weights
+    rng = np.random.default_rng(seed + 11)
+    prompts = lm_prompts(rng, LM_REQUESTS, *LM_PROMPT, cfg.vocab)
+    cell = serve_cell(torch, model, cfg, prompts, int8=False, check_layers=check_layers,
+                      scan_layers=scan_layers)
+    toks = first_admission(torch, prompts, model.device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _, cache = model.prefill({"tokens": toks}, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    bound_ms, parts = step_bound(model, cache)
+    del cache
+    _, rglru = layer_counts(model)
+    gates = None
+    if rglru:
+        w = model.cfg.lru_width or cfg.d_model
+        xr = torch.randn((toks.numel(), w), device="cuda")
+        w_a = model.layers[0].mixer.w_a
+        one = time_ms(torch, lambda: xr @ w_a, 5)
+        busy = cell["profiles"]["prefill"]["device_busy_ms"]
+        gates = {"one_product_ms": one, "shape": [toks.numel(), w, w], "dtype": str(w_a.dtype),
+                 "tf32": torch.backends.cuda.matmul.allow_tf32, "products": 2 * rglru,
+                 "prefill_ms": 2 * rglru * one,
+                 "prefill_share": (2 * rglru * one / busy) if busy else None}
+        del xr
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = max(cell["max_memory_allocated"], init_peak, prefill_peak)
+    replayed = cell["profiles"]["decode_replayed"]
+    out = {"phase": phase,
+           "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "reduced": {}, "init_seconds": init_s, "init_peak_memory": init_peak,
+           "baseline_memory_allocated": baseline, "total_memory": total,
+           "prefill_peak_memory": prefill_peak, "prefill_memory_before": before,
+           "free_at_peak": total - peak, "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "decode_step_bound_ms": bound_ms, "decode_step_bound_bytes": parts,
+           "replayed_bound_share": (bound_ms / replayed["replayed_ms"]
+                                    if replayed["replayed_ms"] else None),
+           "gate_products": gates, **cell,
+           "weight_count": weights}  # the cell's "weights" names their dtype
+    emit(out)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2611,7 +2850,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no port at {src / 'repro_torch'} (run the script from a "
+              f"checkout of the repository); nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _cuda
 
     started = time.perf_counter()
@@ -2624,7 +2868,8 @@ def main(argv=None) -> int:
           "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
           "scan_ptxas": _cuda.ptxas_report("rm_scan.cu"),
           "w8_ptxas": _cuda.ptxas_report("rm_w8.cu"),
-          "moe_ptxas": _cuda.ptxas_report("rm_moe.cu")})
+          "moe_ptxas": _cuda.ptxas_report("rm_moe.cu"),
+          "rglru_ptxas": _cuda.ptxas_report("rm_rglru.cu")})
 
     breakers: list = []  # every engine's breaker; the engines themselves are freed
     small_reference_check(torch, args.seed, breakers)
@@ -2671,19 +2916,25 @@ def main(argv=None) -> int:
     kernels.update(flash_phase(torch, args.seed, args.reps))
     kernels.update(w8_phase(torch, args.seed))
     kernels.update(moe_phase(torch, args.seed, args.reps))
+    kernels.update(rglru_phase(torch, args.seed, args.reps))
     lm = lm_serve_phase(torch, args.seed)
     moe = lm_serve_moe_phase(torch, args.seed)
+    ssm = lm_serve_recurrent_phase(torch, args.seed, SSM_ARCH, "lm_serve_ssm")
+    hybrid = lm_serve_recurrent_phase(torch, args.seed, HYBRID_ARCH, "lm_serve_hybrid",
+                                      HYBRID_CHECK_LAYERS, HYBRID_SCAN_LAYERS)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);
-    # the flash kernel's in the three serving runs (bf16, int8, MoE), the W8
-    # kernel's in the int8 run, the MoE kernel's in the MoE run
+    # the flash kernel's in the five serving runs (bf16, int8, MoE, the SSM,
+    # which has none, and the hybrid), the W8 kernel's in the int8 run, the
+    # MoE kernel's in the MoE run, the scan kernel's in the hybrid run
     launches = {**revisions["launches"], **selection["launches"],
                 **engine["launches"], "hash_join": server["launches"]["hash_join"],
                 "flash_attention": sum(lm[w]["launches"]["flash_attention"]
                                        for w in ("bf16", "int8"))
-                + moe["launches"]["flash_attention"],
+                + sum(cell["launches"]["flash_attention"] for cell in (moe, ssm, hybrid)),
                 "w8_matmul": lm["int8"]["launches"]["w8_matmul"],
-                "moe_ffn": moe["launches"]["moe_ffn"]}
+                "moe_ffn": moe["launches"]["moe_ffn"],
+                "rglru_scan": hybrid["launches"]["rglru_scan"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
@@ -2692,7 +2943,7 @@ def main(argv=None) -> int:
     emit({"phase": "breaker", "engines": len(breakers), **breaker})
     assert not any(breaker.values()), breaker
     assert set(kernels) == set(REPLACES) | set(FUSIONS) | {
-        "hash_join_packed", "flash_attention_window"}, sorted(kernels)
+        "hash_join_packed", "flash_attention_window", "flash_attention_d256"}, sorted(kernels)
     assert len(REPLACES) == 11
     assert all(launches[name] > 0 for name in (*REPLACES, *FUSIONS)), launches
     emit({"phase": "done", "seconds": time.perf_counter() - started})

@@ -4,10 +4,12 @@
 ``ARCH_NAMES`` are copied unchanged.  Of the ten architectures the port
 serves the ones it has modules for: the dense attention-only ``qwen3-8b``,
 ``gemma3-27b`` and the two with QKV bias, ``qwen1.5-110b`` and
-``internlm2-20b``, and the two MoE decoders, ``qwen3-moe-235b-a22b`` and
-``llama4-maverick-400b-a17b``.  ``get_config`` / ``get_smoke_config`` of
-another name raise ``NotImplementedError`` naming ROADMAP queue 1 item 8
-(the rest of the LM stack: SSD, RG-LRU, M-RoPE and enc-dec blocks).
+``internlm2-20b``, the two MoE decoders, ``qwen3-moe-235b-a22b`` and
+``llama4-maverick-400b-a17b``, the attention-free ``mamba2-1.3b`` (SSD) and
+the hybrid ``recurrentgemma-9b`` (RG-LRU + local attention).
+``get_config`` / ``get_smoke_config`` of another name raise
+``NotImplementedError`` naming ROADMAP queue 1 item 8 (the rest of the LM
+stack: M-RoPE and enc-dec blocks).
 """
 
 from __future__ import annotations
@@ -184,6 +186,8 @@ _MODULES = {
     "gemma3-27b": "gemma3_27b",
     "llama4-maverick-400b-a17b": "llama4_maverick",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -9,6 +9,8 @@
 ``rme_join``       — the device hash-join build and probe
 ``flash_attention`` — the GQA flash-attention forward of the LM stack
 ``w8_matmul``      — the int8-weight decode matmul of int8 serving
+``moe_ffn``        — the MoE block's expert FFN at a decode step's size
+``rglru_scan``     — the RG-LRU linear recurrence of the Griffin prefill
 ``ops``            — the engine's import surface
 ``_cuda``          — builds, loads and launches ``csrc/*.cu``
 """

@@ -1,6 +1,6 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
 ``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``,
-``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``).
+``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``, ``csrc/rm_rglru.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -16,10 +16,11 @@ height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
 and raises if the launch reports a CUDA error.  The hash-join probe, the
 BSL / PCK projection revisions, the compacting selection, the GQA
-flash-attention forward, the int8-weight decode matmul and the MoE expert
-FFN have their own parameter blocks and launchers (:func:`run_hash_join`,
-:func:`run_columns`, :func:`run_select`, :func:`run_flash`, :func:`run_w8`,
-:func:`run_moe`) under the same rules.
+flash-attention forward, the int8-weight decode matmul, the MoE expert
+FFN and the RG-LRU scan have their own parameter blocks and launchers
+(:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
+:func:`run_flash`, :func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`)
+under the same rules.
 ``LAUNCHES`` counts the launches each wrapper makes, and nothing else: a
 call inside a CUDA graph's capture records its kernel without launching it
 and counts nothing, and the graph's replays launch it without the wrapper
@@ -33,7 +34,8 @@ inside its clusters), on the CUDA cores one product, which is two kernels
 when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
 ``W8_PRODUCTS`` counts the products those launches and captures took;
 ``moe_ffn`` one for each launch of ``rm_moe_ffn_kernel``, two an expert FFN
-(the gate/up stage, then the down stage).
+(the gate/up stage, then the down stage); ``rglru_scan`` one for each
+launch of ``rm_rglru_scan_kernel``.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
-                          "select_compact", "flash_attention", "w8_matmul", "moe_ffn")
+                          "select_compact", "flash_attention", "w8_matmul", "moe_ffn",
+                          "rglru_scan")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
@@ -85,6 +88,8 @@ W8_MAX_CLUSTER = 8  # ranks of a tensor-core cluster along K (kTcMaxCluster)
 W8_TC_MAX_CHUNK = 8192  # K rows a tensor-core rank at most (kTcMaxChunk): the staged x
 MOE_ROWS = (4, 8, 16)  # the rows rm_moe_ffn_kernel instantiates (MoeParams::rows)
 MOE_MAX_ROWS = MOE_ROWS[-1]  # rows of an expert's buffer (cap) the kernel takes
+RGLRU_THREADS = 128  # lanes a block of rm_rglru_scan_kernel (kRglruThreads)
+RGLRU_MAX_BLOCKS = MAX_GRID_BLOCKS  # its grid at most: a grid-stride loop covers the rest
 
 # must match rm_common.cuh
 THREADS = 256
@@ -172,6 +177,11 @@ class _MoeParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("x", "count", "w0", "w1", "y")] + [
         (name, ctypes.c_int32) for name in (
             "experts", "cap", "K", "N", "rows", "dtype", "gated", "pad_")]
+
+
+class _RglruParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("a", "x", "h")] + [
+        (name, ctypes.c_int32) for name in ("batch", "seq", "width", "blocks")]
 
 
 class _FlashParams(ctypes.Structure):
@@ -430,11 +440,13 @@ def load() -> ctypes.CDLL:
     lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
     lib.rm_w8_matmul.argtypes = [ctypes.POINTER(_W8Params), ctypes.c_void_p]
     lib.rm_moe_ffn.argtypes = [ctypes.POINTER(_MoeParams), ctypes.c_void_p]
+    lib.rm_rglru_scan.argtypes = [ctypes.POINTER(_RglruParams), ctypes.c_void_p]
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_flash_attention, lib.rm_flash_params_size,
                lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init,
-               lib.rm_moe_ffn, lib.rm_moe_params_size):
+               lib.rm_moe_ffn, lib.rm_moe_params_size, lib.rm_rglru_scan,
+               lib.rm_rglru_params_size):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
@@ -442,7 +454,8 @@ def load() -> ctypes.CDLL:
                            (lib.rm_select_params_size(), _SelectParams),
                            (lib.rm_flash_params_size(), _FlashParams),
                            (lib.rm_w8_params_size(), _W8Params),
-                           (lib.rm_moe_params_size(), _MoeParams)):
+                           (lib.rm_moe_params_size(), _MoeParams),
+                           (lib.rm_rglru_params_size(), _RglruParams)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
@@ -1024,3 +1037,37 @@ def run_moe(x: torch.Tensor, count: torch.Tensor, w0: torch.Tensor,
         _check(lib, lib.rm_moe_ffn(ctypes.byref(params), stream), "moe_ffn launch")
     _launched("moe_ffn")
     return y
+
+
+def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Launch the RG-LRU recurrence ``h[:, t] = a[:, t] * h[:, t - 1] + x[:, t]``
+    from ``h[:, -1] = 0`` over ``a`` and ``x (B, S, W)``: float32, contiguous,
+    one shape, on one card.  Returns a new ``(B, S, W)`` float32 tensor, each
+    step's multiply and add rounded apart (bit-equal to the sequential
+    float32 loop); enqueues on the current stream without synchronising (a
+    CUDA graph can capture it)."""
+    for name, t in (("a", a), ("x", x)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.dim() != 3 or a.shape != x.shape:
+        raise ValueError(f"want a and x of one shape (B, S, W), got {tuple(a.shape)} and "
+                         f"{tuple(x.shape)}")
+    if a.device != x.device:
+        raise ValueError(f"a on {a.device} but x on {x.device}")
+    b, s, w = a.shape
+    if min(b, s, w) < 1 or max(b, s, w) >= 2**31:
+        raise ValueError(f"B, S and W must be in [1, 2^31), got {tuple(a.shape)}")
+    h = torch.empty_like(a)
+    blocks = min(-(-b * w // RGLRU_THREADS), RGLRU_MAX_BLOCKS)
+    params = _RglruParams(a=a.data_ptr(), x=x.data_ptr(), h=h.data_ptr(), batch=b, seq=s,
+                          width=w, blocks=blocks)
+    lib = load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _check(lib, lib.rm_rglru_scan(ctypes.byref(params), stream), "rglru_scan launch")
+    _launched("rglru_scan")
+    return h

@@ -5,9 +5,11 @@
 
 Runs on the card unless ``--device cpu`` is given; without a card the
 default raises.  ``--arch`` is any architecture the port has: the dense
-decoders and the MoE ones (``qwen3-moe-235b-a22b``,
+decoders, the MoE ones (``qwen3-moe-235b-a22b``,
 ``llama4-maverick-400b-a17b``; on the card a decode step's expert FFN runs
-the MoE kernel).  Weights and prompts are drawn from ``--seed``.
+the MoE kernel), the SSM ``mamba2-1.3b`` and the hybrid
+``recurrentgemma-9b`` (on the card a prefill's RG-LRU recurrence runs the
+scan kernel).  Weights and prompts are drawn from ``--seed``.
 ``--int8`` serves with ``quantize_for_serving``'s int8 matmul weights (on
 the card a decode step's products run the W8 kernel; MoE experts stay
 bf16).  The rate is printed beside the

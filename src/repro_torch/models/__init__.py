@@ -1,9 +1,11 @@
-"""The LM stack of the port: the dense and MoE decoders' serving path on PyTorch.
+"""The LM stack of the port: the decoders' serving path on PyTorch.
 
-``layers.py`` holds the dense and MoE layers (norms, RoPE, GQA attention
-with the hand-written flash kernel on the card, FFNs, the MoE block with the
-hand-written expert-FFN kernel on the card), ``lm.py`` the decoder-only LM
-(``attn`` / ``local`` / ``moe`` block kinds), ``convert.py`` carries the reference
+``layers.py`` holds the layers (norms, RoPE, GQA attention with the
+hand-written flash kernel on the card, FFNs, the MoE block with the
+hand-written expert-FFN kernel on the card, the causal conv, the Mamba-2
+SSD mixer, the RG-LRU mixer with the hand-written scan kernel on the card),
+``lm.py`` the decoder-only LM (``attn`` / ``local`` / ``moe`` / ``ssd`` /
+``rglru`` block kinds), ``convert.py`` carries the reference
 package's weights across, and ``registry.py`` builds a model from a config.
 """
 

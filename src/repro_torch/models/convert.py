@@ -9,10 +9,19 @@ them, and ``token_embedding``, ``final_norm/scale`` and ``lm_head`` keep
 their names.  An MoE layer's leaves (``moe/router``, ``moe/expert_gate``,
 ``moe/expert_up``, ``moe/expert_down``: stacked ``(n_units, E, d, f)``)
 unstack on the first axis like the others; a pattern of several kinds
-(llama4's ``("attn", "moe")``) puts unit ``u``'s ``b1`` at layer ``2u + 1``.  A leaf the port does not use, a missing one, or one of the
-wrong shape raises.  The values stay float32: ``load_state_dict`` casts the
-matmul weights to the model's compute dtype, as the reference casts them at
-use.  Nothing here imports JAX: callers hand over numpy.
+(llama4's ``("attn", "moe")``, recurrentgemma's ``("rglru", "rglru",
+"local")`` × 12 and its ``("rglru", "rglru")`` tail at layers 36 and 37)
+puts unit ``u``'s ``b{i}`` at layer ``u * len(pattern) + i``.  The
+recurrent mixers' leaves (``mixer/w_zx``, ``mixer/conv_kernel``,
+``mixer/a_log``, … of an ``ssd`` layer, which has no ``ln2`` and no FFN;
+``mixer/w_branch``, ``mixer/w_a``, ``mixer/lambda_``, … of an ``rglru``
+layer) map by the same names.  A leaf the port does not use, a missing one,
+or one of the wrong shape raises.  The values stay float32:
+``load_state_dict`` casts the matmul weights to the model's compute dtype,
+as the reference casts them at use, and keeps float32 the leaves the model
+holds in float32 (norm scales, ``a_log``, ``dt_bias``, ``d_skip``, ``w_a``,
+``b_a``, ``w_x``, ``b_x``, ``lambda_``).  Nothing here imports JAX: callers
+hand over numpy.
 
 A tree that ``repro``'s ``quantize_for_serving`` made holds an int8 record
 ``{"q": int8 (in, out), "s": bf16 (1, out)}`` in place of each quantized

@@ -1,4 +1,4 @@
-"""The dense and MoE layers of ``repro.models.layers`` on PyTorch.
+"""The layers of ``repro.models.layers`` on PyTorch.
 
 Blocks: RMSNorm, RoPE, GQA attention (the blockwise online-softmax form on
 the CPU, the hand-written flash kernel on the card, cached attention for
@@ -7,15 +7,22 @@ SwiGLU / GeGLU / vanilla FFNs and the token-choice top-k MoE block with its
 sort-based, capacity-bounded dispatch (its expert FFN at a decode step's
 size on the hand-written kernel of ``kernels/moe_ffn.py``), plus the int8
 serving weights (:class:`QuantizedWeight`, :func:`quantize_weight`,
-:func:`quantize_for_serving`).  Mamba-2 SSD, RG-LRU and M-RoPE raise
-``NotImplementedError`` naming their ROADMAP item.
+:func:`quantize_for_serving`), the causal depthwise conv, the Mamba-2 SSD
+mixer (the chunked form for a prefill, one step for decode) and the Griffin
+RG-LRU mixer (its prefill recurrence on the hand-written scan kernel of
+``kernels/rglru_scan.py``).  M-RoPE raises ``NotImplementedError`` naming
+its ROADMAP item.
 
 Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
-:class:`Attention`, :class:`MLP`, :class:`MoE`) whose attribute names are
-the reference's parameter-tree keys, so a layer's ``state_dict`` names are
-the reference's paths.  Matmul weights are stored in the compute dtype and norm scales in
-float32 — the numbers the reference gets from its float32 master copy cast
-at use.  Weights never require grad: this slice serves only.
+:class:`Attention`, :class:`MLP`, :class:`MoE`, :class:`SSD`,
+:class:`RGLRU`) whose attribute names are the reference's parameter-tree
+keys, so a layer's ``state_dict`` names are the reference's paths.  Matmul
+weights are stored in the compute dtype; norm scales, the SSD's ``a_log``,
+``dt_bias`` and ``d_skip``, and the RG-LRU's gates (``w_a``, ``b_a``,
+``w_x``, ``b_x``) and ``lambda_`` in float32 — the numbers the reference
+gets from its float32 master copy cast at use.  A recurrent decode step
+writes its state in place, as attention writes its KV cache.  Weights never
+require grad: this slice serves only.
 
 Every matmul against a weight goes through :func:`linear`: a plain
 ``x @ cast(w, dt)``, except for an int8 weight with at most
@@ -42,6 +49,7 @@ from torch import nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import MAX_ROWS as MOE_MAX_ROWS
 from repro_torch.kernels.moe_ffn import expert_ffn_dense, moe_ffn
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul, w8_matmul_group
 
 F32 = torch.float32
@@ -135,7 +143,8 @@ def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
     return QuantizedWeight(q, s.to(torch.bfloat16))
 
 
-# RG-LRU gate matrices (w_a, w_x) stay bf16: they parameterize decay rates,
+# RG-LRU gate matrices (w_a, w_x) are not quantized (the reference keeps them
+# bf16; here float32 weights of bf16 values): they parameterize decay rates,
 # where int8 grid error compounds over thousands of recurrence steps
 _QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
                 "w_out", "w_branch", "w_zx")
@@ -652,3 +661,360 @@ def moe_aux_loss(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     frac = F.one_hot(top1, spec.n_experts).float().mean(dim=0)
     imp = probs.mean(dim=0)
     return spec.n_experts * torch.sum(frac * imp)
+
+
+# --------------------------------------------------------- depthwise conv
+def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                  state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise conv. x (B, S, C), kernel (W, C). Returns (y,
+    new_state), ``new_state`` the last W-1 inputs — a new tensor, which a
+    decode copies into its cache (:func:`_store`).
+
+    W shifted adds, as the reference.  ``state`` (B, W-1, C) is the last
+    W-1 inputs for streaming decode; ``torch.cat`` promotes ``state`` and
+    ``x`` to one dtype as ``jnp.concatenate`` does."""
+    w = kernel.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], w - 1, x.shape[2]))
+    ext = torch.cat([state, x], dim=1)  # (B, S+W-1, C)
+    s = x.shape[1]
+    y = ext[:, 0:s] * cast(kernel[0], x.dtype)
+    for i in range(1, w):
+        y = y + ext[:, i:i + s] * cast(kernel[i], x.dtype)
+    return y, ext[:, -(w - 1):]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns x
+    itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def check_state(state: dict, dtype: torch.dtype) -> None:
+    """A recurrent state a decode at compute ``dtype`` can write in place:
+    its ``conv`` must hold what the step's concatenation gives (the
+    promotion of its own dtype and ``dtype``: a bf16 ``conv`` at float32
+    compute would need a new float32 array, which the reference returns and
+    an in-place step cannot), and ``ssm`` / ``h`` must be float32.  A host
+    check of dtypes alone (safe inside a CUDA graph's capture)."""
+    conv = state["conv"]
+    if torch.promote_types(conv.dtype, dtype) != conv.dtype:
+        raise ValueError(
+            f"the conv state is {conv.dtype} but a {dtype} decode step writes "
+            f"{torch.promote_types(conv.dtype, dtype)} into it: cast the state first "
+            f"(a prefill returns it in the compute dtype)")
+    for name in ("ssm", "h"):
+        if name in state and state[name].dtype != F32:
+            raise ValueError(f"the {name} state must be float32, got {state[name].dtype}")
+
+
+# ---------------------------------------------------------------- Mamba-2
+@dataclasses.dataclass(frozen=True)
+class SSDSpec:
+    d_model: int
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    n_groups: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+class SSD(nn.Module):
+    """One Mamba-2 mixer's weights, the reference's keys: ``w_zx`` (the fused
+    input projection to ``[z, x, B, C, dt]``), ``conv_kernel``, ``a_log``,
+    ``dt_bias``, ``d_skip``, ``norm.scale`` and ``w_out``.  ``a_log``,
+    ``dt_bias`` and ``d_skip`` stay float32 at every compute dtype (the
+    reference reads them from its float32 master copy)."""
+
+    def __init__(self, spec: SSDSpec, dtype: torch.dtype, device=None):
+        super().__init__()
+        if spec.n_groups != 1:
+            raise NotImplementedError("SSD is implemented for n_groups=1 (mamba2 default)")
+        d, di, n, h = spec.d_model, spec.d_inner, spec.d_state, spec.n_heads
+        empty = dict(dtype=dtype, device=device)
+        self.w_zx = _weight(torch.empty((d, 2 * di + 2 * n + h), **empty))
+        self.conv_kernel = _weight(torch.empty((spec.conv_width, spec.conv_channels), **empty))
+        self.a_log = _weight(torch.empty(h, dtype=F32, device=device))
+        self.dt_bias = _weight(torch.empty(h, dtype=F32, device=device))
+        self.d_skip = _weight(torch.empty(h, dtype=F32, device=device))
+        self.norm = RMSNorm(di, device)
+        self.w_out = _weight(torch.empty((di, d), **empty))
+
+
+@torch.no_grad()
+def init_ssd(gen: torch.Generator, params: SSD) -> SSD:
+    """Draw a Mamba-2 mixer's weights in place at the reference's scales
+    (``w_zx`` and ``w_out`` by fan-in, ``conv_kernel`` by its channels) and
+    set its constants: ``a_log = log(linspace(1, 16, H))``, ``dt_bias =
+    log(expm1(1e-2))`` (softplus⁻¹ of 0.01), ``d_skip = 1``."""
+    for w, scale in ((params.w_zx, params.w_zx.shape[0] ** -0.5),
+                     (params.conv_kernel, params.conv_kernel.shape[1] ** -0.5),
+                     (params.w_out, params.w_out.shape[0] ** -0.5)):
+        w.copy_(normal(gen, w.shape, scale, w.dtype, w.device))
+    h = params.a_log.shape[0]
+    params.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, h, dtype=F32)))
+    params.dt_bias.copy_(torch.log(torch.expm1(torch.full((h,), 1e-2, dtype=F32))))
+    params.d_skip.fill_(1.0)
+    params.norm.scale.zero_()
+    return params
+
+
+def _ssd_split(params: SSD, spec: SSDSpec, x: torch.Tensor):
+    """Input projection; returns z, xbc (the conv's channels: x, B, C), dt."""
+    di, n, h = spec.d_inner, spec.d_state, spec.n_heads
+    zxbcdt = linear(x, params.w_zx)
+    return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., -h:]
+
+
+def _ssd_post(params: SSD, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), params.norm.scale)
+    return linear(y, params.w_out)
+
+
+def ssd_block(params: SSD, spec: SSDSpec, x: torch.Tensor, return_state: bool = False):
+    """Mamba-2 SSD, the reference's chunked "state-space duality" form.
+
+    Within a chunk the recurrence is a masked contraction (batched matmuls,
+    laid out ``(B, nc, H, Q, K)`` so the mask is one float32 tensor, built
+    in place); across chunks a loop over the ``nc`` chunks carries the
+    ``(B, H, P, N)`` state.  A sequence that is not a chunk multiple is
+    padded, the padded steps frozen with ``dt = 0``, and the conv state is
+    the last W-1 *valid* inputs, as in the reference."""
+    b, s, _ = x.shape
+    di, n, h, p = spec.d_inner, spec.d_state, spec.n_heads, spec.head_dim
+    q = min(spec.chunk, s)
+    pad = (-s) % q
+    s_real = s
+    if pad:  # pad to a chunk multiple; padded steps are frozen via dt=0 below
+        x = F.pad(x, (0, 0, 0, pad))
+        s = s + pad
+    nc = s // q
+
+    z, xbc, dt = _ssd_split(params, spec, x)
+    xbc_pre = F.silu(xbc)
+    xbc, conv_state = causal_conv1d(xbc_pre, params.conv_kernel)
+    if pad and return_state:  # conv state = last W-1 *valid* inputs
+        w = params.conv_kernel.shape[0]
+        ext = torch.cat([xbc_pre.new_zeros((b, w - 1, xbc_pre.shape[2])),
+                         xbc_pre[:, :s_real]], dim=1)
+        conv_state = ext[:, -(w - 1):]
+    xh = xbc[..., :di]
+    bm = xbc[..., di:di + n]  # (B, S, N), single group
+    cm = xbc[..., di + n:]  # (B, S, N)
+
+    dt = softplus(dt.float() + params.dt_bias)  # (B, S, H)
+    if pad:  # dt=0 on padding: decay=1 and zero input — state passes through
+        dt = dt * (torch.arange(s, device=x.device) < s_real).to(F32)[None, :, None]
+    a = -torch.exp(params.a_log)  # (H,)
+    log_decay = dt * a  # (B, S, H) = log a_t (negative)
+
+    xh = xh.reshape(b, s, h, p)
+    xdt = xh.float() * dt[..., None]  # dt-weighted input
+    xc = xdt.reshape(b, nc, q, h, p)
+    bc = bm.reshape(b, nc, q, n).float()
+    cc = cm.reshape(b, nc, q, n).float()
+    cum = torch.cumsum(log_decay.reshape(b, nc, q, h), dim=2)  # (B, nc, Q, H) inclusive
+    total = cum[:, :, -1]  # (B, nc, H)
+
+    # ---- intra-chunk: M[h, q, k] = (C_q . B_k) * exp(cum_q - cum_k) * causal
+    gl = cc @ bc.transpose(-1, -2)  # (B, nc, Q, K)
+    cum_h = cum.permute(0, 1, 3, 2)  # (B, nc, H, Q)
+    m = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, Q, K)
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    m.masked_fill_(~causal, float("-inf")).exp_().mul_(gl[:, :, None])
+    y_intra = m @ xc.permute(0, 1, 3, 2, 4)  # (B, nc, H, Q, P)
+    del m, gl
+
+    # ---- chunk states: S_c = sum_k B_k ⊗ x_k * exp(total - cum_k)
+    wk = torch.exp(total[:, :, None, :] - cum)  # (B, nc, Q, H)
+    xw = (xc * wk[..., None]).permute(0, 1, 3, 4, 2)  # (B, nc, H, P, Q)
+    states = xw @ bc[:, :, None]  # (B, nc, H, P, N)
+
+    # ---- inter-chunk scan (nc steps, tiny state)
+    h_prev = torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+    decay = torch.exp(total)  # (B, nc, H)
+    h_prevs = []  # the state entering each chunk
+    for c in range(nc):
+        h_prevs.append(h_prev)
+        h_prev = h_prev * decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)  # (B, nc, H, P, N)
+
+    # ---- inter-chunk contribution: Y_inter[q] = (C_q . h_prev) * exp(cum_q)
+    y_inter = (cc[:, :, None] @ h_prevs.transpose(-1, -2))  # (B, nc, H, Q, P)
+    y_inter = y_inter * torch.exp(cum_h)[..., None]
+
+    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
+    y = y + xh.float() * params.d_skip[None, None, :, None]
+    y = y.reshape(b, s, di).to(x.dtype)
+    if pad:
+        y, z = y[:, :s_real], z[:, :s_real]
+    out = _ssd_post(params, y, z)
+    if return_state:
+        return out, {"conv": conv_state.contiguous(), "ssm": h_prev}
+    return out
+
+
+def init_ssd_state(spec: SSDSpec, batch: int, device=None) -> dict:
+    """The reference's zero state: ``conv`` bf16 at every compute dtype (as
+    the reference's), ``ssm`` float32."""
+    return {"conv": torch.zeros((batch, spec.conv_width - 1, spec.conv_channels),
+                                dtype=torch.bfloat16, device=device),
+            "ssm": torch.zeros((batch, spec.n_heads, spec.head_dim, spec.d_state),
+                               dtype=F32, device=device)}
+
+
+def ssd_decode(params: SSD, spec: SSDSpec, x: torch.Tensor, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """Single-token SSD step: h = a*h + B ⊗ (dt*x); y = C.h + D*x.  The new
+    conv and SSM states are written into ``state``'s tensors in place (a
+    CUDA graph keeps their addresses) and the same dict is returned; a state
+    the step cannot write in place raises (:func:`check_state`)."""
+    check_state(state, x.dtype)
+    b = x.shape[0]
+    di, n, h, p = spec.d_inner, spec.d_state, spec.n_heads, spec.head_dim
+    z, xbc, dt = _ssd_split(params, spec, x)
+    xbc, conv_state = causal_conv1d(F.silu(xbc), params.conv_kernel, state["conv"])
+    xh = xbc[:, 0, :di].reshape(b, h, p).float()
+    bm = xbc[:, 0, di:di + n].float()  # (B, N), single group
+    cm = xbc[:, 0, di + n:].float()  # (B, N)
+    dt = softplus(dt[:, 0].float() + params.dt_bias)  # (B, H)
+    a = torch.exp(dt * -torch.exp(params.a_log))  # (B, H)
+    xdt = xh * dt[..., None]  # (B, H, P)
+    ssm = state["ssm"]
+    ssm.mul_(a[..., None, None]).add_(xdt[..., None] * bm[:, None, None, :])
+    y = (ssm @ cm[:, None, :, None])[..., 0]  # (B, H, P)
+    y = y + xh * params.d_skip[None, :, None]
+    y = y.reshape(b, 1, di).to(x.dtype)
+    state["conv"].copy_(conv_state)
+    return _ssd_post(params, y, z), state
+
+
+# ----------------------------------------------------------------- RG-LRU
+@dataclasses.dataclass(frozen=True)
+class RGLRUSpec:
+    d_model: int
+    lru_width: int
+    conv_width: int = 4
+    c: float = 8.0  # the paper's fixed temperature
+
+
+class Scan(nn.Module):
+    """The RG-LRU recurrence of a layer: ``(a, x) -> h``, by
+    :func:`~repro_torch.kernels.rglru_scan.rglru_scan`.  A module of its own,
+    with no parameters, so a forward hook can read what a layer hands the
+    kernel."""
+
+    def forward(self, a, x):
+        return rglru_scan(a, x)
+
+
+class RGLRU(nn.Module):
+    """One Griffin recurrent mixer's weights, the reference's keys:
+    ``w_branch`` ([gate branch, recurrent branch]), ``conv_kernel``, ``w_a``,
+    ``b_a`` (the recurrence gate), ``w_x``, ``b_x`` (the input gate),
+    ``lambda_`` and ``w_out``.  The gate weights and biases and ``lambda_``
+    stay float32 at every compute dtype: the reference gates in float32 from
+    its float32 master copy (``_rglru_gates`` casts ``w_a`` / ``w_x`` to
+    float32), so no step makes a float32 copy of them."""
+
+    def __init__(self, spec: RGLRUSpec, dtype: torch.dtype, device=None):
+        super().__init__()
+        d, w = spec.d_model, spec.lru_width
+        empty = dict(dtype=dtype, device=device)
+        f32 = dict(dtype=F32, device=device)
+        self.w_branch = _weight(torch.empty((d, 2 * w), **empty))
+        self.conv_kernel = _weight(torch.empty((spec.conv_width, w), **empty))
+        self.w_a = _weight(torch.empty((w, w), **f32))
+        self.b_a = _weight(torch.empty(w, **f32))
+        self.w_x = _weight(torch.empty((w, w), **f32))
+        self.b_x = _weight(torch.empty(w, **f32))
+        self.lambda_ = _weight(torch.empty(w, **f32))
+        self.w_out = _weight(torch.empty((w, d), **empty))
+        self.scan = Scan()
+
+
+@torch.no_grad()
+def init_rglru(gen: torch.Generator, params: RGLRU, c: float = 8.0) -> RGLRU:
+    """Draw a recurrent mixer's weights in place at the reference's scales
+    (``w_branch``, ``w_a``, ``w_x``, ``w_out`` by fan-in, ``conv_kernel`` by
+    the width), zero biases, and ``lambda_`` as the reference draws it:
+    ``u ~ U(0.9², 0.999²)``, ``Λ = log(u^(1/c) / (1 - u^(1/c)))``, so that
+    ``sigmoid(Λ)^c = u`` (the reference's comment says [0.9, 0.999]; its
+    draw gives [0.81, 0.998])."""
+    w = params.lambda_.shape[0]
+    u = torch.rand((w,), generator=gen, dtype=F32, device=params.lambda_.device)
+    u = u * (0.999**2 - 0.9**2) + 0.9**2
+    root = u ** (1.0 / c)
+    params.lambda_.copy_(torch.log(root / (1 - root)))
+    for t, scale in ((params.w_branch, params.w_branch.shape[0] ** -0.5),
+                     (params.conv_kernel, w ** -0.5), (params.w_a, w ** -0.5),
+                     (params.w_x, w ** -0.5), (params.w_out, w ** -0.5)):
+        t.copy_(normal(gen, t.shape, scale, t.dtype, t.device))
+    params.b_a.zero_()
+    params.b_x.zero_()
+    return params
+
+
+def _rglru_gates(params: RGLRU, spec: RGLRUSpec, xr: torch.Tensor):
+    """Per-step gate math shared by scan and decode. xr (…, W) float32."""
+    r = torch.sigmoid(xr @ cast(params.w_a, F32) + cast(params.b_a, F32))
+    i = torch.sigmoid(xr @ cast(params.w_x, F32) + cast(params.b_x, F32))
+    log_a = -spec.c * r * softplus(params.lambda_)  # (…, W)
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return a, mult * i * xr
+
+
+def rglru_block(params: RGLRU, spec: RGLRUSpec, x: torch.Tensor, return_state: bool = False):
+    """Griffin recurrent block: conv → RG-LRU → gate-mix.  The recurrence
+    runs :func:`rglru_scan` (on the card the hand-written scan kernel)."""
+    dt = x.dtype
+    branches = linear(x, params.w_branch)
+    gate = _gelu_tanh(branches[..., :spec.lru_width])
+    xr, conv_state = causal_conv1d(branches[..., spec.lru_width:], params.conv_kernel)
+    xr = xr.float()
+    a, bterm = _rglru_gates(params, spec, xr)  # (B, S, W) each
+    h = params.scan(a.contiguous(), bterm.contiguous())
+    y = h.to(dt) * gate
+    out = linear(y, params.w_out)
+    if return_state:
+        return out, {"conv": conv_state.contiguous(), "h": h[:, -1].contiguous()}
+    return out
+
+
+def init_rglru_state(spec: RGLRUSpec, batch: int, device=None) -> dict:
+    """The reference's zero state: ``conv`` bf16 at every compute dtype, ``h``
+    float32."""
+    return {"conv": torch.zeros((batch, spec.conv_width - 1, spec.lru_width),
+                                dtype=torch.bfloat16, device=device),
+            "h": torch.zeros((batch, spec.lru_width), dtype=F32, device=device)}
+
+
+def rglru_decode(params: RGLRU, spec: RGLRUSpec, x: torch.Tensor, state: dict
+                 ) -> tuple[torch.Tensor, dict]:
+    """One recurrent step; the new conv state and ``h`` are written into
+    ``state``'s tensors in place and the same dict is returned (a state the
+    step cannot write in place raises: :func:`check_state`)."""
+    check_state(state, x.dtype)
+    dt = x.dtype
+    branches = linear(x, params.w_branch)
+    gate = _gelu_tanh(branches[..., :spec.lru_width])
+    xr, conv_state = causal_conv1d(branches[..., spec.lru_width:], params.conv_kernel,
+                                   state["conv"])
+    a, bterm = _rglru_gates(params, spec, xr[:, 0].float())
+    h = state["h"].mul_(a).add_(bterm)
+    state["conv"].copy_(conv_state)
+    return linear(h[:, None, :].to(dt) * gate, params.w_out), state

@@ -12,10 +12,14 @@ Interface (the reference's, with the weights held by the module):
   decode_step(cache, tokens, pos) -> (logits, cache)  pos an int or a
                                                     0-d device tensor
 
-The block kinds ``attn``, ``local`` (the dense families) and ``moe`` (global
-attention with the MoE block in place of the FFN) are ported; ``ssd``,
-``rglru``, M-RoPE, precomputed input embeddings and the training loss raise
-``NotImplementedError`` naming their ROADMAP item.
+Every block kind of the reference is ported: ``attn``, ``local`` (the
+dense families), ``moe`` (global attention with the MoE block in place of
+the FFN), ``ssd`` (the Mamba-2 mixer, no FFN) and ``rglru`` (the Griffin
+recurrent mixer and an FFN).  An attention layer's cache is its KV cache; a
+recurrent layer's is its state (``conv`` and ``ssm`` or ``h``), written in
+place by a decode step as the KV caches are.  M-RoPE, precomputed input
+embeddings and the training loss raise ``NotImplementedError`` naming their
+ROADMAP item.
 The default device is the card; without one the constructor raises unless
 the caller passes ``device="cpu"``.
 """
@@ -31,10 +35,7 @@ from repro_torch.kernels.common import resolve_device
 from . import layers as L
 
 ATTN_KINDS = ("attn", "local", "moe")
-NOT_PORTED = {
-    "ssd": "8.4 (Mamba-2 SSD)",
-    "rglru": "8.5 (RG-LRU)",
-}
+KINDS = ATTN_KINDS + ("ssd", "rglru")
 LOGIT_CHUNK = 32768  # vocab columns per float32 slice of lm_head in _logits
 
 
@@ -48,9 +49,7 @@ def check_config(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise _not_ported("the encoder-decoder family", "8.7 (enc-dec)")
     for kind in set(cfg.block_pattern):
-        if kind in NOT_PORTED:
-            raise _not_ported(f"block kind {kind!r}", NOT_PORTED[kind])
-        if kind not in ATTN_KINDS:
+        if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
         if kind == "moe" and not (cfg.n_experts > 0 and 0 < cfg.top_k <= cfg.n_experts):
             raise ValueError(f"a moe layer needs 0 < top_k <= n_experts, got top_k "
@@ -77,29 +76,74 @@ def moe_spec(cfg: ArchConfig) -> L.MoESpec:
                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
 
 
+def ssd_spec(cfg: ArchConfig) -> L.SSDSpec:
+    return L.SSDSpec(d_model=cfg.d_model, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                     expand=cfg.ssm_expand, conv_width=4, chunk=cfg.ssm_chunk)
+
+
+def rglru_spec(cfg: ArchConfig) -> L.RGLRUSpec:
+    return L.RGLRUSpec(d_model=cfg.d_model, lru_width=cfg.lru_width or cfg.d_model)
+
+
 def layer_kinds(cfg: ArchConfig) -> list[str]:
     """Every layer's kind, in the reference's order: the units, then the tail."""
     return list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
 
 
 class Block(nn.Module):
-    """One pre-norm residual layer: ``ln1``, ``mixer`` (attention), ``ln2``,
-    then ``mlp`` or, for a ``moe`` layer, ``moe`` — the reference's
-    per-layer parameter tree."""
+    """One pre-norm residual layer: ``ln1``, ``mixer`` (attention, the SSD
+    or the RG-LRU mixer by kind), then ``ln2`` and ``mlp`` or, for a ``moe``
+    layer, ``moe`` — the reference's per-layer parameter tree.  An ``ssd``
+    layer has no ``ln2`` and no FFN."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype: torch.dtype, device=None):
         super().__init__()
         self.kind = kind
         self.mlp_kind = cfg.mlp_kind
-        self.spec = attn_specs(cfg)[kind]
         self.ln1 = L.RMSNorm(cfg.d_model, device)
-        self.mixer = L.Attention(self.spec, dtype, device, chunk=cfg.attn_chunk)
+        if kind == "ssd":
+            self.spec = ssd_spec(cfg)
+            self.mixer = L.SSD(self.spec, dtype, device)
+            return  # no ln2 and no FFN
+        if kind == "rglru":
+            self.spec = rglru_spec(cfg)
+            self.mixer = L.RGLRU(self.spec, dtype, device)
+        else:
+            self.spec = attn_specs(cfg)[kind]
+            self.mixer = L.Attention(self.spec, dtype, device, chunk=cfg.attn_chunk)
         self.ln2 = L.RMSNorm(cfg.d_model, device)
         if kind == "moe":
             self.moe_spec = moe_spec(cfg)
             self.moe = L.MoE(self.moe_spec, dtype, device)
         else:
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+
+    def cache(self, batch: int, max_len: int, dtype: torch.dtype, device) -> dict:
+        """This layer's empty decode cache: the KV cache (compute dtype) of
+        an attention layer, the reference's zero state of a recurrent one."""
+        if self.kind == "ssd":
+            return L.init_ssd_state(self.spec, batch, device)
+        if self.kind == "rglru":
+            return L.init_rglru_state(self.spec, batch, device)
+        return L.init_attention_cache(self.spec, batch, max_len, dtype, device)
+
+    def mix_prefill(self, hn, positions, max_len: int):
+        """The mixer over the prompt: (its output, this layer's cache)."""
+        if self.kind == "ssd":
+            return L.ssd_block(self.mixer, self.spec, hn, return_state=True)
+        if self.kind == "rglru":
+            return L.rglru_block(self.mixer, self.spec, hn, return_state=True)
+        window = self.spec.window
+        cache_len = min(max_len, window) if window else max_len
+        return L.attention_prefill(self.mixer, self.spec, hn, positions, cache_len)
+
+    def mix_decode(self, hn, cache: dict, pos):
+        """The mixer's decode step; the cache is updated in place."""
+        if self.kind == "ssd":
+            return L.ssd_decode(self.mixer, self.spec, hn, cache)
+        if self.kind == "rglru":
+            return L.rglru_decode(self.mixer, self.spec, hn, cache)
+        return L.attention_decode(self.mixer, self.spec, hn, cache, pos)
 
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
         """The layer's FFN on the normed residual: the MoE block or the MLP."""
@@ -133,7 +177,8 @@ class DecoderLM(nn.Module):
     def init(self, seed: int) -> "DecoderLM":
         """Draw every weight from a ``torch.Generator`` on the model's device
         seeded with ``seed``, one tensor at a time (no float32 copy of the
-        whole model ever exists): the reference's scales, other numbers."""
+        whole model ever exists): the reference's scales and constants,
+        other random numbers."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
 
@@ -143,8 +188,14 @@ class DecoderLM(nn.Module):
         draw(self.token_embedding, 1.0)
         for layer in self.layers:
             layer.ln1.scale.zero_()
+            if layer.kind == "ssd":
+                L.init_ssd(gen, layer.mixer)
+                continue
+            if layer.kind == "rglru":
+                L.init_rglru(gen, layer.mixer, layer.spec.c)
+            else:
+                L.init_attention(gen, layer.mixer)
             layer.ln2.scale.zero_()
-            L.init_attention(gen, layer.mixer)
             if layer.kind == "moe":
                 L.init_moe(gen, layer.moe)
             else:
@@ -158,10 +209,14 @@ class DecoderLM(nn.Module):
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int) -> list[dict]:
-        """One ``{"k", "v"}`` cache per layer, (B, KH, S, Dh) in the compute
-        dtype: S = max_len, or the window for a ``local`` layer."""
-        return [L.init_attention_cache(layer.spec, batch, max_len,
-                                       self.compute_dtype, self.device)
+        """One cache per layer, of the layer's kind: ``{"k", "v"}`` (B, KH, S,
+        Dh) in the compute dtype for attention (S = max_len, or the window
+        for a ``local`` layer); the reference's zero state for a recurrent
+        layer, ``{"conv", "ssm"}`` (``ssd``) or ``{"conv", "h"}``
+        (``rglru``), its ``conv`` bf16 at every compute dtype.  At float32
+        compute a decode step refuses such a ``conv`` (it cannot widen it in
+        place); a prefill's cache holds it in the compute dtype."""
+        return [layer.cache(batch, max_len, self.compute_dtype, self.device)
                 for layer in self.layers]
 
     def _embed(self, tokens) -> torch.Tensor:
@@ -169,20 +224,18 @@ class DecoderLM(nn.Module):
         return self.token_embedding[tokens]
 
     def _prefill_layer(self, layer: Block, h, positions, max_len: int):
-        spec = layer.spec
-        cache_len = min(max_len, spec.window) if spec.window else max_len
-        hn = L.rms_norm(h, layer.ln1.scale)
-        mix, cache = L.attention_prefill(layer.mixer, spec, hn, positions, cache_len)
+        mix, cache = layer.mix_prefill(L.rms_norm(h, layer.ln1.scale), positions, max_len)
         h = h + mix
-        hn = L.rms_norm(h, layer.ln2.scale)
-        return h + layer.ffn(hn), cache
+        if layer.kind != "ssd":
+            h = h + layer.ffn(L.rms_norm(h, layer.ln2.scale))
+        return h, cache
 
     def _decode_layer(self, layer: Block, h, cache: dict, pos: torch.Tensor):
-        hn = L.rms_norm(h, layer.ln1.scale)
-        mix, cache = L.attention_decode(layer.mixer, layer.spec, hn, cache, pos)
+        mix, cache = layer.mix_decode(L.rms_norm(h, layer.ln1.scale), cache, pos)
         h = h + mix
-        hn = L.rms_norm(h, layer.ln2.scale)
-        return h + layer.ffn(hn), cache
+        if layer.kind != "ssd":
+            h = h + layer.ffn(L.rms_norm(h, layer.ln2.scale))
+        return h, cache
 
     def _logits(self, h_last: torch.Tensor) -> torch.Tensor:
         """(B, S, D) -> (B, V) float32 logits of the last position: compute-
@@ -198,7 +251,10 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, list[dict]]:
         """batch ``{"tokens": (B, S) ints}`` -> (next-token logits (B, V)
-        float32, the per-layer caches laid out for ``decode_step``)."""
+        float32, the per-layer caches laid out for ``decode_step``).  Each
+        layer's activations are released before the next layer runs (an SSD
+        layer's chunk mask is about 1 GB at mamba2-1.3b's width and 8 × 2,048
+        tokens)."""
         x = self._embed(batch["tokens"])
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
@@ -213,7 +269,8 @@ class DecoderLM(nn.Module):
     def decode_step(self, cache: list[dict], tokens, pos) -> tuple:
         """One decode step. tokens (B, 1) ints; pos the position, a 0-d
         integer tensor on the model's device (the reference's traced ``pos``)
-        or an int; the caches are updated in place and returned.  Nothing in
+        or an int; the caches (KV caches and recurrent states) are updated in
+        place and returned.  Nothing in
         the step reads a device value back to the host, so
         ``serve.engine.make_decode_step`` can capture it in a CUDA graph."""
         h = self._embed(tokens)

@@ -1,5 +1,6 @@
 """Batched LM serving: continuous decode over a fixed-capacity request batch
-— the port of ``repro.serve.engine``.
+— the port of ``repro.serve.engine``, for every decoder the port has
+(attention KV caches and recurrent states alike).
 
 ``make_decode_step`` is one cached decode step over the whole batch:
 (cache, tokens, pos) -> (logits, cache).  ``ServeSession`` wraps it with
@@ -28,6 +29,10 @@ import torch
 
 from repro_torch.kernels import _cuda
 
+# an attention cache's keys: a step writes its token's slot, and the same
+# step again writes the same values there, so a warm-up needs no undo
+KV_KEYS = ("k", "v")
+
 
 def make_prefill(model, max_len: int) -> Callable:
     def prefill(batch):
@@ -53,23 +58,26 @@ class GraphedDecodeStep:
     and replayed: the counterpart of ``jax.jit(make_decode_step(model))``.
 
     The first call adopts the cache it is handed as the graph's own (its
-    tensors are the addresses the graph writes), copies ``tokens`` and
-    ``pos`` into static device buffers, runs the step once eagerly on a side
-    stream (a warm-up: the cuBLAS handles and workspaces exist before the
-    capture) and captures it.  That warm-up writes the token's keys and
-    values into the cache at ``pos``; the replay that follows writes the
-    same values there again.  Every call then copies its ``tokens`` and
-    ``pos`` into the buffers, replays, and returns a copy of the logits and
-    the captured cache.
+    tensors are the addresses the graph writes: an attention layer's KV
+    cache, a recurrent layer's ``conv`` and ``ssm`` / ``h`` state), copies
+    ``tokens`` and ``pos`` into static device buffers, runs the step once
+    eagerly on a side stream (a warm-up: the cuBLAS handles and workspaces
+    exist before the capture) and captures it.  That warm-up writes the
+    token's keys and values into the KV cache at ``pos``, and the replay
+    that follows writes the same values there again; a recurrent state,
+    which a step advances in place, is put back as it was before the
+    warm-up, so the replay starts from the state the call was handed.
+    Every call then copies its ``tokens`` and ``pos`` into the buffers,
+    replays, and returns a copy of the logits and the captured cache.
 
-    A later call with another cache of the same shapes — a session's next
+    A later call with another cache of the same layout — a session's next
     admission, whose prefill made a new cache — copies that cache into the
-    captured one (a device copy, about 2.5 GB for qwen3-8b's 8 × 2,112
-    slots) rather than capturing again: a capture costs an eager step and a
-    capture pass on the host and holds a memory pool of its own, where the
-    copy is one pass over the cache on the device.  A cache of other shapes
-    raises.  A capture that fails raises (the step never falls back to
-    eager).
+    captured one, key by key (a device copy, about 2.5 GB for qwen3-8b's 8
+    × 2,112 slots) rather than capturing again: a capture costs an eager
+    step and a capture pass on the host and holds a memory pool of its own,
+    where the copy is one pass over the cache on the device.  A cache of
+    other keys, shapes or dtypes raises.  A capture that fails raises (the
+    step never falls back to eager).
 
     The graph also holds the addresses of the model's weights.  A model
     whose weights were replaced after the capture (``quantize_for_serving``
@@ -107,12 +115,18 @@ class GraphedDecodeStep:
         self.tokens = torch.as_tensor(tokens, device=device).clone()
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self._set_pos(pos)
+        # the recurrent states the warm-up advances, to put back after it
+        states = [{n: t.clone() for n, t in c.items() if n not in KV_KEYS} for c in cache]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             self.model.decode_step(cache, self.tokens, self.pos)
+            for c, saved in zip(cache, states):
+                for n, t in saved.items():
+                    c[n].copy_(t)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
+        del states
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = dict(_cuda.CAPTURED)
@@ -137,11 +151,15 @@ class GraphedDecodeStep:
             self.pos.fill_(int(pos))
 
     def _adopt(self, cache) -> None:
-        """Copy ``cache`` into the captured cache (same layers and shapes)."""
+        """Copy ``cache`` into the captured cache, key by key (the same
+        layers, keys, shapes and dtypes)."""
         if len(cache) != len(self.cache) or any(
-                mine[n].shape != new[n].shape or mine[n].dtype != new[n].dtype
-                for mine, new in zip(self.cache, cache) for n in mine):
-            raise ValueError("the decode step was captured over a cache of other shapes")
+                mine.keys() != new.keys() or any(
+                    mine[n].shape != new[n].shape or mine[n].dtype != new[n].dtype
+                    for n in mine)
+                for mine, new in zip(self.cache, cache)):
+            raise ValueError("the decode step was captured over a cache of other keys, "
+                             "shapes or dtypes")
         for mine, new in zip(self.cache, cache):
             for n in mine:
                 if mine[n] is not new[n]:

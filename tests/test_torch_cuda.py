@@ -707,6 +707,8 @@ FLASH_CASES = [
     (1, 260, 2, 1, 256, False, 100),  # D 256 (64-key tiles), bidirectional window
     (1, 256, 64, 4, 128, True, None),  # G = 16: qwen3-moe-235b's 64 / 4 heads
     (2, 200, 64, 4, 128, True, None),  # and over a ragged second tile
+    (2, 1024, 16, 1, 256, True, None),  # recurrentgemma-9b's local layers: MQA, D 256
+    (2, 1024, 16, 1, 256, True, 512),  # and a window inside the sequence
 ]
 # (rtol, atol): float32, the kernel and the plain version sum the same terms
 # in another order; bfloat16, one rounding step of the output (2^-7 of its
@@ -772,12 +774,15 @@ def test_flash_launch_count_and_refusals(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b",
-                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                                  "mamba2-1.3b", "recurrentgemma-9b"])
 def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
-    """A smoke decoder's prefill on the card launches the kernel once per
-    layer; at float32 its logits and caches match the CPU model's within
-    1e-4 (the kernel scales q in float32 where the CPU path scales it in the
-    compute type: the same number at float32 compute), then one decode."""
+    """A smoke decoder's prefill on the card launches the flash kernel once
+    per attention layer and the scan kernel once per RG-LRU layer; at
+    float32 its logits and every key of its caches (KV caches, recurrent
+    states) match the CPU model's within 1e-4 (the kernel scales q in
+    float32 where the CPU path scales it in the compute type: the same
+    number at float32 compute), then one decode."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -789,19 +794,25 @@ def test_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
     card = DecoderLM(cfg, device=dev, seed=None)
     card.load_state_dict(cpu.state_dict())
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 40)))
+    kinds = [layer.kind for layer in card.layers]
+    attention = sum(kind not in ("ssd", "rglru") for kind in kinds)
     _cuda.reset_launches()
     got, got_cache = card.prefill({"tokens": toks}, 48)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert _cuda.LAUNCHES["flash_attention"] == attention
+    assert _cuda.LAUNCHES["rglru_scan"] == kinds.count("rglru")
     want, want_cache = cpu.prefill({"tokens": toks}, 48)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for a, b in zip(got_cache, want_cache):
-        torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=1e-4, atol=1e-4)
+        assert a.keys() == b.keys()
+        for name in a:
+            torch.testing.assert_close(a[name].cpu(), b[name], rtol=1e-4, atol=1e-4)
     nxt = want.argmax(-1)[:, None]
     got, _ = card.decode_step(got_cache, nxt, 40)
     want, _ = cpu.decode_step(want_cache, nxt, 40)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
-    assert _cuda.LAUNCHES["flash_attention"] == cfg.n_layers  # decode: no kernel
+    assert _cuda.LAUNCHES["flash_attention"] == attention  # decode: no kernel
+    assert _cuda.LAUNCHES["rglru_scan"] == kinds.count("rglru")
 
 
 # ------------------------------------------- int8 serving: the W8 kernel
@@ -1294,6 +1305,106 @@ def test_moe_decode_step_raises_after_an_expert_weight_changes(dev):
     moe.expert_down = torch.nn.Parameter(moe.expert_down.detach().clone(), requires_grad=False)
     with pytest.raises(RuntimeError, match="weights changed"):
         step(cache, toks, 4)
+
+
+# --------------------------------------------------- the RG-LRU scan
+# (B, S, W): one step; W not a multiple of a warp; S not a multiple of the
+# kernel's 8-step groups; recurrentgemma-9b's prefill
+RGLRU_CASES = [(2, 1, 64), (2, 37, 100), (3, 300, 4096), (8, 2048, 4096)]
+
+
+def rglru_inputs(b, s, w, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed + b + s + w)
+    a = torch.rand((b, s, w), generator=g)
+    x = torch.randn((b, s, w), generator=g)
+    return a.to(dev), x.to(dev)
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_rglru_scan_matches_plain(dev, case):
+    """Bit-equal to the plain version's sequential float32 loop, one launch."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(*case, dev)
+    _cuda.reset_launches()
+    got = RS.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rglru_scan"] == 1
+    assert got.dtype == torch.float32 and got.shape == a.shape and got.is_contiguous()
+    assert torch.equal(got, RS.rglru_scan_torch(a, x))
+
+
+def test_rglru_scan_lanes_above_the_grid(dev, monkeypatch):
+    """More lanes than the grid has threads: the grid-stride loop covers
+    them, bit-equal as before."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    monkeypatch.setattr(_cuda, "RGLRU_MAX_BLOCKS", 3)
+    a, x = rglru_inputs(4, 50, 1000, dev)  # 4,000 lanes on 3 × 128 threads
+    assert torch.equal(RS.rglru_scan(a, x), RS.rglru_scan_torch(a, x))
+
+
+def test_rglru_scan_launch_count_and_refusals(dev):
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(2, 16, 64, dev)
+    _cuda.reset_launches()
+    for _ in range(3):
+        RS.rglru_scan(a, x)
+    assert _cuda.LAUNCHES["rglru_scan"] == 3
+    with pytest.raises(ValueError, match="float32"):
+        RS.rglru_scan(a.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        RS.rglru_scan(a.transpose(1, 2), x.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        RS.rglru_scan(a, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        RS.rglru_scan(a, x[:, :8].contiguous())
+    assert _cuda.LAUNCHES["rglru_scan"] == 3
+
+
+def test_rglru_scan_graph_replay_equals_eager(dev):
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(2, 100, 300, dev)
+    eager = RS.rglru_scan(a, x)
+    RS.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = RS.rglru_scan(a, x)
+    assert _cuda.LAUNCHES["rglru_scan"] == 0 and _cuda.CAPTURED["rglru_scan"] == 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_graph_replay_equals_eager_over_readmissions(dev, arch):
+    """A recurrent smoke's graphed decode step against the eager step: equal
+    tokens and bit-equal logits tick by tick across three admissions (the
+    second and third copy their prefill's states into the captured ones,
+    and the capture's warm-up puts the states back before the first
+    replay).  The scan kernel launches once per RG-LRU layer in each
+    prefill and never in a decode step."""
+    from repro_torch.serve.engine import GraphedDecodeStep
+
+    cfg, _, card = smoke_model(arch, "bfloat16", dev, int8=False)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, 33 + 2 * i).astype(np.int32) for i in range(5)]
+    eager_tokens, eager_logits, _ = serve_logged(card, prompts, eager=True)
+    _cuda.reset_launches()
+    tokens, logits, step = serve_logged(card, prompts, eager=False)
+    assert isinstance(step, GraphedDecodeStep) and step.graph is not None
+    assert tokens == eager_tokens
+    assert len(logits) == len(eager_logits) > 6
+    for a, b in zip(logits, eager_logits):
+        assert torch.equal(a, b)
+    rglru = sum(layer.kind == "rglru" for layer in card.layers)
+    assert _cuda.LAUNCHES["rglru_scan"] == 3 * rglru
+    assert step.captured["rglru_scan"] == 0 and step.replays == len(logits)
 
 
 # ------------------------------------------------------- sharded backend

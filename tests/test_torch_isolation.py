@@ -37,6 +37,8 @@ def test_port_modules_load_no_jax_and_no_reference_package():
     assert "repro_torch.core.engine" in mods and "repro_torch.kernels._cuda" in mods
     assert {"repro_torch.configs.base", "repro_torch.core.distributed",
             "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe_ffn",
+            "repro_torch.kernels.rglru_scan", "repro_torch.configs.mamba2_1_3b",
+            "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.models.layers", "repro_torch.models.lm",
             "repro_torch.models.convert", "repro_torch.models.registry",
             "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)

@@ -4,9 +4,12 @@ The reference's ``DecoderLM(cfg).init(PRNGKey(0))`` goes to numpy and,
 through ``params_from_reference``, into the port; both packages then serve
 the same tokens:
 
-* float32 compute: prefill logits and every layer's KV cache within 1e-4,
-  then six ``decode_step``s (fed the reference's greedy tokens) within 1e-4
-  — the two sum in other orders (einsum vs matmul, a loop vs ``lax.scan``);
+* float32 compute: prefill logits and every layer's cache (every key, in
+  the reference's dtype: the KV caches, and the recurrent layers' ``conv``
+  and ``ssm`` / ``h`` states) within 1e-4, then six ``decode_step``s (fed
+  the reference's greedy tokens) within 1e-4 — the two sum in other orders
+  (einsum vs matmul, a loop vs ``lax.scan``, a sequential recurrence vs
+  ``lax.associative_scan``);
 * bfloat16 compute: prefill logits within 5e-2, decode logits within 1e-1
   — the two frameworks round bf16 activations at other places (XLA on the
   CPU rounds after each elementwise op, PyTorch once per fused op), and
@@ -24,16 +27,22 @@ the same tokens:
   ``qwen3-moe-smoke`` (2 ``moe`` layers, 8 experts, top-2, qk-norm; an
   80-token prompt: a prefill capacity of 50 rows an expert, with drops, on
   the dense form, decode steps of 4 rows on the expert-FFN path) and
-  ``llama4-maverick-smoke`` (top-1, expert width 96; a 64-token prompt).  At
+  ``llama4-maverick-smoke`` (top-1, expert width 96; a 64-token prompt),
+  and the recurrent families at both dtypes: ``mamba2-smoke`` (3 ``ssd``
+  layers, chunk 32; a 72-token prompt, so the last chunk is padded) and
+  ``recurrentgemma-smoke`` (one ``(rglru, rglru, local)`` unit and an
+  ``(rglru, rglru)`` tail, window 32; a 40-token prompt, longer than the
+  window, so the ring wraps).  At
   bf16 an MoE decoder's routing follows the router's bf16 logits, which the
   two frameworks' other rounding upstream can flip between experts, so its
   bf16 parity is held at the layer, on equal inputs (``test_torch_moe.py``);
 * every decoder's own decode matches its own forward (the reference's
   ``test_decode_matches_forward``: drop-free MoE capacity, float32);
 * an ``("attn", "moe")`` pattern (llama4's) carries unit ``u``'s ``b1`` to
-  layer ``2u + 1``;
-* the converter refuses a tree with a leaf missing or left over, dense or
-  MoE.
+  layer ``2u + 1``, and recurrentgemma's units and tail land at their
+  layers;
+* the converter refuses a tree with a leaf missing or left over, dense,
+  MoE or recurrent.
 """
 
 import dataclasses
@@ -56,12 +65,13 @@ from repro_torch.models.lm import DecoderLM, layer_kinds  # noqa: E402
 
 MODELS = {"qwen3-8b": 80, "gemma3-27b": 40, "qwen1.5-110b": 72,
           "internlm2-20b": 48, "qwen3-moe-235b-a22b": 80,
-          "llama4-maverick-400b-a17b": 64}  # arch -> prompt length
+          "llama4-maverick-400b-a17b": 64, "mamba2-1.3b": 72,
+          "recurrentgemma-9b": 40}  # arch -> prompt length
 MOE = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 BATCH = 2
 DECODE_STEPS = 6
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # prefill logits
-DECODE_TOL = {"float32": 1e-4, "bfloat16": 1e-1}  # decode logits, KV caches
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 1e-1}  # decode logits, caches
 
 
 def configs(arch: str, dtype: str):
@@ -98,8 +108,18 @@ def ref_cache_layer(cache, cfg, idx: int) -> dict:
 
 
 def close(got: torch.Tensor, want, tol: float) -> None:
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=tol, atol=tol)
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def same_cache(got: dict, want: dict, tol: float) -> None:
+    """Every key of a layer's cache, of the reference's shape and dtype, and
+    within ``tol``."""
+    assert set(got) == set(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == want[name].shape, name
+        assert str(t.dtype).removeprefix("torch.") == str(want[name].dtype), name
+        close(t, want[name], tol)
 
 
 @pytest.fixture(scope="module",
@@ -146,11 +166,9 @@ def test_prefill_cache_matches(served):
     _, _, jc, tc = served["steps"][0]
     assert len(tc) == cfg.n_layers
     for idx in range(cfg.n_layers):
-        want = ref_cache_layer(jc, cfg, idx)
-        for name in ("k", "v"):
-            assert tuple(tc[idx][name].shape) == want[name].shape, (idx, name)
-            assert tc[idx][name].dtype == getattr(torch, served["dtype"])
-            close(tc[idx][name], want[name], tol)
+        same_cache(tc[idx], ref_cache_layer(jc, cfg, idx), tol)
+        if "k" in tc[idx]:
+            assert tc[idx]["k"].dtype == getattr(torch, served["dtype"])
 
 
 def test_decode_steps_match(served):
@@ -160,9 +178,7 @@ def test_decode_steps_match(served):
         close(tl, jl, tol)
         if served["dtype"] == "float32":
             for idx in range(cfg.n_layers):
-                want = ref_cache_layer(jc, cfg, idx)
-                close(tc[idx]["k"], want["k"], 1e-4)
-                close(tc[idx]["v"], want["v"], 1e-4)
+                same_cache(tc[idx], ref_cache_layer(jc, cfg, idx), 1e-4)
 
 
 def test_param_count_and_names(served):
@@ -210,8 +226,6 @@ def test_converter_refuses_a_tree_that_does_not_match(fault):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(block_pattern=("ssd",)), "8.4"),
-    (dict(block_pattern=("rglru",)), "8.5"),
     (dict(mrope=True), "8.6"),
     (dict(embed_inputs=False), "8.6"),
     (dict(n_enc_layers=2), "8.7"),
@@ -240,6 +254,49 @@ def test_moe_kind_is_ported():
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="top_k"):
         tbuild(dataclasses.replace(cfg, n_experts=0), device="cpu")
+
+
+def test_ssd_kind_is_ported():
+    """Item 8.4 is ported: the ``ssd`` kind builds (the Mamba-2 mixer, no
+    ``ln2`` and no FFN, the reference's parameter names, its constants
+    float32 at bf16 compute) and serves; its cache is the recurrent state."""
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), block_pattern=("ssd",), ssm_state=8,
+                              ssm_head_dim=16, ssm_chunk=4)
+    model = tbuild(cfg, device="cpu")
+    assert [layer.kind for layer in model.layers] == ["ssd"] * cfg.n_layers
+    assert not hasattr(model.layers[0], "mlp") and not hasattr(model.layers[0], "ln2")
+    names = set(model.layers[0].state_dict())
+    assert names == {"ln1.scale", "mixer.w_zx", "mixer.conv_kernel", "mixer.a_log",
+                     "mixer.dt_bias", "mixer.d_skip", "mixer.norm.scale", "mixer.w_out"}
+    assert model.layers[0].mixer.a_log.dtype == torch.float32
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    logits, cache = model.prefill({"tokens": torch.zeros((1, 5), dtype=torch.long)}, 8)
+    assert set(cache[0]) == {"conv", "ssm"}
+    logits, _ = model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long), 5)
+    assert bool(torch.isfinite(logits).all())
+    assert {n: t.dtype for n, t in model.init_cache(1, 8)[0].items()} == {
+        "conv": torch.bfloat16, "ssm": torch.float32}
+
+
+def test_rglru_kind_is_ported():
+    """Item 8.5 is ported: the ``rglru`` kind builds (the RG-LRU mixer and an
+    FFN, the reference's parameter names, the gates and ``lambda_`` float32
+    at bf16 compute) and serves; its cache is the recurrent state."""
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), block_pattern=("rglru",), lru_width=64)
+    model = tbuild(cfg, device="cpu")
+    assert [layer.kind for layer in model.layers] == ["rglru"] * cfg.n_layers
+    names = set(model.layers[0].state_dict())
+    assert {"mixer.w_branch", "mixer.conv_kernel", "mixer.w_a", "mixer.b_a", "mixer.w_x",
+            "mixer.b_x", "mixer.lambda_", "mixer.w_out", "ln2.scale",
+            "mlp.w_gate"} <= names
+    assert all(getattr(model.layers[0].mixer, n).dtype == torch.float32
+               for n in ("w_a", "b_a", "w_x", "b_x", "lambda_"))
+    assert model.layers[0].mixer.w_branch.dtype == torch.bfloat16
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    logits, cache = model.prefill({"tokens": torch.zeros((1, 5), dtype=torch.long)}, 8)
+    assert set(cache[0]) == {"conv", "h"}
+    logits, _ = model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long), 5)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_loss_and_other_architectures_raise():
@@ -301,6 +358,50 @@ def test_attn_moe_pattern_maps_units_to_layers():
     jl, _ = jmodel.decode_step(params, jc, jnp.asarray(nxt), jnp.asarray(24, jnp.int32))
     tl, _ = model.decode_step(tc, torch.from_numpy(nxt), 24)
     close(tl, jl, 1e-4)
+
+
+def test_hybrid_pattern_maps_units_and_tail_to_layers():
+    """recurrentgemma's ``("rglru", "rglru", "local")`` unit and its
+    ``("rglru", "rglru")`` tail: unit ``u``'s ``b{i}`` lands at layer ``3u +
+    i`` and the tail's ``b{i}`` after the units, each float32 leaf
+    (``w_a``, ``lambda_``, …) carried bit for bit and kept float32 by the
+    bf16 model."""
+    jcfg, tcfg = configs("recurrentgemma-9b", "bfloat16")
+    change = dict(n_layers=8)  # two units and a two-layer tail
+    jcfg, tcfg = dataclasses.replace(jcfg, **change), dataclasses.replace(tcfg, **change)
+    tree = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(4)))
+    state = params_from_reference(tcfg, tree)
+    assert layer_kinds(tcfg) == ["rglru", "rglru", "local"] * 2 + ["rglru", "rglru"]
+    for u in range(2):
+        for i in range(2):
+            np.testing.assert_array_equal(state[f"layers.{3 * u + i}.mixer.lambda_"].numpy(),
+                                          tree["units"][f"b{i}"]["mixer"]["lambda_"][u])
+        assert f"layers.{3 * u + 2}.mixer.wq" in state
+    for i in range(2):
+        np.testing.assert_array_equal(state[f"layers.{6 + i}.mixer.w_a"].numpy(),
+                                      tree["tail"][f"b{i}"]["mixer"]["w_a"])
+    model = port_model(tcfg, tree)
+    mixer = model.layers[7].mixer
+    assert mixer.w_a.dtype == torch.float32 and mixer.w_branch.dtype == torch.bfloat16
+    assert torch.equal(mixer.w_a, state["layers.7.mixer.w_a"])
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape", "ln2"])
+def test_converter_refuses_a_recurrent_tree_that_does_not_match(fault):
+    jcfg, tcfg = configs("mamba2-1.3b", "float32")
+    tree = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(0)))
+    params_from_reference(tcfg, tree)  # the tree as it comes is accepted
+    mixer = tree["units"]["b0"]["mixer"]
+    if fault == "missing":
+        del mixer["dt_bias"]
+    elif fault == "extra":
+        mixer["d_skip_2"] = mixer["d_skip"]
+    elif fault == "shape":
+        mixer["conv_kernel"] = mixer["conv_kernel"][:, 1:]
+    else:  # an ssd layer has no ln2
+        tree["units"]["b0"]["ln2"] = {"scale": tree["units"]["b0"]["ln1"]["scale"]}
+    with pytest.raises(ValueError):
+        params_from_reference(tcfg, tree)
 
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape", "experts"])

@@ -9,15 +9,16 @@
   quantizing equals the reference's quantized tree carried across by
   ``params_from_reference``, bit for bit — an MoE layer's router and expert
   tensors too, which stay float weights (rounded to bf16 values), not
-  records, as in the reference;
+  records, as in the reference, and the RG-LRU's gates (``w_a``, ``w_x``,
+  ``b_a``, ``b_x``: float32 of bf16 values), while ``a_log``, ``dt_bias``,
+  ``d_skip`` and ``lambda_`` stay exact;
 * the reference's three ``tests/test_quantized_serving.py`` tests side by
-  side, on the architectures the port has (``qwen3-8b``; the tree-size one
-  on ``qwen1.5-110b``; its ``recurrentgemma-9b`` and ``mamba2-1.3b`` cases
-  wait for their blocks, ROADMAP items 8.4 and 8.5);
+  side: ``qwen3-8b``, ``recurrentgemma-9b`` and ``mamba2-1.3b`` int8 close
+  to bf16, and the tree-size one on ``qwen1.5-110b``;
 * a tree the reference quantized, carried across: float32 prefill logits,
-  caches and six decode steps within 1e-4 of the reference's (the two sum
-  in other orders), for ``qwen3-8b``, ``qwen1.5-110b``, ``internlm2-20b``
-  and the two MoE decoders;
+  every layer's cache and six decode steps within 1e-4 of the reference's
+  (the two sum in other orders), for ``qwen3-8b``, ``qwen1.5-110b``,
+  ``internlm2-20b``, the two MoE decoders and the two recurrent ones;
 * ``decode_step`` with a 0-d tensor ``pos`` gives what an int ``pos`` gives;
   the decode products take ``w8_matmul`` (on the CPU its plain version),
   the prefill's the cast;
@@ -44,10 +45,13 @@ from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.lm import DecoderLM  # noqa: E402
 
 ARCHS = ("qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b", "qwen3-moe-235b-a22b",
-         "llama4-maverick-400b-a17b")
+         "llama4-maverick-400b-a17b", "mamba2-1.3b", "recurrentgemma-9b")
 PARITY = {"qwen3-8b": 80, "qwen1.5-110b": 72, "internlm2-20b": 48,
-          "qwen3-moe-235b-a22b": 80, "llama4-maverick-400b-a17b": 64}  # prompt lengths
+          "qwen3-moe-235b-a22b": 80, "llama4-maverick-400b-a17b": 64,
+          "mamba2-1.3b": 72, "recurrentgemma-9b": 40}  # prompt lengths
 MOE_NAMES = ("router", "expert_gate", "expert_up", "expert_down")
+GATE_NAMES = ("w_a", "w_x", "b_a", "b_x")  # float32 leaves of bf16 values once quantized
+EXACT_NAMES = ("a_log", "dt_bias", "d_skip", "lambda_")  # float32, never rounded
 BATCH, DECODE_STEPS = 2, 6
 
 
@@ -131,6 +135,7 @@ def test_quantize_for_serving_matches_the_reference(arch):
     float weight (embeddings, lm_head, biases, norm scales) rounded to
     bf16."""
     _, tcfg, _, params = reference(arch)
+    state = params_from_reference(tcfg, numpy_tree(params))
     model = port_model(tcfg, numpy_tree(params), quantized=False)
     TL.quantize_for_serving(model)
     want = params_from_reference(tcfg, numpy_tree(JL.quantize_for_serving(params)))
@@ -138,7 +143,10 @@ def test_quantize_for_serving_matches_the_reference(arch):
     assert set(got) == set(want)
     records = [k for k in got if k.endswith(".q")]
     ffn = {"moe": 0, "gelu": 2}.get("moe" if tcfg.n_experts else tcfg.mlp_kind, 3)
-    assert len(records) == (4 + ffn) * tcfg.n_layers  # wq, wk, wv, wo and the FFN's
+    # wq, wk, wv, wo and the FFN's; w_zx and w_out (ssd); w_branch, w_out and
+    # the FFN's (rglru)
+    per_kind = {"attn": 4 + ffn, "local": 4 + ffn, "moe": 4, "ssd": 2, "rglru": 2 + ffn}
+    assert len(records) == sum(per_kind[layer.kind] for layer in model.layers)
     moe = [k for k in got if k.rpartition(".")[2] in MOE_NAMES]
     assert len(moe) == (4 * tcfg.n_layers if tcfg.n_experts else 0)
     for name in moe:  # float weights of bf16 values, not records
@@ -146,10 +154,16 @@ def test_quantize_for_serving_matches_the_reference(arch):
     for name, t in got.items():
         w = want[name].to(t.dtype)
         assert torch.equal(t, w), name
-        if t.is_floating_point() and not name.endswith(".s"):
+        leaf = name.rpartition(".")[2]
+        if leaf in GATE_NAMES + EXACT_NAMES:
+            assert t.dtype == torch.float32, name
+        if t.is_floating_point() and not name.endswith(".s") and leaf not in EXACT_NAMES:
             assert torch.equal(t, t.to(torch.bfloat16).to(t.dtype)), name  # bf16 values
+    for name in (k for k in got if k.rpartition(".")[2] in EXACT_NAMES):
+        assert torch.equal(got[name], state[name]), name  # never rounded
     layer = model.layers[0]
-    assert isinstance(layer.mixer.wq, TL.QuantizedWeight)
+    big = {"ssd": "w_zx", "rglru": "w_branch"}.get(layer.kind, "wq")
+    assert isinstance(getattr(layer.mixer, big), TL.QuantizedWeight)
     assert layer.ln1.scale.dtype == torch.float32  # the port keeps its dtypes
 
 
@@ -157,14 +171,24 @@ def test_quantized_decode_close_to_bf16():
     """The reference's test on qwen3-8b, in both packages: int8 prefill
     logits close to bf16 ones (within a quarter of the largest logit, top-1
     agreeing on at least half the rows), and a decode step finite."""
-    cfg = tget_smoke("qwen3-8b")
+    quantized_close_to_bf16("qwen3-8b")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_quantized_recurrent_decode_close_to_bf16(arch):
+    """The reference's test on its two recurrent cases, in both packages."""
+    quantized_close_to_bf16(arch)
+
+
+def quantized_close_to_bf16(arch: str) -> None:
+    cfg = tget_smoke(arch)
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 32)).astype(np.int32)
     max_len = 40
     bf16 = DecoderLM(cfg, device="cpu", seed=0)
     l_ref, _ = bf16.prefill({"tokens": torch.from_numpy(toks)}, max_len)
     int8 = TL.quantize_for_serving(DecoderLM(cfg, device="cpu", seed=0))
     l_q, c_q = int8.prefill({"tokens": torch.from_numpy(toks)}, max_len)
-    jcfg = jget_smoke("qwen3-8b")
+    jcfg = jget_smoke(arch)
     jmodel = jbuild(jcfg)
     params = jmodel.init(jax.random.PRNGKey(0))
     jl_ref, _ = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, max_len)
@@ -204,8 +228,14 @@ def ref_cache_layer(cache, cfg, idx: int) -> dict:
 
 
 def close(got: torch.Tensor, want, tol: float = 1e-4) -> None:
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=tol, atol=tol)
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def same_cache(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for name, t in got.items():
+        close(t, want[name])
 
 
 @pytest.mark.parametrize("arch", list(PARITY))
@@ -224,9 +254,7 @@ def test_reference_quantized_tree_serves_alike(arch):
     tl, tc = model.prefill({"tokens": torch.from_numpy(toks)}, max_len)
     close(tl, jl)
     for idx in range(tcfg.n_layers):
-        want = ref_cache_layer(jc, tcfg, idx)
-        close(tc[idx]["k"], want["k"])
-        close(tc[idx]["v"], want["v"])
+        same_cache(tc[idx], ref_cache_layer(jc, tcfg, idx))
     jdecode = jax.jit(jmodel.decode_step)
     for t in range(DECODE_STEPS):
         nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
@@ -234,7 +262,7 @@ def test_reference_quantized_tree_serves_alike(arch):
         tl, tc = model.decode_step(tc, torch.from_numpy(nxt), torch.tensor(s + t))
         close(tl, jl)
     for idx in range(tcfg.n_layers):
-        close(tc[idx]["k"], ref_cache_layer(jc, tcfg, idx)["k"])
+        same_cache(tc[idx], ref_cache_layer(jc, tcfg, idx))
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])

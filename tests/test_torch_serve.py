@@ -9,10 +9,12 @@ must retire that request early, in both.  ``internlm2-20b-smoke`` (QKV
 bias) serves one request through each package's session and each session's
 tokens equal a hand-rolled prefill and decode (the reference's
 ``tests/test_serve.py::test_serve_greedy_matches_manual_decode``), equal
-across the packages at float32.  The two MoE smokes serve the same five
-requests through both packages' sessions to the same token lists (float32).
-Then the launcher runs on the CPU, with bf16 and with int8 weights, for
-``qwen3-8b`` and the two MoE smokes.
+across the packages at float32.  The two MoE smokes and the two recurrent
+ones (``mamba2-1.3b``'s, ``recurrentgemma-9b``'s: their states carried
+across admissions as the KV caches are) serve the same five requests
+through both packages' sessions to the same token lists (float32).  Then
+the launcher runs on the CPU, with bf16 and with int8 weights, for
+``qwen3-8b``, the two MoE smokes and the two recurrent ones.
 """
 
 import dataclasses
@@ -121,9 +123,15 @@ def test_moe_sessions_give_the_same_tokens(arch):
     assert all(len(o) == MAX_NEW for o in got) and not sess.live
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
-def test_launcher_serves_moe_on_the_cpu(arch, int8):
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_sessions_give_the_same_tokens(arch):
+    want, got, sess, reqs = serve(build_models(arch))
+    assert got == want
+    assert all(len(o) == MAX_NEW for o in got) and not sess.live
+
+
+def launch_smoke(arch: str, int8: bool) -> None:
+    """The launcher serves three requests of ``arch``'s smoke on the CPU."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
          "--device", "cpu", "--requests", "3", "--max-new", "4", *(["--int8"] if int8 else [])],
@@ -132,6 +140,18 @@ def test_launcher_serves_moe_on_the_cpu(arch, int8):
     assert proc.returncode == 0, proc.stderr
     assert "12 tokens" in proc.stdout and "-smoke:" in proc.stdout
     assert f"on cpu ({'int8' if int8 else 'bfloat16'} weights" in proc.stdout
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+def test_launcher_serves_moe_on_the_cpu(arch, int8):
+    launch_smoke(arch, int8)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_launcher_serves_recurrent_on_the_cpu(arch, int8):
+    launch_smoke(arch, int8)
 
 
 def test_launcher_runs_on_the_cpu():
