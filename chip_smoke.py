@@ -3,8 +3,9 @@
 sharded backend, the paper's three projection revisions, the selection
 entry points and the LM serving path (``qwen3-8b`` at full width, bf16 and
 int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers;
-``mamba2-1.3b`` and ``recurrentgemma-9b`` at full width and depth) on one
-NVIDIA GPU.
+``mamba2-1.3b`` and ``recurrentgemma-9b`` at full width and depth;
+``qwen2-vl-72b`` at full width, 32 of its 80 layers; ``seamless-m4t-medium``
+at full width and depth) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -96,16 +97,28 @@ probe rows matching — all made from ``--seed``:
       attention layer and prefill, the scan kernel once per RG-LRU layer
       and prefill, and ``mamba2-1.3b``'s smoke int8-quantized at float32
       (the W8 kernel on ``w_zx`` and ``w_out``), tokens equal and logits
-      within 1e-4;
+      within 1e-4; then the smokes of the two families ``ServeSession``
+      does not serve (as the reference's does not), ``qwen2-vl-72b``'s
+      (M-RoPE ids of text, a 2 x 2 grid and text; embeddings in) and
+      ``seamless-m4t-medium``'s (8 encoder frames), driven through
+      ``prefill`` and ``make_decode_step`` admission by admission (two
+      admissions of 2 rows, 6 new positions each): at float32 every logit
+      within 1e-4 and the tokens equal, at bf16 the prefills within 5e-2,
+      the flash kernel once per attention layer (the encoder's too) and
+      prefill;
    b. the flash-attention kernel against its plain version on the card
       (bf16 within 2^-7 of each value plus 2e-3) at the serving path's
       prefill shape (B 8, S 2,048, 32 query / 8 KV heads, D 128, causal),
       there also its float32 build (within 1e-4), and at a ``gemma3-27b``
       local layer's (32 / 16 heads, window 1,024) and a
       ``recurrentgemma-9b`` local layer's (16 query heads on one KV head, D
-      256, window 2,048: ``flash_attention_d256``), timed beside its bound
-      and one ``scaled_dot_product_attention`` call (a yardstick the port
-      never calls);
+      256, window 2,048: ``flash_attention_d256``), a ``qwen2-vl-72b``
+      prefill's (64 / 8 heads, S 1,975: ``flash_attention_vlm``), a
+      ``seamless-m4t-medium`` encoder's (16 / 16 heads of 64,
+      bidirectional, 264 frames: ``flash_attention_encoder``) and its
+      decoder prefill's (S 1,975: ``flash_attention_decoder``), timed
+      beside its bound and one ``scaled_dot_product_attention`` call (a
+      yardstick the port never calls);
    c. the W8 kernel (``csrc/rm_w8.cu``) against its plain version (the
       dequant, then ``torch.matmul``) and against the exact product at a
       qwen3-8b layer's decode launches (M 8; K 4,096: wq, wk, wv as one
@@ -183,6 +196,26 @@ probe rows matching — all made from ``--seed``:
       rings read, the recurrent states read and written), the peak memory
       of a prefill and of the run, and the hybrid's float32 gate products'
       share of its profiled prefill;
+   i. ``seamless-m4t-medium`` at full width and depth (12 encoder and 12
+      decoder layers, d_model 1,024, 16 / 16 heads of 64; ``lm_serve_encdec``)
+      and
+   j. ``qwen2-vl-72b`` at full width (d_model 8,192, 64 / 8 heads of 128,
+      QKV bias, M-RoPE), its depth cut to 32 of 80 layers (``reduced``;
+      ``lm_serve_vlm``), each weights and inputs drawn from ``--seed``,
+      served admission by admission through ``prefill`` and a graphed
+      ``make_decode_step`` (:func:`drive`): two admissions of 8 requests
+      (1,841 and 1,975 positions: the VLM's image-and-text embeddings with
+      M-RoPE ids of a 64-token text prefix, a 32 x 32 grid of patches and
+      text; the encoder-decoder's 264 frames, ``LM_MAX_LEN // 8``, and
+      tokens) of 16 new positions, 30 replayed steps: tokens inside the
+      vocab, finite logits, the flash kernel exactly 32 x 2 and (12 + 12)
+      x 2 times and none in a step, its output on the first and last
+      attention layer against its plain version, a replayed step
+      bit-equal to an eager one (the cross K/V included), a profiled
+      prefill and replayed and eager step, the prefill's product
+      operations and the step's bound by bytes (the decoder's weights,
+      ``lm_head``, the KV cache and the cross K/V read); each run's peak
+      must leave 4 GiB of the card;
 10. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -191,7 +224,8 @@ Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
 kernels, the server phase for the probe, the revision phase for BSL and
 PCK, the selection phase for ``project_multi`` and ``select_compact``, the
-LM serve phases' runs for ``flash_attention`` (none in the SSM's), the
+LM serve phases' runs for ``flash_attention`` (none in the SSM's; the
+VLM's and the encoder-decoder's included), the
 hybrid serve phase for ``rglru_scan`` and the int8 run for
 ``w8_matmul`` — its wrapper launches in the warm-up step before the graph's
 capture; the graph's replays launch it without the wrapper, and the
@@ -291,6 +325,14 @@ LM_CHECK_LAYERS = (0, 35)
 # roundings upstream can flip from one expert to another
 LM_REFERENCE_ARCHS = ("qwen3-8b", "qwen1.5-110b", "internlm2-20b", "qwen3-moe-235b-a22b",
                       "llama4-maverick-400b-a17b", "mamba2-1.3b", "recurrentgemma-9b")
+# the two families ServeSession does not serve (as the reference's does
+# not), compared card against CPU through prefill and make_decode_step, two
+# admissions of 2 rows: the VLM backbone (embeddings in, M-RoPE) and the
+# encoder-decoder (FRAMES_SMOKE encoder frames: 64 // 8, the cross length of
+# its init_cache, so the second admission's cache is adopted in place)
+LM_INPUT_ARCHS = ("qwen2-vl-72b", "seamless-m4t-medium")
+SMOKE_PROMPTS = (12, 20)
+FRAMES_SMOKE = 8
 # the int8 smokes compared card against CPU at float32: the W8 kernel on a
 # dense decoder's products and on the SSD's w_zx / w_out
 LM_INT8_ARCHS = ("qwen3-8b", "mamba2-1.3b")
@@ -313,6 +355,21 @@ SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "recurrentgemma-9b"
 HYBRID_CHECK_LAYERS = (2, 35)
 HYBRID_SCAN_LAYERS = (0,)
+# the VLM serving cell: qwen2-vl-72b at full width, its depth cut to fit one
+# card (32 of 80 layers: 56.2 GB of bf16 layer weights), two admissions of 8
+# image-and-text prompts (a VLM_PREFIX-token text prefix, a VLM_GRID x
+# VLM_GRID grid of merged patches, then text) of VLM_PROMPTS positions,
+# LM_MAX_NEW new positions each; its peak must leave MOE_FREE_BYTES of the card
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 32
+VLM_PROMPTS = (1841, 1975)
+VLM_PREFIX = 64
+VLM_GRID = 32
+# the encoder-decoder serving cell: seamless-m4t-medium at full width and
+# depth, ENCDEC_FRAMES encoder frames a request (LM_MAX_LEN // 8: the cross
+# length of its init_cache) and decoder prompts of VLM_PROMPTS tokens
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_FRAMES = LM_MAX_LEN // 8
 # the scan kernel phase: recurrentgemma-9b's prefill of the serving cells,
 # B 8 slots, S 2,048, W 4,096 lanes
 RGLRU_SHAPE = (8, 2048, 4096)
@@ -329,10 +386,16 @@ W8_COPIES = 8
 W8_GRAPH_REPS = 20
 # (name, B, S, H, KH, D, causal, window): the prefill of a qwen3-8b layer,
 # of a gemma3-27b local layer and of a recurrentgemma-9b local layer (MQA:
-# 16 query heads on one KV head, D 256) on the path's batch
+# 16 query heads on one KV head, D 256) on the path's batch; then the
+# qwen2-vl-72b prefill's (64 / 8 heads, the longer admission), the
+# seamless-m4t-medium encoder's (16 / 16 heads of 64, bidirectional, 264
+# frames: two 128-row query tiles and one of 8) and its decoder prefill's
 FLASH_SHAPES = (("flash_attention", 8, 2048, 32, 8, 128, True, None),
                 ("flash_attention_window", 8, 2048, 32, 16, 128, True, 1024),
-                ("flash_attention_d256", 8, 2048, 16, 1, 256, True, 2048))
+                ("flash_attention_d256", 8, 2048, 16, 1, 256, True, 2048),
+                ("flash_attention_vlm", 8, 1975, 64, 8, 128, True, None),
+                ("flash_attention_encoder", 8, 264, 16, 16, 64, False, None),
+                ("flash_attention_decoder", 8, 1975, 16, 16, 64, True, None))
 # the kernel against its plain version, |got - want| <= atol + rtol·|want|:
 # bf16 output, one rounding step of the output (2^-7 of its value) plus the
 # rounding of p to bf16 before PV, which the two take at other running maxima
@@ -1094,6 +1157,143 @@ def lm_reference_phase(torch, seed: int) -> dict:
     return out
 
 
+def mrope_positions(slots: int, s: int, prefix: int, grid: int) -> np.ndarray:
+    """M-RoPE ids (B, 3, S) of a real image-and-text prompt: a ``prefix``
+    text tokens at ``(p, p, p)``, a ``grid`` x ``grid`` grid of merged
+    patches at ``(prefix, prefix + row, prefix + col)``, then text one more
+    in all three components a token from ``prefix + grid``."""
+    pos = np.zeros((3, s), np.int64)
+    pos[:, :prefix] = np.arange(prefix)
+    n = min(grid * grid, s - prefix)
+    r, c = np.divmod(np.arange(n), grid)
+    pos[:, prefix:prefix + n] = prefix
+    pos[1, prefix:prefix + n] += r
+    pos[2, prefix:prefix + n] += c
+    pos[:, prefix + n:] = prefix + grid + np.arange(s - prefix - n)
+    return np.broadcast_to(pos, (slots, 3, s)).copy()
+
+
+def input_admissions(torch, cfg, lengths, slots: int, max_new: int, frames: int,
+                     draw, ints, prefix: int, grid: int) -> list:
+    """An admission for each prompt length: the prefill batch on every slot
+    and, for a model without token embeddings, the (B, 1, D) embeddings its
+    ``max_new - 1`` decode steps take (else ``None``: they take the greedy
+    tokens).  The VLM's batch is ``embeds`` drawn by ``draw`` (the
+    reference's ``normal(0, 0.5)``) with :func:`mrope_positions`; the
+    encoder-decoder's is ``frames`` encoder frames drawn so and ``tokens``
+    drawn by ``ints``."""
+    out = []
+    for s in lengths:
+        if not cfg.embed_inputs:
+            batch = {"embeds": draw((slots, s, cfg.d_model)),
+                     "positions": torch.from_numpy(mrope_positions(slots, s, prefix, grid))}
+            out.append((batch, [draw((slots, 1, cfg.d_model)) for _ in range(max_new - 1)]))
+        else:
+            batch = {"tokens": ints((slots, s))}
+            if cfg.is_encdec:
+                batch["enc_embeds"] = draw((slots, frames, cfg.d_model))
+            out.append((batch, None))
+    return out
+
+
+def drive(torch, model, admissions, max_len: int, max_new: int, sync: bool):
+    """Serve ``admissions`` through ``model.prefill`` and one
+    ``make_decode_step(model)`` (on the card a CUDA graph captured at its
+    first call, each later admission's cache copied into the captured one):
+    what ``ServeSession`` does for a token-input decoder, admission by
+    admission, for the two families it does not serve.  Each admission's
+    first token comes from its prefill's logits (greedy), then ``max_new -
+    1`` decode steps at positions S, S + 1, ... take the last token or the
+    admission's next embeddings.  Returns each admission's tokens (B,
+    max_new) on the host, the prefills and decode steps as (seconds on the
+    host clock, synced when ``sync``; logits), and the step."""
+    from repro_torch.serve.engine import make_decode_step
+
+    def timed(fn, *args):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        if sync:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits, cache
+
+    step = make_decode_step(model)
+    prefills, decodes, tokens = [], [], []
+    for batch, step_inputs in admissions:
+        s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+        dt, logits, cache = timed(model.prefill, batch, max_len)
+        prefills.append((dt, logits))
+        out = [logits.argmax(-1)]
+        for t in range(max_new - 1):
+            x = out[-1][:, None] if step_inputs is None else step_inputs[t]
+            dt, logits, cache = timed(step, cache, x, s + t)
+            decodes.append((dt, logits))
+            out.append(logits.argmax(-1))
+        tokens.append(torch.stack(out, 1).cpu())
+        del cache
+    return tokens, prefills, decodes, step
+
+
+def flash_layers(model) -> int:
+    """The flash kernel's launches in one prefill of ``model``: one per
+    attention layer, the encoder's included (cross-attention is plain)."""
+    if hasattr(model, "enc_layers"):
+        return len(model.enc_layers) + len(model.layers)
+    return layer_counts(model)[0]
+
+
+def lm_reference_inputs_phase(torch, seed: int) -> dict:
+    """Each smoke of ``LM_INPUT_ARCHS`` driven on the card (graphed decode
+    steps) and on the CPU (eager) with the same weights and inputs (drawn
+    from ``--seed``), two admissions of 2 slots (prompts of
+    ``SMOKE_PROMPTS``), 6 new positions each: at float32 compute every
+    prefill's and decode step's logits within 1e-4, and the tokens equal
+    where they are fed back (the encoder-decoder); at bfloat16 every
+    prefill's logits within 5e-2.  The flash kernel launches once per
+    attention layer (the encoder's too) and prefill, never in a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import build_model
+
+    out = {"phase": "lm_reference_inputs"}
+    for arch in LM_INPUT_ARCHS:
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+            cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+            cpu = build_model(cfg, device="cpu", seed=seed)
+            card = build_model(cfg, device="cuda", seed=None)
+            card.load_state_dict(cpu.state_dict())
+            rng = np.random.default_rng(seed + 5)
+            adm = input_admissions(
+                torch, cfg, SMOKE_PROMPTS, 2, 6, FRAMES_SMOKE,
+                lambda shape: torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32)),
+                lambda shape: torch.from_numpy(rng.integers(0, cfg.vocab, shape)), 4, 2)
+            _cuda.reset_launches()
+            got = drive(torch, card, adm, 64, 6, True)
+            launches = _cuda.LAUNCHES["flash_attention"]
+            step = got[3]
+            want = drive(torch, cpu, adm, 64, 6, False)
+            assert launches == flash_layers(card) * len(adm), launches
+            assert step.captured["flash_attention"] == 0 and step.replays == len(got[2])
+            tokens_equal = all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+            pairs = list(zip(got[1], want[1]))
+            if dtype == "float32":
+                assert tokens_equal or not cfg.embed_inputs, (got[0], want[0])
+                pairs += list(zip(got[2], want[2]))
+            err = 0.0
+            for (_, a), (_, b) in pairs:
+                torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+                err = max(err, float((a.cpu() - b).abs().max()))
+            out[f"{cfg.name}-{dtype}"] = {
+                "tokens_equal": tokens_equal, "max_abs_err": err, "logit_sets": len(pairs),
+                "tolerance": tol, "flash_launches": launches, "replays": step.replays}
+            del cpu, card, step, got
+    emit(out)
+    return out
+
+
 def flash_check(got, want, dtype: str) -> dict:
     """``got`` within ``FLASH_TOL[dtype]`` of ``want`` everywhere: the
     largest error, and the largest share of its element's limit."""
@@ -1145,7 +1345,7 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D) views
         if window is None:
             library = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         else:
             i = torch.arange(s, device="cuda")
             dist = i[:, None] - i[None, :]
@@ -1154,7 +1354,7 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
         lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
         del got, want
-        if window is None:  # the float32 build at the path's shape too
+        if name == "flash_attention":  # the float32 build at the path's shape too
             q32, k32, v32 = (x.float() for x in (q, k, v))
             f32 = flash_check(FA.flash_attention(q32, k32, v32, causal=causal),
                               FA.flash_attention_torch(q32, k32, v32, causal=causal),
@@ -1170,13 +1370,14 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
                 "library_ms": time_ms(torch, library, reps),
                 **device_fields(torch, library, reps, "library_"),
                 "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                                + (" (is_causal)" if window is None else " (bool window mask)"),
+                                + (" (bool window mask)" if window is not None
+                                   else " (is_causal)" if causal else " (no mask)"),
                 "library_max_abs_err": lib_err,
                 "bound_ms": bound_ms, "bound_by": bound_by, **check,
                 "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
                           "window": window, "dtype": "bfloat16"},
                 "pairs_per_head": flash_pairs(s, causal, window)}
-        if window is None:
+        if name == "flash_attention":
             line["float32"] = f32
         emit(line)
         out[name] = line
@@ -1933,18 +2134,24 @@ def lm_serve_moe_phase(torch, seed: int) -> dict:
 
 def step_bound(model, cache) -> tuple[float, dict]:
     """The least time of one decode step of ``model`` over ``cache``, by
-    bytes: every weight read once but the embedding table (its ``LM_SLOTS``
-    rows gathered), each attention layer's KV cache read whole (a step
-    attends over every slot), each recurrent state read and written, over
-    the memory rate."""
-    kv = ("k", "v")
-    emb = model.token_embedding
+    bytes: every weight of the decoder's layers and ``lm_head`` read once
+    (not an encoder's, which a step does not run), the step's ``LM_SLOTS``
+    input rows (embedding rows gathered, or the embeddings fed), each
+    attention layer's KV cache read whole (a step attends over every slot),
+    an encoder-decoder's cross K/V read, each recurrent state read and
+    written, over the memory rate."""
+    kv, cross = ("k", "v"), ("cross_k", "cross_v")
+
+    def cache_bytes(keep):
+        return sum(t.nbytes for c in cache for n, t in c.items() if keep(n))
+
+    head = model.lm_head
     parts = {"layers": sum(p.numel() * p.element_size() for p in model.layers.parameters()),
-             "lm_head": model.lm_head.numel() * model.lm_head.element_size(),
-             "embedding_rows": LM_SLOTS * emb.shape[1] * emb.element_size(),
-             "kv_cache": sum(t.nbytes for c in cache for n, t in c.items() if n in kv),
-             "state_read_written": 2 * sum(t.nbytes for c in cache for n, t in c.items()
-                                          if n not in kv)}
+             "lm_head": head.numel() * head.element_size(),
+             "embedding_rows": LM_SLOTS * model.cfg.d_model * head.element_size(),
+             "kv_cache": cache_bytes(lambda n: n in kv),
+             "cross_kv_read": cache_bytes(lambda n: n in cross),
+             "state_read_written": 2 * cache_bytes(lambda n: n not in kv + cross)}
     return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
 
 
@@ -2020,6 +2227,186 @@ def lm_serve_recurrent_phase(torch, seed: int, arch: str, phase: str,
            "weight_count": weights}  # the cell's "weights" names their dtype
     emit(out)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_products(model, slots: int, s: int, frames: int) -> int:
+    """Operations (a multiply and an add each) of a prefill's weight
+    products: every 2-D weight of the decoder's layers over ``slots * s``
+    tokens; an encoder-decoder's encoder layers and each decoder layer's
+    cross ``wk`` / ``wv`` over ``slots * frames`` frames instead.  The
+    attention itself (the flash kernel's lines count it) and ``lm_head``
+    (one position) are left out."""
+    def weights(module, skip=()):
+        return sum(p.numel() for n, p in module.named_parameters()
+                   if p.dim() == 2 and not n.endswith(skip))
+
+    cross = (".cross.wk", ".cross.wv")
+    ops = 2 * slots * s * weights(model.layers, cross)
+    if hasattr(model, "enc_layers"):
+        ops += 2 * slots * frames * (weights(model.enc_layers) + sum(
+            p.numel() for n, p in model.layers.named_parameters() if n.endswith(cross)))
+    return ops
+
+
+def lm_serve_inputs_phase(torch, seed: int, arch: str, phase: str,
+                          n_layers: int | None = None) -> dict:
+    """``arch`` (one of ``LM_INPUT_ARCHS``) at full width on the card, its
+    depth cut to ``n_layers`` where one is given, weights and inputs drawn
+    from ``--seed``, serving two admissions of ``LM_SLOTS`` requests (prompts
+    of ``VLM_PROMPTS``; the VLM's image-and-text embeddings and M-RoPE ids,
+    the encoder-decoder's ``ENCDEC_FRAMES`` frames and tokens) with
+    ``LM_MAX_NEW`` new positions each through :func:`drive`, its decode
+    steps replayed from a CUDA graph.  Checks what came out (tokens in the
+    vocab, finite logits of the padded vocab), the flash kernel's launches
+    (once per attention layer, the encoder's included, and prefill; none
+    in a step), its output on the first and last attention layer against
+    its plain version, and one replayed step bit-equal to an eager one on a
+    copy of the same cache (every key).  Prints prefill seconds, the median
+    tick, tokens a second, the peak memory (which must leave
+    ``MOE_FREE_BYTES`` of the card), a profiled prefill and replayed and
+    eager step, the prefill's product operations and bound, and the step's
+    bound by bytes (:func:`step_bound`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import make_decode_step
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    reduced = {"n_layers": [full.n_layers, cfg.n_layers]} if n_layers else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)  # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() for p in model.parameters())
+    # param_count counts a token embedding the VLM has not, and no enc_norm
+    want = cfg.param_count() + (cfg.d_model if cfg.is_encdec else 0) - (
+        0 if cfg.embed_inputs else cfg.padded_vocab * cfg.d_model)
+    assert weights == want and len(model.layers) == cfg.n_layers, (weights, want)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dt = model.compute_dtype
+    adm = input_admissions(
+        torch, cfg, VLM_PROMPTS, LM_SLOTS, LM_MAX_NEW, ENCDEC_FRAMES,
+        lambda shape: torch.randn(shape, generator=gen, device="cuda").mul_(0.5).to(dt),
+        lambda shape: torch.randint(0, cfg.vocab, shape, generator=gen, device="cuda"),
+        VLM_PREFIX, VLM_GRID)
+    attends = ([("enc_layers", 0, model.enc_layers[0].mixer)] if cfg.is_encdec
+               else [("layers", 0, model.layers[0].mixer)])
+    attends.append(("layers", cfg.n_layers - 1, model.layers[-1].mixer))
+    captured: dict = {}
+
+    def capture(key):
+        def hook(module, args, result):
+            if key not in captured:  # the first prefill's inputs and output
+                captured[key] = (args, result, module.spec.causal)
+        return hook
+
+    hooks = [mixer.attend.register_forward_hook(capture(f"{where}.{i}"))
+             for where, i, mixer in attends]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, prefills, decodes, step = drive(torch, model, adm, LM_MAX_LEN, LM_MAX_NEW, True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _cuda.LAUNCHES["flash_attention"]
+    replays, recorded, capture_s = step.replays, step.captured, step.capture_seconds
+    del step
+    for hk in hooks:
+        hk.remove()
+    serve_peak = torch.cuda.max_memory_allocated()
+    assert launches == flash_layers(model) * len(adm), launches
+    assert recorded["flash_attention"] == 0 and replays == len(decodes), (recorded, replays)
+    assert len(decodes) == len(adm) * (LM_MAX_NEW - 1)
+    assert all(t.shape == (LM_SLOTS, LM_MAX_NEW) for t in tokens)
+    assert all(0 <= int(t.min()) and int(t.max()) < cfg.vocab for t in tokens)
+    for _, logits in prefills + decodes:
+        assert logits.shape == (LM_SLOTS, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+    checked = {}
+    for key, ((q, k, v), result, causal) in captured.items():
+        again = FA.flash_attention(q, k, v, causal=causal)
+        want_out = FA.flash_attention_torch(q, k, v, causal=causal)
+        torch.cuda.synchronize()  # a compare launch, not counted above
+        assert torch.equal(again, result), key  # the path's output is the kernel's
+        checked[key] = {"shape": list(q.shape), "kv_heads": k.shape[2], "causal": causal,
+                        **flash_check(result, want_out, cfg.compute_dtype)}
+    assert len(checked) == 2, sorted(checked)
+    del captured
+    generated = sum(t.numel() for t in tokens)
+    decode_ms = [1e3 * t for t, _ in decodes]
+    # where a step's time goes: the first admission's prefill and one decode
+    # step again, after the counts were read
+    batch, step_inputs = adm[0]
+    s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+    logits, cache = model.prefill(batch, LM_MAX_LEN)
+    x = logits.argmax(-1)[:, None] if step_inputs is None else step_inputs[0]
+    twin = [{n: t.clone() for n, t in c.items()} for c in cache]
+    step = make_decode_step(model)
+    replayed, _ = step(cache, x, s)
+    eager, _ = model.decode_step(twin, x, s)
+    torch.cuda.synchronize()
+    replay_equal = torch.equal(replayed, eager) and all(
+        torch.equal(a[n], b[n]) for a, b in zip(cache, twin) for n in a)
+    assert replay_equal, float((replayed - eager).abs().max())
+    del twin, replayed, eager, logits
+    profiles = {
+        "prefill": profile_step(torch, lambda: model.prefill(batch, LM_MAX_LEN),
+                                count=("rm_flash_attention", "gemm")),
+        "decode_replayed": profile_step(torch, lambda: step(cache, x, s), replays=50),
+        "decode_eager": profile_step(torch, lambda: model.decode_step(cache, x, s)),
+    }
+    bound_ms, parts = step_bound(model, cache)
+    del cache, step
+    products = prefill_products(model, LM_SLOTS, s, ENCDEC_FRAMES)
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = max(torch.cuda.max_memory_allocated(), init_peak)
+    replayed_ms = profiles["decode_replayed"]["replayed_ms"]
+    busy = profiles["prefill"]["device_busy_ms"]
+    out = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "dtype": cfg.compute_dtype, "reduced": reduced, "weight_count": weights,
+           "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "init_seconds": init_s, "init_peak_memory": init_peak,
+           "baseline_memory_allocated": baseline, "total_memory": total,
+           "max_memory_allocated": peak, "serve_peak_memory": serve_peak,
+           "free_at_peak": total - peak,
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "slots": LM_SLOTS, "max_len": LM_MAX_LEN, "admissions": len(adm),
+           "prefill_lengths": list(VLM_PROMPTS),
+           "encoder_frames": ENCDEC_FRAMES if cfg.is_encdec else None,
+           "prefill_seconds": [t for t, _ in prefills],
+           "decode_steps": len(decodes), "decode_tick_ms_median": statistics.median(decode_ms),
+           "decode_tick_ms": decode_ms, "serve_seconds": serve_s,
+           "generated_tokens": generated, "generated_tokens_per_s": generated / serve_s,
+           "capture_seconds": capture_s, "replays": replays, "captured": recorded,
+           "launches": {"flash_attention": launches},
+           "replayed_step_bit_equal_to_eager": replay_equal, "kernel_check": checked,
+           "prefill_product_ops": products,
+           "prefill_products_bound_ms": products / BF16_OPS_PER_S * 1e3,
+           "prefill_products_bound_share": (products / BF16_OPS_PER_S * 1e3 / busy
+                                            if busy else None),
+           "decode_step_bound_ms": bound_ms, "decode_step_bound_bytes": parts,
+           "replayed_bound_share": (bound_ms / replayed_ms) if replayed_ms else None,
+           "profiles": profiles}
+    emit(out)
+    assert total - peak >= MOE_FREE_BYTES, (total, peak)
+    del model, adm, prefills, decodes
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2913,6 +3300,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 compared card vs CPU
     torch.backends.cudnn.allow_tf32 = False
     lm_reference_phase(torch, args.seed)
+    lm_reference_inputs_phase(torch, args.seed)
     kernels.update(flash_phase(torch, args.seed, args.reps))
     kernels.update(w8_phase(torch, args.seed))
     kernels.update(moe_phase(torch, args.seed, args.reps))
@@ -2922,16 +3310,19 @@ def main(argv=None) -> int:
     ssm = lm_serve_recurrent_phase(torch, args.seed, SSM_ARCH, "lm_serve_ssm")
     hybrid = lm_serve_recurrent_phase(torch, args.seed, HYBRID_ARCH, "lm_serve_hybrid",
                                       HYBRID_CHECK_LAYERS, HYBRID_SCAN_LAYERS)
+    encdec = lm_serve_inputs_phase(torch, args.seed, ENCDEC_ARCH, "lm_serve_encdec")
+    vlm = lm_serve_inputs_phase(torch, args.seed, VLM_ARCH, "lm_serve_vlm", VLM_LAYERS)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);
-    # the flash kernel's in the five serving runs (bf16, int8, MoE, the SSM,
-    # which has none, and the hybrid), the W8 kernel's in the int8 run, the
+    # the flash kernel's in the seven serving runs (bf16, int8, MoE, the SSM,
+    # which has none, the hybrid, the VLM and the encoder-decoder), the W8 kernel's in the int8 run, the
     # MoE kernel's in the MoE run, the scan kernel's in the hybrid run
     launches = {**revisions["launches"], **selection["launches"],
                 **engine["launches"], "hash_join": server["launches"]["hash_join"],
                 "flash_attention": sum(lm[w]["launches"]["flash_attention"]
                                        for w in ("bf16", "int8"))
-                + sum(cell["launches"]["flash_attention"] for cell in (moe, ssm, hybrid)),
+                + sum(cell["launches"]["flash_attention"]
+                      for cell in (moe, ssm, hybrid, vlm, encdec)),
                 "w8_matmul": lm["int8"]["launches"]["w8_matmul"],
                 "moe_ffn": moe["launches"]["moe_ffn"],
                 "rglru_scan": hybrid["launches"]["rglru_scan"]}
@@ -2942,8 +3333,8 @@ def main(argv=None) -> int:
                          "breaker_open")}
     emit({"phase": "breaker", "engines": len(breakers), **breaker})
     assert not any(breaker.values()), breaker
-    assert set(kernels) == set(REPLACES) | set(FUSIONS) | {
-        "hash_join_packed", "flash_attention_window", "flash_attention_d256"}, sorted(kernels)
+    assert set(kernels) == set(REPLACES) | set(FUSIONS) | {"hash_join_packed"} | {
+        name for name, *_ in FLASH_SHAPES}, sorted(kernels)
     assert len(REPLACES) == 11
     assert all(launches[name] > 0 for name in (*REPLACES, *FUSIONS)), launches
     emit({"phase": "done", "seconds": time.perf_counter() - started})

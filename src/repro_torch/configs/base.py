@@ -1,15 +1,16 @@
 """Config schema + shape registry — the port's copy of ``repro.configs.base``.
 
 ``ArchConfig`` (with ``param_count``), ``ShapeSpec``, ``SHAPES`` and
-``ARCH_NAMES`` are copied unchanged.  Of the ten architectures the port
-serves the ones it has modules for: the dense attention-only ``qwen3-8b``,
-``gemma3-27b`` and the two with QKV bias, ``qwen1.5-110b`` and
-``internlm2-20b``, the two MoE decoders, ``qwen3-moe-235b-a22b`` and
-``llama4-maverick-400b-a17b``, the attention-free ``mamba2-1.3b`` (SSD) and
-the hybrid ``recurrentgemma-9b`` (RG-LRU + local attention).
-``get_config`` / ``get_smoke_config`` of another name raise
-``NotImplementedError`` naming ROADMAP queue 1 item 8 (the rest of the LM
-stack: M-RoPE and enc-dec blocks).
+``ARCH_NAMES`` are copied unchanged (``param_count`` as the reference
+counts: a token embedding for every architecture, the VLM's too, and no
+``enc_norm`` for the encoder-decoder).  The port serves all ten: the dense
+attention-only ``qwen3-8b``, ``gemma3-27b`` and the two with QKV bias,
+``qwen1.5-110b`` and ``internlm2-20b``, the two MoE decoders,
+``qwen3-moe-235b-a22b`` and ``llama4-maverick-400b-a17b``, the VLM backbone
+``qwen2-vl-72b`` (M-RoPE, precomputed input embeddings), the
+attention-free ``mamba2-1.3b`` (SSD), the encoder-decoder
+``seamless-m4t-medium`` and the hybrid ``recurrentgemma-9b`` (RG-LRU +
+local attention).
 """
 
 from __future__ import annotations
@@ -186,7 +187,9 @@ _MODULES = {
     "gemma3-27b": "gemma3_27b",
     "llama4-maverick-400b-a17b": "llama4_maverick",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
@@ -194,10 +197,6 @@ _MODULES = {
 def _module(name: str):
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown architecture {name!r}; want one of {ARCH_NAMES}")
-    if name not in _MODULES:
-        raise NotImplementedError(
-            f"{name} needs LM modules the port does not have yet (ROADMAP "
-            f"queue 1 item 8); ported: {tuple(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

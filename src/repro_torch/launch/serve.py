@@ -9,7 +9,11 @@ decoders, the MoE ones (``qwen3-moe-235b-a22b``,
 ``llama4-maverick-400b-a17b``; on the card a decode step's expert FFN runs
 the MoE kernel), the SSM ``mamba2-1.3b`` and the hybrid
 ``recurrentgemma-9b`` (on the card a prefill's RG-LRU recurrence runs the
-scan kernel).  Weights and prompts are drawn from ``--seed``.
+scan kernel).  The session serves token-input decoders only, as the
+reference's does: ``qwen2-vl-72b`` (precomputed embeddings) and
+``seamless-m4t-medium`` (encoder-decoder) are refused with its message;
+drive their ``prefill`` and ``decode_step`` directly.  Weights and prompts
+are drawn from ``--seed``.
 ``--int8`` serves with ``quantize_for_serving``'s int8 matmul weights (on
 the card a decode step's products run the W8 kernel; MoE experts stay
 bf16).  The rate is printed beside the
@@ -49,6 +53,8 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.embed_inputs or cfg.is_encdec:
+        raise SystemExit("token-input decoder archs only")
     model = build_model(cfg, device=args.device, seed=args.seed)
     if args.int8:
         quantize_for_serving(model)

@@ -1,4 +1,4 @@
-"""Carry the reference package's decoder weights into the port.
+"""Carry the reference package's model weights into the port.
 
 ``params_from_reference(cfg, tree)`` takes the tree that the reference's
 ``DecoderLM(cfg).init(key)`` returns, as numpy arrays (nested dicts), and
@@ -6,7 +6,8 @@ gives the port's ``state_dict``: the stacked unit leaves
 ``units/b{i}/...`` (leading axis ``n_units``) are unstacked into
 ``layers.{u * len(pattern) + i}...``, the tail's ``tail/b{i}/...`` follow
 them, and ``token_embedding``, ``final_norm/scale`` and ``lm_head`` keep
-their names.  An MoE layer's leaves (``moe/router``, ``moe/expert_gate``,
+their names (a config with ``embed_inputs=False``, the VLM backbone, has
+no ``token_embedding``).  An MoE layer's leaves (``moe/router``, ``moe/expert_gate``,
 ``moe/expert_up``, ``moe/expert_down``: stacked ``(n_units, E, d, f)``)
 unstack on the first axis like the others; a pattern of several kinds
 (llama4's ``("attn", "moe")``, recurrentgemma's ``("rglru", "rglru",
@@ -22,6 +23,13 @@ as the reference casts them at use, and keeps float32 the leaves the model
 holds in float32 (norm scales, ``a_log``, ``dt_bias``, ``d_skip``, ``w_a``,
 ``b_a``, ``w_x``, ``b_x``, ``lambda_``).  Nothing here imports JAX: callers
 hand over numpy.
+
+The encoder-decoder's tree (``repro.models.encdec``) maps the same way:
+``enc_units/...`` (stacked over ``n_enc_layers``) to ``enc_layers.{i}...``,
+``units/...`` (stacked over ``n_layers``, each with ``ln_x`` and the
+``cross`` attention's ``wq``, ``wk``, ``wv``, ``wo``) to ``layers.{i}...``,
+and ``token_embedding``, ``enc_norm/scale``, ``final_norm/scale`` and
+``lm_head`` keep their names.
 
 A tree that ``repro``'s ``quantize_for_serving`` made holds an int8 record
 ``{"q": int8 (in, out), "s": bf16 (1, out)}`` in place of each quantized
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
+from .encdec import DecoderLayer, EncoderLayer, attn_specs
 from .layers import _QUANT_NAMES
 from .lm import Block, check_config, layer_kinds
 
@@ -52,20 +61,37 @@ def _flatten(tree, prefix: str = ""):
         yield prefix[:-1], np.asarray(tree)
 
 
+def _layers(cfg: ArchConfig) -> list[tuple[str, torch.nn.Module]]:
+    """(state prefix, an empty layer on the meta device) for every layer of
+    the port's model for ``cfg``."""
+    dt = torch.float32
+    if cfg.is_encdec:
+        enc_spec, dec_spec, cross_spec = attn_specs(cfg)
+        enc = EncoderLayer(cfg, enc_spec, dt, "meta")
+        dec = DecoderLayer(cfg, dec_spec, cross_spec, dt, "meta")
+        return ([(f"enc_layers.{i}", enc) for i in range(cfg.n_enc_layers)]
+                + [(f"layers.{i}", dec) for i in range(cfg.n_layers)])
+    return [(f"layers.{i}", Block(kind, cfg, dt, device="meta"))
+            for i, kind in enumerate(layer_kinds(cfg))]
+
+
 def expected_shapes(cfg: ArchConfig, quantized: bool = False) -> dict[str, tuple[int, ...]]:
-    """Every weight name of the port's decoder for ``cfg`` and its shape;
+    """Every weight name of the port's model for ``cfg`` and its shape;
     ``quantized``: after ``quantize_for_serving`` (``.q`` and ``.s``)."""
     check_config(cfg)
     v, d = cfg.padded_vocab, cfg.d_model
-    out = {"token_embedding": (v, d), "final_norm.scale": (d,), "lm_head": (d, v)}
-    for idx, kind in enumerate(layer_kinds(cfg)):
-        block = Block(kind, cfg, torch.float32, device="meta")
-        for name, t in block.state_dict().items():
+    out = {"final_norm.scale": (d,), "lm_head": (d, v)}
+    if cfg.embed_inputs:
+        out["token_embedding"] = (v, d)
+    if cfg.is_encdec:
+        out["enc_norm.scale"] = (d,)
+    for prefix, layer in _layers(cfg):
+        for name, t in layer.state_dict().items():
             if quantized and name.rpartition(".")[2] in _QUANT_NAMES and t.dim() == 2:
-                out[f"layers.{idx}.{name}.q"] = tuple(t.shape)
-                out[f"layers.{idx}.{name}.s"] = (1, t.shape[1])
+                out[f"{prefix}.{name}.q"] = tuple(t.shape)
+                out[f"{prefix}.{name}.s"] = (1, t.shape[1])
             else:
-                out[f"layers.{idx}.{name}"] = tuple(t.shape)
+                out[f"{prefix}.{name}"] = tuple(t.shape)
     return out
 
 
@@ -81,21 +107,28 @@ def params_from_reference(cfg: ArchConfig, tree: dict) -> dict[str, torch.Tensor
     width = len(cfg.block_pattern)
     base = cfg.n_units * width
     out: dict[str, torch.Tensor] = {}
+
+    def unstack(path, leaf, n: int, name_of) -> None:
+        if leaf.shape[:1] != (n,):
+            raise ValueError(f"{path}: stacked over {leaf.shape[:1]}, want ({n},)")
+        for u in range(n):
+            out[name_of(u)] = _tensor(leaf[u])
+
     for path, leaf in _flatten(tree):
         top, _, rest = path.partition(".")
-        if top == "units":
+        if cfg.is_encdec and top in ("enc_units", "units"):
+            n, prefix = ((cfg.n_enc_layers, "enc_layers") if top == "enc_units"
+                         else (cfg.n_layers, "layers"))
+            unstack(path, leaf, n, lambda u: f"{prefix}.{u}.{rest}")
+        elif top == "units":
             blk, _, name = rest.partition(".")
             i = int(blk[1:])
-            if leaf.shape[:1] != (cfg.n_units,):
-                raise ValueError(f"{path}: stacked over {leaf.shape[:1]}, want "
-                                 f"({cfg.n_units},) units")
-            for u in range(cfg.n_units):
-                out[f"layers.{u * width + i}.{name}"] = _tensor(leaf[u])
-            continue
-        if top == "tail":
+            unstack(path, leaf, cfg.n_units, lambda u: f"layers.{u * width + i}.{name}")
+        elif top == "tail":
             blk, _, name = rest.partition(".")
-            path = f"layers.{base + int(blk[1:])}.{name}"
-        out[path] = _tensor(leaf)
+            out[f"layers.{base + int(blk[1:])}.{name}"] = _tensor(leaf)
+        else:
+            out[path] = _tensor(leaf)
     quantized = any(path.endswith((".q", ".s")) for path in out)
     want = expected_shapes(cfg, quantized)
     extra, missing = sorted(set(out) - set(want)), sorted(set(want) - set(out))

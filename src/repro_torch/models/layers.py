@@ -1,6 +1,6 @@
 """The layers of ``repro.models.layers`` on PyTorch.
 
-Blocks: RMSNorm, RoPE, GQA attention (the blockwise online-softmax form on
+Blocks: RMSNorm, RoPE / M-RoPE, GQA attention (the blockwise online-softmax form on
 the CPU, the hand-written flash kernel on the card, cached attention for
 decode, optional sliding window / qk-norm / QKV bias), the
 SwiGLU / GeGLU / vanilla FFNs and the token-choice top-k MoE block with its
@@ -10,8 +10,8 @@ serving weights (:class:`QuantizedWeight`, :func:`quantize_weight`,
 :func:`quantize_for_serving`), the causal depthwise conv, the Mamba-2 SSD
 mixer (the chunked form for a prefill, one step for decode) and the Griffin
 RG-LRU mixer (its prefill recurrence on the hand-written scan kernel of
-``kernels/rglru_scan.py``).  M-RoPE raises ``NotImplementedError`` naming
-its ROADMAP item.
+``kernels/rglru_scan.py``).  RoPE takes the M-RoPE form (positions ``(B,
+3, S)``) of the VLM backbone.
 
 Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
 :class:`Attention`, :class:`MLP`, :class:`MoE`, :class:`SSD`,
@@ -196,19 +196,43 @@ class RMSNorm(nn.Module):
 
 
 # ------------------------------------------------------------------- RoPE
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Frequency-index split for M-RoPE (temporal, height, width).
+
+    Matches Qwen2-VL's published 16/24/24 split at head_dim=128 and scales
+    proportionally elsewhere: s0 = hd/8, s1 = s2 = (hd/2 - s0)/2.
+    """
+    half = head_dim // 2
+    s0 = head_dim // 8
+    s1 = (half - s0) // 2
+    return (s0, s1, half - s0 - s1)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  mrope: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables: positions (B, S) -> (B, S, half)."""
-    if mrope:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP queue 1 item 8.6, M-RoPE/VLM)")
+    """cos/sin tables: positions (B, S) -> (B, S, half); for M-RoPE
+    positions (B, 3, S), each frequency driven by the component (t, h or w)
+    of its section (:func:`mrope_sections`).  The reference picks the
+    component with a one-hot einsum, which multiplies by 1 and adds 0: the
+    selection here gives the same float32 angles exactly.  The section of
+    each frequency is computed on the device by comparisons, not copied
+    from the host, so a CUDA graph can capture it."""
     half = head_dim // 2
     dev = positions.device
-    exps = -torch.arange(half, dtype=F32, device=dev) / half
+    idx = torch.arange(half, device=dev)
+    exps = -idx.to(F32) / half
     # theta as a filled device scalar, not a host copy: a CUDA graph can
     # capture a fill, not a copy from pageable memory
     freqs = torch.pow(torch.full((), theta, dtype=F32, device=dev), exps)
-    ang = positions.to(F32)[..., None] * freqs  # (B, S, half)
+    if not mrope:
+        ang = positions.to(F32)[..., None] * freqs  # (B, S, half)
+        return torch.cos(ang), torch.sin(ang)
+    if positions.dim() != 3 or positions.shape[1] != 3:
+        raise ValueError(f"M-RoPE wants positions (B, 3, S), got {tuple(positions.shape)}")
+    ang3 = positions.to(F32)[..., None] * freqs  # (B, 3, S, half)
+    s0, s1, _ = mrope_sections(head_dim)
+    ang = torch.where(idx < s0, ang3[:, 0],
+                      torch.where(idx < s0 + s1, ang3[:, 1], ang3[:, 2]))  # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -381,6 +405,24 @@ def _attend(q, k, v, spec: AttnSpec, chunk: int) -> torch.Tensor:
     return blockwise_attention(q, k, v, spec, chunk=chunk)
 
 
+def _attention(params: Attention, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
+    """Attention over a whole sequence: (the output projected by ``wo``, the
+    rotated k and the v it attended over)."""
+    cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, spec.mrope)
+    q, k, v = _qkv(params, spec, x, cos, sin)
+    out = params.attend(q, k, v)
+    b, s = x.shape[:2]
+    return linear(out.reshape(b, s, spec.n_heads * spec.head_dim), params.wo), k, v
+
+
+def attention_forward(params: Attention, spec: AttnSpec, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Attention over a sequence with no cache — the reference's
+    ``attention_train``: causal or, with ``spec.causal`` False,
+    bidirectional (the encoder's self-attention)."""
+    return _attention(params, spec, x, positions)[0]
+
+
 def attention_prefill(
     params: Attention, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
     cache_len: int,
@@ -388,11 +430,8 @@ def attention_prefill(
     """Attention over the prompt; also emits the KV cache laid out for
     decode: (B, K, cache_len, Dh), zero-padded — for a windowed layer the
     last ``window`` positions, the ring buffer's contents."""
-    cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, spec.mrope)
-    q, k, v = _qkv(params, spec, x, cos, sin)
-    out = params.attend(q, k, v)
-    b, s = x.shape[:2]
-    y = linear(out.reshape(b, s, spec.n_heads * spec.head_dim), params.wo)
+    y, k, v = _attention(params, spec, x, positions)
+    s = x.shape[1]
     keep = s if spec.window is None else min(s, spec.window)
     pad = max(cache_len - keep, 0)
     ck = F.pad(k[:, s - keep:], (0, 0, 0, 0, 0, pad))
@@ -417,7 +456,9 @@ def attention_decode(
     b = x.shape[0]
     s_cache = cache["k"].shape[2]
     pos = torch.as_tensor(pos, device=x.device)
-    cos, sin = rope_cos_sin(pos.expand(b, 1), spec.head_dim, spec.rope_theta, spec.mrope)
+    # the RoPE position: pos in every component of an M-RoPE layer's (B, 3, 1)
+    rope_pos = pos.expand(b, 3, 1) if spec.mrope else pos.expand(b, 1)
+    cos, sin = rope_cos_sin(rope_pos, spec.head_dim, spec.rope_theta, spec.mrope)
     q, k, v = _qkv(params, spec, x, cos, sin)
     kh = spec.n_kv_heads
     g = spec.n_heads // kh

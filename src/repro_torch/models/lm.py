@@ -11,15 +11,20 @@ Interface (the reference's, with the weights held by the module):
   prefill(batch, max_len) -> (logits, cache)  logits (B, V) float32
   decode_step(cache, tokens, pos) -> (logits, cache)  pos an int or a
                                                     0-d device tensor
+The batch is ``{"tokens": (B, S)}``, or for a config with
+``embed_inputs=False`` (the VLM backbone, whose vision frontend is a stub)
+``{"embeds": (B, S, D)}`` with M-RoPE ``"positions"`` (B, 3, S); such a
+model has no ``token_embedding``, and its decode step takes (B, 1, D)
+embeddings in place of tokens.
 
 Every block kind of the reference is ported: ``attn``, ``local`` (the
 dense families), ``moe`` (global attention with the MoE block in place of
 the FFN), ``ssd`` (the Mamba-2 mixer, no FFN) and ``rglru`` (the Griffin
 recurrent mixer and an FFN).  An attention layer's cache is its KV cache; a
 recurrent layer's is its state (``conv`` and ``ssm`` or ``h``), written in
-place by a decode step as the KV caches are.  M-RoPE, precomputed input
-embeddings and the training loss raise ``NotImplementedError`` naming their
-ROADMAP item.
+place by a decode step as the KV caches are.  Attention takes M-RoPE
+(``cfg.mrope``).  The encoder-decoder family is ``encdec.EncDecLM``; the
+training loss raises ``NotImplementedError`` naming its ROADMAP item.
 The default device is the card; without one the constructor raises unless
 the caller passes ``device="cpu"``.
 """
@@ -45,20 +50,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise for what the port's decoder cannot run yet."""
-    if cfg.is_encdec:
-        raise _not_ported("the encoder-decoder family", "8.7 (enc-dec)")
+    """Raise for a block kind the port does not know, or an MoE layer
+    without experts."""
     for kind in set(cfg.block_pattern):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
         if kind == "moe" and not (cfg.n_experts > 0 and 0 < cfg.top_k <= cfg.n_experts):
             raise ValueError(f"a moe layer needs 0 < top_k <= n_experts, got top_k "
                              f"{cfg.top_k} of {cfg.n_experts} experts")
-    if cfg.mrope:
-        raise _not_ported("M-RoPE", "8.6 (M-RoPE/VLM)")
-    if not cfg.embed_inputs:
-        raise _not_ported("precomputed input embeddings (embed_inputs=False)",
-                          "8.6 (M-RoPE/VLM)")
 
 
 def attn_specs(cfg: ArchConfig) -> dict[str, L.AttnSpec]:
@@ -83,6 +82,18 @@ def ssd_spec(cfg: ArchConfig) -> L.SSDSpec:
 
 def rglru_spec(cfg: ArchConfig) -> L.RGLRUSpec:
     return L.RGLRUSpec(d_model=cfg.d_model, lru_width=cfg.lru_width or cfg.d_model)
+
+
+def head_logits(lm_head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> (B, V) float32 logits of the last position: compute-
+    dtype operands, float32 products and sums (the reference's
+    ``preferred_element_type``), through float32 slices of ``lm_head``."""
+    x = h[:, -1].float()
+    v = lm_head.shape[1]
+    out = torch.empty((x.shape[0], v), dtype=torch.float32, device=x.device)
+    for v0 in range(0, v, LOGIT_CHUNK):
+        out[:, v0:v0 + LOGIT_CHUNK] = x @ lm_head[:, v0:v0 + LOGIT_CHUNK].float()
+    return out
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -156,15 +167,20 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None, seed: int | None = 0):
         """Weights are allocated on ``device`` (the card by default) in the
         compute dtype (norm scales in float32) and drawn from ``seed``;
-        ``seed=None`` leaves them unset, for ``load_state_dict``."""
+        ``seed=None`` leaves them unset, for ``load_state_dict``.  A config
+        with ``embed_inputs=False`` has no ``token_embedding``."""
         super().__init__()
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder (n_enc_layers > 0): "
+                             "build it with build_model, which gives an EncDecLM")
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         v, d = cfg.padded_vocab, cfg.d_model
         dt = dict(dtype=self.compute_dtype, device=self.device)
-        self.token_embedding = L._weight(torch.empty((v, d), **dt))
+        if cfg.embed_inputs:
+            self.token_embedding = L._weight(torch.empty((v, d), **dt))
         self.layers = nn.ModuleList(
             Block(kind, cfg, self.compute_dtype, self.device) for kind in layer_kinds(cfg))
         self.final_norm = L.RMSNorm(d, self.device)
@@ -185,7 +201,8 @@ class DecoderLM(nn.Module):
         def draw(w, scale):
             w.copy_(L.normal(gen, w.shape, scale, w.dtype, w.device))
 
-        draw(self.token_embedding, 1.0)
+        if self.cfg.embed_inputs:
+            draw(self.token_embedding, 1.0)
         for layer in self.layers:
             layer.ln1.scale.zero_()
             if layer.kind == "ssd":
@@ -219,9 +236,27 @@ class DecoderLM(nn.Module):
         return [layer.cache(batch, max_len, self.compute_dtype, self.device)
                 for layer in self.layers]
 
-    def _embed(self, tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        return self.token_embedding[tokens]
+    def _inputs(self, tokens) -> torch.Tensor:
+        """A decode step's or a prompt's inputs in the compute dtype: the
+        embedding rows of ``tokens``, or, without a token embedding, the
+        embeddings themselves."""
+        if self.cfg.embed_inputs:
+            tokens = torch.as_tensor(tokens, device=self.device).long()
+            return self.token_embedding[tokens]
+        return torch.as_tensor(tokens, device=self.device).to(self.compute_dtype)
+
+    def _embed(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """The prompt's inputs and RoPE positions: ``arange(S)`` for every
+        row, or for M-RoPE the batch's ``positions`` (B, 3, S) — where it
+        has none, ``arange(S)`` in all three components."""
+        x = self._inputs(batch["tokens"] if self.cfg.embed_inputs else batch["embeds"])
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        if self.cfg.mrope:
+            given = batch.get("positions")
+            positions = (positions[:, None, :].expand(b, 3, s) if given is None
+                         else torch.as_tensor(given, device=self.device))
+        return x, positions
 
     def _prefill_layer(self, layer: Block, h, positions, max_len: int):
         mix, cache = layer.mix_prefill(L.rms_norm(h, layer.ln1.scale), positions, max_len)
@@ -237,47 +272,36 @@ class DecoderLM(nn.Module):
             h = h + layer.ffn(L.rms_norm(h, layer.ln2.scale))
         return h, cache
 
-    def _logits(self, h_last: torch.Tensor) -> torch.Tensor:
-        """(B, S, D) -> (B, V) float32 logits of the last position: compute-
-        dtype operands, float32 products and sums (the reference's
-        ``preferred_element_type``), through float32 slices of ``lm_head``."""
-        x = h_last[:, -1].float()
-        v = self.lm_head.shape[1]
-        out = torch.empty((x.shape[0], v), dtype=torch.float32, device=x.device)
-        for v0 in range(0, v, LOGIT_CHUNK):
-            out[:, v0:v0 + LOGIT_CHUNK] = x @ self.lm_head[:, v0:v0 + LOGIT_CHUNK].float()
-        return out
-
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, list[dict]]:
-        """batch ``{"tokens": (B, S) ints}`` -> (next-token logits (B, V)
-        float32, the per-layer caches laid out for ``decode_step``).  Each
-        layer's activations are released before the next layer runs (an SSD
-        layer's chunk mask is about 1 GB at mamba2-1.3b's width and 8 × 2,048
-        tokens)."""
-        x = self._embed(batch["tokens"])
-        b, s = x.shape[:2]
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        h, caches = x, []
+        """batch ``{"tokens": (B, S) ints}`` (or ``{"embeds": (B, S, D),
+        "positions": (B, 3, S)}``, see the module's docstring) -> (next-token
+        logits (B, V) float32, the per-layer caches laid out for
+        ``decode_step``).  Each layer's activations are released before the
+        next layer runs (an SSD layer's chunk mask is about 1 GB at
+        mamba2-1.3b's width and 8 × 2,048 tokens)."""
+        h, positions = self._embed(batch)
+        caches = []
         for layer in self.layers:
             h, c = self._prefill_layer(layer, h, positions, max_len)
             caches.append(c)
         h = L.rms_norm(h, self.final_norm.scale)
-        return self._logits(h), caches
+        return head_logits(self.lm_head, h), caches
 
     @torch.no_grad()
     def decode_step(self, cache: list[dict], tokens, pos) -> tuple:
-        """One decode step. tokens (B, 1) ints; pos the position, a 0-d
+        """One decode step. tokens (B, 1) ints (embeddings (B, 1, D) for a
+        config with ``embed_inputs=False``); pos the position, a 0-d
         integer tensor on the model's device (the reference's traced ``pos``)
         or an int; the caches (KV caches and recurrent states) are updated in
         place and returned.  Nothing in
         the step reads a device value back to the host, so
         ``serve.engine.make_decode_step`` can capture it in a CUDA graph."""
-        h = self._embed(tokens)
+        h = self._inputs(tokens)
         pos = torch.as_tensor(pos, device=self.device)
         new = []
         for layer, c in zip(self.layers, cache):
             h, c = self._decode_layer(layer, h, c, pos)
             new.append(c)
         h = L.rms_norm(h, self.final_norm.scale)
-        return self._logits(h), new
+        return head_logits(self.lm_head, h), new

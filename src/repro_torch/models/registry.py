@@ -4,11 +4,16 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
 
+from .encdec import EncDecLM
 from .lm import DecoderLM
 
+MODEL_FAMILIES = ("dense", "moe", "vlm", "ssm", "audio", "hybrid")
 
-def build_model(cfg: ArchConfig, device=None, seed: int | None = 0) -> DecoderLM:
-    """The decoder for ``cfg`` on ``device`` (the card by default), weights
-    drawn from ``seed``.  The encoder-decoder family is not ported yet:
-    ``DecoderLM`` raises for it, as for every block kind it lacks."""
+
+def build_model(cfg: ArchConfig, device=None, seed: int | None = 0) -> DecoderLM | EncDecLM:
+    """The model for ``cfg`` on ``device`` (the card by default), weights
+    drawn from ``seed``: ``EncDecLM`` for an encoder-decoder config
+    (``n_enc_layers > 0``), else ``DecoderLM``."""
+    if cfg.is_encdec:
+        return EncDecLM(cfg, device=device, seed=seed)
     return DecoderLM(cfg, device=device, seed=seed)

@@ -1,6 +1,8 @@
 """Batched LM serving: continuous decode over a fixed-capacity request batch
-— the port of ``repro.serve.engine``, for every decoder the port has
-(attention KV caches and recurrent states alike).
+— the port of ``repro.serve.engine``.  ``make_decode_step`` takes every
+model of the port (attention KV caches, recurrent states, an
+encoder-decoder's cross K/V); ``ServeSession``, as the reference's, serves
+the token-input decoders.
 
 ``make_decode_step`` is one cached decode step over the whole batch:
 (cache, tokens, pos) -> (logits, cache).  ``ServeSession`` wraps it with
@@ -13,9 +15,11 @@ first maximum as ``jnp.argmax`` does).
 The reference compiles the step once (``jax.jit``, ``pos`` a traced array).
 Its counterpart here is a CUDA graph: on the card ``make_decode_step``
 returns a :class:`GraphedDecodeStep`, which captures ``model.decode_step``
-once over static ``tokens`` / ``pos`` buffers and the cache it is first
-handed, and replays it every tick — one launch of the graph in place of the
-step's thousands of kernel launches.  On the CPU the step stays eager.
+once over static ``tokens`` / ``pos`` buffers (``tokens`` as it comes:
+(B, 1) token ids, or (B, 1, D) embeddings for a model without a token
+embedding) and the cache it is first handed, and replays it every tick —
+one launch of the graph in place of the step's thousands of kernel
+launches.  On the CPU the step stays eager.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from repro_torch.kernels import _cuda
 # an attention cache's keys: a step writes its token's slot, and the same
 # step again writes the same values there, so a warm-up needs no undo
 KV_KEYS = ("k", "v")
+# an encoder-decoder layer's cross K/V: a step only reads them
+CROSS_KEYS = ("cross_k", "cross_v")
 
 
 def make_prefill(model, max_len: int) -> Callable:
@@ -59,14 +65,16 @@ class GraphedDecodeStep:
 
     The first call adopts the cache it is handed as the graph's own (its
     tensors are the addresses the graph writes: an attention layer's KV
-    cache, a recurrent layer's ``conv`` and ``ssm`` / ``h`` state), copies
+    cache, a recurrent layer's ``conv`` and ``ssm`` / ``h`` state, an
+    encoder-decoder layer's ``cross_k`` / ``cross_v``), copies
     ``tokens`` and ``pos`` into static device buffers, runs the step once
     eagerly on a side stream (a warm-up: the cuBLAS handles and workspaces
     exist before the capture) and captures it.  That warm-up writes the
     token's keys and values into the KV cache at ``pos``, and the replay
     that follows writes the same values there again; a recurrent state,
     which a step advances in place, is put back as it was before the
-    warm-up, so the replay starts from the state the call was handed.
+    warm-up, so the replay starts from the state the call was handed; the
+    cross K/V, which a step only reads, is neither saved nor put back.
     Every call then copies its ``tokens`` and ``pos`` into the buffers,
     replays, and returns a copy of the logits and the captured cache.
 
@@ -116,7 +124,8 @@ class GraphedDecodeStep:
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self._set_pos(pos)
         # the recurrent states the warm-up advances, to put back after it
-        states = [{n: t.clone() for n, t in c.items() if n not in KV_KEYS} for c in cache]
+        states = [{n: t.clone() for n, t in c.items() if n not in KV_KEYS + CROSS_KEYS}
+                  for c in cache]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):

@@ -709,6 +709,9 @@ FLASH_CASES = [
     (2, 200, 64, 4, 128, True, None),  # and over a ragged second tile
     (2, 1024, 16, 1, 256, True, None),  # recurrentgemma-9b's local layers: MQA, D 256
     (2, 1024, 16, 1, 256, True, 512),  # and a window inside the sequence
+    (1, 1975, 64, 8, 128, True, None),  # qwen2-vl-72b's prefill: 64 / 8 heads
+    (2, 264, 16, 16, 64, False, None),  # seamless-m4t-medium's encoder: 264 frames
+    (1, 1975, 16, 16, 64, True, None),  # and its decoder's prefill
 ]
 # (rtol, atol): float32, the kernel and the plain version sum the same terms
 # in another order; bfloat16, one rounding step of the output (2^-7 of its
@@ -1405,6 +1408,91 @@ def test_recurrent_graph_replay_equals_eager_over_readmissions(dev, arch):
     rglru = sum(layer.kind == "rglru" for layer in card.layers)
     assert _cuda.LAUNCHES["rglru_scan"] == 3 * rglru
     assert step.captured["rglru_scan"] == 0 and step.replays == len(logits)
+
+
+def input_family_model(arch, dev, seed=3):
+    """A bf16 smoke of one of the two families ``ServeSession`` does not
+    serve, on the card with the CPU model's weights, and three admissions of
+    2 slots (prompts of 12, 20 and 16 positions; the VLM's embeddings and
+    M-RoPE ids of 4 text tokens, a 2 x 2 grid, then text; the
+    encoder-decoder's 8 frames, 64 // 8: its init_cache's cross length)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="bfloat16")
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    card = build_model(cfg, device=dev, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(9)
+    admissions = []
+    for s in (12, 20, 16):
+        if cfg.embed_inputs:
+            batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, s))).to(dev),
+                     "enc_embeds": torch.from_numpy(
+                         rng.normal(0, 0.5, (2, 8, cfg.d_model)).astype(np.float32)).to(dev)}
+            inputs = None
+        else:
+            pos = np.zeros((3, s), np.int64)
+            pos[:, :4] = np.arange(4)
+            pos[:, 4:8] = 4
+            pos[1, 4:8] += [0, 0, 1, 1]
+            pos[2, 4:8] += [0, 1, 0, 1]
+            pos[:, 8:] = 6 + np.arange(s - 8)
+            batch = {"embeds": torch.from_numpy(
+                         rng.normal(0, 0.5, (2, s, cfg.d_model)).astype(np.float32)).to(dev),
+                     "positions": torch.from_numpy(np.broadcast_to(pos, (2, 3, s)).copy()).to(dev)}
+            inputs = [torch.from_numpy(rng.normal(0, 0.5, (2, 1, cfg.d_model)).astype(
+                np.float32)).to(dev) for _ in range(5)]
+        admissions.append((batch, inputs))
+    return cfg, card, admissions
+
+
+def drive_logged(model, admissions, eager: bool):
+    """Each admission prefilled, then 5 decode steps (the greedy token fed
+    back, or the admission's embeddings) through ``make_decode_step`` or the
+    eager step: the tokens, every step's logits, and the step."""
+    from repro_torch.serve.engine import make_decode_step
+
+    step = model.decode_step if eager else make_decode_step(model)
+    logged, tokens = [], []
+    for batch, inputs in admissions:
+        s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+        logits, cache = model.prefill(batch, 64)
+        out = [logits.argmax(-1)]
+        for t in range(5):
+            x = out[-1][:, None] if inputs is None else inputs[t]
+            logits, cache = step(cache, x, s + t)
+            logged.append(logits.clone())
+            out.append(logits.argmax(-1))
+        tokens.append(torch.stack(out, 1).cpu())
+    return tokens, logged, step
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "seamless-m4t-medium"])
+def test_input_family_graph_replay_equals_eager_over_readmissions(dev, arch):
+    """The VLM backbone's and the encoder-decoder's graphed decode step (over
+    (B, 1, D) embeddings, and over the flat cache with its cross K/V)
+    against the eager step: equal tokens and bit-equal logits step by step
+    across three admissions (the second and third copy their prefill's
+    cache, cross K/V included, into the captured one).  The flash kernel
+    launches once per attention layer (the encoder's too) and prefill, never
+    in a step."""
+    from repro_torch.serve.engine import GraphedDecodeStep
+
+    cfg, card, admissions = input_family_model(arch, dev)
+    eager_tokens, eager_logits, _ = drive_logged(card, admissions, eager=True)
+    _cuda.reset_launches()
+    tokens, logits, step = drive_logged(card, admissions, eager=False)
+    assert isinstance(step, GraphedDecodeStep) and step.graph is not None
+    assert all(torch.equal(a, b) for a, b in zip(tokens, eager_tokens))
+    assert len(logits) == len(eager_logits) == 15
+    for a, b in zip(logits, eager_logits):
+        assert torch.equal(a, b)
+    attention = cfg.n_layers + cfg.n_enc_layers
+    assert _cuda.LAUNCHES["flash_attention"] == 3 * attention
+    assert step.captured["flash_attention"] == 0 and step.replays == len(logits)
 
 
 # ------------------------------------------------------- sharded backend

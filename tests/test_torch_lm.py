@@ -225,16 +225,59 @@ def test_converter_refuses_a_tree_that_does_not_match(fault):
         params_from_reference(tcfg, tree)
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(mrope=True), "8.6"),
-    (dict(embed_inputs=False), "8.6"),
-    (dict(n_enc_layers=2), "8.7"),
-])
-def test_unported_kinds_raise_naming_their_item(change, item):
-    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), **change)
+def test_mrope_kind_is_ported():
+    """Item 8.6's M-RoPE is ported: a decoder with ``mrope`` builds, takes
+    ``positions`` (B, 3, S) in a prefill (and ``arange(S)`` in all three
+    components without them) and decodes; positions of another rank are
+    refused."""
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), mrope=True)
     assert isinstance(cfg, ArchConfig)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tbuild(cfg, device="cpu")
+    model = tbuild(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (1, 5)))
+    pos = torch.stack([torch.arange(5), torch.arange(5) // 2, torch.arange(5) % 2])[None]
+    logits, cache = model.prefill({"tokens": toks, "positions": pos}, 8)
+    plain, _ = model.prefill({"tokens": toks}, 8)
+    assert not torch.equal(logits, plain)  # the components differ: other angles
+    logits, _ = model.decode_step(cache, toks[:, :1], 5)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="M-RoPE"):
+        model.prefill({"tokens": toks, "positions": pos[:, 0]}, 8)
+
+
+def test_embed_inputs_kind_is_ported():
+    """Item 8.6's precomputed inputs are ported: with ``embed_inputs=False``
+    the decoder has no ``token_embedding`` and takes ``embeds`` (B, S, D)
+    in a prefill and (B, 1, D) in a decode step."""
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), embed_inputs=False)
+    model = tbuild(cfg, device="cpu")
+    assert not hasattr(model, "token_embedding")
+    assert sum(p.numel() for p in model.parameters()) == (
+        cfg.param_count() - cfg.padded_vocab * cfg.d_model)
+    x = torch.randn((1, 5, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    logits, cache = model.prefill({"embeds": x}, 8)
+    logits, _ = model.decode_step(cache, x[:, -1:], 5)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_encdec_kind_is_ported():
+    """Item 8.7 is ported: an encoder-decoder config builds an ``EncDecLM``
+    (the decoder alone refuses it), which encodes frames, prefills and
+    decodes over one flat cache a layer."""
+    from repro_torch.models.encdec import EncDecLM
+
+    cfg = dataclasses.replace(tget_smoke("qwen3-8b"), n_enc_layers=2, qk_norm=False,
+                              mlp_kind="gelu")
+    model = tbuild(cfg, device="cpu")
+    assert isinstance(model, EncDecLM) and len(model.enc_layers) == 2
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count() + cfg.d_model
+    batch = {"enc_embeds": torch.zeros((1, 3, cfg.d_model)),
+             "tokens": torch.zeros((1, 5), dtype=torch.long)}
+    logits, cache = model.prefill(batch, 8)
+    assert set(cache[0]) == {"k", "v", "cross_k", "cross_v"}
+    logits, _ = model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long), 5)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        DecoderLM(cfg, device="cpu")
 
 
 def test_moe_kind_is_ported():
@@ -300,17 +343,22 @@ def test_rglru_kind_is_ported():
 
 
 def test_loss_and_other_architectures_raise():
+    """The training loss raises naming its ROADMAP item (8.9); every one of
+    the ten architectures resolves, full and smoke, and its smoke builds."""
     from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.models.encdec import EncDecLM
 
     model = tbuild(tget_smoke("qwen3-8b"), device="cpu")
     with pytest.raises(NotImplementedError, match="8.9"):
         model.loss({})
     for name in ARCH_NAMES:
-        if name in MODELS:
-            assert get_config(name).name == name
-            continue
-        with pytest.raises(NotImplementedError, match="item 8"):
-            get_config(name)
+        assert get_config(name).name == name
+        smoke = tbuild(tget_smoke(name), device="cpu")
+        assert isinstance(smoke, EncDecLM) == get_config(name).is_encdec
+    with pytest.raises(NotImplementedError, match="8.9"):
+        tbuild(tget_smoke("seamless-m4t-medium"), device="cpu").loss({})
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
 
 
 @pytest.mark.parametrize("arch", list(MODELS))
