@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's engine batch path, its QueryServer, the
 sharded backend, the paper's three projection revisions, the selection
-entry points and the LM serving path (``qwen3-8b`` at full width, bf16 and
+entry points, the LM serving path (``qwen3-8b`` at full width, bf16 and
 int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers;
 ``mamba2-1.3b`` and ``recurrentgemma-9b`` at full width and depth;
 ``qwen2-vl-72b`` at full width, 32 of its 80 layers; ``seamless-m4t-medium``
-at full width and depth) on one NVIDIA GPU.
+at full width and depth) and the training path (``qwen3-8b`` at full
+width, 8 of its 36 layers, from a record store on the card) on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -216,9 +218,43 @@ probe rows matching — all made from ``--seed``:
       operations and the step's bound by bytes (the decoder's weights,
       ``lm_head``, the KV cache and the cross K/V read); each run's peak
       must leave 4 GiB of the card;
-10. checks that no engine the script built ever tripped its circuit breaker
+10. the train phase:
+   a. the wide projections of ROADMAP fault 3.2: record stores on the card
+      of 4,096 samples at S 2,048 and 4,096 (4,101- and 8,197-word rows,
+      67 and 134 MB), their ``(tokens, labels)`` view (4,096 and 8,192
+      packed words) through ``mlp``, ``pck`` and ``bsl``, each one launch,
+      bit-equal to the plain version, timed beside its bound by bytes and
+      ``index_select`` (``wide_projection`` lines);
+   b. the flash kernel's gradient (``FlashAttention``: the kernel's
+      forward, the plain version's recompute backward) at a qwen3-8b
+      training layer (B 2, S 2,048, 32 / 8 heads, D 128, bf16), causal,
+      with a window of 1,024 and bidirectional: the output within
+      ``FLASH_TOL``, dq, dk and dv within ``FLASH_GRAD_TOL`` of the plain
+      version's autograd, the forward's and backward's times beside their
+      bounds (``flash_backward`` lines);
+   c. the scan's gradient at the hybrid's prefill shape, bit-equal to the
+      plain reverse loop, two launches (``scan_backward``);
+   d. the main path: ``qwen3-8b`` at full width, its depth cut to 8 of 36
+      layers (``train_config`` with ``reduced``; 2,788,235,264 weights,
+      44.6 GB of float32 masters, gradients and AdamW moments), trained
+      from a record store on the card (4,096 samples of 2,048 tokens)
+      through ``TrainPipeline(batch_size=8)`` and ``make_train_step`` (4
+      microbatches of 2 × 2,048): 1 warm-up and 3 timed steps, each loss
+      and ``grad_norm`` finite, the projection kernel twice a batch and
+      the flash kernel twice a layer and microbatch, tokens/s,
+      ``train_mfu`` (model operations over the step time at 989 TFLOP/s),
+      the update's ms, the peak (4 GiB of the card left), one profiled
+      step (device-busy ms, launches, idle share, time by kind, top
+      kernels) (``train``);
+   e. the trainer at the qwen3-8b smoke on the card: 6 steps saving every
+      3, a fresh state restored bit-equal, the batch stream after the seek
+      equal to the unbroken one, 2 more steps (``trainer``);
+   f. one float32 train step of the qwen3-8b and recurrentgemma-9b smokes
+      card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
+      relative (``train_reference``);
+11. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
-11. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+12. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every kernel's ``launches`` is counted on its path alone (counts set to 0
 just before the path, read just after): the engine phase for the five scan
@@ -236,7 +272,8 @@ adds the replays'); the sharded
 phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
-aggregate and group-by kernels and the probe.
+aggregate and group-by kernels and the probe; the train phase's main path
+(d) adds its launches of the projection and flash kernels.
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device, or without the port
@@ -252,6 +289,7 @@ import cProfile
 import gc
 import json
 import math
+import os
 import pstats
 import resource
 import statistics
@@ -414,6 +452,44 @@ W8_SUM_RTOL = 1e-5
 # version each limit twice
 MOE_SUM_RTOL = W8_SUM_RTOL
 SILU_SLOPE = 1.1
+
+
+# the train phase: qwen3-8b at full width, its depth cut to
+# TRAIN_LAYERS of 36 (float32 masters, gradients and AdamW moments: 16 B a
+# parameter, 44.6 GB at 8 layers), trained from a record store on the card
+# of TRAIN_SAMPLES samples of TRAIN_SEQ tokens (synthetic_corpus, seed 1),
+# TRAIN_BATCH samples a step in the config's grad_accum (4) microbatches;
+# 1 warm-up step and TRAIN_STEPS timed ones; its peak must leave
+# MOE_FREE_BYTES of the card
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 2048
+TRAIN_SAMPLES = 4096
+TRAIN_BATCH = 8
+TRAIN_STEPS = 3
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "decay_steps": 4}
+# the wide projections of fault 3.2: record stores of TRAIN_SAMPLES samples
+# at these lengths (4,101- and 8,197-word rows), their (tokens, labels) view
+WIDE_SEQS = (2048, 4096)
+# the flash backward at a qwen3-8b training layer (B 2, S 2,048, 32 / 8
+# heads, D 128, bf16): causal, a window of 1,024 and bidirectional; the
+# backward recomputes the plain version in key steps of TRAIN_ATTN_CHUNK
+FLASH_BACKWARD_SHAPES = (("flash_backward", 2, 2048, 32, 8, 128, True, None),
+                         ("flash_backward_window", 2, 2048, 32, 8, 128, True, 1024),
+                         ("flash_backward_bidirectional", 2, 2048, 32, 8, 128, False, None))
+TRAIN_ATTN_CHUNK = 1024
+# a flash backward does 5 products a pair (QK recomputed, dV, dP, dQ, dK)
+# where the forward does 2: 2.5 times the forward's operations
+FLASH_BACKWARD_OPS = 2.5
+# the gradients of FlashAttention against the plain version's autograd on
+# the same inputs: the backward IS that recompute, so they agree to cuBLAS's
+# run-to-run order — within FLASH_GRAD_TOL of each gradient's largest value
+FLASH_GRAD_TOL = 1e-6
+# card against CPU, one float32 train step of each smoke: the loss within
+# TRAIN_LOSS_TOL, grad_norm within TRAIN_GNORM_RTOL relative
+TRAIN_REFERENCE_ARCHS = ("qwen3-8b", "recurrentgemma-9b")
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -2418,6 +2494,419 @@ BATCH_WORDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15)
 _HOST_COLUMNS: dict = {}
 
 
+# ------------------------------------------------------------ train phase
+def record_store(torch, seq: int, samples: int, vocab: int):
+    """A record store on the card holding ``samples`` samples of ``seq``
+    tokens from ``synthetic_corpus(seed=1)``, its rows uploaded."""
+    from repro_torch.data import RecordStore, synthetic_corpus
+
+    store = RecordStore(seq_len=seq, device="cuda")
+    store.ingest(*synthetic_corpus(samples, seq, vocab, seed=1))
+    store.engine.device_words(store.table)
+    return store
+
+
+def wide_projection_phase(torch, reps: int) -> dict:
+    """Fault 3.2's repair on the card: the ``(tokens, labels)`` view of a
+    record store of ``TRAIN_SAMPLES`` samples at each of ``WIDE_SEQS`` —
+    4,096 and 8,192 packed words of 4,101- and 8,197-word rows — through
+    the three revisions, each one launch and bit-equal to the plain
+    version, timed beside its bound by bytes and one ``index_select``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.common import geometry_words
+
+    vocab = get_config(TRAIN_ARCH).vocab
+    out = {}
+    for seq in WIDE_SEQS:
+        store = record_store(torch, seq, TRAIN_SAMPLES, vocab)
+        words = store.engine.device_words(store.table)
+        geom = store.project(("tokens", "labels")).geometry
+        n, row_words = words.shape
+        idx = torch.tensor(geometry_words(geom), dtype=torch.long, device="cuda")
+        want = K.project_torch(words, geom)
+        out_bytes = want.numel() * 4
+        bound_ms, bound_by = bound(set(geometry_words(geom)), out_bytes, n, row_words * 4, 0)
+        for rev, name in (("mlp", "project"), ("pck", "project_pck"), ("bsl", "project_bsl")):
+            run = lambda: K.project(words, geom, rev)  # noqa: E731
+            _cuda.reset_launches()
+            got = run()
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES[name] == 1, dict(_cuda.LAUNCHES)
+            assert torch.equal(got, want), (seq, rev)
+            line = {"phase": "wide_projection", "name": f"{name}_s{seq}", "kernel": name,
+                    "rows": n, "row_words": row_words, "packed_words": want.shape[1],
+                    "direct": row_words > _cuda.DIRECT_ROW_WORDS, "bit_equal": True,
+                    "max_abs_err": 0.0, "kernel_ms": time_ms(torch, run, reps),
+                    **device_fields(torch, run, reps),
+                    "plain_ms": time_ms(torch, lambda: K.project_torch(words, geom),
+                                        max(3, reps // 3)),
+                    "library_ms": time_ms(torch, lambda: words.index_select(1, idx), reps),
+                    "library_call": "torch.index_select", "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            line["bound_share"] = bound_ms / line["kernel_ms"]
+            if line["device_ms"]:
+                line["device_bound_share"] = bound_ms / line["device_ms"]
+            emit(line)
+            out[line["name"]] = line
+            del got
+        del store, words, want, idx
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_backward_phase(torch, seed: int, reps: int) -> dict:
+    """``FlashAttention`` at a qwen3-8b training layer (``FLASH_BACKWARD_
+    SHAPES``): the kernel's forward (one launch, within ``FLASH_TOL`` of
+    the plain version) and dq, dk, dv from the same ``dout`` within
+    ``FLASH_GRAD_TOL`` of the plain version's autograd; the gradients'
+    distance from float32 ones (the plain version on the inputs widened)
+    is reported, not held.  Timed: the forward alone, forward + backward,
+    and the plain version's forward + backward; the backward's bound is
+    ``FLASH_BACKWARD_OPS`` times the forward's operations."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 23)
+    for name, b, s, h, kh, d, causal, window in FLASH_BACKWARD_SHAPES:
+        base = [torch.randn((b, s, n, d), generator=g, device="cuda", dtype=torch.bfloat16)
+                for n in (h, kh, kh)]
+        dout = torch.randn((b, s, h, d), generator=g, device="cuda", dtype=torch.bfloat16)
+        kw = dict(causal=causal, window=window, block_k=TRAIN_ATTN_CHUNK)
+
+        def fwd_bwd(fn, inputs):
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            o = fn(*leaves, **kw)
+            return o, torch.autograd.grad(o, leaves, dout.to(o.dtype))
+
+        _cuda.reset_launches()
+        got, grads = fwd_bwd(FA.flash_attention, base)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["flash_attention"] == 1, dict(_cuda.LAUNCHES)
+        want, want_grads = fwd_bwd(FA.flash_attention_torch, base)
+        check = flash_check(got.detach(), want.detach(), "bfloat16")
+        grad_err, grad_share, err32 = {}, {}, {}
+        _, grads32 = fwd_bwd(FA.flash_attention_torch, [t.float() for t in base])
+        for key, gk, wk, g32 in zip("qkv", grads, want_grads, grads32):
+            scale = float(wk.float().abs().max())
+            err = float((gk.float() - wk.float()).abs().max())
+            grad_err[f"d{key}"], grad_share[f"d{key}"] = err, err / (FLASH_GRAD_TOL * scale)
+            assert err <= FLASH_GRAD_TOL * scale, (name, key, err, scale)
+            err32[f"d{key}"] = float((gk.float() - g32).abs().max()) / float(g32.abs().max())
+        del got, grads, want, want_grads, grads32
+        leaves = [t.detach().requires_grad_() for t in base]
+        fwd = lambda: FA.flash_attention(*leaves, **kw)  # noqa: E731
+        both = lambda: fwd_bwd(FA.flash_attention, base)  # noqa: E731
+        plain = lambda: fwd_bwd(FA.flash_attention_torch, base)  # noqa: E731
+        fwd_bound, by = flash_bound(b, s, h, kh, d, causal, window, 2)
+        line = {"phase": "flash_backward", "name": name,
+                "forward_ms": time_ms(torch, fwd, reps),
+                "forward_backward_ms": time_ms(torch, both, max(3, reps // 3)),
+                "plain_forward_backward_ms": time_ms(torch, plain, 3),
+                "forward_bound_ms": fwd_bound, "forward_bound_by": by,
+                "backward_bound_ms": FLASH_BACKWARD_OPS * fwd_bound, **check,
+                "grad_max_abs_err": grad_err, "grad_limit_share": grad_share,
+                "grad_rtol_max": FLASH_GRAD_TOL,
+                "grad_err_vs_float32_rel": err32,
+                "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
+                          "window": window, "dtype": "bfloat16",
+                          "key_step": TRAIN_ATTN_CHUNK}}
+        line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
+        line["backward_bound_share"] = line["backward_bound_ms"] / line["backward_ms"]
+        emit(line)
+        out[name] = line
+        del base, dout, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def scan_backward_phase(torch, seed: int, reps: int) -> dict:
+    """The scan's gradient at the hybrid's prefill shape (``RGLRU_SHAPE``):
+    the forward and the reverse recurrence one launch each, da and dx
+    bit-equal to the plain reverse loop on the card; timed beside the
+    backward's bound by bytes (a, h, dh read, da, dx written once)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import rglru_scan as RS
+
+    b, s, w = RGLRU_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6).requires_grad_()
+    x = torch.randn((b, s, w), generator=g, device="cuda").requires_grad_()
+    dh = torch.randn((b, s, w), generator=g, device="cuda")
+    _cuda.reset_launches()
+    h = RS.rglru_scan(a, x)
+    da, dx = torch.autograd.grad(h, (a, x), dh)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rglru_scan"] == 2, dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    want_da, want_dx = RS.rglru_scan_backward_torch(a.detach(), h.detach(), dh)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bit_equal = torch.equal(da, want_da) and torch.equal(dx, want_dx)
+    assert bit_equal, (float((da - want_da).abs().max()), float((dx - want_dx).abs().max()))
+
+    def both():
+        hh = RS.rglru_scan(a, x)
+        return torch.autograd.grad(hh, (a, x), dh)
+
+    nbytes = 5 * b * s * w * 4
+    line = {"phase": "scan_backward", "name": "rglru_scan_backward",
+            "forward_ms": time_ms(torch, lambda: RS.rglru_scan(a.detach(), x.detach()), reps),
+            "forward_backward_ms": time_ms(torch, both, reps), "plain_backward_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bit_equal_to_plain": True, "shape": {"B": b, "S": s, "W": w}}
+    line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
+    line["bound_share"] = line["bound_ms"] / line["backward_ms"]
+    emit(line)
+    del a, x, dh, h, da, dx, want_da, want_dx
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model operations of a train step: 6 × the matmul weights (every
+    layer's projections and FFN, and ``lm_head``; the embedding is a gather)
+    × tokens, plus attention: 3 × 4·H·D a causal (query, key) pair a layer
+    (forward, and twice that backward)."""
+    d, hd, h, k = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * hd * (h + 2 * k) + h * hd * d + 3 * d * cfg.d_ff
+    matmul = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    pairs = seq * (seq + 1) // 2 * (tokens // seq)
+    return 6 * matmul * tokens + 3 * 4 * h * hd * pairs * cfg.n_layers
+
+
+def profiled_train_step(torch, fn) -> dict:
+    """One train step under ``torch.profiler``: its wall time, the sum of
+    its kernels' device times (one stream), launches, idle share, the top
+    kernels, and the device time by kind — cuBLAS GEMMs, the flash kernel,
+    the scan kernels of the record store, the rest (elementwise, reductions,
+    copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+
+    def kind(key: str) -> str:
+        low = key.lower()
+        if "rm_flash" in low:
+            return "flash"
+        if low.startswith(("rm_", "void rm_")):
+            return "rme_kernels"
+        if any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas", "sm90_")):
+            return "gemm"
+        return "other"
+
+    by_kind: dict = {}
+    for e in kernels:
+        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) + dev_us(e) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernel_launches": sum(e.count for e in kernels), "device_ms_by_kind": by_kind,
+            "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
+
+
+def train_phase(torch, seed: int) -> dict:
+    """The slice's main path: ``qwen3-8b`` at full width, ``TRAIN_LAYERS``
+    of its 36 layers (``reduced``), master weights, gradients and AdamW
+    moments in float32, trained from a record store on the card through
+    ``TrainPipeline`` and ``make_train_step`` (the config's ``grad_accum``
+    microbatches, ``AdamWConfig(**TRAIN_OPT)``): 1 warm-up and
+    ``TRAIN_STEPS`` timed steps, each loss and ``grad_norm`` finite, the
+    projection kernel twice a batch and the flash kernel twice a layer and
+    microbatch (the forward and the checkpointed group's recompute), the
+    update's time, the peak (``MOE_FREE_BYTES`` of the card left), then one
+    profiled step.  Counts are reset just before the steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TrainPipeline
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train import step as train_step
+    from repro_torch.train.step import init_train_state
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    emit({"phase": "train_config", "arch": full.name, "source": full.source,
+          "reduced": {"n_layers": [full.n_layers, TRAIN_LAYERS]},
+          "weights": cfg.param_count(), "full_weights": full.param_count(),
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+          "state_bytes": 16 * cfg.param_count(), "grad_accum": cfg.grad_accum,
+          "scan_unroll": cfg.scan_unroll, "loss_chunk": cfg.loss_chunk,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "samples": TRAIN_SAMPLES,
+          "optimizer": TRAIN_OPT})
+    t0 = time.perf_counter()
+    store = record_store(torch, TRAIN_SEQ, TRAIN_SAMPLES, cfg.vocab)
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed, param_dtype=cfg.param_dtype)
+    state = init_train_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    update = {"ms": []}
+    real_update = train_step.adamw_update
+
+    def timed_update(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = real_update(*args)
+        end.record()
+        update["events"] = (start, end)
+        return result
+
+    step_fn = make_train_step(model, AdamWConfig(**TRAIN_OPT), grad_accum=cfg.grad_accum)
+    batches = TrainPipeline(store, batch_size=TRAIN_BATCH, seed=0).batches()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows = []
+    train_step.adamw_update = timed_update
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        for i in range(1 + TRAIN_STEPS):
+            batch = next(batches)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            update["ms"].append(update["events"][0].elapsed_time(update["events"][1]))
+            row = {k: float(v) for k, v in metrics.items()}
+            row.update(step=i + 1, seconds=dt, warm_up=i == 0)
+            assert all(math.isfinite(row[k]) for k in ("loss", "grad_norm")), row
+            rows.append(row)
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        train_step.adamw_update = real_update
+    free, total = torch.cuda.mem_get_info()
+    micro = 1 + TRAIN_STEPS
+    assert launches["project"] == 2 * micro, launches  # tokens and labels, as the reference
+    assert launches["flash_attention"] == 2 * cfg.n_layers * cfg.grad_accum * micro, launches
+    assert total - peak >= MOE_FREE_BYTES, (peak, total)
+    timed = [r["seconds"] for r in rows[1:]]
+    step_s = statistics.median(timed)
+    flops = train_model_flops(cfg, tokens, TRAIN_SEQ)
+    prof = profiled_train_step(torch, lambda: step_fn(state, next(batches)))
+    line = {"phase": "train", "arch": cfg.name, "reduced": {"n_layers": [full.n_layers,
+                                                                         TRAIN_LAYERS]},
+            "steps": rows, "step_seconds": step_s, "step_seconds_runs": timed,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+            "model_flops": flops, "step_bound_s": flops / BF16_OPS_PER_S,
+            "train_mfu": flops / (step_s * BF16_OPS_PER_S),
+            "update_ms": update["ms"], "store_seconds": store_s, "init_seconds": init_s,
+            "peak_memory": peak, "card_bytes": total, "free_after": total - peak,
+            "launches": {k: v for k, v in launches.items() if v}, "profile": prof}
+    emit(line)
+    del state, model, store, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def trainer_phase(torch, seed: int) -> dict:
+    """The trainer, its checkpoints and a restart on the card, at the
+    qwen3-8b smoke config: 6 steps saving every 3, then a fresh state from
+    another seed restored from the last checkpoint — every leaf bit-equal
+    to the state saved, on the card — the batch stream after the seek equal
+    to the unbroken one, and 2 more steps."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TrainPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    store = record_store(torch, 64, 128, cfg.vocab)
+    pipe = TrainPipeline(store, batch_size=8, seed=0)
+    opt = AdamWConfig(**TRAIN_OPT)
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(total_steps=6, ckpt_dir=d, ckpt_every=3, log_every=1)
+        model = build_model(cfg, device="cuda", seed=seed, param_dtype=cfg.param_dtype)
+        tr = Trainer(make_train_step(model, opt), init_train_state(model), pipe.batches(), tcfg)
+        hist = tr.run()
+        saved = sorted(os.listdir(d))
+        fresh = build_model(cfg, device="cuda", seed=seed + 1, param_dtype=cfg.param_dtype)
+        tr2 = Trainer(make_train_step(fresh, opt), init_train_state(fresh),
+                      pipe.batches(start_step=6), dataclasses.replace(tcfg, total_steps=8))
+        assert tr2.try_restore() and tr2.step == 6
+        leaves = 0
+        for part in ("params", "mu", "nu"):
+            a = tr.state["params"] if part == "params" else tr.state["opt"][part]
+            b = tr2.state["params"] if part == "params" else tr2.state["opt"][part]
+            for k in a:
+                assert b[k].device.type == "cuda" and torch.equal(a[k], b[k]), (part, k)
+                leaves += 1
+        assert int(tr2.state["opt"]["step"]) == int(tr.state["opt"]["step"]) == 6
+        unbroken = pipe.batches()
+        for _ in range(6):
+            next(unbroken)
+        for x, y in zip([next(unbroken) for _ in range(2)], pipe.batches(start_step=6)):
+            assert torch.equal(x["tokens"], y["tokens"]) and torch.equal(x["labels"], y["labels"])
+        tr2.run()
+        assert tr2.step == 8
+    line = {"phase": "trainer", "arch": cfg.name, "checkpoints": saved,
+            "restored_leaves_bit_equal": leaves, "losses": [h["loss"] for h in hist],
+            "resumed_at": 6, "final_step": tr2.step}
+    assert all(math.isfinite(x) for x in line["losses"]), line
+    emit(line)
+    return line
+
+
+def train_reference_phase(torch, seed: int) -> dict:
+    """Card against CPU: one float32 train step of each of
+    ``TRAIN_REFERENCE_ARCHS``' smokes (grad_accum 2) from the same weights
+    and batch: the loss within ``TRAIN_LOSS_TOL``, ``grad_norm`` within
+    ``TRAIN_GNORM_RTOL`` relative."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import init_train_state
+
+    out = {}
+    for arch in TRAIN_REFERENCE_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+        rng = np.random.default_rng(seed + 31)
+        batch = {k: rng.integers(0, cfg.vocab, (4, 128)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        host = build_model(cfg, device="cpu", seed=seed, param_dtype="float32")
+        card = build_model(cfg, device="cuda", seed=None, param_dtype="float32")
+        card.load_state_dict(host.state_dict())
+        got = {}
+        for where, model in (("cpu", host), ("cuda", card)):
+            step = make_train_step(model, AdamWConfig(**TRAIN_OPT), grad_accum=2)
+            _, m = step(init_train_state(model),
+                        {k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+            got[where] = {k: float(v) for k, v in m.items()}
+        dl = abs(got["cuda"]["loss"] - got["cpu"]["loss"])
+        dg = abs(got["cuda"]["grad_norm"] - got["cpu"]["grad_norm"]) / got["cpu"]["grad_norm"]
+        assert dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_RTOL, (arch, got)
+        out[arch] = {"card": got["cuda"], "cpu": got["cpu"], "loss_diff": dl,
+                     "grad_norm_rel_diff": dg}
+    emit({"phase": "train_reference", **out})
+    return out
+
+
 def host_columns(table, *words) -> list:
     """Contiguous copies of ``table``'s word columns for the numpy oracles.
 
@@ -3312,6 +3801,17 @@ def main(argv=None) -> int:
                                       HYBRID_CHECK_LAYERS, HYBRID_SCAN_LAYERS)
     encdec = lm_serve_inputs_phase(torch, args.seed, ENCDEC_ARCH, "lm_serve_encdec")
     vlm = lm_serve_inputs_phase(torch, args.seed, VLM_ARCH, "lm_serve_vlm", VLM_LAYERS)
+    # the train phase: fault 3.2's wide projections, the flash and
+    # scan backwards, qwen3-8b trained at full width (the main path), the
+    # trainer's checkpoint and restart, card against CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_projection_phase(torch, args.reps)
+    flash_backward_phase(torch, args.seed, args.reps)
+    scan_backward_phase(torch, args.seed, args.reps)
+    train = train_phase(torch, args.seed)
+    trainer_phase(torch, args.seed)
+    train_reference_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);
     # the flash kernel's in the seven serving runs (bf16, int8, MoE, the SSM,
@@ -3328,6 +3828,8 @@ def main(argv=None) -> int:
                 "rglru_scan": hybrid["launches"]["rglru_scan"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
+    for k in ("project", "flash_attention"):  # and the train path's
+        launches[k] += train["launches"][k]
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
                for k in ("breaker_trips", "breaker_fallbacks", "breaker_probes",
                          "breaker_open")}

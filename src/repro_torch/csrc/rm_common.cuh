@@ -4,7 +4,13 @@
 // contiguous tile of whole rows of the (N, row_words) int32 row store in
 // shared memory with 16-byte loads (rows are contiguous, so a tile is one
 // contiguous span) — the fused scan_multi asynchronously, into a ring of
-// two tiles (issue_tile) — then per-request code reads the staged tile:
+// two tiles (issue_tile) — then per-request code reads the staged tile.
+// A row wider than a quarter of a tile (Params::direct: more than 2,048
+// words, a training record's tokens and labels) is not staged: each kernel's
+// direct instantiation (template argument kDirect) reads the tile's rows
+// straight from the row store (load_tile), so only the 32-byte sectors
+// holding the words it uses leave device memory, each once; the staged
+// instantiation is the code of the staged rows alone.  The per-request code:
 //
 //   * project / filter: a src_word[out_w] map scatters each row's enabled
 //     words into the packed output row; a filter writes zeros for failing
@@ -18,6 +24,11 @@
 // Reduced requests leave one partial row per block; rm_reduce_partials sums
 // those rows in a fixed order, so aggregates are deterministic run to run.
 //
+// The word map (the source word of every packed output word, all requests
+// back to back) lives in device memory, so a launch takes a map of any
+// length; a block copies it into shared memory when it fits there
+// (Params::map_smem >= 0) and reads it through the cache otherwise.
+//
 // The layout of Params / Req is mirrored by ctypes in
 // repro_torch/kernels/_cuda.py, which checks sizeof(Params) at load time.
 #pragma once
@@ -29,7 +40,6 @@ namespace rm {
 
 constexpr int kThreads = 256;  // threads per block, every kernel
 constexpr int kMaxReq = 16;    // requests one launch carries
-constexpr int kMaxMap = 512;   // packed words over all requests of a launch
 
 enum Kind : int32_t { kProject = 0, kFilter = 1, kAggregate = 2, kGroupBy = 3 };
 enum PredOp : int32_t { kNone = 0, kGt = 1, kLt = 2 };
@@ -38,7 +48,7 @@ enum PredOp : int32_t { kNone = 0, kGt = 1, kLt = 2 };
 struct Req {
   int32_t kind;
   int32_t out_w;       // packed words per row (project / filter)
-  int32_t map_off;     // first entry of this request's word map in Params::map
+  int32_t map_off;     // first entry of this request's word map in the map
   int32_t pred_word;
   int32_t pred_float;  // the predicate column is float32 (else int32)
   int32_t pred_op;     // PredOp
@@ -60,19 +70,19 @@ struct Req {
 struct Params {
   const int32_t* words;  // (n, row_words) row store, row-major
   float* partials;       // (gridDim.x, part_w) per-block reduced partials
+  const int32_t* map;    // (map_len,) source word of every packed word
   long long n;           // rows
   int32_t row_words;
-  int32_t tile_rows;     // rows staged per tile (multiple of 4)
+  int32_t tile_rows;     // rows a tile (staged: a multiple of 4)
   int32_t n_req;
   int32_t map_len;
   int32_t part_w;
   int32_t n_slots;       // aggregate accumulator slots (scan_multi)
-  int32_t map_smem;      // shared-memory word offset of the staged map
+  int32_t map_smem;      // shared-memory word offset of the staged map; < 0: read in place
   int32_t slot_smem;     // shared-memory word offset of the slots
   int32_t tile_stride;   // words between the ring's two tiles (scan_multi)
-  int32_t pad_;
+  int32_t direct;        // rows read from the row store, not staged
   Req req[kMaxReq];
-  int32_t map[kMaxMap];
 };
 
 __device__ __forceinline__ int32_t* smem_words() {
@@ -170,21 +180,34 @@ __device__ __forceinline__ int group_of(int32_t key, int g) {
   return r < 0 ? r + g : r;
 }
 
-// Pack the enabled words of a staged tile: one thread per output word, so
-// the stores of a warp are contiguous.
-template <bool kWithFilter>
+// Pack the enabled words of a tile: one thread per output word, so the
+// stores of a warp are contiguous.  Read in place (kDirect), packed rows at
+// least a block wide are walked a row at a time (no division per word, and
+// a thread's loads of a row are independent of each other, so several are
+// in flight).
+template <bool kWithFilter, bool kDirect>
 __device__ __forceinline__ void pack_tile(const int32_t* tile, int rows,
                                           int row_words, const int32_t* map,
                                           const Req& q, long long row0) {
   const int out_w = q.out_w;
   int32_t* dst = q.out + row0 * out_w;
-  const int n_out = rows * out_w;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const int r = i / out_w;
-    const int32_t* row = tile + r * row_words;
-    int32_t v = row[map[i - r * out_w]];
-    if (kWithFilter && !row_pass(row, q)) v = 0;
-    dst[i] = v;
+  if (kDirect && out_w >= static_cast<int>(blockDim.x)) {
+    for (int r = 0; r < rows; ++r) {
+      const int32_t* row = tile + static_cast<long long>(r) * row_words;
+      const bool keep = !kWithFilter || row_pass(row, q);
+      int32_t* d = dst + static_cast<long long>(r) * out_w;
+#pragma unroll 4
+      for (int w = threadIdx.x; w < out_w; w += blockDim.x) d[w] = keep ? row[map[w]] : 0;
+    }
+  } else {
+    const int n_out = rows * out_w;
+    for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
+      const int r = i / out_w;
+      const int32_t* row = tile + r * row_words;
+      int32_t v = row[map[i - r * out_w]];
+      if (kWithFilter && !row_pass(row, q)) v = 0;
+      dst[i] = v;
+    }
   }
   if (kWithFilter) {
     uint8_t* m = q.mask + row0;
@@ -246,9 +269,25 @@ __device__ __forceinline__ void block_sum2(float& s, unsigned& c) {
   __syncthreads();
 }
 
-// Stage the word maps of every request once per block.
-__device__ __forceinline__ void stage_map(const Params& p, int32_t* sm_map) {
-  for (int i = threadIdx.x; i < p.map_len; i += blockDim.x) sm_map[i] = p.map[i];
+// The word maps of every request: staged into shared memory once per block
+// where the plan found room (the caller synchronises before any use), read
+// from device memory otherwise.
+__device__ __forceinline__ const int32_t* stage_map(const Params& p, int32_t* smem) {
+  if (p.map_smem < 0) return p.map;
+  int32_t* sm_map = smem + p.map_smem;
+  for (int i = threadIdx.x; i < p.map_len; i += blockDim.x) sm_map[i] = __ldg(p.map + i);
+  return sm_map;
+}
+
+// The rows [row0, row0 + rows) a block serves, laid out as in the row store:
+// staged into `tile` (the caller synchronises before and after), or, read in
+// place (kDirect), the row store itself.
+template <bool kDirect>
+__device__ __forceinline__ const int32_t* load_tile(const Params& p, int32_t* tile,
+                                                    long long row0, int rows) {
+  if (kDirect) return p.words + row0 * static_cast<long long>(p.row_words);
+  stage_tile(tile, p.words, row0, rows, p.row_words);
+  return tile;
 }
 
 // Where a group-by request accumulates: its shared histogram, or this

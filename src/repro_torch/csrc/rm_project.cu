@@ -31,6 +31,10 @@
 //     packer), then writes the whole packed tile with one coalesced store.
 //     The Q strided gathers of a tile re-read its sectors, so they load
 //     through the cache (not the streaming hint the one-pass kernels use).
+//     A packed row wider than the packer (ColParams::range_w < out_w: more
+//     than 14,528 words at 4 rows a tile) is packed in word ranges by the
+//     kernel's ranged instantiation, each range gathered from the columns
+//     that cross it and then stored; every enabled word is still read once.
 //   * MLP (rm_scan.cu): the whole row tile is staged with coalesced 16-byte
 //     loads and every column is packed out of shared memory.
 //
@@ -42,6 +46,10 @@
 // warp, a prefix over the block's warps and a running base give its slot,
 // so kept rows keep their original order (the reference's stable argsort).
 // Slots from the count to block_rows are zero-filled and the count written.
+// A map of at most kSelectInlineMap words rides in the parameter block
+// (SelectParams::map_inline); a longer one lives in device memory and its
+// instantiation stages it into shared memory when it takes at most
+// kSelectSmemMap words.
 #include "rm_common.cuh"
 
 using namespace rm;
@@ -50,6 +58,8 @@ namespace {
 
 constexpr int kMaxCols = 256;  // column slices one BSL / PCK launch carries
 constexpr int kBslRows = 256;  // rows per BSL block
+constexpr int kSelectInlineMap = 512;  // map words the selection's parameter block holds
+constexpr int kSelectSmemMap = 12 * 1024;  // longer maps the selection stages (48 KB)
 
 }  // namespace
 
@@ -63,6 +73,8 @@ struct ColParams {
   int32_t out_w;
   int32_t n_cols;        // Q
   int32_t tile_rows;     // PCK: rows per packed tile (a multiple of 4)
+  int32_t range_w;       // PCK: packed words a pass of the packer (out_w: one pass)
+  int32_t pad_;
   int32_t src[kMaxCols]; // first row word of each column
   int32_t dst[kMaxCols]; // first packed word of each column
   int32_t width[kMaxCols];
@@ -72,13 +84,14 @@ struct SelectParams {
   const int32_t* words;  // (n, row_words) row store
   int32_t* out;          // (n_blocks, block_rows, out_w)
   int32_t* counts;       // (n_blocks,)
+  const int32_t* map;    // (out_w,) source word of every packed word, out_w > kSelectInlineMap
   long long n;
   int32_t row_words;
   int32_t out_w;
   int32_t block_rows;
   int32_t pad_;
   Req q;                 // predicate and MVCC test (pred_* and ts_* fields)
-  int32_t map[kMaxMap];  // source word of every packed word
+  int32_t map_inline[kSelectInlineMap];  // the map, out_w <= kSelectInlineMap
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -97,6 +110,21 @@ rm_project_bsl_kernel(const __grid_constant__ ColParams p) {
   }
 }
 
+// One tile's packed rows, written with one contiguous store: 16 bytes a
+// thread where the destination is aligned (a tile of a multiple of 4 rows is).
+__device__ __forceinline__ void store_packed(const int32_t* packed, int32_t* out, int n_words) {
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    const int n_vec = n_words >> 2;
+    const int4* s4 = reinterpret_cast<const int4*>(packed);
+    int4* o4 = reinterpret_cast<int4*>(out);
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) o4[i] = s4[i];
+    head = n_vec << 2;
+  }
+  for (int i = head + threadIdx.x; i < n_words; i += blockDim.x) out[i] = packed[i];
+}
+
+template <bool kRanged>
 __global__ void __launch_bounds__(kThreads)
 rm_project_pck_kernel(const __grid_constant__ ColParams p) {
   int32_t* packed = smem_words();
@@ -105,36 +133,56 @@ rm_project_pck_kernel(const __grid_constant__ ColParams p) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     const int32_t* in = p.words + row0 * p.row_words;
-    __syncthreads();  // the previous tile's packer is flushed
-    // one column chunk per step into the packer register
-    for (int j = 0; j < p.n_cols; ++j) {
-      const int src = p.src[j], dst = p.dst[j], w = p.width[j];
-      for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
-        const int r = i / w, k = i - r * w;
-        packed[r * p.out_w + dst + k] = __ldg(in + static_cast<long long>(r) * p.row_words + src + k);
+    int32_t* out = p.out + row0 * p.out_w;
+    if (!kRanged) {
+      __syncthreads();  // the previous tile's packer is flushed
+      // one column chunk per step into the packer register
+      for (int j = 0; j < p.n_cols; ++j) {
+        const int src = p.src[j], dst = p.dst[j], w = p.width[j];
+        for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+          const int r = i / w, k = i - r * w;
+          packed[r * p.out_w + dst + k] = __ldg(in + static_cast<long long>(r) * p.row_words + src + k);
+        }
+      }
+      __syncthreads();
+      store_packed(packed, out, rows * p.out_w);
+      continue;
+    }
+    // packed words [w0, w0 + rw) of the tile's rows a pass
+    for (int w0 = 0; w0 < p.out_w; w0 += p.range_w) {
+      const int rw = min(p.range_w, p.out_w - w0);
+      __syncthreads();  // the previous pass's packer is flushed
+      for (int j = 0; j < p.n_cols; ++j) {
+        const int lo = max(p.dst[j], w0), hi = min(p.dst[j] + p.width[j], w0 + rw);
+        if (lo >= hi) continue;
+        const int src = p.src[j] + lo - p.dst[j], dst = lo - w0, w = hi - lo;
+        for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+          const int r = i / w, k = i - r * w;
+          packed[r * rw + dst + k] = __ldg(in + static_cast<long long>(r) * p.row_words + src + k);
+        }
+      }
+      __syncthreads();
+      // a range of each packed row: contiguous within the row
+      for (int i = threadIdx.x; i < rows * rw; i += blockDim.x) {
+        const int r = i / rw, k = i - r * rw;
+        out[static_cast<long long>(r) * p.out_w + w0 + k] = packed[i];
       }
     }
-    __syncthreads();
-    // one write of the packed lines: contiguous, 16 bytes a thread where
-    // the destination is aligned (a tile of a multiple of 4 rows is)
-    int32_t* out = p.out + row0 * p.out_w;
-    const int n_words = rows * p.out_w;
-    int head = 0;
-    if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-      const int n_vec = n_words >> 2;
-      const int4* s4 = reinterpret_cast<const int4*>(packed);
-      int4* o4 = reinterpret_cast<int4*>(out);
-      for (int i = threadIdx.x; i < n_vec; i += blockDim.x) o4[i] = s4[i];
-      head = n_vec << 2;
-    }
-    for (int i = head + threadIdx.x; i < n_words; i += blockDim.x) out[i] = packed[i];
   }
 }
 
+template <bool kDeviceMap>
 __global__ void __launch_bounds__(kThreads)
 rm_select_compact_kernel(const __grid_constant__ SelectParams p) {
   __shared__ int warp_n[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t* map = p.map;
+  if (kDeviceMap && p.out_w <= kSelectSmemMap) {  // the launcher gave the staged map room
+    int32_t* sm_map = smem_words();
+    for (int i = threadIdx.x; i < p.out_w; i += blockDim.x) sm_map[i] = __ldg(p.map + i);
+    __syncthreads();
+    map = sm_map;
+  }
   const long long blk0 = static_cast<long long>(blockIdx.x) * p.block_rows;
   int32_t* out = p.out + blk0 * p.out_w;
   int base = 0;  // slots filled by earlier sub-tiles (same in every thread)
@@ -154,7 +202,11 @@ rm_select_compact_kernel(const __grid_constant__ SelectParams p) {
     if (keep) {
       const int slot = base + before + __popc(ballot & ((1u << lane) - 1u));
       int32_t* dst = out + static_cast<long long>(slot) * p.out_w;
-      for (int k = 0; k < p.out_w; ++k) dst[k] = row[p.map[k]];
+      if (kDeviceMap) {
+        for (int k = 0; k < p.out_w; ++k) dst[k] = row[map[k]];
+      } else {
+        for (int k = 0; k < p.out_w; ++k) dst[k] = row[p.map_inline[k]];
+      }
     }
     base += total;
     __syncthreads();  // warp_n is rewritten by the next sub-tile
@@ -184,18 +236,26 @@ int rm_project_bsl(const ColParams* params, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each.
+// PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each
+// (tile_rows * range_w words; the ranged instantiation when range_w < out_w).
 int rm_project_pck(const ColParams* params, int n_blocks, long long smem, void* stream) {
-  if (n_blocks <= 0 || params->n_cols <= 0 || params->n_cols > kMaxCols)
+  if (n_blocks <= 0 || params->n_cols <= 0 || params->n_cols > kMaxCols ||
+      params->range_w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool ranged = params->range_w < params->out_w;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rm_project_pck_kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const void* fn = ranged ? reinterpret_cast<const void*>(rm_project_pck_kernel<true>)
+                            : reinterpret_cast<const void*>(rm_project_pck_kernel<false>);
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  rm_project_pck_kernel<<<n_blocks, kThreads, static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(*params);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (ranged) {
+    rm_project_pck_kernel<true><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params);
+  } else {
+    rm_project_pck_kernel<false><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,8 +263,13 @@ int rm_project_pck(const ColParams* params, int n_blocks, long long smem, void* 
 int rm_select_compact(const SelectParams* params, long long n_blocks, void* stream) {
   if (n_blocks <= 0 || n_blocks > 0x7fffffffLL || params->block_rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  rm_select_compact_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(*params);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (params->out_w <= kSelectInlineMap) {
+    rm_select_compact_kernel<false><<<static_cast<unsigned>(n_blocks), kThreads, 0, s>>>(*params);
+  } else {
+    const size_t smem = params->out_w <= kSelectSmemMap ? 4 * params->out_w : 0;
+    rm_select_compact_kernel<true><<<static_cast<unsigned>(n_blocks), kThreads, smem, s>>>(*params);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,71 +34,76 @@
 // vector stores of the packed words, a filter's predicate once a row, no
 // division per output word.  The single-request kernels stage synchronously
 // and pack one output word a thread (pack_tile).
+//
+// Rows wider than 2,048 words (Params::direct) are served where they lie:
+// no tile is staged, and every kernel reads the words it uses straight from
+// the row store — for a projection, one output word a thread, so a warp's
+// loads of a contiguous map are contiguous.  The word map comes from device
+// memory (staged into shared memory where it fits), so no launch has a
+// limit on its packed words.
 #include "rm_common.cuh"
 
 using namespace rm;
 
+template <bool kDirect>
 __global__ void __launch_bounds__(kThreads)
 rm_project_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
-  int32_t* tile = smem;
-  int32_t* sm_map = smem + p.map_smem;
-  stage_map(p, sm_map);
+  const int32_t* map = stage_map(p, smem);
   const Req& q = p.req[0];
   const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();  // the previous tile is consumed (and the map staged)
-    stage_tile(tile, p.words, row0, rows, p.row_words);
+    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
     __syncthreads();
-    pack_tile<false>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
+    pack_tile<false, kDirect>(tile, rows, p.row_words, map + q.map_off, q, row0);
   }
 }
 
 // Several packed views from one staged row tile: every request of the
 // launch is a projection (the Python side splits larger view sets).
+template <bool kDirect>
 __global__ void __launch_bounds__(kThreads)
 rm_project_multi_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
-  int32_t* tile = smem;
-  int32_t* sm_map = smem + p.map_smem;
-  stage_map(p, sm_map);
+  const int32_t* map = stage_map(p, smem);
   const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();
-    stage_tile(tile, p.words, row0, rows, p.row_words);
+    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
     __syncthreads();
     for (int r = 0; r < p.n_req; ++r) {
       const Req& q = p.req[r];
-      pack_tile<false>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
+      pack_tile<false, kDirect>(tile, rows, p.row_words, map + q.map_off, q, row0);
     }
   }
 }
 
+template <bool kDirect>
 __global__ void __launch_bounds__(kThreads)
 rm_filter_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
-  int32_t* tile = smem;
-  int32_t* sm_map = smem + p.map_smem;
-  stage_map(p, sm_map);
+  const int32_t* map = stage_map(p, smem);
   const Req& q = p.req[0];
   const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();
-    stage_tile(tile, p.words, row0, rows, p.row_words);
+    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
     __syncthreads();
-    pack_tile<true>(tile, rows, p.row_words, sm_map + q.map_off, q, row0);
+    pack_tile<true, kDirect>(tile, rows, p.row_words, map + q.map_off, q, row0);
   }
 }
 
+template <bool kDirect>
 __global__ void __launch_bounds__(kThreads)
 rm_aggregate_kernel(const __grid_constant__ Params p) {
-  int32_t* tile = smem_words();
+  int32_t* smem = smem_words();
   const Req& q = p.req[0];
   float s = 0.0f;
   unsigned c = 0;
@@ -107,7 +112,7 @@ rm_aggregate_kernel(const __grid_constant__ Params p) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();
-    stage_tile(tile, p.words, row0, rows, p.row_words);
+    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
     __syncthreads();
     agg_tile(tile, rows, p.row_words, q, s, c);
   }
@@ -119,10 +124,10 @@ rm_aggregate_kernel(const __grid_constant__ Params p) {
   }
 }
 
+template <bool kDirect>
 __global__ void __launch_bounds__(kThreads)
 rm_groupby_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
-  int32_t* tile = smem;
   const Req& q = p.req[0];
   float* hist = group_hist(p, q, smem);
   zero_floats(hist, 2 * q.num_groups);
@@ -131,7 +136,7 @@ rm_groupby_kernel(const __grid_constant__ Params p) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();  // also orders the histogram's zeroing before any add
-    stage_tile(tile, p.words, row0, rows, p.row_words);
+    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
     __syncthreads();
     group_tile(tile, rows, p.row_words, q, hist);
   }
@@ -164,16 +169,16 @@ __device__ __forceinline__ void put_row(const int32_t* row, const int32_t* map,
 // Every request of the launch from one staged row, row `grow` of the chunk:
 // the row is walked once, a filter's predicate evaluated once.
 __device__ __forceinline__ void serve_row(const Params& p, const int32_t* row,
-                                          long long grow, const int32_t* sm_map,
+                                          long long grow, const int32_t* map,
                                           float* slot_s, unsigned* slot_c,
                                           int32_t* smem) {
   for (int r = 0; r < p.n_req; ++r) {
     const Req& q = p.req[r];
     if (q.kind == kProject) {
-      put_row(row, sm_map + q.map_off, q.out_w, q.out + grow * q.out_w, true);
+      put_row(row, map + q.map_off, q.out_w, q.out + grow * q.out_w, true);
     } else if (q.kind == kFilter) {
       const bool keep = row_pass(row, q);
-      put_row(row, sm_map + q.map_off, q.out_w, q.out + grow * q.out_w, keep);
+      put_row(row, map + q.map_off, q.out_w, q.out + grow * q.out_w, keep);
       q.mask[grow] = keep ? 1 : 0;
     } else if (row_pass(row, q)) {
       if (q.kind == kAggregate) {
@@ -195,26 +200,11 @@ __device__ __forceinline__ void serve_row(const Params& p, const int32_t* row,
 // rm_scan_ring() at load time.
 constexpr int kScanRing = 2;
 
-// The fused one-pass scan.  Tiles arrive by cp.async into a ring of two,
-// so while a block serves tile t from shared memory its next tile is in
-// flight; thread r serves row r of the tile for every request (a tile holds
-// at most kThreads rows).
-__global__ void __launch_bounds__(kThreads)
-rm_scan_multi_kernel(const __grid_constant__ Params p) {
-  int32_t* smem = smem_words();
-  int32_t* sm_map = smem + p.map_smem;
-  float* slot_s = reinterpret_cast<float*>(smem + p.slot_smem);
-  unsigned* slot_c = reinterpret_cast<unsigned*>(smem + p.slot_smem) + p.n_slots * kThreads;
-  stage_map(p, sm_map);
-  for (int s = 0; s < p.n_slots; ++s) {
-    slot_s[s * kThreads + threadIdx.x] = 0.0f;
-    slot_c[s * kThreads + threadIdx.x] = 0;
-  }
-  for (int r = 0; r < p.n_req; ++r) {
-    const Req& q = p.req[r];
-    if (q.kind == kGroupBy) zero_floats(group_hist(p, q, smem), 2 * q.num_groups);
-  }
-  const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
+// The staged form of the fused scan: tiles arrive by cp.async into the
+// ring, the next in flight while one is served.
+__device__ __forceinline__ void serve_ring(const Params& p, int32_t* smem, const int32_t* map,
+                                           float* slot_s, unsigned* slot_c,
+                                           long long n_tiles) {
   auto issue = [&](long long t, int stage) {
     if (t < n_tiles) {
       const long long row0 = t * p.tile_rows;
@@ -235,11 +225,44 @@ rm_scan_multi_kernel(const __grid_constant__ Params p) {
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     if (static_cast<int>(threadIdx.x) < rows) {
       serve_row(p, smem + stage * p.tile_stride + threadIdx.x * p.row_words,
-                row0 + threadIdx.x, sm_map, slot_s, slot_c, smem);
+                row0 + threadIdx.x, map, slot_s, slot_c, smem);
     }
     stage ^= 1;
   }
   cp_async_wait_all();
+}
+
+// The fused one-pass scan.  Tiles arrive by cp.async into a ring of two,
+// so while a block serves tile t from shared memory its next tile is in
+// flight; thread r serves row r of the tile for every request (a tile holds
+// at most kThreads rows).  Direct rows are served in place, a thread a row.
+template <bool kDirect>
+__global__ void __launch_bounds__(kThreads)
+rm_scan_multi_kernel(const __grid_constant__ Params p) {
+  int32_t* smem = smem_words();
+  float* slot_s = reinterpret_cast<float*>(smem + p.slot_smem);
+  unsigned* slot_c = reinterpret_cast<unsigned*>(smem + p.slot_smem) + p.n_slots * kThreads;
+  const int32_t* map = stage_map(p, smem);
+  for (int s = 0; s < p.n_slots; ++s) {
+    slot_s[s * kThreads + threadIdx.x] = 0.0f;
+    slot_c[s * kThreads + threadIdx.x] = 0;
+  }
+  for (int r = 0; r < p.n_req; ++r) {
+    const Req& q = p.req[r];
+    if (q.kind == kGroupBy) zero_floats(group_hist(p, q, smem), 2 * q.num_groups);
+  }
+  const long long n_tiles = (p.n + p.tile_rows - 1) / p.tile_rows;
+  if (kDirect) {
+    __syncthreads();  // the map staged and the slots and histograms zeroed
+    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const long long grow = t * p.tile_rows + threadIdx.x;
+      if (static_cast<int>(threadIdx.x) < p.tile_rows && grow < p.n) {
+        serve_row(p, p.words + grow * p.row_words, grow, map, slot_s, slot_c, smem);
+      }
+    }
+  } else {
+    serve_ring(p, smem, map, slot_s, slot_c, n_tiles);
+  }
   __syncthreads();
   for (int r = 0; r < p.n_req; ++r) {
     const Req& q = p.req[r];
@@ -302,14 +325,18 @@ rm_reduce_partials_kernel(const float* partials, int n_parts, int width, float* 
 
 namespace {
 
-// Kernel order shared with _cuda.KERNELS (the index rm_max_blocks takes).
-const void* const kKernels[] = {
-    reinterpret_cast<const void*>(rm_project_kernel),
-    reinterpret_cast<const void*>(rm_filter_kernel),
-    reinterpret_cast<const void*>(rm_aggregate_kernel),
-    reinterpret_cast<const void*>(rm_groupby_kernel),
-    reinterpret_cast<const void*>(rm_scan_multi_kernel),
-    reinterpret_cast<const void*>(rm_project_multi_kernel),
+#define RM_BOTH(kernel) \
+  {reinterpret_cast<const void*>(kernel<false>), reinterpret_cast<const void*>(kernel<true>)}
+
+// Kernel order shared with _cuda.KERNELS (the index rm_max_blocks takes);
+// each kernel's staged, then direct instantiation.
+const void* const kKernels[][2] = {
+    RM_BOTH(rm_project_kernel),
+    RM_BOTH(rm_filter_kernel),
+    RM_BOTH(rm_aggregate_kernel),
+    RM_BOTH(rm_groupby_kernel),
+    RM_BOTH(rm_scan_multi_kernel),
+    RM_BOTH(rm_project_multi_kernel),
 };
 constexpr int kNumKernels = sizeof(kKernels) / sizeof(kKernels[0]);
 
@@ -321,15 +348,23 @@ cudaError_t allow_smem(const void* fn, long long smem) {
 
 }  // namespace
 
-// One plain C launcher per kernel: launch on `stream`, do not synchronise,
-// return the launch's cudaGetLastError() (0 on success).
+// One plain C launcher per kernel: launch the instantiation params->direct
+// names on `stream`, do not synchronise, return the launch's
+// cudaGetLastError() (0 on success).
 #define RM_LAUNCHER(name, kernel)                                              \
   int name(const Params* params, int n_blocks, long long smem, void* stream) { \
     if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);        \
-    cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);  \
+    const bool direct = params->direct != 0;                                   \
+    cudaError_t e = allow_smem(direct ? reinterpret_cast<const void*>(kernel<true>)   \
+                                      : reinterpret_cast<const void*>(kernel<false>), \
+                               smem);                                          \
     if (e != cudaSuccess) return static_cast<int>(e);                          \
-    kernel<<<n_blocks, kThreads, static_cast<size_t>(smem),                   \
-             static_cast<cudaStream_t>(stream)>>>(*params);                    \
+    const auto s = static_cast<cudaStream_t>(stream);                          \
+    if (direct) {                                                              \
+      kernel<true><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params);  \
+    } else {                                                                   \
+      kernel<false><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params); \
+    }                                                                          \
     return static_cast<int>(cudaGetLastError());                               \
   }
 
@@ -343,18 +378,20 @@ const char* rm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Blocks of kernel `kernel` that fit on the whole current device at once
-// with `smem` bytes of dynamic shared memory each (0 if none fits).
-int rm_max_blocks(int kernel, long long smem, int* blocks) {
+// Blocks of kernel `kernel` (its direct instantiation if `direct`) that fit
+// on the whole current device at once with `smem` bytes of dynamic shared
+// memory each (0 if none fits).
+int rm_max_blocks(int kernel, int direct, long long smem, int* blocks) {
   *blocks = 0;
   if (kernel < 0 || kernel >= kNumKernels) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem(kKernels[kernel], smem);
+  const void* fn = kKernels[kernel][direct ? 1 : 0];
+  cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernels[kernel], kThreads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
                                                     static_cast<size_t>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   *blocks = per_sm * sms;

@@ -14,10 +14,15 @@ when the library was built by an earlier process.
 Every scan launch goes through :func:`run`: it plans the launch (tile
 height, shared-memory layout, per-block partial rows), allocates the outputs
 with ``torch.empty``, launches on the current stream without synchronising,
-and raises if the launch reports a CUDA error.  The hash-join probe, the
-BSL / PCK projection revisions, the compacting selection, the GQA
-flash-attention forward, the int8-weight decode matmul, the MoE expert
-FFN and the RG-LRU scan have their own parameter blocks and launchers
+and raises if the launch reports a CUDA error.  A launch's word map (the
+source word of every packed output word) lives in device memory, uploaded
+once per distinct map (:func:`device_map`), so no launch has a limit on its
+packed words; rows wider than ``DIRECT_ROW_WORDS`` are read where they lie
+rather than staged (``Plan.direct``), so no row is too wide either.  The
+hash-join probe, the BSL / PCK projection revisions, the compacting
+selection, the GQA flash-attention forward, the int8-weight decode matmul,
+the MoE expert FFN and the RG-LRU scan have their own parameter blocks and
+launchers
 (:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
 :func:`run_flash`, :func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`)
 under the same rules.
@@ -94,11 +99,14 @@ RGLRU_MAX_BLOCKS = MAX_GRID_BLOCKS  # its grid at most: a grid-stride loop cover
 # must match rm_common.cuh
 THREADS = 256
 MAX_REQ = 16
-MAX_MAP = 512
 PROJECT, FILTER, AGGREGATE, GROUPBY = range(4)
 PRED_OPS = {"none": 0, "gt": 1, "lt": 2}
 
 TILE_BYTES = 32 * 1024  # staged row tile per block
+# rows wider than this (four rows past TILE_BYTES) are read in place, not staged
+DIRECT_ROW_WORDS = TILE_BYTES // (4 * 4)
+SELECT_INLINE_MAP = 512  # map words the selection's parameter block holds (kSelectInlineMap)
+DEVICE_MAPS = 64  # word maps kept on the device (device_map), oldest dropped first
 SCAN_RING = 2  # tiles in scan_multi's ring (kScanRing; load() checks rm_scan_ring())
 HIST_SMEM_BYTES = 64 * 1024  # group-by histograms kept in shared memory
 PARTIAL_BYTES = 64 << 20  # cap on the per-block partials buffer
@@ -134,11 +142,11 @@ class _Req(ctypes.Structure):
 class _Params(ctypes.Structure):
     _fields_ = [
         ("words", ctypes.c_void_p), ("partials", ctypes.c_void_p),
-        ("n", ctypes.c_longlong),
+        ("map", ctypes.c_void_p), ("n", ctypes.c_longlong),
     ] + [(name, ctypes.c_int32) for name in (
         "row_words", "tile_rows", "n_req", "map_len", "part_w", "n_slots",
-        "map_smem", "slot_smem", "tile_stride", "pad_")] + [
-        ("req", _Req * MAX_REQ), ("map", ctypes.c_int32 * MAX_MAP)]
+        "map_smem", "slot_smem", "tile_stride", "direct")] + [
+        ("req", _Req * MAX_REQ)]
 
 
 class _JoinParams(ctypes.Structure):
@@ -154,15 +162,15 @@ class _ColParams(ctypes.Structure):
     _fields_ = [("words", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("n", ctypes.c_longlong)] + [
         (name, ctypes.c_int32) for name in (
-            "row_words", "out_w", "n_cols", "tile_rows")] + [
+            "row_words", "out_w", "n_cols", "tile_rows", "range_w", "pad_")] + [
         (name, ctypes.c_int32 * MAX_COLS) for name in ("src", "dst", "width")]
 
 
 class _SelectParams(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in ("words", "out", "counts")] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in ("words", "out", "counts", "map")] + [
         ("n", ctypes.c_longlong)] + [(name, ctypes.c_int32) for name in (
             "row_words", "out_w", "block_rows", "pad_")] + [
-        ("q", _Req), ("map", ctypes.c_int32 * MAX_MAP)]
+        ("q", _Req), ("map_inline", ctypes.c_int32 * SELECT_INLINE_MAP)]
 
 
 class _W8Params(ctypes.Structure):
@@ -249,17 +257,18 @@ class Plan:
     """Shared-memory layout and partial rows of one launch."""
 
     tile_rows: int
-    tile_stride: int  # words between the ring's tiles
+    tile_stride: int  # words between the ring's tiles (0: rows not staged)
     map: list[int]
     map_off: list[int]
     red_off: list[int]  # -1 for blocked requests
     hist_off: list[int]  # -1: histogram in global memory (or none)
     slot: list[int]
-    map_smem: int
+    map_smem: int  # -1: the map is read from device memory in place
     slot_smem: int
     n_slots: int
     part_w: int
     smem_bytes: int
+    direct: bool = False  # rows read from the row store, not staged
 
 
 def _round4(x: int) -> int:
@@ -271,23 +280,27 @@ def plan(reqs: Sequence[KernelReq], row_words: int, stages: int = 1) -> Plan:
 
     ``stages`` tiles of the row tile come first (scan_multi's ring; 1 for
     the single-request kernels), then the word map, the aggregate slots and
-    the group-by histograms that fit ``HIST_SMEM_BYTES``."""
+    the group-by histograms that fit ``HIST_SMEM_BYTES``.  Rows wider than
+    ``DIRECT_ROW_WORDS`` are not staged (``direct``): a tile is then
+    ``THREADS`` rows for the fused scan (a thread a row) and for launches
+    that pack no words, else ``tile_rows(row_words)`` rows (a projection
+    packs a word a thread), and the map is read in place (from device
+    memory, through the cache: a block serves few such rows, so staging the
+    map would cost as much as they do).  A staged launch puts the map in
+    shared memory where it fits beside the rest, in place otherwise."""
     if not 0 < len(reqs) <= MAX_REQ:
         raise ValueError(f"a launch carries 1..{MAX_REQ} requests, got {len(reqs)}")
     for r in reqs:
-        bad = [w for w in r.touched() if not 0 <= w < row_words]
-        if bad:
+        touched = r.touched()
+        if touched and not (0 <= min(touched) and max(touched) < row_words):
+            bad = [w for w in touched if not 0 <= w < row_words]
             raise ValueError(f"words {bad} outside the {row_words}-word row")
         if r.pred_op not in PRED_OPS:
             raise ValueError(r.pred_op)
         if r.kind == GROUPBY and r.num_groups < 1:
             raise ValueError("num_groups must be positive")
-    rows = tile_rows(row_words)
-    tile_words = rows * row_words
-    if tile_words * 4 > SMEM_MAX // 2:
-        raise ValueError(f"rows of {row_words} words are too wide to stage")
     maps, map_off, red_off, hist_off, slot = [], [], [], [], []
-    part_w = n_slots = hist_bytes = 0
+    part_w = n_slots = 0
     for r in reqs:
         map_off.append(len(maps))
         maps += list(r.words)
@@ -295,37 +308,57 @@ def plan(reqs: Sequence[KernelReq], row_words: int, stages: int = 1) -> Plan:
         part_w += {AGGREGATE: 2, GROUPBY: 2 * r.num_groups}.get(r.kind, 0)
         slot.append(n_slots if r.kind == AGGREGATE else -1)
         n_slots += r.kind == AGGREGATE
-        hist_off.append(-1)
-    if len(maps) > MAX_MAP:
-        raise ValueError(f"{len(maps)} packed words exceed one launch's {MAX_MAP}")
-    stride = _round4(tile_words)  # keeps every tile 16-byte aligned
-    map_smem = stages * stride
-    slot_smem = _round4(map_smem + len(maps))
-    top = slot_smem + 2 * n_slots * THREADS
-    for i, r in enumerate(reqs):
-        if r.kind == GROUPBY and hist_bytes + 8 * r.num_groups <= HIST_SMEM_BYTES:
-            hist_off[i] = top
-            top += 2 * r.num_groups
-            hist_bytes += 8 * r.num_groups
-    if top * 4 > SMEM_MAX:
+    direct = row_words > DIRECT_ROW_WORDS
+    if direct:
+        rows = THREADS if stages > 1 or not maps else tile_rows(row_words)
+        stride = 0
+    else:
+        rows = tile_rows(row_words)
+        stride = _round4(rows * row_words)  # keeps every tile 16-byte aligned
+    for map_words in ((0,) if direct else (len(maps), 0)):  # staged, else in place
+        map_smem = stages * stride
+        slot_smem = _round4(map_smem + map_words)
+        top = slot_smem + 2 * n_slots * THREADS
+        hist_off, hist_bytes = [], 0
+        for r in reqs:
+            fits = r.kind == GROUPBY and hist_bytes + 8 * r.num_groups <= HIST_SMEM_BYTES
+            hist_off.append(top if fits else -1)
+            if fits:
+                top += 2 * r.num_groups
+                hist_bytes += 8 * r.num_groups
+        if top * 4 <= SMEM_MAX:
+            break
+    else:
         raise ValueError(f"{stages} tiles of {row_words}-word rows and the launch's "
                          f"slots need {top * 4} B of shared memory, over {SMEM_MAX}")
+    if not map_words:
+        map_smem = -1
     return Plan(rows, stride, maps, map_off, red_off, hist_off, slot,
-                map_smem, slot_smem, n_slots, part_w, top * 4)
+                map_smem, slot_smem, n_slots, part_w, top * 4, direct)
 
 
 def split(reqs: Sequence[KernelReq]) -> list[list[int]]:
-    """Indices of ``reqs`` in groups that each fit one launch."""
-    groups: list[list[int]] = [[]]
-    words = 0
-    for i, r in enumerate(reqs):
-        if groups[-1] and (len(groups[-1]) == MAX_REQ
-                           or words + len(r.words) > MAX_MAP):
-            groups.append([])
-            words = 0
-        groups[-1].append(i)
-        words += len(r.words)
-    return groups
+    """Indices of ``reqs`` in groups that each fit one launch: ``MAX_REQ``
+    requests at most, whatever their packed words."""
+    return [list(range(i, min(i + MAX_REQ, len(reqs)))) for i in range(0, len(reqs), MAX_REQ)]
+
+
+_DEVICE_MAPS: dict[tuple, torch.Tensor] = {}
+
+
+def device_map(words: Sequence[int], device: torch.device) -> torch.Tensor:
+    """The word map ``words`` as an int32 tensor on ``device``: uploaded on
+    first use without synchronising the stream, then kept (the
+    ``DEVICE_MAPS`` latest distinct maps), so a repeated query uploads
+    nothing."""
+    key = (device.index, tuple(words))
+    t = _DEVICE_MAPS.pop(key, None)
+    if t is None:
+        t = torch.tensor(key[1] or (0,), dtype=torch.int32).to(device, non_blocking=True)
+        while len(_DEVICE_MAPS) >= DEVICE_MAPS:
+            _DEVICE_MAPS.pop(next(iter(_DEVICE_MAPS)))
+    _DEVICE_MAPS[key] = t  # most recent last
+    return t
 
 
 # ---------------------------------------------------------------- building
@@ -411,7 +444,7 @@ def load() -> ctypes.CDLL:
     lib.rm_params_size.restype = ctypes.c_int
     lib.rm_error_string.argtypes = [ctypes.c_int]
     lib.rm_error_string.restype = ctypes.c_char_p
-    lib.rm_max_blocks.argtypes = [ctypes.c_int, ctypes.c_longlong,
+    lib.rm_max_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                   ctypes.POINTER(ctypes.c_int)]
     lib.rm_max_blocks.restype = ctypes.c_int
     for name in SCAN_KERNELS:
@@ -496,11 +529,11 @@ _JOIN_STREAM_BLOCKS: dict[int, int] = {}
 
 
 def _max_blocks(lib: ctypes.CDLL, kernel: str, smem: int,
-                device: torch.device) -> int:
-    key = (kernel, smem, device.index)
+                device: torch.device, direct: bool = False) -> int:
+    key = (kernel, smem, device.index, direct)
     if key not in _MAX_BLOCKS:
         blocks = ctypes.c_int(0)
-        _check(lib, lib.rm_max_blocks(KERNELS.index(kernel), smem,
+        _check(lib, lib.rm_max_blocks(KERNELS.index(kernel), int(direct), smem,
                                       ctypes.byref(blocks)), f"{kernel} occupancy")
         if blocks.value <= 0:
             raise RuntimeError(f"{kernel}: no block fits with {smem} B shared memory")
@@ -536,7 +569,8 @@ def launch_groups(reqs: Sequence[KernelReq], row_words: int,
                   stages: int) -> list[tuple[list[int], Plan, _Params]]:
     """The launches that serve ``reqs``: for each group of requests
     (:func:`split`) its indices, its plan and its parameter block with every
-    field set but the pointers and the row count."""
+    field set but the pointers (the word map's among them) and the row
+    count."""
     out = []
     for group in split(reqs):
         sub = [reqs[i] for i in group]
@@ -545,9 +579,8 @@ def launch_groups(reqs: Sequence[KernelReq], row_words: int,
             row_words=row_words, tile_rows=pl.tile_rows, n_req=len(sub),
             map_len=len(pl.map), part_w=pl.part_w, n_slots=pl.n_slots,
             map_smem=pl.map_smem, slot_smem=pl.slot_smem,
-            tile_stride=pl.tile_stride,
+            tile_stride=pl.tile_stride, direct=int(pl.direct),
         )
-        params.map[: len(pl.map)] = pl.map
         for j, r in enumerate(sub):
             params.req[j] = _Req(
                 kind=r.kind, out_w=len(r.words), map_off=pl.map_off[j],
@@ -586,12 +619,14 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
         for group, pl, params in launch_groups(reqs, row_words, stages):
             sub = [reqs[i] for i in group]
             n_tiles = -(-n // pl.tile_rows)
-            n_blocks = min(n_tiles, _max_blocks(lib, kernel, pl.smem_bytes, device))
+            n_blocks = min(n_tiles, _max_blocks(lib, kernel, pl.smem_bytes, device,
+                                                pl.direct))
             if pl.part_w:
                 n_blocks = max(1, min(n_blocks, PARTIAL_BYTES // (4 * pl.part_w)))
             partials = torch.empty(n_blocks * pl.part_w, dtype=torch.float32,
                                    device=device)
             params.words, params.partials, params.n = words.data_ptr(), partials.data_ptr(), n
+            params.map = device_map(pl.map, device).data_ptr()
             for j, (i, r) in enumerate(zip(group, sub)):
                 if r.kind == PROJECT:
                     params.req[j].out = results[i].data_ptr()
@@ -687,6 +722,17 @@ def run_hash_join(words: torch.Tensor, partitions, key_word: int,
     return s_out, r_out, m_out
 
 
+def pck_packer(out_w: int) -> tuple[int, int]:
+    """PCK's packer: ``(rows a tile, packed words a pass)``.  A tile holds
+    whole packed rows where ``tile_rows(out_w)`` of them fit ``SMEM_MAX``;
+    a wider packed row is packed in ranges of the words that fit (a
+    multiple of 4), one pass a range."""
+    rows = tile_rows(out_w)
+    if rows * out_w * 4 <= SMEM_MAX:
+        return rows, out_w
+    return rows, SMEM_MAX // (4 * rows) // 4 * 4
+
+
 def run_columns(kernel: str, words: torch.Tensor,
                 slices: Sequence[tuple[int, int, int]], out_w: int) -> torch.Tensor:
     """Launch a column-walking projection revision (``"project_bsl"`` or
@@ -705,13 +751,11 @@ def run_columns(kernel: str, words: torch.Tensor,
     out = torch.empty((n, out_w), dtype=torch.int32, device=words.device)
     if n == 0:
         return out
-    rows = tile_rows(out_w)
-    smem = rows * out_w * 4
-    if smem > SMEM_MAX:
-        raise ValueError(f"packed rows of {out_w} words are too wide to stage")
+    rows, range_w = pck_packer(out_w)
+    smem = rows * range_w * 4
     params = _ColParams(words=words.data_ptr(), out=out.data_ptr(), n=n,
                         row_words=row_words, out_w=out_w, n_cols=len(slices),
-                        tile_rows=rows)
+                        tile_rows=rows, range_w=range_w)
     for j, (src, dst, w) in enumerate(slices):
         params.src[j], params.dst[j], params.width[j] = src, dst, w
     lib = load()
@@ -739,10 +783,11 @@ def run_select(words: torch.Tensor, req: KernelReq,
     n, row_words = words.shape
     if block_rows < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
-    if not 0 < len(req.words) <= MAX_MAP:
-        raise ValueError(f"1..{MAX_MAP} packed words, got {len(req.words)}")
-    bad = [w for w in req.touched() if not 0 <= w < row_words]
-    if bad:
+    if not req.words:
+        raise ValueError("a selection packs at least one word")
+    touched = req.touched()
+    if not (0 <= min(touched) and max(touched) < row_words):
+        bad = [w for w in touched if not 0 <= w < row_words]
         raise ValueError(f"words {bad} outside the {row_words}-word row")
     out_w = len(req.words)
     n_blocks = -(-n // block_rows)
@@ -757,7 +802,10 @@ def run_select(words: torch.Tensor, req: KernelReq,
         q=_Req(pred_word=req.pred_word, pred_float=int(req.pred_float),
                pred_op=PRED_OPS[req.pred_op], k_bits=req.k_bits,
                ts_word=req.ts_word, ts=req.ts))
-    params.map[:out_w] = req.words
+    if out_w <= SELECT_INLINE_MAP:  # the map rides in the parameter block
+        params.map_inline[:out_w] = req.words
+    else:
+        params.map = device_map(req.words, words.device).data_ptr()
     lib = load()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream

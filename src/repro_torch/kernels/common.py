@@ -84,7 +84,10 @@ def column_slices(geom: TableGeometry):
 
 def geometry_words(geom: TableGeometry) -> list[int]:
     """Source word of every packed output word, in packed order."""
-    return [s + j for s, _, w in column_slices(geom) for j in range(w)]
+    out: list[int] = []
+    for s, _, w in column_slices(geom):
+        out.extend(range(s, s + w))
+    return out
 
 
 def pred_k_bits(pred_k, pred_dtype: str) -> int:

@@ -20,12 +20,20 @@ On a CPU tensor it runs :func:`flash_attention_torch`, the plain version.
 keys in ``block_k`` tiles as the reference does, while the CUDA kernels'
 tiles are their own choice.
 
-No backward exists in this slice: a tensor that requires grad raises.
+The gradient is :class:`FlashAttention`, a ``torch.autograd.Function``: its
+forward is the kernel, unchanged, and it saves q, k and v; its backward
+recomputes the plain version under autograd, one ``block_k`` tile of keys
+at a time, each tile's step checkpointed (:func:`_online_step`) — the
+reference's own backward, which XLA derives from ``blockwise_attention``
+with ``jax.checkpoint(step)`` (``repro/models/layers.py:229-301``); JAX has
+no backward kernel, so none is ported.  On the card a tensor that requires
+grad always goes through the kernel's forward, never the plain one.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import _cuda
 
@@ -35,10 +43,6 @@ MASK_VALUE = -1e30
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward in the port yet (ROADMAP queue 1 "
-            "item 8.9, train/: a torch.autograd.Function around the kernel)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"want q (B, S, H, D), k and v (B, S, KH, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -63,11 +67,57 @@ def flash_attention(
     block_q: int = DEFAULT_BLOCK_Q,
     block_k: int = DEFAULT_BLOCK_K,
 ) -> torch.Tensor:
-    """Fused attention; semantics match ``layers.blockwise_attention``."""
+    """Fused attention; semantics match ``layers.blockwise_attention``.
+    Differentiable: on the card through :class:`FlashAttention` where grad
+    is needed, on the CPU through the plain version's own autograd (its key
+    tiles checkpointed)."""
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal, window, block_q, block_k)
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, block_k)
     return _cuda.run_flash(q, k, v, causal, window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient: ``forward``
+    launches ``rm_flash.cu`` and saves q, k and v; ``backward`` recomputes
+    :func:`flash_attention_torch` under autograd (``block_k`` keys a
+    checkpointed step, so a step's float32 logits and probabilities exist
+    only while that step is differentiated) and returns dq, dk and dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None, block_k: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
+        return _cuda.run_flash(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_torch(q, k, v, ctx.causal, ctx.window,
+                                        block_k=ctx.block_k)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None, None, None
+
+
+def _online_step(qf, kc, vc, acc, m, l, j0, causal: bool, win: int):
+    """One tile of keys ``kc``, ``vc`` (first key ``j0``) folded into the
+    online softmax's float32 accumulator, running max and sum: the masked
+    logits at ``MASK_VALUE``, ``p`` cast to v's type before the PV product."""
+    s = qf.shape[1]
+    q_pos = torch.arange(s, device=qf.device)
+    logits = torch.einsum("bqkgd,bckd->bqkgc", qf, kc.float())
+    dist = q_pos[:, None] - torch.arange(j0, j0 + kc.shape[1], device=qf.device)[None, :]
+    mask = (dist >= 0) & (dist < win) if causal else dist.abs() < win
+    logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(vc.dtype).float(), vc.float())
+    return acc * alpha[..., None] + pv, m_new, l
 
 
 def flash_attention_torch(
@@ -86,6 +136,9 @@ def flash_attention_torch(
     type before the PV product, and ``acc / max(l, 1e-30)``.  Keys past S
     are simply absent (the reference pads and masks them: the same sums).
     ``block_q`` does not change the result and is accepted for parity.
+    Under autograd each tile's step is checkpointed, as the reference
+    checkpoints its blockwise step: the backward recomputes one tile's
+    logits at a time.
 
     A window below 1 raises ``ValueError``, as the card's kernel does: such
     a window masks every key, and the reference's value there depends on
@@ -100,24 +153,17 @@ def flash_attention_torch(
     win = s if window is None else window
     block_k = max(1, min(block_k, s))
     qf = (q.float() * d ** -0.5).reshape(b, s, kh, g, d)
-    q_pos = torch.arange(s, device=q.device)
     acc = torch.zeros((b, s, kh, g, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, s, kh, g), float("-inf"), device=q.device)
     l = torch.zeros((b, s, kh, g), device=q.device)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for j0 in range(0, s, block_k):
         kc, vc = k[:, j0:j0 + block_k], v[:, j0:j0 + block_k]
-        logits = torch.einsum("bqkgd,bckd->bqkgc", qf, kc.float())
-        dist = q_pos[:, None] - torch.arange(j0, j0 + kc.shape[1], device=q.device)[None, :]
-        mask = (dist >= 0) & (dist < win) if causal else dist.abs() < win
-        logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        p = torch.exp(logits - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        m = m_new
-        pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), vc.float())
-        acc = acc * alpha[..., None] + pv
-        del logits, p, pv
+        if grad:
+            acc, m, l = checkpoint(_online_step, qf, kc, vc, acc, m, l, j0, causal, win,
+                                   use_reentrant=False, preserve_rng_state=False)
+        else:
+            acc, m, l = _online_step(qf, kc, vc, acc, m, l, j0, causal, win)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, s, h, d).to(q.dtype)
 

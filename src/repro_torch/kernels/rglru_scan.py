@@ -17,6 +17,14 @@ Both take the steps in order, each a float32 multiply then a float32 add
 (no fused multiply-add), so the kernel is bit-equal to its plain version.
 The reference's tree adds the same terms in another association, so the two
 packages agree to float32 rounding, not bit for bit.
+
+The gradient (:class:`RGLRUScan`, a ``torch.autograd.Function``; XLA
+differentiates the reference's ``associative_scan``) is the same linear
+recurrence run backwards, ``g_t = dh_t + a_{t+1} g_{t+1}``, then ``dx = g``
+and ``da_t = g_t h_{t-1}``: :func:`rglru_scan` on the time-reversed
+``dh`` and shifted ``a`` — on the card the same ``rm_rglru_scan_kernel``,
+on the CPU the plain loop — so the card's backward is bit-equal to
+:func:`rglru_scan_backward_torch`, the plain reverse loop.
 """
 
 from __future__ import annotations
@@ -46,10 +54,61 @@ def rglru_scan_torch(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``h (B, S, W)`` with ``h[:, t] = a[:, t] * h[:, t - 1] + x[:, t]`` from
-    ``h[:, -1] = 0``: one kernel launch on the card, the plain version on the
-    CPU."""
+def _scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_torch(a, x)
     return _cuda.run_rglru_scan(a, x)
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``h (B, S, W)`` with ``h[:, t] = a[:, t] * h[:, t - 1] + x[:, t]`` from
+    ``h[:, -1] = 0``: one kernel launch on the card, the plain version on the
+    CPU; differentiable (:class:`RGLRUScan`: one more launch backwards)."""
+    if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
+        return RGLRUScan.apply(a, x)
+    return _scan(a, x)
+
+
+def _reverse_inputs(a: torch.Tensor, dh: torch.Tensor):
+    """The backward recurrence as a forward one: time-reversed ``a``
+    shifted by one step (``a_{t+1}``; the last step's factor multiplies the
+    zero start) and time-reversed ``dh``."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    return a_next.flip(1).contiguous(), dh.flip(1).contiguous()
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with its gradient: the forward saves ``a`` and ``h``; the
+    backward runs the recurrence ``g_t = dh_t + a_{t+1} g_{t+1}`` as a
+    forward scan of the reversed inputs (the kernel again on the card),
+    then ``dx = g`` and ``da_t = g_t h_{t-1}`` (``h_{-1} = 0``)."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = _scan(a, x)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        g = _scan(*_reverse_inputs(a, dh.contiguous())).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return g * h_prev, g
+
+
+def rglru_scan_backward_torch(a: torch.Tensor, h: torch.Tensor,
+                              dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain reverse loop: ``g = a[:, t + 1] * g + dh[:, t]`` from
+    ``t = S - 1`` down (``g`` zero before it), each a float32 multiply then
+    add; returns ``(da, dx) = (g * h_{t-1}, g)``."""
+    _check(a, dh)
+    g = torch.empty_like(dh)
+    acc = torch.zeros_like(dh[:, 0])
+    s = a.shape[1]
+    for t in range(s - 1, -1, -1):
+        a_next = a[:, t + 1] if t + 1 < s else torch.zeros_like(acc)
+        acc = a_next * acc + dh[:, t]
+        g[:, t] = acc
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * h_prev, g

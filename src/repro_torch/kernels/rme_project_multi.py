@@ -5,8 +5,9 @@
 int32 block per geometry.  On a CUDA tensor it launches
 ``rm_project_multi_kernel`` (``csrc/rm_scan.cu``, the Hopper form of
 ``_mlp_multi_kernel``): each row tile is staged once in shared memory and
-every view's packed block is written from it.  A launch carries at most
-``_cuda.MAX_REQ`` views and ``_cuda.MAX_MAP`` packed words; more views split
+every view's packed block is written from it (rows wider than
+``_cuda.DIRECT_ROW_WORDS`` are read in place).  A launch carries at most
+``_cuda.MAX_REQ`` views, of any number of packed words; more views split
 into several launches, each one pass over the rows.  On a CPU tensor it runs
 :func:`project_multi_torch`, the torch form of the reference's
 ``project_multi_xla``: one gather of the union of enabled words, then

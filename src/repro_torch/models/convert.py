@@ -31,6 +31,12 @@ The encoder-decoder's tree (``repro.models.encdec``) maps the same way:
 and ``token_embedding``, ``enc_norm/scale``, ``final_norm/scale`` and
 ``lm_head`` keep their names.
 
+``train_state_from_reference(cfg, tree)`` carries a whole train state:
+the reference's ``{"params": ..., "opt": {"mu": ..., "nu": ..., "step"}}``
+(``repro.train.step.init_train_state`` and the step's output) becomes the
+port's, each of ``params``, ``opt/mu`` and ``opt/nu`` mapped as above and
+``opt/step`` a 0-d int32 tensor.
+
 A tree that ``repro``'s ``quantize_for_serving`` made holds an int8 record
 ``{"q": int8 (in, out), "s": bf16 (1, out)}`` in place of each quantized
 weight (stacked units: ``(n_units, in, out)`` and ``(n_units, 1, out)``);
@@ -139,3 +145,14 @@ def params_from_reference(cfg: ArchConfig, tree: dict) -> dict[str, torch.Tensor
     if bad:
         raise ValueError(f"leaves of the wrong shape (got, want): {bad}")
     return out
+
+
+def train_state_from_reference(cfg: ArchConfig, tree: dict) -> dict:
+    """The port's train state (``train.step``) from the reference's numpy
+    train state: params and both AdamW moments through
+    :func:`params_from_reference`, the step count as a 0-d int32 tensor."""
+    opt = tree["opt"]
+    return {"params": params_from_reference(cfg, tree["params"]),
+            "opt": {"mu": params_from_reference(cfg, opt["mu"]),
+                    "nu": params_from_reference(cfg, opt["nu"]),
+                    "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)}}

@@ -9,7 +9,8 @@ decode step.  Cross-attention is the reference's float32 einsums, with no
 RoPE, on every device.
 
 Interface (``DecoderLM``'s; the batch adds ``enc_embeds``):
-  EncDecLM(cfg, device=None, seed=0)
+  EncDecLM(cfg, device=None, seed=0, param_dtype=None)
+  loss(params, {"enc_embeds", "tokens", "labels"}) -> (loss, metrics)
   prefill({"enc_embeds": (B, S_enc, D), "tokens": (B, S)}, max_len)
       -> (logits (B, V) float32, caches)
   decode_step(caches, tokens (B, 1), pos) -> (logits, caches)
@@ -22,18 +23,25 @@ and ``lm_head``.  Each decoder layer's cache is one flat dict, ``{"k",
 "v", "cross_k", "cross_v"}`` (the reference nests the first two under
 ``"self"``): a decode step writes its token into ``k`` and ``v`` in place
 and only reads the cross K/V.
+
+The loss is the reference's: each encoder and each decoder layer is
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` over its layer scans), the weights (master weights in
+``param_dtype`` for training) cast at each product, and the decoder's cross
+entropy is ``lm.chunked_xent``; its ``aux`` is 0.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 
 from . import layers as L
-from .lm import _not_ported, head_logits
+from .lm import chunked_xent, head_logits, run_layer
 
 
 def attn_specs(cfg: ArchConfig) -> tuple[L.AttnSpec, L.AttnSpec, L.AttnSpec]:
@@ -78,6 +86,13 @@ class EncoderLayer(nn.Module):
         self.mixer = L.Attention(spec, dtype, device, chunk=cfg.attn_chunk)
         self.ln2 = L.RMSNorm(cfg.d_model, device)
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        self.mlp_kind = cfg.mlp_kind
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """The layer's training forward: bidirectional self-attention, FFN."""
+        h = h + L.attention_forward(self.mixer, self.mixer.attend.spec,
+                                    L.rms_norm(h, self.ln1.scale), positions)
+        return h + L.mlp(self.mlp, L.rms_norm(h, self.ln2.scale), self.mlp_kind)
 
 
 class DecoderLayer(nn.Module):
@@ -93,13 +108,27 @@ class DecoderLayer(nn.Module):
         self.cross = L.Attention(cross_spec, dtype, device, chunk=cfg.attn_chunk)
         self.ln2 = L.RMSNorm(cfg.d_model, device)
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        self.mlp_kind = cfg.mlp_kind
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor,
+                enc_out: torch.Tensor) -> torch.Tensor:
+        """The layer's training forward (the reference's ``_dec_layer_train``):
+        causal self-attention, cross-attention over ``enc_out``, FFN."""
+        h = h + L.attention_forward(self.mixer, self.mixer.attend.spec,
+                                    L.rms_norm(h, self.ln1.scale), positions)
+        spec = self.cross.attend.spec
+        ck, cv = _cross_kv(self.cross, spec, enc_out)
+        h = h + _cross_attend(self.cross, spec, L.rms_norm(h, self.ln_x.scale), ck, cv)
+        return h + L.mlp(self.mlp, L.rms_norm(h, self.ln2.scale), self.mlp_kind)
 
 
 class EncDecLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None, seed: int | None = 0):
+    def __init__(self, cfg: ArchConfig, device=None, seed: int | None = 0,
+                 param_dtype: str | None = None):
         """Weights on ``device`` (the card by default) in the compute dtype
         (norm scales float32), drawn from ``seed``; ``seed=None`` leaves
-        them unset, for ``load_state_dict``."""
+        them unset, for ``load_state_dict``; ``param_dtype`` (training:
+        ``cfg.param_dtype``) holds them in that dtype instead."""
         super().__init__()
         if not cfg.is_encdec:
             raise ValueError("EncDecLM needs n_enc_layers > 0")
@@ -108,7 +137,8 @@ class EncDecLM(nn.Module):
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.enc_spec, self.dec_spec, self.cross_spec = attn_specs(cfg)
         v, d = cfg.padded_vocab, cfg.d_model
-        dt, dev = self.compute_dtype, self.device
+        dt = getattr(torch, param_dtype) if param_dtype else self.compute_dtype
+        dev = self.device
         self.token_embedding = L._weight(torch.empty((v, d), dtype=dt, device=dev))
         self.enc_layers = nn.ModuleList(
             EncoderLayer(cfg, self.enc_spec, dt, dev) for _ in range(cfg.n_enc_layers))
@@ -145,8 +175,27 @@ class EncDecLM(nn.Module):
                                     self.compute_dtype, self.device))
         return self
 
-    def loss(self, batch: dict):
-        raise _not_ported("the training loss", "8.9 (train/)")
+    def loss(self, params: dict, batch: dict):
+        """The train forward: ``(nll, {"nll", "aux": 0})`` over
+        ``batch["labels"]``; ``params`` as in ``DecoderLM.loss``."""
+        dt, dev = self.compute_dtype, self.device
+        h = torch.as_tensor(batch["enc_embeds"], device=dev).to(dt)
+        b, s = h.shape[:2]
+        positions = torch.arange(s, device=dev).expand(b, s)
+        for i in range(len(self.enc_layers)):
+            h = checkpoint(run_layer, self, f"enc_layers.{i}", params, h, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        enc_out = L.rms_norm(h, params["enc_norm.scale"])
+        h = self._inputs(batch["tokens"], params["token_embedding"])
+        b, s = h.shape[:2]
+        positions = torch.arange(s, device=dev).expand(b, s)
+        for i in range(len(self.layers)):
+            h = checkpoint(run_layer, self, f"layers.{i}", params, h, positions, enc_out,
+                           use_reentrant=False, preserve_rng_state=False)
+        h = L.rms_norm(h, params["final_norm.scale"])
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        nll = chunked_xent(params["lm_head"], h, labels, self.cfg.loss_chunk)
+        return nll, {"nll": nll, "aux": torch.zeros((), dtype=torch.float32, device=dev)}
 
     # --------------------------------------------------------------- encoder
     @torch.no_grad()
@@ -175,8 +224,11 @@ class EncDecLM(nn.Module):
                  "cross_v": torch.zeros(cross, dtype=dt, device=dev)}
                 for _ in self.layers]
 
-    def _inputs(self, tokens) -> torch.Tensor:
-        return self.token_embedding[torch.as_tensor(tokens, device=self.device).long()]
+    def _inputs(self, tokens, table: torch.Tensor | None = None) -> torch.Tensor:
+        """The rows of ``tokens`` in ``table`` (the token embedding by
+        default), in the compute dtype."""
+        table = self.token_embedding if table is None else table
+        return table[torch.as_tensor(tokens, device=self.device).long()].to(self.compute_dtype)
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, list[dict]]:

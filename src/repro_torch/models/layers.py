@@ -21,8 +21,14 @@ weights are stored in the compute dtype; norm scales, the SSD's ``a_log``,
 ``dt_bias`` and ``d_skip``, and the RG-LRU's gates (``w_a``, ``b_a``,
 ``w_x``, ``b_x``) and ``lambda_`` in float32 — the numbers the reference
 gets from its float32 master copy cast at use.  A recurrent decode step
-writes its state in place, as attention writes its KV cache.  Weights never
-require grad: this slice serves only.
+writes its state in place, as attention writes its KV cache.  Weights are
+``requires_grad=False`` parameters; a train step differentiates the master
+weights of its state instead (``lm.DecoderLM.loss``), and every layer here
+is differentiable: attention's blockwise form checkpoints each key chunk's
+step, as the reference's ``jax.checkpoint(step)``; the flash kernel and the
+scan kernel have ``torch.autograd.Function`` gradients; the MoE block's
+expert FFN under grad takes its dense ``torch.bmm`` form (the decode-sized
+kernel has no backward).
 
 Every matmul against a weight goes through :func:`linear`: a plain
 ``x @ cast(w, dt)``, except for an int8 weight with at most
@@ -45,6 +51,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import MAX_ROWS as MOE_MAX_ROWS
@@ -368,32 +375,43 @@ def blockwise_attention(
     window = spec.window or s_kv
 
     qh = (q * spec.scale).reshape(b, s, kh, g, hd).float()
-    q_pos = torch.arange(s, device=q.device)
     acc = torch.zeros((b, s, kh, g, hd), dtype=F32, device=q.device)
     m = torch.full((b, s, kh, g), float("-inf"), device=q.device)
     l = torch.zeros((b, s, kh, g), device=q.device)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for i in range(n_kv):
         kv_start = i * chunk
-        kc = k[:, kv_start:kv_start + chunk].float()
-        vc = v[:, kv_start:kv_start + chunk].float()
-        k_pos = kv_start + torch.arange(chunk, device=q.device)
-        logits = torch.einsum("bqkgd,bckd->bqkgc", qh, kc)
-        dist = q_pos[:, None] - k_pos[None, :]
-        if spec.causal:
-            mask = (dist >= 0) & (dist < window)  # (S, chunk)
+        kc, vc = k[:, kv_start:kv_start + chunk], v[:, kv_start:kv_start + chunk]
+        args = (qh, kc, vc, acc, m, l, kv_start, spec, s, window, q.dtype)
+        if grad:  # the reference's jax.checkpoint(step): recompute in the backward
+            acc, m, l = checkpoint(_blockwise_step, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
-            mask = dist.abs() < window  # bidirectional (encoder)
-        mask = mask & (k_pos < s)[None, :]  # drop chunk padding
-        logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        p = torch.exp(logits - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(q.dtype).float(), vc)
-        acc = acc * alpha[..., None] + pv
-        m = m_new
+            acc, m, l = _blockwise_step(*args)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _blockwise_step(qh, kc, vc, acc, m, l, kv_start: int, spec: AttnSpec, s: int,
+                    window: int, dtype: torch.dtype):
+    """One KV chunk of :func:`blockwise_attention`'s online softmax."""
+    chunk = kc.shape[1]
+    q_pos = torch.arange(s, device=qh.device)
+    k_pos = kv_start + torch.arange(chunk, device=qh.device)
+    logits = torch.einsum("bqkgd,bckd->bqkgc", qh, kc.float())
+    dist = q_pos[:, None] - k_pos[None, :]
+    if spec.causal:
+        mask = (dist >= 0) & (dist < window)  # (S, chunk)
+    else:
+        mask = dist.abs() < window  # bidirectional (encoder)
+    mask = mask & (k_pos < s)[None, :]  # drop chunk padding
+    logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(dtype).float(), vc.float())
+    return acc * alpha[..., None] + pv, m_new, l
 
 
 def _attend(q, k, v, spec: AttnSpec, chunk: int) -> torch.Tensor:
@@ -401,7 +419,8 @@ def _attend(q, k, v, spec: AttnSpec, chunk: int) -> torch.Tensor:
     kernel on the card, the blockwise form on the CPU — as the reference
     takes its Pallas kernel on the TPU and the XLA form elsewhere."""
     if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=spec.causal, window=spec.window)
+        return flash_attention(q, k, v, causal=spec.causal, window=spec.window,
+                               block_k=min(chunk, q.shape[1]))
     return blockwise_attention(q, k, v, spec, chunk=chunk)
 
 
@@ -638,7 +657,8 @@ def _moe_dispatch_compute(
       or is zero;
     * the expert FFN is :func:`moe_ffn` for ``cap <= MOE_DECODE_ROWS`` (on
       the card the MoE kernel, which reads only the experts whose ``count``
-      is not 0), else the dense three products over every expert;
+      is not 0), else — and under grad, which the kernel lacks — the dense
+      three products over every expert;
     * the combine (:func:`moe_combine`) is deterministic, where
       ``index_add_`` on the card would add a token's rows by atomics."""
     t, d = xt.shape
@@ -646,7 +666,8 @@ def _moe_dispatch_compute(
     buf = xt.new_zeros((n_experts * cap + 1, d))
     buf.index_copy_(0, r.dest, xt.index_select(0, r.st))
     buf = buf[:-1].view(n_experts, cap, d)
-    if cap <= MOE_DECODE_ROWS:
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (buf, wg, wu, wd))
+    if cap <= MOE_DECODE_ROWS and not grad:
         out = moe_ffn(buf, r.count, wg, wu, wd)
     else:
         out = expert_ffn_dense(buf, wg, wu, wd)
@@ -875,7 +896,10 @@ def ssd_block(params: SSD, spec: SSDSpec, x: torch.Tensor, return_state: bool = 
     cum_h = cum.permute(0, 1, 3, 2)  # (B, nc, H, Q)
     m = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, Q, K)
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    m.masked_fill_(~causal, float("-inf")).exp_().mul_(gl[:, :, None])
+    if torch.is_grad_enabled():  # autograd keeps exp's output: no in-place product
+        m = torch.exp(m.masked_fill(~causal, float("-inf"))) * gl[:, :, None]
+    else:
+        m.masked_fill_(~causal, float("-inf")).exp_().mul_(gl[:, :, None])
     y_intra = m @ xc.permute(0, 1, 3, 2, 4)  # (B, nc, H, Q, P)
     del m, gl
 

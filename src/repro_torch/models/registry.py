@@ -10,10 +10,12 @@ from .lm import DecoderLM
 MODEL_FAMILIES = ("dense", "moe", "vlm", "ssm", "audio", "hybrid")
 
 
-def build_model(cfg: ArchConfig, device=None, seed: int | None = 0) -> DecoderLM | EncDecLM:
+def build_model(cfg: ArchConfig, device=None, seed: int | None = 0,
+                param_dtype: str | None = None) -> DecoderLM | EncDecLM:
     """The model for ``cfg`` on ``device`` (the card by default), weights
     drawn from ``seed``: ``EncDecLM`` for an encoder-decoder config
-    (``n_enc_layers > 0``), else ``DecoderLM``."""
-    if cfg.is_encdec:
-        return EncDecLM(cfg, device=device, seed=seed)
-    return DecoderLM(cfg, device=device, seed=seed)
+    (``n_enc_layers > 0``), else ``DecoderLM``.  ``param_dtype`` holds the
+    weights in that dtype (training: ``cfg.param_dtype``, the master
+    weights) instead of the compute dtype."""
+    model = EncDecLM if cfg.is_encdec else DecoderLM
+    return model(cfg, device=device, seed=seed, param_dtype=param_dtype)

@@ -518,8 +518,8 @@ def test_project_multi_matches_plain_and_splits(dev):
     assert _cuda.LAUNCHES["project_multi"] == before + 1
     for a, b in zip(got, K.project_multi_torch(words, geoms)):
         assert torch.equal(a, b)
-    # 24 views of 30 words: more than MAX_REQ views and MAX_MAP words, so
-    # the views split over launches as _cuda.split() groups them
+    # 24 views of 30 words: more than MAX_REQ views, so the views split over
+    # launches as _cuda.split() groups them
     wide = torch.from_numpy(np.random.default_rng(6).integers(
         -9, 9, (1501, 64)).astype(np.int32)).to(dev)[1:]
     many = [geom([v % 20, 30], [10, 20], row_words=64) for v in range(24)]
@@ -771,9 +771,14 @@ def test_flash_launch_count_and_refusals(dev):
         F.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):  # q on the card, k on the host
         F.flash_attention(q, k.cpu(), v)
-    with pytest.raises(NotImplementedError):
-        F.flash_attention(q.float().requires_grad_(), k.float(), v.float())
     assert _cuda.LAUNCHES["flash_attention"] == 3
+    # a tensor that requires grad goes to the kernel too (never the plain
+    # forward), and its backward launches nothing
+    qg = q.float().requires_grad_()
+    out = F.flash_attention(qg, k.float(), v.float())
+    assert _cuda.LAUNCHES["flash_attention"] == 4
+    out.sum().backward()
+    assert _cuda.LAUNCHES["flash_attention"] == 4 and torch.isfinite(qg.grad).all()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b",
@@ -1670,3 +1675,225 @@ def test_failing_capture_raises(dev, monkeypatch):
     assert step.graph is None
     torch.cuda.synchronize()
     assert float((torch.ones(4, device=dev) * 2).sum()) == 8.0
+
+
+# ------------------------------------------------- wide rows (ROADMAP fault 3.2)
+WIDE_SEQ = (2048, 4096)  # training records: 4,101- and 8,197-word rows
+
+
+def record_words(seq, n, dev, seed=0):
+    """``n`` stored rows of ``data.record_schema(seq)``: doc_id, split,
+    weight, the tokens and labels words, then the two MVCC words."""
+    rng = np.random.default_rng(seed + seq)
+    w = rng.integers(I32.min, I32.max, (n, 3 + 2 * seq + 2), dtype=np.int64).astype(np.int32)
+    w[:, :2] = rng.integers(-1000, 1000, (n, 2))  # int32 sums stay exact in float32
+    w[:, 2] = rng.normal(0, 10, n).astype(np.float32).view(np.int32)
+    w[:, -2] = rng.integers(0, 10, n)
+    w[:, -1] = np.where(rng.random(n) < 0.3, rng.integers(3, 12, n), I32.max)
+    return torch.from_numpy(w).to(dev)
+
+
+def record_geom(seq, cols=("tokens", "labels")):
+    from repro_torch.data import record_schema
+
+    return TableGeometry.from_schema(record_schema(seq), list(cols), row_count=0)
+
+
+@pytest.mark.parametrize("revision", ["mlp", "pck", "bsl"])
+@pytest.mark.parametrize("seq", WIDE_SEQ)
+def test_wide_projection_matches_plain(dev, seq, revision):
+    """A training record's ``(tokens, labels)`` view — 4,096 or 8,192
+    packed words of 4,101- or 8,197-word rows, far past 512 words and past
+    what a staged tile holds — bit-equal to the plain version in one launch
+    of each revision (from an aligned and an odd row)."""
+    words = record_words(seq, 300, dev)
+    g = record_geom(seq)
+    name = {"mlp": "project", "pck": "project_pck", "bsl": "project_bsl"}[revision]
+    for chunk in (words, words[1:]):
+        _cuda.reset_launches()
+        got = K.project(chunk, g, revision)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == 1 and got.shape == (chunk.shape[0], 2 * seq)
+        assert torch.equal(got, K.project_torch(chunk, g))
+
+
+@pytest.mark.parametrize("seq", WIDE_SEQ)
+def test_wide_rows_through_every_scan_kernel(dev, seq):
+    """Wide rows through the filter, aggregate and group-by kernels, the
+    fused scan (a projection, a filter of the tokens, an aggregate and a
+    group-by in one launch: more than 512 packed words), ``project_multi``
+    and ``select_compact`` (2,048+ packed words): each bit-equal to its
+    plain version (sums of float32 within 1e-5 of their magnitude), one
+    launch each."""
+    words = record_words(seq, 517, dev, seed=1)
+    ts_word = words.shape[1] - 2
+    both, toks = record_geom(seq), record_geom(seq, ("tokens",))
+    pred = dict(pred_word=0, pred_dtype="int32", pred_op="gt", pred_k=-300,
+                ts_word=ts_word, ts=6)
+    _cuda.reset_launches()
+    packed, mask = K.filter_project(words, toks, **pred)
+    want_p, want_m = K.filter_project_torch(words, toks, **pred)
+    assert torch.equal(packed, want_p) and torch.equal(mask, want_m)
+    agg = dict(agg_word=2, agg_dtype="float32", **pred)
+    got, want = K.aggregate(words, **agg), K.aggregate_torch(words, **agg)
+    assert got[1].item() == want[1].item()
+    assert_sum_close(got[0], want[0], words[:, 2].view(torch.float32).abs().sum())
+    gb = dict(group_word=0, agg_word=1, num_groups=7, ts_word=ts_word, ts=6)
+    sums, counts = K.groupby_sum(words, **gb)
+    want_s, want_c = K.groupby_sum_torch(words, **gb)
+    assert torch.equal(counts, want_c) and torch.equal(sums, want_s)
+    reqs = [ProjectRequest(both), FilterRequest(toks, **pred),
+            AggregateRequest(agg_word=2, agg_dtype="float32", pred_word=0, pred_op="lt",
+                             pred_k=100),
+            GroupByRequest(group_word=0, agg_word=1, num_groups=16, ts_word=ts_word, ts=6)]
+    got = K.scan_multi(words, reqs)
+    want = K.scan_multi_torch(words, reqs)
+    for g, w in zip(got[:2], want[:2]):
+        for a, b in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+            assert torch.equal(a, b)
+    assert got[2][1].item() == want[2][1].item()
+    assert_sum_close(got[2][0], want[2][0], words[:, 2].view(torch.float32).abs().sum())
+    assert torch.equal(got[3][0], want[3][0]) and torch.equal(got[3][1], want[3][1])
+    views = K.project_multi(words, [toks, both])
+    for a, b in zip(views, K.project_multi_torch(words, [toks, both])):
+        assert torch.equal(a, b)
+    sel = dict(pred_word=0, pred_op="gt", pred_k=0, ts_word=ts_word, ts=6, block_rows=128)
+    assert_select_equal(K.select_compact(words, toks, **sel),
+                        K.select_compact_torch(words, toks, **sel))
+    for name in ("filter_project", "aggregate", "groupby_sum", "scan_multi",
+                 "project_multi", "select_compact"):
+        assert _cuda.LAUNCHES[name] == 1, (name, dict(_cuda.LAUNCHES))
+
+
+@pytest.mark.parametrize("seq", WIDE_SEQ)
+def test_record_store_batches_on_the_card(dev, seq):
+    """The data pipeline on the card: each batch's view packed by the
+    projection kernel (twice a batch, as the reference's calls: 256 samples'
+    view is more than the 2 MB reorg cache keeps), its rows gathered on the
+    card, equal to a CPU store's batches, the engines' counters equal."""
+    import dataclasses
+
+    from repro_torch.data import RecordStore, TrainPipeline, synthetic_corpus
+
+    tok, lab = synthetic_corpus(256, seq, 151936, seed=1)
+    stores = [RecordStore(seq_len=seq, device=d) for d in (dev, "cpu")]
+    for st in stores:
+        st.ingest(tok, lab)
+    _cuda.reset_launches()
+    its = [TrainPipeline(st, batch_size=8, seed=0).batches(start_step=5) for st in stores]
+    for _ in range(3):
+        card, host = next(its[0]), next(its[1])
+        assert card["tokens"].device.type == "cuda"
+        assert torch.equal(card["tokens"].cpu(), host["tokens"])
+        assert torch.equal(card["labels"].cpu(), host["labels"])
+    assert _cuda.LAUNCHES["project"] == 6
+    assert dataclasses.asdict(stores[0].engine.stats) == dataclasses.asdict(stores[1].engine.stats)
+
+
+# --------------------------------------------------- the gradients (train/)
+FLASH_GRAD_CASES = [
+    # (B, S, H, KH, D, causal, window)
+    (2, 256, 8, 2, 64, True, None),  # GQA group 4
+    (1, 200, 16, 1, 128, True, None),  # group 16, a ragged tile
+    (2, 256, 32, 8, 128, True, 100),  # qwen3-8b's heads, windowed
+    (1, 192, 4, 1, 256, False, None),  # D 256, bidirectional
+    (1, 130, 64, 4, 128, False, 48),  # group 16, bidirectional window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_matches_plain_autograd(dev, case, dtype):
+    """``FlashAttention``: the kernel's forward (one launch, within the
+    forward's limit of the plain version) and, from the same ``dout``, dq,
+    dk and dv equal to the plain version's own autograd on the card — the
+    backward is that recompute, so they agree to cuBLAS's run-to-run order
+    (within 1e-6 of each gradient's largest magnitude)."""
+    from repro_torch.kernels import flash_attention as F
+
+    causal, window = case[5:]
+    base = flash_inputs(case, dtype, dev)
+    leaves = [t.clone().requires_grad_() for t in base]
+    _cuda.reset_launches()
+    out = F.flash_attention(*leaves, causal=causal, window=window, block_k=64)
+    dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev).to(dtype)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == 1
+    plain = [t.clone().requires_grad_() for t in base]
+    want = F.flash_attention_torch(*plain, causal=causal, window=window, block_k=64)
+    want_grads = torch.autograd.grad(want, plain, dout)
+    rtol, atol = FLASH_TOL[dtype]
+    err = (out.float() - want.float()).abs()
+    assert torch.all(err <= atol + rtol * want.float().abs()), float(err.max())
+    for g, w in zip(grads, want_grads):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        assert torch.allclose(g.float(), w.float(), rtol=0,
+                              atol=1e-6 * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES[:3] + [(2, 2048, 4096)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_rglru_scan_backward_matches_plain(dev, case):
+    """The scan's gradient: the forward and the reverse recurrence each one
+    launch of the scan kernel, da and dx bit-equal to the plain reverse
+    loop on the card."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(*case, dev)
+    a.requires_grad_()
+    x.requires_grad_()
+    _cuda.reset_launches()
+    h = RS.rglru_scan(a, x)
+    dh = torch.randn(h.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    da, dx = torch.autograd.grad(h, (a, x), dh)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rglru_scan"] == 2
+    want_da, want_dx = RS.rglru_scan_backward_torch(a.detach(), h.detach(), dh)
+    assert torch.equal(dx, want_dx) and torch.equal(da, want_da)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",
+                                  "seamless-m4t-medium"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One float32 train step of a smoke config from the same weights and
+    batch, card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
+    relative, the flash kernel launched twice per attention layer (the
+    forward and the checkpointed group's recompute), never the MoE kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.step import init_train_state
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    host = build_model(cfg, device="cpu", seed=0, param_dtype="float32")
+    card = build_model(cfg, device=dev, seed=None, param_dtype="float32")
+    card.load_state_dict(host.state_dict())
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=4)
+    out = {}
+    for name, model, d in (("cpu", host, "cpu"), ("card", card, dev)):
+        _cuda.reset_launches()
+        step = make_train_step(model, opt, grad_accum=2)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        _, metrics = step(init_train_state(model), b)
+        out[name] = {k: float(v) for k, v in metrics.items()}
+        if name == "card":
+            # a checkpointed layer's forward runs twice; the tail's once
+            unchecked = (range(cfg.n_units * len(cfg.block_pattern), cfg.n_layers)
+                         if not cfg.is_encdec else range(0))
+            runs = sum((1 if i in unchecked else 2)
+                       for i, layer in enumerate(model.layers)
+                       if getattr(layer, "kind", "attn") in ("attn", "local", "moe"))
+            runs += 2 * len(getattr(model, "enc_layers", []))
+            assert _cuda.LAUNCHES["flash_attention"] == 2 * runs  # two microbatches
+            assert _cuda.LAUNCHES["moe_ffn"] == 0
+    assert abs(out["card"]["loss"] - out["cpu"]["loss"]) <= 1e-5
+    assert abs(out["card"]["grad_norm"] - out["cpu"]["grad_norm"]) <= 1e-4 * out["cpu"]["grad_norm"]

@@ -153,13 +153,6 @@ def test_bad_inputs_raise(bad):
         TF.flash_attention(q, k, v)
 
 
-def test_requires_grad_raises():
-    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
-    k = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="backward"):
-        TF.flash_attention(q, k, k)
-
-
 @pytest.mark.parametrize("bad,match", [("cpu", "CUDA tensors"), ("float16", "bfloat16"),
                                        ("head_dim", "head_dim"), ("stride", "unit stride"),
                                        ("base", "16-byte aligned"), ("row", "16 bytes")])

@@ -41,7 +41,10 @@ def test_port_modules_load_no_jax_and_no_reference_package():
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.models.layers", "repro_torch.models.lm",
             "repro_torch.models.convert", "repro_torch.models.registry",
-            "repro_torch.serve.engine", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+            "repro_torch.train.optimizer", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -118,6 +121,30 @@ def test_lm_entry_points_default_to_the_card(entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["RecordStore", "train_model", "launcher"])
+def test_train_entry_points_default_to_the_card(entry):
+    """The training path's entry points resolve their device as the engine
+    does: the record store (its engine), a model built with master weights
+    and the training launcher raise without a card unless asked for the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import RecordStore
+    from repro_torch.launch.train import main
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("qwen3-8b")
+    calls = {
+        "RecordStore": lambda: RecordStore(seq_len=8),
+        "train_model": lambda: build_model(cfg, param_dtype=cfg.param_dtype),
+        "launcher": lambda: main(["--arch", "qwen3-8b", "--smoke", "--steps", "1"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert RecordStore(seq_len=8, device="cpu").engine.device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -343,16 +343,58 @@ def test_scan_ring_layout_fits(which):
     assert (params.tile_stride, params.map_smem, params.slot_smem) == \
         (pl.tile_stride, pl.map_smem, pl.slot_smem)
     assert (params.n_req, params.part_w, params.n) == (len(reqs), pl.part_w, 0)
-    assert list(params.map[: len(pl.map)]) == pl.map
+    assert params.map is None and params.map_len == len(pl.map) and not params.direct
     assert [params.req[j].hist_off for j in group] == pl.hist_off
     assert [params.req[j].kind for j in group] == [r.kind for r in reqs]
     assert not any(params.req[j].out or params.req[j].mask for j in group)
     # the single-request kernels keep one tile
     one = _cuda.plan(reqs[:1], 18)
     assert one.map_smem == one.tile_stride
-    # rows so wide that the ring would pass SMEM_MAX are refused
-    with pytest.raises(ValueError, match="shared memory"):
-        _cuda.plan(reqs, 7200, _cuda.SCAN_RING)
+    # rows so wide that the ring would pass SMEM_MAX are read in place: no
+    # tile is staged, a thread a row, the map read in place, the slots and
+    # histograms in shared memory
+    wide = _cuda.plan(reqs, 7200, _cuda.SCAN_RING)
+    assert wide.direct and wide.tile_stride == 0 and wide.tile_rows == _cuda.THREADS
+    assert wide.map_smem == -1 and wide.map == pl.map and wide.slot_smem == 0
+    assert wide.smem_bytes <= _cuda.SMEM_MAX
+
+
+@pytest.mark.parametrize("row_words,n_views,stages", [
+    (4101, 1, 1),  # a training record at S 2,048: tokens and labels, 4,096 words
+    (8197, 1, 1),  # at S 4,096: 8,192 words
+    (8197, 16, 2),  # 16 views of 8,192 words through the fused scan: the map in place
+    (2048, 1, 2),  # the widest rows still staged
+])
+def test_wide_launch_plan(row_words, n_views, stages):
+    """Any number of packed words and any row width fit one launch: rows
+    wider than DIRECT_ROW_WORDS are read in place, and a map too long for
+    shared memory is read from device memory (map_smem -1)."""
+    out_w = 2 * ((row_words - 5) // 2) if row_words > 2048 else 512
+    reqs = [_cuda.KernelReq(_cuda.PROJECT, tuple(range(3, 3 + out_w)))] * n_views
+    assert _cuda.split(reqs) == [list(range(n_views))]
+    pl = _cuda.plan(reqs, row_words, stages)
+    assert pl.direct == (row_words > _cuda.DIRECT_ROW_WORDS)
+    assert len(pl.map) == n_views * out_w and pl.smem_bytes <= _cuda.SMEM_MAX
+    if pl.direct:
+        assert pl.tile_stride == 0
+        assert pl.tile_rows == (_cuda.THREADS if stages > 1 else _cuda.tile_rows(row_words))
+    else:
+        assert pl.tile_rows * row_words <= _cuda.TILE_BYTES // 4
+    staged = (not pl.direct
+              and 4 * (stages * pl.tile_stride + len(pl.map)) <= _cuda.SMEM_MAX)
+    assert (pl.map_smem >= 0) == staged
+    (_, planned, params), = _cuda.launch_groups(reqs, row_words, stages)
+    assert planned == pl and params.direct == int(pl.direct)
+    assert params.map_smem == pl.map_smem and params.map_len == len(pl.map)
+
+
+@pytest.mark.parametrize("out_w,rows,range_w", [
+    (4, 256, 4), (4096, 4, 4096), (8192, 4, 8192), (20000, 4, 14528)])
+def test_pck_packer_ranges(out_w, rows, range_w):
+    """PCK packs whole packed rows while they fit shared memory, and
+    wider ones in word ranges (a multiple of 4 words) that do."""
+    assert _cuda.pck_packer(out_w) == (rows, range_w)
+    assert rows * range_w * 4 <= _cuda.SMEM_MAX and range_w % 4 == 0 or range_w == out_w
 
 
 @pytest.mark.parametrize("n,row_words,buckets,cap,stream", [
