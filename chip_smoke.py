@@ -222,16 +222,22 @@ probe rows matching — all made from ``--seed``:
    a. the wide projections of ROADMAP fault 3.2: record stores on the card
       of 4,096 samples at S 2,048 and 4,096 (4,101- and 8,197-word rows,
       67 and 134 MB), their ``(tokens, labels)`` view (4,096 and 8,192
-      packed words) through ``mlp``, ``pck`` and ``bsl``, each one launch,
+      packed words) through ``mlp`` (the span kernel), ``pck`` and
+      ``bsl``, and 16 of their tokens through ``mlp``, each one launch,
       bit-equal to the plain version, timed beside its bound by bytes and
-      ``index_select`` (``wide_projection`` lines);
+      ``index_select``, the host share of each call (``host_ms``: its
+      ``kernel_ms`` less its device time) beside the library call's device
+      time (``wide_projection`` lines);
    b. the flash kernel's gradient (``FlashAttention``: the kernel's
       forward, the plain version's recompute backward) at a qwen3-8b
       training layer (B 2, S 2,048, 32 / 8 heads, D 128, bf16), causal,
       with a window of 1,024 and bidirectional: the output within
       ``FLASH_TOL``, dq, dk and dv within ``FLASH_GRAD_TOL`` of the plain
       version's autograd, the forward's and backward's times beside their
-      bounds (``flash_backward`` lines);
+      bounds and the forward and backward of one
+      ``scaled_dot_product_attention`` call under autograd on the same
+      inputs, with the backend that ran it (a yardstick the port never
+      calls; ``flash_backward`` lines);
    c. the scan's gradient at the hybrid's prefill shape, bit-equal to the
       plain reverse loop, two launches (``scan_backward``);
    d. the main path: ``qwen3-8b`` at full width, its depth cut to 8 of 36
@@ -471,6 +477,11 @@ TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "decay_steps": 4}
 # the wide projections of fault 3.2: record stores of TRAIN_SAMPLES samples
 # at these lengths (4,101- and 8,197-word rows), their (tokens, labels) view
 WIDE_SEQS = (2048, 4096)
+WIDE_NARROW = 16  # packed words of the narrow view: the first 16 tokens
+# calls a wide line's kernel_ms and library_ms are the medians of (at least):
+# a call's host share varies by some 10 µs from call to call, as much as
+# the span kernel's lead over index_select at S 2,048
+WIDE_REPS = 50
 # the flash backward at a qwen3-8b training layer (B 2, S 2,048, 32 / 8
 # heads, D 128, bf16): causal, a window of 1,024 and bidirectional; the
 # backward recomputes the plain version in key steps of TRAIN_ATTN_CHUNK
@@ -2510,48 +2521,62 @@ def wide_projection_phase(torch, reps: int) -> dict:
     """Fault 3.2's repair on the card: the ``(tokens, labels)`` view of a
     record store of ``TRAIN_SAMPLES`` samples at each of ``WIDE_SEQS`` —
     4,096 and 8,192 packed words of 4,101- and 8,197-word rows — through
-    the three revisions, each one launch and bit-equal to the plain
-    version, timed beside its bound by bytes and one ``index_select``."""
+    the three revisions, and the first ``WIDE_NARROW`` tokens through
+    ``mlp`` (the span kernel's host work at a narrow view), each one launch
+    and bit-equal to the plain version, timed beside its bound by bytes and
+    one ``index_select`` (medians of at least ``WIDE_REPS`` calls);
+    ``host_ms`` is a call's ``kernel_ms`` less its device time."""
     from repro_torch.configs import get_config
+    from repro_torch.core import TableGeometry
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import ops as K
     from repro_torch.kernels.common import geometry_words
 
     vocab = get_config(TRAIN_ARCH).vocab
     out = {}
+    timed = max(reps, WIDE_REPS)
     for seq in WIDE_SEQS:
         store = record_store(torch, seq, TRAIN_SAMPLES, vocab)
         words = store.engine.device_words(store.table)
-        geom = store.project(("tokens", "labels")).geometry
+        view = store.project(("tokens", "labels")).geometry
         n, row_words = words.shape
-        idx = torch.tensor(geometry_words(geom), dtype=torch.long, device="cuda")
-        want = K.project_torch(words, geom)
-        out_bytes = want.numel() * 4
-        bound_ms, bound_by = bound(set(geometry_words(geom)), out_bytes, n, row_words * 4, 0)
-        for rev, name in (("mlp", "project"), ("pck", "project_pck"), ("bsl", "project_bsl")):
+        tok_off = store.schema.byte_offset("tokens")
+        narrow = TableGeometry(view.row_bytes, view.row_count, (4 * WIDE_NARROW,), (tok_off,))
+        cases = [("mlp", "project", view, ""), ("pck", "project_pck", view, ""),
+                 ("bsl", "project_bsl", view, ""), ("mlp", "project", narrow, f"_w{WIDE_NARROW}")]
+        for rev, name, geom, suffix in cases:
+            idx = torch.tensor(geometry_words(geom), dtype=torch.long, device="cuda")
+            want = K.project_torch(words, geom)
+            bound_ms, bound_by = bound(set(geometry_words(geom)), want.numel() * 4, n,
+                                       row_words * 4, 0)
             run = lambda: K.project(words, geom, rev)  # noqa: E731
+            library = lambda: words.index_select(1, idx)  # noqa: E731
             _cuda.reset_launches()
             got = run()
             torch.cuda.synchronize()
             assert _cuda.LAUNCHES[name] == 1, dict(_cuda.LAUNCHES)
-            assert torch.equal(got, want), (seq, rev)
-            line = {"phase": "wide_projection", "name": f"{name}_s{seq}", "kernel": name,
+            assert torch.equal(got, want), (seq, rev, suffix)
+            line = {"phase": "wide_projection", "name": f"{name}_s{seq}{suffix}", "kernel": name,
                     "rows": n, "row_words": row_words, "packed_words": want.shape[1],
                     "direct": row_words > _cuda.DIRECT_ROW_WORDS, "bit_equal": True,
-                    "max_abs_err": 0.0, "kernel_ms": time_ms(torch, run, reps),
+                    "max_abs_err": 0.0, "kernel_ms": time_ms(torch, run, timed),
                     **device_fields(torch, run, reps),
                     "plain_ms": time_ms(torch, lambda: K.project_torch(words, geom),
                                         max(3, reps // 3)),
-                    "library_ms": time_ms(torch, lambda: words.index_select(1, idx), reps),
+                    "library_ms": time_ms(torch, library, timed),
+                    **device_fields(torch, library, reps, "library_"),
                     "library_call": "torch.index_select", "bound_ms": bound_ms,
                     "bound_by": bound_by}
             line["bound_share"] = bound_ms / line["kernel_ms"]
+            line["host_ms"] = line["device_ms"] and line["kernel_ms"] - line["device_ms"]
+            line["library_host_ms"] = (line["library_device_ms"]
+                                       and line["library_ms"] - line["library_device_ms"])
             if line["device_ms"]:
                 line["device_bound_share"] = bound_ms / line["device_ms"]
             emit(line)
             out[line["name"]] = line
-            del got
-        del store, words, want, idx
+            del got, want, idx
+        del store, words
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2565,7 +2590,13 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
     distance from float32 ones (the plain version on the inputs widened)
     is reported, not held.  Timed: the forward alone, forward + backward,
     and the plain version's forward + backward; the backward's bound is
-    ``FLASH_BACKWARD_OPS`` times the forward's operations."""
+    ``FLASH_BACKWARD_OPS`` times the forward's operations.  Beside them, a
+    yardstick the port never calls: one ``scaled_dot_product_attention``
+    on the same inputs under autograd (``is_causal`` with ``enable_gqa``, a
+    bool mask for the window, none bidirectional), forward and forward +
+    backward, and the backend that runs it (``sdpa_backend``)."""
+    import torch.nn.functional as Fn
+
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
 
@@ -2616,11 +2647,64 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
                           "key_step": TRAIN_ATTN_CHUNK}}
         line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
         line["backward_bound_share"] = line["backward_bound_ms"] / line["backward_ms"]
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device="cuda")
+            dist = i[:, None] - i[None, :]
+            mask = (dist >= 0) & (dist < window)
+
+        def sdpa(q, k, v, **_):
+            o = Fn.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            return o.transpose(1, 2)
+
+        backend, kernels = sdpa_backend(torch, lambda: fwd_bwd(sdpa, base),
+                                        *(t.transpose(1, 2) for t in leaves), mask, causal)
+        line.update({
+            "library_call": "torch.nn.functional.scaled_dot_product_attention under autograd"
+                            + (" (bool window mask)" if mask is not None
+                               else " (is_causal)" if causal else " (no mask)"),
+            "library_backend": backend, "library_kernels": kernels,
+            "library_forward_ms": time_ms(torch, lambda: sdpa(*leaves), reps),
+            "library_forward_backward_ms": time_ms(torch, lambda: fwd_bwd(sdpa, base),
+                                                   max(3, reps // 3))})
+        line["library_backward_ms"] = (line["library_forward_backward_ms"]
+                                       - line["library_forward_ms"])
         emit(line)
         out[name] = line
         del base, dout, leaves
         torch.cuda.empty_cache()
     return out
+
+
+SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn", 4: "overrideable"}
+
+
+def sdpa_backend(torch, fn, q, k, v, mask, causal: bool) -> tuple[str, list[str]]:
+    """The backend ``scaled_dot_product_attention`` runs for ``q``, ``k``,
+    ``v`` (``(B, heads, S, D)``, with ``enable_gqa``): the dispatcher's own
+    choice (``torch._fused_sdp_choice``, ``torch.nn.attention.SDPBackend``'s
+    numbering), and the names of the kernels one traced call of ``fn``
+    launched, at most eight (a trace that held none is taken again, up to
+    three times; empty if none did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, dropout_p=0.0,
+                                     is_causal=causal and mask is None, enable_gqa=True)
+    fn()
+    torch.cuda.synchronize()
+    names: list[str] = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key[:80] for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == DeviceType.CUDA})
+        if names:
+            break
+    return SDPA_BACKENDS.get(int(choice), f"unknown ({int(choice)})"), names[:8]
 
 
 def scan_backward_phase(torch, seed: int, reps: int) -> dict:

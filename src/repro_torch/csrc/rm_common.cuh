@@ -10,7 +10,9 @@
 // direct instantiation (template argument kDirect) reads the tile's rows
 // straight from the row store (load_tile), so only the 32-byte sectors
 // holding the words it uses leave device memory, each once; the staged
-// instantiation is the code of the staged rows alone.  The per-request code:
+// instantiation is the code of the staged rows alone.  (The single
+// projection has no direct instantiation: rm_spans.cu copies such rows.)
+// The per-request code:
 //
 //   * project / filter: a src_word[out_w] map scatters each row's enabled
 //     words into the packed output row; a filter writes zeros for failing

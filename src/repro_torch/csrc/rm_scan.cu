@@ -37,15 +37,18 @@
 //
 // Rows wider than 2,048 words (Params::direct) are served where they lie:
 // no tile is staged, and every kernel reads the words it uses straight from
-// the row store — for a projection, one output word a thread, so a warp's
-// loads of a contiguous map are contiguous.  The word map comes from device
-// memory (staged into shared memory where it fits), so no launch has a
-// limit on its packed words.
+// the row store — for a filter or a multi-view projection, one output word
+// a thread, so a warp's loads of a contiguous map are contiguous.  The word
+// map comes from device memory (staged into shared memory where it fits),
+// so no launch has a limit on its packed words.  A single projection of
+// such rows is not launched here: rm_project_spans_kernel (rm_spans.cu)
+// copies its column ranges with 16-byte transfers, and rm_project_kernel is
+// staged only.
 #include "rm_common.cuh"
 
 using namespace rm;
 
-template <bool kDirect>
+// Staged rows only: wider rows take rm_project_spans_kernel (rm_spans.cu).
 __global__ void __launch_bounds__(kThreads)
 rm_project_kernel(const __grid_constant__ Params p) {
   int32_t* smem = smem_words();
@@ -56,9 +59,9 @@ rm_project_kernel(const __grid_constant__ Params p) {
     const long long row0 = t * p.tile_rows;
     const int rows = static_cast<int>(min(static_cast<long long>(p.tile_rows), p.n - row0));
     __syncthreads();  // the previous tile is consumed (and the map staged)
-    const int32_t* tile = load_tile<kDirect>(p, smem, row0, rows);
+    const int32_t* tile = load_tile<false>(p, smem, row0, rows);
     __syncthreads();
-    pack_tile<false, kDirect>(tile, rows, p.row_words, map + q.map_off, q, row0);
+    pack_tile<false, false>(tile, rows, p.row_words, map + q.map_off, q, row0);
   }
 }
 
@@ -329,9 +332,9 @@ namespace {
   {reinterpret_cast<const void*>(kernel<false>), reinterpret_cast<const void*>(kernel<true>)}
 
 // Kernel order shared with _cuda.KERNELS (the index rm_max_blocks takes);
-// each kernel's staged, then direct instantiation.
+// each kernel's staged, then direct instantiation (none for the projection).
 const void* const kKernels[][2] = {
-    RM_BOTH(rm_project_kernel),
+    {reinterpret_cast<const void*>(rm_project_kernel), nullptr},
     RM_BOTH(rm_filter_kernel),
     RM_BOTH(rm_aggregate_kernel),
     RM_BOTH(rm_groupby_kernel),
@@ -378,13 +381,14 @@ const char* rm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Blocks of kernel `kernel` (its direct instantiation if `direct`) that fit
-// on the whole current device at once with `smem` bytes of dynamic shared
-// memory each (0 if none fits).
+// Blocks of kernel `kernel` (its direct instantiation if `direct`; the
+// projection has none) that fit on the whole current device at once with
+// `smem` bytes of dynamic shared memory each (0 if none fits).
 int rm_max_blocks(int kernel, int direct, long long smem, int* blocks) {
   *blocks = 0;
   if (kernel < 0 || kernel >= kNumKernels) return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = kKernels[kernel][direct ? 1 : 0];
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
@@ -398,7 +402,15 @@ int rm_max_blocks(int kernel, int direct, long long smem, int* blocks) {
   return 0;
 }
 
-RM_LAUNCHER(rm_project, rm_project_kernel)
+// The projection's launcher takes staged rows only.
+int rm_project(const Params* params, int n_blocks, long long smem, void* stream) {
+  if (n_blocks <= 0 || params->direct) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(rm_project_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rm_project_kernel<<<n_blocks, kThreads, static_cast<size_t>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(*params);
+  return static_cast<int>(cudaGetLastError());
+}
 RM_LAUNCHER(rm_filter_project, rm_filter_kernel)
 RM_LAUNCHER(rm_aggregate, rm_aggregate_kernel)
 RM_LAUNCHER(rm_groupby_sum, rm_groupby_kernel)

@@ -1,6 +1,7 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
-``csrc/rm_join.cu``, ``csrc/rm_project.cu``, ``csrc/rm_flash.cu``,
-``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``, ``csrc/rm_rglru.cu``).
+``csrc/rm_spans.cu``, ``csrc/rm_join.cu``, ``csrc/rm_project.cu``,
+``csrc/rm_flash.cu``, ``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``,
+``csrc/rm_rglru.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -18,7 +19,10 @@ and raises if the launch reports a CUDA error.  A launch's word map (the
 source word of every packed output word) lives in device memory, uploaded
 once per distinct map (:func:`device_map`), so no launch has a limit on its
 packed words; rows wider than ``DIRECT_ROW_WORDS`` are read where they lie
-rather than staged (``Plan.direct``), so no row is too wide either.  The
+rather than staged (``Plan.direct``), so no row is too wide either.  A
+single projection of such rows takes the span kernel instead
+(:func:`run_spans`): its launch carries the enabled column ranges
+(:func:`span_plan`, planned once per layout), never a word map.  The
 hash-join probe, the BSL / PCK projection revisions, the compacting
 selection, the GQA flash-attention forward, the int8-weight decode matmul,
 the MoE expert FFN and the RG-LRU scan have their own parameter blocks and
@@ -26,7 +30,9 @@ launchers
 (:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
 :func:`run_flash`, :func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`)
 under the same rules.
-``LAUNCHES`` counts the launches each wrapper makes, and nothing else: a
+``LAUNCHES`` counts the launches each wrapper makes, and nothing else
+(``project`` counts both forms of the projection: the staged kernel and
+the span kernel): a
 call inside a CUDA graph's capture records its kernel without launching it
 and counts nothing, and the graph's replays launch it without the wrapper
 (``torch.profiler`` sees those).  ``CAPTURED`` counts, in the same units,
@@ -77,6 +83,9 @@ JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
+MAX_SPANS = 16  # word ranges of one span launch (kMaxSpans, rm_spans.cu)
+SPAN_VECS = 2  # 16-byte vectors a lane copies an item of the span kernel (kVecs, rm_spans.cu)
+SPAN_WARPS = 8  # warps (items in flight) a block of the span kernel (kSpanWarps)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
 W8_MAX_ROWS = 64  # rows of x the int8-weight matmul takes (a decode step's B)
@@ -105,6 +114,7 @@ PRED_OPS = {"none": 0, "gt": 1, "lt": 2}
 TILE_BYTES = 32 * 1024  # staged row tile per block
 # rows wider than this (four rows past TILE_BYTES) are read in place, not staged
 DIRECT_ROW_WORDS = TILE_BYTES // (4 * 4)
+SPAN_PLANS = 64  # layouts whose span plans a projection keeps (rme_project.span_plan)
 SELECT_INLINE_MAP = 512  # map words the selection's parameter block holds (kSelectInlineMap)
 DEVICE_MAPS = 64  # word maps kept on the device (device_map), oldest dropped first
 SCAN_RING = 2  # tiles in scan_multi's ring (kScanRing; load() checks rm_scan_ring())
@@ -164,6 +174,14 @@ class _ColParams(ctypes.Structure):
         (name, ctypes.c_int32) for name in (
             "row_words", "out_w", "n_cols", "tile_rows", "range_w", "pad_")] + [
         (name, ctypes.c_int32 * MAX_COLS) for name in ("src", "dst", "width")]
+
+
+class _SpanParams(ctypes.Structure):
+    _fields_ = [("words", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong)] + [
+        (name, ctypes.c_int32) for name in (
+            "row_words", "out_w", "n_spans", "chunks")] + [
+        (name, ctypes.c_int32 * MAX_SPANS) for name in ("src", "dst", "width", "first")]
 
 
 class _SelectParams(ctypes.Structure):
@@ -468,6 +486,8 @@ def load() -> ctypes.CDLL:
     lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_void_p]
     lib.rm_project_pck.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_void_p]
+    lib.rm_project_spans.argtypes = [ctypes.POINTER(_SpanParams), ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
     lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
                                       ctypes.c_longlong, ctypes.c_void_p]
     lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
@@ -476,6 +496,7 @@ def load() -> ctypes.CDLL:
     lib.rm_rglru_scan.argtypes = [ctypes.POINTER(_RglruParams), ctypes.c_void_p]
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
+               lib.rm_project_spans, lib.rm_span_params_size,
                lib.rm_flash_attention, lib.rm_flash_params_size,
                lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init,
                lib.rm_moe_ffn, lib.rm_moe_params_size, lib.rm_rglru_scan,
@@ -484,6 +505,7 @@ def load() -> ctypes.CDLL:
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
                            (lib.rm_col_params_size(), _ColParams),
+                           (lib.rm_span_params_size(), _SpanParams),
                            (lib.rm_select_params_size(), _SelectParams),
                            (lib.rm_flash_params_size(), _FlashParams),
                            (lib.rm_w8_params_size(), _W8Params),
@@ -611,6 +633,9 @@ def run(kernel: str, words: torch.Tensor, reqs: Sequence[KernelReq]) -> list:
         return results
     if len(reqs) > 1 and kernel not in MULTI_REQUEST:
         raise ValueError(f"{kernel} takes one request")
+    if kernel == "project" and row_words > DIRECT_ROW_WORDS:
+        raise ValueError(f"rows wider than {DIRECT_ROW_WORDS} words are projected by "
+                         f"run_spans, not the staged kernel")
     lib = load()
     fn = getattr(lib, f"rm_{kernel}")
     stages = SCAN_RING if kernel == "scan_multi" else 1
@@ -770,6 +795,103 @@ def run_columns(kernel: str, words: torch.Tensor,
             raise ValueError(kernel)
         _check(lib, err, f"{kernel} launch")
     _launched(kernel)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanPlan:
+    """One layout's launches of the span kernel: the merged word ranges,
+    ``MAX_SPANS`` of them a launch (one launch for any configuration-port
+    geometry), each range's first item in its launch's row, each launch's
+    items a row, and its parameter block with every field set but the
+    pointers and the row count."""
+
+    spans: tuple[tuple[int, int, int], ...]  # (src_word, dst_word, width), merged
+    first: tuple[int, ...]  # each span's first item in its launch's row
+    chunks: tuple[int, ...]  # items a row, a launch
+    row_words: int
+    out_w: int
+    params: tuple[_SpanParams, ...] = dataclasses.field(compare=False, repr=False)
+
+
+def span_vectors(dst: int, width: int, out_w: int) -> int:
+    """The most 16-byte output vectors a ``width``-word range at packed word
+    ``dst`` touches in any row: its start's offset in a vector is ``dst``'s
+    in every row when ``out_w`` is a multiple of 4, else any."""
+    lead = dst % 4 if out_w % 4 == 0 else 3
+    return (lead + width - 1) // 4 + 1
+
+
+def span_plan(slices: tuple[tuple[int, int, int], ...], row_words: int,
+              out_w: int) -> SpanPlan:
+    """Plan the span kernel for ``slices`` — ``(src_word, dst_word,
+    width_words)`` per enabled column — of ``row_words``-word rows packed
+    into ``out_w`` words.  Ranges that continue each other in the row and
+    in the packed row are merged; each range gets ``ceil(span_vectors /
+    (32 * SPAN_VECS))`` items a row.  Raises
+    unless the ranges lie in the row and tile the packed row exactly.  (A
+    projection plans once per layout: ``rme_project.span_plan`` caches.)"""
+    spans: list[list[int]] = []
+    end = 0
+    for src, dst, w in sorted(slices, key=lambda sl: sl[1]):
+        if not (w > 0 and 0 <= src and src + w <= row_words):
+            raise ValueError(f"column slice {(src, dst, w)} outside the {row_words}-word row")
+        if dst != end:
+            raise ValueError(f"column slices leave packed words {end}..{dst - 1} unwritten"
+                             if dst > end else f"column slices overlap at packed word {dst}")
+        if spans and spans[-1][0] + spans[-1][2] == src:
+            spans[-1][2] += w
+        else:
+            spans.append([src, dst, w])
+        end = dst + w
+    if end != out_w or not spans:
+        raise ValueError(f"column slices pack {end} words, not {out_w}")
+    first, chunks, params = [], [], []
+    for at in range(0, len(spans), MAX_SPANS):
+        group = spans[at:at + MAX_SPANS]
+        block = _SpanParams(row_words=row_words, out_w=out_w, n_spans=len(group))
+        for j, (src, dst, w) in enumerate(group):
+            first.append(block.chunks)
+            block.src[j], block.dst[j], block.width[j], block.first[j] = src, dst, w, first[-1]
+            block.chunks += -(-span_vectors(dst, w, out_w) // (32 * SPAN_VECS))
+        chunks.append(block.chunks)
+        params.append(block)
+    return SpanPlan(tuple(map(tuple, spans)), tuple(first), tuple(chunks), row_words, out_w,
+                    tuple(params))
+
+
+def span_blocks(n: int, chunks: int) -> int:
+    """Blocks of a span launch of ``chunks`` items a row over ``n`` rows: a
+    warp an item, a grid-stride loop past ``MAX_GRID_BLOCKS``."""
+    return min(-(-n * chunks // SPAN_WARPS), MAX_GRID_BLOCKS)
+
+
+def run_spans(words: torch.Tensor, pl: SpanPlan) -> torch.Tensor:
+    """Launch the span kernel: the packed ``(N, out_w)`` int32 block of
+    ``pl``'s ranges over ``words``, whose rows are ``pl.row_words`` words
+    (one launch a ``MAX_SPANS`` ranges).  The host work of a call is the
+    allocation, a copy of the planned parameter block and the launch,
+    whatever the packed width; a zero-row input launches nothing."""
+    check_words(words)
+    n, row_words = words.shape
+    if row_words != pl.row_words:
+        raise ValueError(f"the plan is for {pl.row_words}-word rows, got {row_words}")
+    out = words.new_empty((n, pl.out_w))  # int32 on words' card
+    if n == 0:
+        return out
+    lib = load()
+    dev = words.get_device()
+    # the current stream's handle as torch's generated kernels take it (a
+    # tenth of the host time of current_stream(dev).cuda_stream); the
+    # launcher selects card `dev` for the launch itself where it is not
+    # the current one
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    for block in pl.params:
+        params = _SpanParams.from_buffer_copy(block)
+        params.words, params.out, params.n = words.data_ptr(), out.data_ptr(), n
+        _check(lib, lib.rm_project_spans(ctypes.byref(params), span_blocks(n, block.chunks),
+                                         dev, stream), "project launch")
+        _launched("project")
     return out
 
 

@@ -6,7 +6,10 @@ paper's three §5.2 datapath revisions.
 revision's kernel:
 
 * ``"mlp"`` — ``rm_project_kernel`` (``csrc/rm_scan.cu``, the Hopper form of
-  ``_mlp_kernel``): whole row tiles staged with coalesced loads;
+  ``_mlp_kernel``): whole row tiles staged with coalesced loads; rows wider
+  than ``_cuda.DIRECT_ROW_WORDS`` take ``rm_project_spans_kernel``
+  (``csrc/rm_spans.cu``), which copies the column ranges
+  (:func:`span_plan`) with aligned 16-byte transfers;
 * ``"pck"`` — ``rm_project_pck_kernel`` (``csrc/rm_project.cu``, from
   ``_pck_kernel``): column chunks gathered into a shared-memory packer, one
   store of the packed tile;
@@ -20,6 +23,8 @@ between the two: a CUDA tensor gets the kernel or an error.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.schema import TableGeometry
@@ -27,7 +32,7 @@ from repro_torch.core.schema import TableGeometry
 from . import _cuda
 from .common import DEFAULT_BLOCK_ROWS, column_slices, geometry_words
 
-__all__ = ["DEFAULT_BLOCK_ROWS", "REVISIONS", "project", "project_torch",
+__all__ = ["DEFAULT_BLOCK_ROWS", "REVISIONS", "project", "project_torch", "span_plan",
            "vmem_footprint_bytes"]
 
 # the paper's §5.2 revisions, baseline first; "mlp" is the production one
@@ -47,6 +52,23 @@ def project_torch(words: torch.Tensor, geom: TableGeometry) -> torch.Tensor:
     return words.index_select(1, idx)
 
 
+def span_plan(geom: TableGeometry, row_words: int) -> _cuda.SpanPlan:
+    """The span kernel's plan for ``geom``'s columns over rows of
+    ``row_words`` storage words, kept for the last ``_cuda.SPAN_PLANS``
+    layouts: the key is the geometry's layout (:meth:`TableGeometry.
+    layout_key`: the row width and the column ranges) and ``row_words`` —
+    no row count, snapshot time or predicate constant — so a repeated
+    projection, also after an append, plans nothing."""
+    return _layout_plan(geom.layout_key(), row_words)
+
+
+@functools.lru_cache(maxsize=_cuda.SPAN_PLANS)
+def _layout_plan(layout: tuple, row_words: int) -> _cuda.SpanPlan:
+    row_bytes, widths, offsets, frame = layout
+    geom = TableGeometry(row_bytes, 0, widths, offsets, frame, max_columns=len(widths))
+    return _cuda.span_plan(column_slices(geom), row_words, geom.out_words_per_row)
+
+
 def project(words: torch.Tensor, geom: TableGeometry,
             revision: str = "mlp") -> torch.Tensor:
     """Packed projection ``(N, row_words) -> (N, out_words)`` via the RME's
@@ -60,6 +82,9 @@ def project(words: torch.Tensor, geom: TableGeometry,
         return project_torch(words, geom)
     _check_geometry(words, geom)
     if revision == "mlp":
+        row_words = words.shape[1]
+        if row_words > _cuda.DIRECT_ROW_WORDS:
+            return _cuda.run_spans(words, span_plan(geom, row_words))
         req = _cuda.KernelReq(_cuda.PROJECT, tuple(geometry_words(geom)))
         return _cuda.run("project", words, [req])[0]
     return _cuda.run_columns(f"project_{revision}", words, column_slices(geom),

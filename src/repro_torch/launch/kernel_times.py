@@ -1,5 +1,5 @@
-"""Time the fused scan and the hash-join probe three ways, at the shapes of
-``chip_smoke.py``'s kernel lines, on one NVIDIA GPU:
+"""Time the relational kernels three ways, at the shapes of ``chip_smoke.py``'s
+kernel and ``wide_projection`` lines, on one NVIDIA GPU:
 
 * ``events_ms``: CUDA events around one wrapper call, host work included
   (as ``chip_smoke.py`` reports ``kernel_ms``), median of ``--reps``;
@@ -10,17 +10,28 @@
 * ``host_ms``: the host time to enqueue one call (planning, allocation,
   launch), mean over ``--reps`` calls issued back to back.
 
+The cases: at the path's 2 GiB table, the fused scan, the hash-join probe
+in both forms, and the single projection, the filter, the multi-view
+projection and the selection (50% kept); at a record store of 4,096
+training samples of S 2,048 and 4,096 (``wide_projection``), the
+``(tokens, labels)`` view and its first 16 tokens through the projection
+(``"mlp"``), and ``index_select`` of the same words.
+
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--rows N] [--reps R]
+        [--cases NAME,...]
 
 ``--src`` puts another checkout's ``src`` directory first on the path, so
 one run of this script can measure two commits of the port the same way
 (the tables come from ``chip_smoke.py`` of the checkout holding this
-script).  Prints one JSON line per case.
+script); ``--cases`` keeps the cases whose name matches one of the
+patterns given (``fnmatch``: ``project_s*,index_select_*``).  Prints one
+JSON line per case.
 """
 
 from __future__ import annotations
 
 import argparse
+import fnmatch
 import json
 import statistics
 import sys
@@ -28,6 +39,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
+PATH_CASES = ("scan_multi", "hash_join", "hash_join_packed", "project", "filter_project",
+              "project_multi", "select_compact")
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -43,12 +56,79 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.mean(times)
 
 
+def path_cases(torch, CS, K, rows):
+    """The path's kernels over the 2 GiB table."""
+    from repro_torch.core import TableGeometry
+
+    table = CS.build_table(rows or CS.ROWS, 0, CS.BUILD_ROWS)
+    dim = CS.build_dimension(CS.BUILD_ROWS, 0)
+    words = torch.from_numpy(table.words()).cuda()
+    n = words.shape[0]
+    reqs = CS.path_requests(table, table.now())
+    fused = [reqs[k] for k in ("project", "filter", "aggregate", "groupby", "aggregate2")]
+    dw = dim.words()
+    parts = K.build_partitions(dw[:, 1], dw[:, 2], dw[:, dim.ts_begin_word],
+                               dw[:, dim.ts_end_word], device="cuda")
+    packed = words[:, :2].contiguous()
+    ts = table.now()
+    p, f = reqs["project"], reqs["filter"]
+    fkw = dict(pred_word=f.pred_word, pred_dtype=f.pred_dtype, pred_op=f.pred_op,
+               pred_k=f.pred_k, ts=f.ts, ts_word=f.ts_word)
+    geoms = [TableGeometry.from_schema(table.schema, v, n) for v in CS.MULTI_VIEWS]
+    sel = TableGeometry.from_schema(table.schema, ["A1", "A9"], n)
+    skw = dict(pred_word=table.schema.word_offset("A3"), pred_op="gt",
+               pred_k=dict(CS.SELECTIVITIES)[50], block_rows=CS.SELECT_BLOCK_ROWS)
+    return [
+        ("scan_multi", lambda: K.scan_multi(words, fused)),
+        ("hash_join", lambda: K.hash_join(words, parts, 1, 0, 16, ts, True)),
+        ("hash_join_packed", lambda: K.hash_join(packed, parts, 1, 0, -1, ts, True)),
+        ("project", lambda: K.project(words, p.geom)),
+        ("filter_project", lambda: K.filter_project(words, f.geom, **fkw)),
+        ("project_multi", lambda: K.project_multi(words, geoms)),
+        ("select_compact", lambda: K.select_compact(words, sel, **skw)),
+    ]
+
+
+def wide_names(CS, seq: int) -> list[str]:
+    narrow = f"_w{CS.WIDE_NARROW}"
+    return [f"{c}_s{seq}{x}" for x in ("", narrow) for c in ("project", "index_select")]
+
+
+def wide_cases(torch, CS, K, keep):
+    """The record stores' views, at each of ``CS.WIDE_SEQS`` that has a case
+    ``keep`` takes; one store at a time is kept (yielded case by case)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TableGeometry
+    from repro_torch.kernels.common import geometry_words
+
+    vocab = get_config(CS.TRAIN_ARCH).vocab
+    for seq in CS.WIDE_SEQS:
+        if not any(keep(name) for name in wide_names(CS, seq)):
+            continue
+        store = CS.record_store(torch, seq, CS.TRAIN_SAMPLES, vocab)
+        words = store.engine.device_words(store.table)
+        view = store.project(("tokens", "labels")).geometry
+        narrow = TableGeometry(view.row_bytes, view.row_count, (4 * CS.WIDE_NARROW,),
+                               (store.schema.byte_offset("tokens"),))
+        for suffix, geom in (("", view), (f"_w{CS.WIDE_NARROW}", narrow)):
+            idx = torch.tensor(geometry_words(geom), dtype=torch.long, device="cuda")
+            want = K.project_torch(words, geom)
+            yield f"project_s{seq}{suffix}", lambda g=geom: K.project(words, g), want
+            yield f"index_select_s{seq}{suffix}", lambda i=idx: words.index_select(1, i), want
+        del store, words
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--cases", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.src.resolve()))
     sys.path.insert(1, str(ROOT))
@@ -60,30 +140,32 @@ def main(argv=None) -> int:
     import chip_smoke as CS
     from repro_torch.kernels import ops as K
 
-    table = CS.build_table(args.rows or CS.ROWS, 0, CS.BUILD_ROWS)
-    dim = CS.build_dimension(CS.BUILD_ROWS, 0)
-    words = torch.from_numpy(table.words()).cuda()
-    reqs = CS.path_requests(table, table.now())
-    fused = [reqs[k] for k in ("project", "filter", "aggregate", "groupby", "aggregate2")]
-    dw = dim.words()
-    parts = K.build_partitions(dw[:, 1], dw[:, 2], dw[:, dim.ts_begin_word],
-                               dw[:, dim.ts_end_word], device="cuda")
-    packed = words[:, :2].contiguous()
-    ts = table.now()
-    cases = [
-        ("scan_multi", lambda: K.scan_multi(words, fused)),
-        ("hash_join", lambda: K.hash_join(words, parts, 1, 0, 16, ts, True)),
-        ("hash_join_packed", lambda: K.hash_join(packed, parts, 1, 0, -1, ts, True)),
-    ]
     import repro_torch
 
-    for name, fn in cases:
+    wanted = tuple(c for c in args.cases.split(",") if c)
+    keep = lambda name: not wanted or any(fnmatch.fnmatch(name, c) for c in wanted)  # noqa: E731
+
+    def report(name, fn, want=None):
+        if want is not None:  # held against the plain version before it is timed
+            got = fn()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), name
+            del got
         print(json.dumps({
             "case": name, "tag": args.tag, "package": str(Path(repro_torch.__file__).parent),
+            "device": torch.cuda.get_device_name(0),
             "events_ms": CS.time_ms(torch, fn, args.reps),
             **CS.device_fields(torch, fn, args.reps),
             "host_ms": host_ms(torch, fn, args.reps),
         }), flush=True)
+
+    if any(keep(name) for name in PATH_CASES):
+        for name, fn in path_cases(torch, CS, K, args.rows):
+            if keep(name):
+                report(name, fn)
+    for name, fn, want in wide_cases(torch, CS, K, keep):
+        if keep(name):
+            report(name, fn, want)
     return 0
 
 

@@ -1699,22 +1699,68 @@ def record_geom(seq, cols=("tokens", "labels")):
     return TableGeometry.from_schema(record_schema(seq), list(cols), row_count=0)
 
 
+WIDE_NAMES = {"mlp": "project", "pck": "project_pck", "bsl": "project_bsl"}
+
+
+def assert_wide_projection(words, g, revision):
+    """One launch of ``revision``, bit-equal to the plain version."""
+    _cuda.reset_launches()
+    got = K.project(words, g, revision)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[WIDE_NAMES[revision]] == 1, dict(_cuda.LAUNCHES)
+    assert got.shape == (words.shape[0], g.out_words_per_row)
+    assert torch.equal(got, K.project_torch(words, g))
+
+
 @pytest.mark.parametrize("revision", ["mlp", "pck", "bsl"])
 @pytest.mark.parametrize("seq", WIDE_SEQ)
 def test_wide_projection_matches_plain(dev, seq, revision):
     """A training record's ``(tokens, labels)`` view — 4,096 or 8,192
     packed words of 4,101- or 8,197-word rows, far past 512 words and past
     what a staged tile holds — bit-equal to the plain version in one launch
-    of each revision (from an aligned and an odd row)."""
-    words = record_words(seq, 300, dev)
+    of each revision: from an aligned and an odd row, and at 1, 3, a staged
+    tile's rows (4) less and more one, 300 and 4,096 rows; the span kernel
+    (mlp) also for ``(weight, tokens, labels)`` (three columns, one range)
+    and ``(doc_id, weight, labels)`` (three ranges with gaps)."""
+    words = record_words(seq, 4096, dev)
     g = record_geom(seq)
-    name = {"mlp": "project", "pck": "project_pck", "bsl": "project_bsl"}[revision]
-    for chunk in (words, words[1:]):
-        _cuda.reset_launches()
-        got = K.project(chunk, g, revision)
-        torch.cuda.synchronize()
-        assert _cuda.LAUNCHES[name] == 1 and got.shape == (chunk.shape[0], 2 * seq)
-        assert torch.equal(got, K.project_torch(chunk, g))
+    tile = _cuda.tile_rows(words.shape[1])
+    for chunk in (words[:300], words[1:300], words[:1], words[5:8], words[:tile - 1],
+                  words[3:tile + 4], words):
+        assert_wide_projection(chunk, g, revision)
+    if revision == "mlp":
+        for cols in (("weight", "tokens", "labels"), ("doc_id", "weight", "labels")):
+            assert_wide_projection(words[1:], record_geom(seq, cols), revision)
+
+
+# wide-row layouts: (storage words past 2,048, (word offset, width) per column)
+WIDE_LAYOUTS = [
+    (r, cols) for r in range(4) for cols in (
+        ((r + 1, 2000),),  # Q 1
+        ((r, 3), (r + 5, 2043)),  # Q 2 with a gap
+        ((1, 1), (3, 700), (704 + r, 5), (712, 1000), (1713 + r, 333)),  # Q 5 with gaps
+    )
+]
+
+
+@pytest.mark.parametrize("extra,cols", WIDE_LAYOUTS)
+def test_wide_projection_layouts(dev, extra, cols):
+    """The span kernel (mlp) at rows of 2,049 + ``extra`` words — every
+    width mod 4, all of them read in place — for column offsets of every
+    value mod 4, one, two and five columns with gaps, bit-equal to the plain
+    version in one launch: from an aligned row and from rows 1 and 3 (a row
+    store starting at each word of a 16-byte block), at 1, 3, 5 and 4,096
+    rows; BSL and PCK the same at 4,096 rows."""
+    row_words = _cuda.DIRECT_ROW_WORDS + 1 + extra
+    rng = np.random.default_rng(extra)
+    words = torch.from_numpy(rng.integers(I32.min, I32.max, (4099, row_words),
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+    g = geom([o for o, _ in cols], [w for _, w in cols], row_words)
+    for start in (0, 1, 2, 3):
+        for n in (1, 3, 5, 4096):
+            assert_wide_projection(words[start:start + n], g, "mlp")
+    for revision in ("pck", "bsl"):
+        assert_wide_projection(words[:4096], g, revision)
 
 
 @pytest.mark.parametrize("seq", WIDE_SEQ)
