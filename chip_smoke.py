@@ -22,8 +22,9 @@ probe rows matching — all made from ``--seed``:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
 2. times the kernel build (one ``nvcc`` a source, all at once) and prints
-   the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_join.cu``,
-   ``rm_scan.cu``, ``rm_w8.cu``, ``rm_moe.cu`` and ``rm_rglru.cu``: each
+   the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_flash_bwd.cu``,
+   ``rm_join.cu``, ``rm_scan.cu``, ``rm_w8.cu``, ``rm_moe.cu`` and
+   ``rm_rglru.cu``: each
    kernel's registers, shared memory and spills;
 3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
    engine batch and the tick script below on a card engine and server and a
@@ -228,16 +229,28 @@ probe rows matching — all made from ``--seed``:
       ``index_select``, the host share of each call (``host_ms``: its
       ``kernel_ms`` less its device time) beside the library call's device
       time (``wide_projection`` lines);
-   b. the flash kernel's gradient (``FlashAttention``: the kernel's
-      forward, the plain version's recompute backward) at a qwen3-8b
-      training layer (B 2, S 2,048, 32 / 8 heads, D 128, bf16), causal,
-      with a window of 1,024 and bidirectional: the output within
-      ``FLASH_TOL``, dq, dk and dv within ``FLASH_GRAD_TOL`` of the plain
-      version's autograd, the forward's and backward's times beside their
-      bounds and the forward and backward of one
+   b. the flash gradient (``FlashAttention``: the forward kernel with the
+      row lse stored, then one launch of the backward kernel,
+      ``rm_flash_bwd.cu``) in both its forms: the tensor cores at a
+      qwen3-8b training layer (B 2, S 2,048, 32 / 8 heads, D 128, bf16),
+      causal, with a window of 1,024 and bidirectional; the CUDA cores at
+      recurrentgemma-9b's local attention (16 / 1 heads, D 256, bf16) and
+      in float32 at ``train_reference``'s two smokes: the output within
+      ``FLASH_TOL``; in bf16 dq, dk and dv no further from the float32
+      gradients than ``FLASH_GRAD_BF16_FACTOR`` times the plain bf16
+      recompute, within ``FLASH_GRAD_BF16_TOL`` of it and within
+      ``FLASH_GRAD_PLAIN_STEPS`` bf16 steps of the kernel's plain version
+      (``flash_attention_backward_torch``) on the same output and lse; in
+      float32 within ``FLASH_GRAD_F32_TOL`` of both; two backward calls
+      bit-equal; the forward's output bit-equal with the lse stored and
+      without; the forward's and backward's times (the backward kernel
+      alone too, with its device time) beside their bounds, the plain
+      versions' and the forward and backward of one
       ``scaled_dot_product_attention`` call under autograd on the same
       inputs, with the backend that ran it (a yardstick the port never
-      calls; ``flash_backward`` lines);
+      calls; ``flash_backward`` lines); then the card tests' gradient cases
+      in bf16 and float32, checked alike, untimed, with the largest reading
+      of each limit (``flash_backward_cases``);
    c. the scan's gradient at the hybrid's prefill shape, bit-equal to the
       plain reverse loop, two launches (``scan_backward``);
    d. the main path: ``qwen3-8b`` at full width, its depth cut to 8 of 36
@@ -246,8 +259,10 @@ probe rows matching — all made from ``--seed``:
       from a record store on the card (4,096 samples of 2,048 tokens)
       through ``TrainPipeline(batch_size=8)`` and ``make_train_step`` (4
       microbatches of 2 × 2,048): 1 warm-up and 3 timed steps, each loss
-      and ``grad_norm`` finite, the projection kernel twice a batch and
-      the flash kernel twice a layer and microbatch, tokens/s,
+      and ``grad_norm`` finite, the projection kernel twice a batch, the
+      flash kernel twice a layer and microbatch (the forward and the
+      checkpointed group's recompute) and the backward kernel once,
+      tokens/s,
       ``train_mfu`` (model operations over the step time at 989 TFLOP/s),
       the update's ms, the peak (4 GiB of the card left), one profiled
       step (device-busy ms, launches, idle share, time by kind, top
@@ -279,7 +294,9 @@ phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe; the train phase's main path
-(d) adds its launches of the projection and flash kernels.
+(d) adds its launches of the projection and flash kernels, and is the
+only path of ``flash_attention_backward`` (its line in ``kernels`` takes
+its times from the causal ``flash_backward`` line).
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device, or without the port
@@ -334,9 +351,11 @@ REPLACES = {
 # kernels with no Pallas counterpart: what of the reference each replaces
 FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51",
            "moe_ffn": "src/repro/models/layers.py:583",
-           "rglru_scan": "src/repro/models/layers.py:1031"}
+           "rglru_scan": "src/repro/models/layers.py:1031",
+           "flash_attention_backward": "src/repro/models/layers.py:292"}
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
+           "flash_attention_backward": "src/repro_torch/csrc/rm_flash_bwd.cu",
            "w8_matmul": "src/repro_torch/csrc/rm_w8.cu",
            "moe_ffn": "src/repro_torch/csrc/rm_moe.cu",
            "rglru_scan": "src/repro_torch/csrc/rm_rglru.cu",
@@ -483,19 +502,52 @@ WIDE_NARROW = 16  # packed words of the narrow view: the first 16 tokens
 # the span kernel's lead over index_select at S 2,048
 WIDE_REPS = 50
 # the flash backward at a qwen3-8b training layer (B 2, S 2,048, 32 / 8
-# heads, D 128, bf16): causal, a window of 1,024 and bidirectional; the
-# backward recomputes the plain version in key steps of TRAIN_ATTN_CHUNK
-FLASH_BACKWARD_SHAPES = (("flash_backward", 2, 2048, 32, 8, 128, True, None),
-                         ("flash_backward_window", 2, 2048, 32, 8, 128, True, 1024),
-                         ("flash_backward_bidirectional", 2, 2048, 32, 8, 128, False, None))
+# heads, D 128, bf16: the tensor-core form): causal, a window of 1,024 and
+# bidirectional; the CUDA-core form at recurrentgemma-9b's local attention
+# at a train S (16 / 1 heads, D 256, its window of 2,048, bf16) and in
+# float32 at train_reference's microbatches of the two smokes (2 × 128
+# tokens: qwen3-8b's 6 / 2 heads, D 16; recurrentgemma's 4 / 1, D 16, its
+# window of 32); the plain versions walk the keys in steps of
+# TRAIN_ATTN_CHUNK
+FLASH_BACKWARD_SHAPES = (
+    ("flash_backward", 2, 2048, 32, 8, 128, True, None, "bfloat16"),
+    ("flash_backward_window", 2, 2048, 32, 8, 128, True, 1024, "bfloat16"),
+    ("flash_backward_bidirectional", 2, 2048, 32, 8, 128, False, None, "bfloat16"),
+    ("flash_backward_d256", 2, 2048, 16, 1, 256, True, 2048, "bfloat16"),
+    ("flash_backward_f32", 2, 128, 6, 2, 16, True, None, "float32"),
+    ("flash_backward_f32_window", 2, 128, 4, 1, 16, True, 32, "float32"))
+# the card tests' FLASH_GRAD_CASES (tests/test_torch_cuda.py), each in bf16
+# and float32, (B, S, H, KH, D, causal, window): both forms, GQA groups 4
+# and 16, ragged S, windows, bidirectional; the readings only, untimed
+FLASH_BACKWARD_CASES = ((2, 256, 8, 2, 64, True, None), (1, 200, 16, 1, 128, True, None),
+                        (2, 256, 32, 8, 128, True, 100), (1, 192, 4, 1, 256, False, None),
+                        (1, 130, 64, 4, 128, False, 48))
 TRAIN_ATTN_CHUNK = 1024
-# a flash backward does 5 products a pair (QK recomputed, dV, dP, dQ, dK)
-# where the forward does 2: 2.5 times the forward's operations
+# a flash backward does at least 5 products a pair (QK recomputed, dV, dP,
+# dQ, dK) where the forward does 2: 2.5 times the forward's operations (the
+# kernel's two passes do 7: the bound is the least work, not the kernel's)
 FLASH_BACKWARD_OPS = 2.5
-# the gradients of FlashAttention against the plain version's autograd on
-# the same inputs: the backward IS that recompute, so they agree to cuBLAS's
-# run-to-run order — within FLASH_GRAD_TOL of each gradient's largest value
-FLASH_GRAD_TOL = 1e-6
+# the backward kernel's dq, dk and dv (errors as shares of each gradient's
+# largest magnitude).  bf16: the kernel rounds P and dS to bf16 before their
+# products and the plain bf16 recompute (autograd of flash_attention_torch)
+# rounds P and the gradients of its casts elsewhere, so neither is exact:
+# the kernel's distance from the float32 gradients (the plain version on the
+# inputs widened) at most FLASH_GRAD_BF16_FACTOR times the recompute's, and
+# the kernel within FLASH_GRAD_BF16_TOL of the recompute (2^-6: 4 steps of
+# bf16 at the largest value).  float32: within FLASH_GRAD_F32_TOL of the
+# recompute (summation order).  Against the kernel's plain version
+# (flash_attention_backward_torch on the same out and lse), the same
+# arithmetic: float32 within FLASH_GRAD_F32_TOL (summation order); bf16
+# within FLASH_GRAD_PLAIN_STEPS steps of bf16 at the gradient's largest
+# value (bf16_step): the two sum in float32 in other orders, and a P or dS
+# may round to the neighbouring bf16 value (the kernel's exp2 against the
+# plain exp), so their float32 sums differ by far less than a step, yet
+# each is rounded once to bf16 and that can put an element one step of its
+# own (at most one at the largest value) from the other's
+FLASH_GRAD_BF16_FACTOR = 2.0
+FLASH_GRAD_BF16_TOL = 2.0 ** -6
+FLASH_GRAD_F32_TOL = 1e-5
+FLASH_GRAD_PLAIN_STEPS = 2
 # card against CPU, one float32 train step of each smoke: the loss within
 # TRAIN_LOSS_TOL, grad_norm within TRAIN_GNORM_RTOL relative
 TRAIN_REFERENCE_ARCHS = ("qwen3-8b", "recurrentgemma-9b")
@@ -1404,10 +1456,11 @@ def flash_pairs(s: int, causal: bool, window: int | None) -> int:
 
 def flash_bound(b, s, h, kh, d, causal, window, elem_bytes) -> tuple[float, str]:
     """The least time of the attention forward: 4·B·H·D operations per
-    unmasked pair (QK and PV, a multiply and an add each) over the bf16
-    tensor-core rate, against Q, K, V and O moved once."""
+    unmasked pair (QK and PV, a multiply and an add each) over the rate of
+    the inputs' type (bf16 on the tensor cores, float32 outside them),
+    against Q, K, V and O moved once."""
     ops = 4 * b * h * d * flash_pairs(s, causal, window)
-    t_ops = ops / BF16_OPS_PER_S
+    t_ops = ops / (BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
     t_bytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elem_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2582,19 +2635,100 @@ def wide_projection_phase(torch, reps: int) -> dict:
     return out
 
 
+def bf16_step(x: float) -> float:
+    """One step of bf16 (8 significant bits) at ``x`` > 0: 2^-7 of the
+    power of two at or below it."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8)
+
+
+def grad_check(torch, dtype: str, got, recompute, exact, plain) -> dict:
+    """The backward kernel's gradients ``got`` (dq, dk, dv) held to the
+    limits above: against the bf16 (or float32) ``recompute``, the float32
+    ``exact`` ones and the kernel's ``plain`` version.  Each error is the
+    largest over the gradient's largest magnitude (``vs_plain_steps``: over
+    one bf16 step there); raises past a limit."""
+    out: dict = {}
+    for key, g, r, x, pl in zip(("dq", "dk", "dv"), got, recompute, exact, plain):
+        def err(a, b):
+            return float((a.float() - b.float()).abs().max())
+
+        scale, scale32 = float(r.float().abs().max()), float(x.abs().max())
+        line = {"vs_recompute": err(g, r) / scale, "vs_plain": err(g, pl) / scale,
+                "vs_plain_steps": err(g, pl) / bf16_step(float(pl.float().abs().max())),
+                "vs_float32": err(g, x) / scale32, "recompute_vs_float32": err(r, x) / scale32,
+                "max_abs_err_plain": err(g, pl), "finite": bool(torch.isfinite(g).all())}
+        assert line["finite"], (key, line)
+        if dtype == "bfloat16":
+            assert line["vs_plain_steps"] <= FLASH_GRAD_PLAIN_STEPS, (key, line)
+            assert line["vs_float32"] <= FLASH_GRAD_BF16_FACTOR * line["recompute_vs_float32"], \
+                (key, line)
+            assert line["vs_recompute"] <= FLASH_GRAD_BF16_TOL, (key, line)
+        else:
+            assert line["vs_plain"] <= FLASH_GRAD_F32_TOL, (key, line)
+            assert line["vs_recompute"] <= FLASH_GRAD_F32_TOL, (key, line)
+        out[key] = line
+    return out
+
+
+def flash_fwd_bwd(torch, fn, inputs, dout, **kw):
+    """``fn``'s output on leaves made from ``inputs``, and the leaves'
+    gradients under ``dout``."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    o = fn(*leaves, **kw)
+    return o, torch.autograd.grad(o, leaves, dout.to(o.dtype))
+
+
+def flash_grad_case(torch, g, b: int, s: int, h: int, kh: int, d: int, causal: bool,
+                    window: int | None, dtype: str) -> tuple[dict, dict, tuple]:
+    """One gradient through ``FlashAttention`` on the card, q, k, v and
+    dout of ``dtype`` drawn from ``g``: one launch of the forward kernel
+    (the output within ``FLASH_TOL`` of the plain version) and one of the
+    backward kernel (``rm_flash_bwd.cu``), dq, dk and dv held by
+    :func:`grad_check` against the plain recompute (autograd of
+    ``flash_attention_torch``), the float32 gradients and the kernel's
+    plain version (``flash_attention_backward_torch``) on the same output
+    and lse; a second backward call bit-equal; the forward's output
+    bit-equal with the lse stored and without.  Returns the forward's
+    check, the gradients' readings and the backward kernel's arguments."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as FA
+
+    base = [torch.randn((b, s, n, d), generator=g, device="cuda", dtype=getattr(torch, dtype))
+            for n in (h, kh, kh)]
+    dout = torch.randn((b, s, h, d), generator=g, device="cuda", dtype=getattr(torch, dtype))
+    kw = dict(causal=causal, window=window, block_k=TRAIN_ATTN_CHUNK)
+    _cuda.reset_launches()
+    got, grads = flash_fwd_bwd(torch, FA.flash_attention, base, dout, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == 1, dict(_cuda.LAUNCHES)
+    assert _cuda.LAUNCHES["flash_attention_backward"] == 1, dict(_cuda.LAUNCHES)
+    want, want_grads = flash_fwd_bwd(torch, FA.flash_attention_torch, base, dout, **kw)
+    check = flash_check(got.detach(), want.detach(), dtype)
+    _, exact = flash_fwd_bwd(torch, FA.flash_attention_torch, [t.float() for t in base],
+                             dout, **kw)
+    o, lse = _cuda.run_flash(*base, causal, window, lse=True)
+    assert torch.equal(o, got) and torch.equal(o, _cuda.run_flash(*base, causal, window))
+    args = (*base, o, lse, dout, causal, window)
+    assert all(torch.equal(a, c) for a, c in zip(grads, _cuda.run_flash_backward(*args)))
+    plain = FA.flash_attention_backward_torch(*args, block_k=TRAIN_ATTN_CHUNK)
+    return check, grad_check(torch, dtype, grads, want_grads, exact, plain), args
+
+
 def flash_backward_phase(torch, seed: int, reps: int) -> dict:
-    """``FlashAttention`` at a qwen3-8b training layer (``FLASH_BACKWARD_
-    SHAPES``): the kernel's forward (one launch, within ``FLASH_TOL`` of
-    the plain version) and dq, dk, dv from the same ``dout`` within
-    ``FLASH_GRAD_TOL`` of the plain version's autograd; the gradients'
-    distance from float32 ones (the plain version on the inputs widened)
-    is reported, not held.  Timed: the forward alone, forward + backward,
-    and the plain version's forward + backward; the backward's bound is
-    ``FLASH_BACKWARD_OPS`` times the forward's operations.  Beside them, a
-    yardstick the port never calls: one ``scaled_dot_product_attention``
-    on the same inputs under autograd (``is_causal`` with ``enable_gqa``, a
-    bool mask for the window, none bidirectional), forward and forward +
-    backward, and the backend that runs it (``sdpa_backend``)."""
+    """``FlashAttention`` at ``FLASH_BACKWARD_SHAPES`` (the train layer's in
+    the tensor-core form, the CUDA-core form's in bf16 at D 256 and in
+    float32), each checked by :func:`flash_grad_case`, then
+    ``FLASH_BACKWARD_CASES`` in bf16 and float32 checked alike, untimed
+    (``flash_backward_cases``: every case's readings and the largest of
+    each by dtype).  Timed at each shape: the forward alone, forward +
+    backward, the backward kernel alone (events and device time), the plain
+    recompute's forward + backward and the plain backward; the backward's
+    bound is ``FLASH_BACKWARD_OPS`` times the forward's operations.  Beside
+    them, a yardstick the port never calls: one
+    ``scaled_dot_product_attention`` on the same inputs under autograd
+    (``is_causal`` with ``enable_gqa``, a bool mask for the window, none
+    bidirectional), forward and forward + backward, and the backend that
+    runs it (``sdpa_backend``)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import _cuda
@@ -2602,51 +2736,37 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(seed + 23)
-    for name, b, s, h, kh, d, causal, window in FLASH_BACKWARD_SHAPES:
-        base = [torch.randn((b, s, n, d), generator=g, device="cuda", dtype=torch.bfloat16)
-                for n in (h, kh, kh)]
-        dout = torch.randn((b, s, h, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    for name, b, s, h, kh, d, causal, window, dtype in FLASH_BACKWARD_SHAPES:
+        check, grad, args = flash_grad_case(torch, g, b, s, h, kh, d, causal, window, dtype)
+        base, dout = list(args[:3]), args[5]
         kw = dict(causal=causal, window=window, block_k=TRAIN_ATTN_CHUNK)
-
-        def fwd_bwd(fn, inputs):
-            leaves = [t.detach().requires_grad_() for t in inputs]
-            o = fn(*leaves, **kw)
-            return o, torch.autograd.grad(o, leaves, dout.to(o.dtype))
-
-        _cuda.reset_launches()
-        got, grads = fwd_bwd(FA.flash_attention, base)
-        torch.cuda.synchronize()
-        assert _cuda.LAUNCHES["flash_attention"] == 1, dict(_cuda.LAUNCHES)
-        want, want_grads = fwd_bwd(FA.flash_attention_torch, base)
-        check = flash_check(got.detach(), want.detach(), "bfloat16")
-        grad_err, grad_share, err32 = {}, {}, {}
-        _, grads32 = fwd_bwd(FA.flash_attention_torch, [t.float() for t in base])
-        for key, gk, wk, g32 in zip("qkv", grads, want_grads, grads32):
-            scale = float(wk.float().abs().max())
-            err = float((gk.float() - wk.float()).abs().max())
-            grad_err[f"d{key}"], grad_share[f"d{key}"] = err, err / (FLASH_GRAD_TOL * scale)
-            assert err <= FLASH_GRAD_TOL * scale, (name, key, err, scale)
-            err32[f"d{key}"] = float((gk.float() - g32).abs().max()) / float(g32.abs().max())
-        del got, grads, want, want_grads, grads32
         leaves = [t.detach().requires_grad_() for t in base]
         fwd = lambda: FA.flash_attention(*leaves, **kw)  # noqa: E731
-        both = lambda: fwd_bwd(FA.flash_attention, base)  # noqa: E731
-        plain = lambda: fwd_bwd(FA.flash_attention_torch, base)  # noqa: E731
-        fwd_bound, by = flash_bound(b, s, h, kh, d, causal, window, 2)
+        both = lambda: flash_fwd_bwd(torch, FA.flash_attention, base, dout, **kw)  # noqa: E731
+        plain = lambda: flash_fwd_bwd(  # noqa: E731
+            torch, FA.flash_attention_torch, base, dout, **kw)
+        bwd = lambda: _cuda.run_flash_backward(*args)  # noqa: E731
+        plain_bwd = lambda: FA.flash_attention_backward_torch(  # noqa: E731
+            *args, block_k=TRAIN_ATTN_CHUNK)
+        fwd_bound, by = flash_bound(b, s, h, kh, d, causal, window, base[0].element_size())
         line = {"phase": "flash_backward", "name": name,
+                "form": _cuda.flash_backward_form(getattr(torch, dtype), d),
                 "forward_ms": time_ms(torch, fwd, reps),
                 "forward_backward_ms": time_ms(torch, both, max(3, reps // 3)),
+                "backward_kernel_ms": time_ms(torch, bwd, reps),
+                **device_fields(torch, bwd, reps, "backward_"),
                 "plain_forward_backward_ms": time_ms(torch, plain, 3),
+                "plain_backward_ms": time_ms(torch, plain_bwd, 3),
                 "forward_bound_ms": fwd_bound, "forward_bound_by": by,
                 "backward_bound_ms": FLASH_BACKWARD_OPS * fwd_bound, **check,
-                "grad_max_abs_err": grad_err, "grad_limit_share": grad_share,
-                "grad_rtol_max": FLASH_GRAD_TOL,
-                "grad_err_vs_float32_rel": err32,
+                "grad": grad, "grad_limits": flash_grad_limits(dtype),
                 "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
-                          "window": window, "dtype": "bfloat16",
-                          "key_step": TRAIN_ATTN_CHUNK}}
+                          "window": window, "dtype": dtype, "key_step": TRAIN_ATTN_CHUNK}}
         line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
-        line["backward_bound_share"] = line["backward_bound_ms"] / line["backward_ms"]
+        line["backward_bound_share"] = line["backward_bound_ms"] / line["backward_kernel_ms"]
+        if line["backward_device_ms"]:
+            line["backward_device_bound_share"] = (line["backward_bound_ms"]
+                                                   / line["backward_device_ms"])
         mask = None
         if window is not None:
             i = torch.arange(s, device="cuda")
@@ -2659,7 +2779,7 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
                 is_causal=causal and mask is None, enable_gqa=True)
             return o.transpose(1, 2)
 
-        backend, kernels = sdpa_backend(torch, lambda: fwd_bwd(sdpa, base),
+        backend, kernels = sdpa_backend(torch, lambda: flash_fwd_bwd(torch, sdpa, base, dout),
                                         *(t.transpose(1, 2) for t in leaves), mask, causal)
         line.update({
             "library_call": "torch.nn.functional.scaled_dot_product_attention under autograd"
@@ -2667,15 +2787,50 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
                                else " (is_causal)" if causal else " (no mask)"),
             "library_backend": backend, "library_kernels": kernels,
             "library_forward_ms": time_ms(torch, lambda: sdpa(*leaves), reps),
-            "library_forward_backward_ms": time_ms(torch, lambda: fwd_bwd(sdpa, base),
-                                                   max(3, reps // 3))})
+            "library_forward_backward_ms": time_ms(
+                torch, lambda: flash_fwd_bwd(torch, sdpa, base, dout), max(3, reps // 3))})
         line["library_backward_ms"] = (line["library_forward_backward_ms"]
                                        - line["library_forward_ms"])
+        line["backward_over_library"] = line["backward_ms"] / line["library_backward_ms"]
         emit(line)
         out[name] = line
-        del base, dout, leaves
+        del base, dout, leaves, args
         torch.cuda.empty_cache()
+    cases: dict = {"bfloat16": [], "float32": []}
+    largest: dict = {"bfloat16": {}, "float32": {}}
+    for dtype, rows in cases.items():
+        for case in FLASH_BACKWARD_CASES:
+            check, grad, _ = flash_grad_case(torch, g, *case, dtype)
+            rows.append({"case": list(case), "limit_share": check["limit_share"],
+                         "form": _cuda.flash_backward_form(getattr(torch, dtype), case[4]),
+                         "grad": grad})
+            for r in grad.values():
+                for k, v in r.items():
+                    if k.startswith("vs_"):
+                        largest[dtype][k] = max(v, largest[dtype].get(k, 0.0))
+    emit({"phase": "flash_backward_cases", "cases": cases, "largest": largest,
+          "grad_limits": {dtype: flash_grad_limits(dtype) for dtype in cases}})
+    torch.cuda.empty_cache()
     return out
+
+
+def flash_grad_limits(dtype: str) -> dict:
+    """The limits :func:`grad_check` holds ``dtype``'s gradients to."""
+    if dtype == "bfloat16":
+        return {"vs_float32_over_recompute": FLASH_GRAD_BF16_FACTOR,
+                "vs_recompute": FLASH_GRAD_BF16_TOL, "vs_plain_steps": FLASH_GRAD_PLAIN_STEPS}
+    return {"vs_recompute": FLASH_GRAD_F32_TOL, "vs_plain": FLASH_GRAD_F32_TOL}
+
+
+def flash_backward_kernel(lines: dict) -> dict:
+    """The ``kernels`` entry of the backward kernel, from the causal line:
+    the wrapper's time (events), its plain version's, the bound and SDPA's
+    backward beside it; the error, the largest against the plain version."""
+    line = lines["flash_backward"]
+    return {"max_abs_err": max(g["max_abs_err_plain"] for g in line["grad"].values()),
+            "kernel_ms": line["backward_kernel_ms"], "plain_ms": line["plain_backward_ms"],
+            "bound_ms": line["backward_bound_ms"], "bound_by": line["forward_bound_by"],
+            "library_ms": line["library_backward_ms"]}
 
 
 SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn", 4: "overrideable"}
@@ -2874,6 +3029,7 @@ def train_phase(torch, seed: int) -> dict:
             assert all(math.isfinite(row[k]) for k in ("loss", "grad_norm")), row
             rows.append(row)
         launches = dict(_cuda.LAUNCHES)
+        dout_copies = _cuda.FLASH_DOUT_COPIES["copies"]
         peak = torch.cuda.max_memory_allocated()
     finally:
         train_step.adamw_update = real_update
@@ -2881,6 +3037,8 @@ def train_phase(torch, seed: int) -> dict:
     micro = 1 + TRAIN_STEPS
     assert launches["project"] == 2 * micro, launches  # tokens and labels, as the reference
     assert launches["flash_attention"] == 2 * cfg.n_layers * cfg.grad_accum * micro, launches
+    # one gradient a layer and microbatch, from the group's recompute
+    assert launches["flash_attention_backward"] == cfg.n_layers * cfg.grad_accum * micro, launches
     assert total - peak >= MOE_FREE_BYTES, (peak, total)
     timed = [r["seconds"] for r in rows[1:]]
     step_s = statistics.median(timed)
@@ -2894,7 +3052,8 @@ def train_phase(torch, seed: int) -> dict:
             "train_mfu": flops / (step_s * BF16_OPS_PER_S),
             "update_ms": update["ms"], "store_seconds": store_s, "init_seconds": init_s,
             "peak_memory": peak, "card_bytes": total, "free_after": total - peak,
-            "launches": {k: v for k, v in launches.items() if v}, "profile": prof}
+            "launches": {k: v for k, v in launches.items() if v},
+            "flash_dout_copies": dout_copies, "profile": prof}
     emit(line)
     del state, model, store, batches, step_fn
     gc.collect()
@@ -3825,6 +3984,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_cuda.library_path().name),
           "flash_ptxas": _cuda.ptxas_report("rm_flash.cu"),
+          "flash_bwd_ptxas": _cuda.ptxas_report("rm_flash_bwd.cu"),
           "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
           "scan_ptxas": _cuda.ptxas_report("rm_scan.cu"),
           "w8_ptxas": _cuda.ptxas_report("rm_w8.cu"),
@@ -3891,7 +4051,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wide_projection_phase(torch, args.reps)
-    flash_backward_phase(torch, args.seed, args.reps)
+    kernels["flash_attention_backward"] = flash_backward_kernel(
+        flash_backward_phase(torch, args.seed, args.reps))
     scan_backward_phase(torch, args.seed, args.reps)
     train = train_phase(torch, args.seed)
     trainer_phase(torch, args.seed)
@@ -3909,7 +4070,8 @@ def main(argv=None) -> int:
                       for cell in (moe, ssm, hybrid, vlm, encdec)),
                 "w8_matmul": lm["int8"]["launches"]["w8_matmul"],
                 "moe_ffn": moe["launches"]["moe_ffn"],
-                "rglru_scan": hybrid["launches"]["rglru_scan"]}
+                "rglru_scan": hybrid["launches"]["rglru_scan"],
+                "flash_attention_backward": train["launches"]["flash_attention_backward"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
     for k in ("project", "flash_attention"):  # and the train path's

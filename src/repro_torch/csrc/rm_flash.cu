@@ -12,6 +12,10 @@
 // float32 with the scale applied in float32, masked logits set to -1e30 (not
 // -inf), an online softmax over key tiles with float32 m, l and accumulator,
 // p rounded to v's type before the PV product, and out = acc / max(l, 1e-30).
+// Where FlashParams::lse is set (a forward whose gradient follows), both
+// kernels also store each row's log-sum-exp, m + log l in natural log, as
+// float32 (B, H, S): the backward (rm_flash_bwd.cu) rebuilds P from it.
+// Serving passes null and stores nothing.
 //
 // What bounds it: operations, 4 D per unmasked (query, key) pair.  At the
 // serving path's prefill shape (B 8, S 2,048, H 32, KH 8, D 128, bf16,
@@ -68,7 +72,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "rm_tma.cuh"  // mbarriers, the tensor-map encoder (CUtensorMap via <cuda.h>)
+#include "rm_tma.cuh"     // mbarriers, the tensor-map encoder (CUtensorMap via <cuda.h>)
+#include "rm_wgmma.cuh"   // TMA tile loads, wgmma descriptors and products, tensor maps
 
 // Mirrored by ctypes in repro_torch/kernels/_cuda.py (_FlashParams), which
 // checks sizeof at load time.  Strides are in elements.
@@ -77,6 +82,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, H, S) float32 m + log l of each row, natural log; null: not stored
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -253,8 +259,10 @@ rm_flash_attention_kernel(const __grid_constant__ FlashParams p) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + r0 + r;
-    const float denom = fmaxf(warp_sum(l[r]), 1e-30f);
+    const float sum = warp_sum(l[r]);
+    const float denom = fmaxf(sum, 1e-30f);
     if (i >= S) continue;
+    if (p.lse != nullptr && lane == 0) p.lse[static_cast<long long>(bh) * S + i] = m[r] + logf(sum);
     float* o = static_cast<float*>(p.out) + b * p.o_sb + i * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -277,6 +285,7 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskLog2 = kMaskValue * kLog2e;  // -1e30 in the exp2 domain
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Tile {
@@ -294,52 +303,7 @@ struct Tile {
 };
 
 using namespace rm_tma;
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-         "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | layout << 62;
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from moving reads or writes of accumulators across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using namespace rm_wgmma;
 
 // One key tile's online-softmax step for a thread's two rows (r = 0, 1: the
 // fragment entries e with (e >> 1) & 1 == r).  `sc` holds the raw logits
@@ -382,100 +346,6 @@ __device__ __forceinline__ void softmax_step(float (&sc)[kN / 2], float (&m)[2],
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
-}
-
-// d (64 x N, float32) (+)= A (64 x 16, shared, K-major) . B (16 x N, shared, K-major)
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
-// d (64 x N, float32) += A (64 x 16, bf16 registers) . B (16 x N, shared, MN-major)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 }  // namespace tc
@@ -652,6 +522,15 @@ rm_flash_attention_tc_kernel(const __grid_constant__ FlashParams p,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       den[r] = fmaxf(l[r], 1e-30f);
     }
+    // the row's log-sum-exp for the backward, in natural log: m is in the
+    // exp2 domain of the scaled logits, so lse = (m + log2 l) ln 2
+    if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i_a + 8 * r;
+        if (i < S) p.lse[static_cast<long long>(bh) * S + i] = (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int e = 0; e < D / 2; e += 2) {
@@ -677,41 +556,20 @@ int launch_f32(const FlashParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A (D, heads, S, B) view of a (B, S, heads, D) bf16 tensor whose box is
-// `chunk` columns of `rows` rows of one head, in `swizzle`.  The wrapper has
-// checked that the base is 16-byte aligned and the strides multiples of 16
-// bytes (a stride of a size-1 dimension is passed as one that is).
-int tensor_map(CUtensorMap* map, const void* base, int heads, long long sb, long long ss,
-               long long sh, const FlashParams& p, int rows, int chunk, int swizzle) {
-  const rm_tma::EncodeTiled encode = rm_tma::encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.head_dim), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(p.seq), static_cast<cuuint64_t>(p.batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int D>
 int launch_bf16(const FlashParams& p, cudaStream_t stream) {
   using T = tc::Tile<D>;
   CUtensorMap mq, mk, mv;
-  int err = tensor_map(&mq, p.q, p.heads, p.q_sb, p.q_ss, p.q_sh, p, tc::kBlockM, T::kChunk,
-                       T::kSwizzle);
+  using rm_wgmma::tensor_map;
+  const int d = p.head_dim, s = p.seq, b = p.batch;
+  int err = tensor_map(&mq, p.q, d, p.heads, s, b, p.q_sb, p.q_ss, p.q_sh, tc::kBlockM,
+                       T::kChunk, T::kSwizzle);
   if (err == 0)
-    err = tensor_map(&mk, p.k, p.kv_heads, p.k_sb, p.k_ss, p.k_sh, p, T::kBlockN, T::kChunk,
-                     T::kSwizzle);
+    err = tensor_map(&mk, p.k, d, p.kv_heads, s, b, p.k_sb, p.k_ss, p.k_sh, T::kBlockN,
+                     T::kChunk, T::kSwizzle);
   if (err == 0)
-    err = tensor_map(&mv, p.v, p.kv_heads, p.v_sb, p.v_ss, p.v_sh, p, T::kBlockN, T::kChunk,
-                     T::kSwizzle);
+    err = tensor_map(&mv, p.v, d, p.kv_heads, s, b, p.v_sb, p.v_ss, p.v_sh, T::kBlockN,
+                     T::kChunk, T::kSwizzle);
   if (err != 0) return err;
   const cudaError_t set = cudaFuncSetAttribute(
       rm_flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);

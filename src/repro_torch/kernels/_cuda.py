@@ -1,7 +1,7 @@
 """Build, load and launch the CUDA kernels (``csrc/rm_scan.cu``,
 ``csrc/rm_spans.cu``, ``csrc/rm_join.cu``, ``csrc/rm_project.cu``,
-``csrc/rm_flash.cu``, ``csrc/rm_w8.cu``, ``csrc/rm_moe.cu``,
-``csrc/rm_rglru.cu``).
+``csrc/rm_flash.cu``, ``csrc/rm_flash_bwd.cu``, ``csrc/rm_w8.cu``,
+``csrc/rm_moe.cu``, ``csrc/rm_rglru.cu``).
 
 The library is compiled by ``nvcc`` for ``sm_90a`` into a shared object with
 a plain C interface and loaded with ``ctypes``.  It builds from the sources
@@ -24,12 +24,12 @@ single projection of such rows takes the span kernel instead
 (:func:`run_spans`): its launch carries the enabled column ranges
 (:func:`span_plan`, planned once per layout), never a word map.  The
 hash-join probe, the BSL / PCK projection revisions, the compacting
-selection, the GQA flash-attention forward, the int8-weight decode matmul,
-the MoE expert FFN and the RG-LRU scan have their own parameter blocks and
-launchers
+selection, the GQA flash-attention forward and its gradient, the int8-weight
+decode matmul, the MoE expert FFN and the RG-LRU scan have their own
+parameter blocks and launchers
 (:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
-:func:`run_flash`, :func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`)
-under the same rules.
+:func:`run_flash`, :func:`run_flash_backward`, :func:`run_w8`,
+:func:`run_moe`, :func:`run_rglru_scan`) under the same rules.
 ``LAUNCHES`` counts the launches each wrapper makes, and nothing else
 (``project`` counts both forms of the projection: the staged kernel and
 the span kernel): a
@@ -46,7 +46,13 @@ when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
 ``W8_PRODUCTS`` counts the products those launches and captures took;
 ``moe_ffn`` one for each launch of ``rm_moe_ffn_kernel``, two an expert FFN
 (the gate/up stage, then the down stage); ``rglru_scan`` one for each
-launch of ``rm_rglru_scan_kernel``.
+launch of ``rm_rglru_scan_kernel``; ``flash_attention_backward`` one for
+each gradient, which is three kernels on the card: the row sums and padded
+log-sum-exp (``rm_flash_bwd_prep_kernel``), then the dK / dV pass and the dQ
+pass (``rm_flash_bwd_dkdv_tc_kernel`` and ``rm_flash_bwd_dq_tc_kernel`` in
+bf16 at D <= 128, else both passes of ``rm_flash_bwd_simt_kernel``).
+``FLASH_DOUT_COPIES`` counts the gradients whose ``dout`` TMA could not
+describe, copied before the launch.
 """
 
 from __future__ import annotations
@@ -73,12 +79,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
-                          "select_compact", "flash_attention", "w8_matmul", "moe_ffn",
-                          "rglru_scan")
+                          "select_compact", "flash_attention", "flash_attention_backward",
+                          "w8_matmul", "moe_ffn", "rglru_scan")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
 W8_PRODUCTS = {"launched": 0, "captured": 0}  # products of w8_matmul's launches, captures
+FLASH_DOUT_COPIES = {"copies": 0}  # dout tensors run_flash_backward copied for TMA
 JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
@@ -88,6 +95,8 @@ SPAN_VECS = 2  # 16-byte vectors a lane copies an item of the span kernel (kVecs
 SPAN_WARPS = 8  # warps (items in flight) a block of the span kernel (kSpanWarps)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
+FLASH_BWD_TC_MAX_D = 128  # the widest head the tensor-core backward takes (kTcMaxD)
+FLASH_BWD_SEQ_PAD = 128  # its scratch rows' padding (kSeqPad, which the launch checks)
 W8_MAX_ROWS = 64  # rows of x the int8-weight matmul takes (a decode step's B)
 W8_MAX_RECORDS = 4  # products one launch takes (kW8MaxRecords)
 W8_STRIP = 256  # output columns a block of rm_w8_matmul_kernel (kW8Strip)
@@ -128,6 +137,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
         CAPTURED[k] = 0
     W8_PRODUCTS.update(launched=0, captured=0)
+    FLASH_DOUT_COPIES["copies"] = 0
 
 
 def _launched(kernel: str) -> None:
@@ -211,11 +221,21 @@ class _RglruParams(ctypes.Structure):
 
 
 class _FlashParams(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in ("q", "k", "v", "out")] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in ("q", "k", "v", "out", "lse")] + [
         (f"{t}_{s}", ctypes.c_longlong) for t in "qkvo" for s in ("sb", "ss", "sh")] + [
         (name, ctypes.c_int32) for name in (
             "batch", "seq", "heads", "kv_heads", "head_dim", "causal", "window",
             "dtype")] + [("scale", ctypes.c_float), ("pad_", ctypes.c_int32)]
+
+
+class _FlashBwdParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "lse_pad", "delta")] + [
+        (f"{t}_{s}", ctypes.c_longlong) for t in ("q", "k", "v", "o", "g", "dq", "dk")
+        for s in ("sb", "ss", "sh")] + [
+        (name, ctypes.c_int32) for name in (
+            "batch", "seq", "heads", "kv_heads", "head_dim", "causal", "window",
+            "dtype", "seq_pad")] + [("scale", ctypes.c_float)]
 
 
 # ---------------------------------------------------------------- requests
@@ -491,6 +511,8 @@ def load() -> ctypes.CDLL:
     lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
                                       ctypes.c_longlong, ctypes.c_void_p]
     lib.rm_flash_attention.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
+    lib.rm_flash_backward.argtypes = [ctypes.POINTER(_FlashBwdParams), ctypes.c_int,
+                                      ctypes.c_void_p]
     lib.rm_w8_matmul.argtypes = [ctypes.POINTER(_W8Params), ctypes.c_void_p]
     lib.rm_moe_ffn.argtypes = [ctypes.POINTER(_MoeParams), ctypes.c_void_p]
     lib.rm_rglru_scan.argtypes = [ctypes.POINTER(_RglruParams), ctypes.c_void_p]
@@ -498,6 +520,7 @@ def load() -> ctypes.CDLL:
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_project_spans, lib.rm_span_params_size,
                lib.rm_flash_attention, lib.rm_flash_params_size,
+               lib.rm_flash_backward, lib.rm_flash_bwd_params_size,
                lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init,
                lib.rm_moe_ffn, lib.rm_moe_params_size, lib.rm_rglru_scan,
                lib.rm_rglru_params_size):
@@ -508,6 +531,7 @@ def load() -> ctypes.CDLL:
                            (lib.rm_span_params_size(), _SpanParams),
                            (lib.rm_select_params_size(), _SelectParams),
                            (lib.rm_flash_params_size(), _FlashParams),
+                           (lib.rm_flash_bwd_params_size(), _FlashBwdParams),
                            (lib.rm_w8_params_size(), _W8Params),
                            (lib.rm_moe_params_size(), _MoeParams),
                            (lib.rm_rglru_params_size(), _RglruParams)):
@@ -960,22 +984,19 @@ def check_flash_tma(name: str, shape: Sequence[int], strides: Sequence[int],
                              f"of 16 bytes")
 
 
-def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-              window: int | None) -> torch.Tensor:
-    """Launch the GQA flash-attention forward: q ``(B, S, H, D)``, k and v
-    ``(B, S, KH, D)`` (the caller, ``flash_attention``, has checked the
-    shapes), on one card, all float32 or all bfloat16, each with a unit
-    stride along D (the other strides are free: the kernels read the layout
-    through them).  bfloat16 goes to the tensor-core kernel, whose TMA loads
-    also need a 16-byte aligned base and strides of multiples of 16 bytes
-    (:func:`check_flash_tma`); float32 to the CUDA-core kernel.  Returns a
-    new contiguous ``(B, S, H, D)`` output of q's type; an empty input
-    launches nothing."""
+def _flash_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None,
+                  extra=()) -> int:
+    """The checks the flash kernels share, before any build or launch: one
+    type (float32 or bfloat16) and a unit stride along D for q, k, v and
+    ``extra`` (``(name, tensor)`` pairs of q's shape), a head width the
+    kernels instantiate, TMA's layout in bf16 (q, k and v), one card, a
+    positive window and a grid of at most 65,535 ``B * H`` rows.  Returns
+    the window to pass (S for none)."""
     b, s, h, d = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
-            raise ValueError(f"q, k and v must all be float32 or all bfloat16, got "
-                             f"{q.dtype}, {k.dtype}, {v.dtype}")
+            raise ValueError(f"q, k, v{''.join(', ' + n for n, _ in extra)} must all be "
+                             f"float32 or all bfloat16, got {q.dtype} and {name} {t.dtype}")
         if t.numel() and t.stride(3) != 1:
             raise ValueError(f"{name} needs a unit stride along D, got strides {t.stride()}")
     if d not in FLASH_HEAD_DIMS:
@@ -983,7 +1004,7 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if q.dtype == torch.bfloat16 and q.numel() and k.numel():
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_flash_tma(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
         if t.device != q.device:
@@ -993,16 +1014,41 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"window must be positive, got {window}")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65,535 rows")
+    return min(win, s)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """A (B, S, heads, D) tensor's B, S and head strides as the kernels
+    take them (:func:`flash_tma_strides`)."""
+    return flash_tma_strides(t.shape, t.stride())[:3]
+
+
+def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int | None, lse: bool = False):
+    """Launch the GQA flash-attention forward: q ``(B, S, H, D)``, k and v
+    ``(B, S, KH, D)`` (the caller, ``flash_attention``, has checked the
+    shapes), on one card, all float32 or all bfloat16, each with a unit
+    stride along D (the other strides are free: the kernels read the layout
+    through them).  bfloat16 goes to the tensor-core kernel, whose TMA loads
+    also need a 16-byte aligned base and strides of multiples of 16 bytes
+    (:func:`check_flash_tma`); float32 to the CUDA-core kernel.  Returns a
+    new contiguous ``(B, S, H, D)`` output of q's type; an empty input
+    launches nothing.  With ``lse`` it returns ``(out, lse)``: the kernel
+    also stores each row's log-sum-exp as float32 ``(B, H, S)``, what
+    :func:`run_flash_backward` takes (serving stores none)."""
+    b, s, h, d = q.shape
+    win = _flash_common(q, k, v, window)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    row_lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
-        return out
-    st = {n: flash_tma_strides(t.shape, t.stride())
-          for n, t in (("q", q), ("k", k), ("v", v), ("o", out))}
+        return (out, row_lse) if lse else out
+    st = {n: _strides(t) for n, t in (("q", q), ("k", k), ("v", v), ("o", out))}
     params = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        lse=row_lse.data_ptr() if lse else None,
         **{f"{t}_{n}": st[t][i] for t in "qkvo" for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},
         batch=b, seq=s, heads=h, kv_heads=k.shape[2], head_dim=d,
-        causal=int(bool(causal)), window=min(win, s), dtype=FLASH_DTYPES[q.dtype],
+        causal=int(bool(causal)), window=win, dtype=FLASH_DTYPES[q.dtype],
         scale=d ** -0.5,
     )
     lib = load()
@@ -1011,7 +1057,95 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         _check(lib, lib.rm_flash_attention(ctypes.byref(params), stream),
                "flash_attention launch")
     _launched("flash_attention")
-    return out
+    return (out, row_lse) if lse else out
+
+
+def flash_backward_form(dtype: torch.dtype, d: int) -> str:
+    """Which form of the backward takes a gradient: ``"tensor"`` (bf16 up to
+    ``FLASH_BWD_TC_MAX_D``: wgmma + TMA) or ``"cuda_cores"`` (float32 at
+    every width, bf16 at D 256, where two 64 × 256 float32 accumulators do
+    not fit a warpgroup's registers).  The launcher chooses the same by
+    itself (``tensor_form`` in ``csrc/rm_flash_bwd.cu``); the wrapper asks
+    only to know which ``dout`` the kernel can read."""
+    return "tensor" if dtype == torch.bfloat16 and d <= FLASH_BWD_TC_MAX_D else "cuda_cores"
+
+
+def flash_dout(dout: torch.Tensor, form: str) -> torch.Tensor:
+    """``dout`` as the backward kernel can read it: unchanged where it has a
+    unit stride along D (and, in the tensor-core form, where
+    :func:`check_flash_tma` takes it), else a contiguous copy, counted in
+    ``FLASH_DOUT_COPIES``: autograd may hand over a gradient of any layout,
+    a broadcast one (the gradient of a sum) included."""
+    readable = not dout.numel() or dout.stride(3) == 1
+    if readable and form == "tensor":
+        try:
+            check_flash_tma("dout", dout.shape, dout.stride(), dout.element_size(),
+                            dout.data_ptr())
+        except ValueError:
+            readable = False
+    if readable:
+        return dout
+    FLASH_DOUT_COPIES["copies"] += 1
+    return dout.clone(memory_format=torch.contiguous_format)
+
+
+def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                       lse: torch.Tensor, dout: torch.Tensor, causal: bool,
+                       window: int | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the flash-attention backward (``csrc/rm_flash_bwd.cu``): from
+    q ``(B, S, H, D)``, k and v ``(B, S, KH, D)``, the forward's ``out``
+    (q's shape) and float32 ``lse`` ``(B, H, S)`` (``run_flash(...,
+    lse=True)``) and ``dout``, returns new contiguous ``(dq, dk, dv)`` in
+    q's type.  The form follows :func:`flash_backward_form`; q, k and v
+    must meet the forward's checks, ``out`` its type and unit stride along
+    D; a ``dout`` of q's type that the kernel cannot read is copied
+    (:func:`flash_dout`).  An empty input launches nothing."""
+    b, s, h, d = q.shape
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[:2] != (b, s) \
+            or k.shape[3] != d:
+        raise ValueError(f"want q (B, S, H, D), k and v (B, S, KH, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    kh = k.shape[2]
+    if kh < 1 or h % kh:
+        raise ValueError(f"{h} query heads do not split into groups of {kh} KV heads")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, got {tuple(t.shape)}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 ({b}, {h}, {s}), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    dout = flash_dout(dout, flash_backward_form(q.dtype, d))
+    win = _flash_common(q, k, v, window, (("out", out), ("dout", dout)))
+    if lse.device != q.device:
+        raise ValueError(f"q on {q.device} but lse on {lse.device}")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, s, kh, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    seq_pad = -(-s // FLASH_BWD_SEQ_PAD) * FLASH_BWD_SEQ_PAD
+    scratch = torch.empty((2, b * h, seq_pad), dtype=torch.float32, device=q.device)
+    st = {n: _strides(t) for n, t in (("q", q), ("k", k), ("v", v), ("o", out), ("g", dout),
+                                      ("dq", dq), ("dk", dk))}
+    params = _FlashBwdParams(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
+        dout=dout.data_ptr(), lse=lse.data_ptr(), dq=dq.data_ptr(), dk=dk.data_ptr(),
+        dv=dv.data_ptr(), lse_pad=scratch.data_ptr(),
+        delta=scratch.data_ptr() + scratch.nbytes // 2,
+        **{f"{t}_{n}": st[t][i] for t in st for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},
+        batch=b, seq=s, heads=h, kv_heads=kh, head_dim=d, causal=int(bool(causal)),
+        window=win, dtype=FLASH_DTYPES[q.dtype], seq_pad=seq_pad, scale=d ** -0.5,
+    )
+    lib = load()
+    dev = q.get_device()
+    # the raw handle of the current stream (a tenth of the host time of
+    # current_stream(dev).cuda_stream); the launcher makes card `dev`
+    # current for the launches where it is not
+    _check(lib, lib.rm_flash_backward(ctypes.byref(params), dev,
+                                      torch._C._cuda_getCurrentRawStream(dev)),
+           "flash_attention_backward launch")
+    _launched("flash_attention_backward")
+    return dq, dk, dv
 
 
 def w8_form(dtype: torch.dtype, k: int, n: int, q_ptr: int, s_ptr: int) -> str:

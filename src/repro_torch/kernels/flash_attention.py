@@ -20,14 +20,21 @@ On a CPU tensor it runs :func:`flash_attention_torch`, the plain version.
 keys in ``block_k`` tiles as the reference does, while the CUDA kernels'
 tiles are their own choice.
 
-The gradient is :class:`FlashAttention`, a ``torch.autograd.Function``: its
-forward is the kernel, unchanged, and it saves q, k and v; its backward
-recomputes the plain version under autograd, one ``block_k`` tile of keys
-at a time, each tile's step checkpointed (:func:`_online_step`) — the
-reference's own backward, which XLA derives from ``blockwise_attention``
-with ``jax.checkpoint(step)`` (``repro/models/layers.py:229-301``); JAX has
-no backward kernel, so none is ported.  On the card a tensor that requires
-grad always goes through the kernel's forward, never the plain one.
+The gradient on the card is :class:`FlashAttention`, a
+``torch.autograd.Function``: its forward is the kernel, which also stores
+each row's log-sum-exp, and it saves q, k, v, the output and that lse; its
+backward is the hand-written kernel of ``csrc/rm_flash_bwd.cu``
+(:func:`repro_torch.kernels._cuda.run_flash_backward`): P rebuilt from the
+lse, dK and dV in one pass over the keys, dQ in another — bf16 up to D 128
+on the tensor cores, float32 and D 256 on the CUDA cores.  The reference
+has no backward kernel: XLA differentiates ``blockwise_attention``'s
+checkpointed step (``repro/models/layers.py:292-298``).
+:func:`flash_attention_backward_torch` is the backward kernel's plain
+version, used by the tests and ``chip_smoke.py`` only.  On the CPU the
+gradient is the plain forward's own autograd, one ``block_k`` tile of keys
+a checkpointed step (:func:`_online_step`), as the reference's.  On the
+card a tensor that requires grad always goes through the kernels, never the
+plain version.
 """
 
 from __future__ import annotations
@@ -75,42 +82,36 @@ def flash_attention(
         return flash_attention_torch(q, k, v, causal, window, block_q, block_k)
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window, block_k)
+        return FlashAttention.apply(q, k, v, causal, window)
     return _cuda.run_flash(q, k, v, causal, window)
 
 
 class FlashAttention(torch.autograd.Function):
-    """The kernel's forward with the plain version's gradient: ``forward``
-    launches ``rm_flash.cu`` and saves q, k and v; ``backward`` recomputes
-    :func:`flash_attention_torch` under autograd (``block_k`` keys a
-    checkpointed step, so a step's float32 logits and probabilities exist
-    only while that step is differentiated) and returns dq, dk and dv."""
+    """The kernels' gradient: ``forward`` launches ``rm_flash.cu`` with the
+    row log-sum-exp stored and saves q, k, v, the output and the lse;
+    ``backward`` launches ``rm_flash_bwd.cu`` once and returns dq, dk and
+    dv in q's type."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int | None, block_k: int):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
-        return _cuda.run_flash(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal: bool, window: int | None):
+        out, lse = _cuda.run_flash(q, k, v, causal, window, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = flash_attention_torch(q, k, v, ctx.causal, ctx.window,
-                                        block_k=ctx.block_k)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-        return dq, dk, dv, None, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _cuda.run_flash_backward(q, k, v, out, lse, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def _online_step(qf, kc, vc, acc, m, l, j0, causal: bool, win: int):
     """One tile of keys ``kc``, ``vc`` (first key ``j0``) folded into the
     online softmax's float32 accumulator, running max and sum: the masked
     logits at ``MASK_VALUE``, ``p`` cast to v's type before the PV product."""
-    s = qf.shape[1]
-    q_pos = torch.arange(s, device=qf.device)
     logits = torch.einsum("bqkgd,bckd->bqkgc", qf, kc.float())
-    dist = q_pos[:, None] - torch.arange(j0, j0 + kc.shape[1], device=qf.device)[None, :]
-    mask = (dist >= 0) & (dist < win) if causal else dist.abs() < win
+    mask = _mask(qf.shape[1], j0, kc.shape[1], causal, win, qf.device)
     logits = torch.where(mask[None, :, None, None, :], logits, MASK_VALUE)
     m_new = torch.maximum(m, logits.amax(dim=-1))
     p = torch.exp(logits - m_new[..., None])
@@ -128,7 +129,8 @@ def flash_attention_torch(
     window: int | None = None,
     block_q: int = DEFAULT_BLOCK_Q,
     block_k: int = DEFAULT_BLOCK_K,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The plain version: the reference kernel's arithmetic on whole query
     rows, walking the keys in ``block_k`` tiles — q and k in float32, q
     scaled before the dot, masked logits at ``MASK_VALUE``, an online
@@ -139,6 +141,10 @@ def flash_attention_torch(
     Under autograd each tile's step is checkpointed, as the reference
     checkpoints its blockwise step: the backward recomputes one tile's
     logits at a time.
+
+    With ``return_lse`` it returns ``(out, lse)``: each row's log-sum-exp
+    of its masked, scaled logits, ``m + log l``, float32 ``(B, H, S)``, as
+    the kernel stores it for the backward.
 
     A window below 1 raises ``ValueError``, as the card's kernel does: such
     a window masks every key, and the reference's value there depends on
@@ -165,7 +171,67 @@ def flash_attention_torch(
         else:
             acc, m, l = _online_step(qf, kc, vc, acc, m, l, j0, causal, win)
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(b, s, h, d).to(q.dtype)
+    out = out.reshape(b, s, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, s, h).permute(0, 2, 1).contiguous()
+
+
+def _mask(s: int, j0: int, n: int, causal: bool, win: int, device) -> torch.Tensor:
+    """The (S, n) mask of keys ``j0 .. j0 + n - 1``, as :func:`_online_step`'s."""
+    dist = (torch.arange(s, device=device)[:, None]
+            - torch.arange(j0, j0 + n, device=device)[None, :])
+    return (dist >= 0) & (dist < win) if causal else dist.abs() < win
+
+
+def flash_attention_backward_torch(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KH, D)
+    v: torch.Tensor,  # (B, S, KH, D)
+    out: torch.Tensor,  # (B, S, H, D), the forward's
+    lse: torch.Tensor,  # (B, H, S) float32, the forward's
+    dout: torch.Tensor,  # (B, S, H, D)
+    causal: bool = True,
+    window: int | None = None,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain version (``csrc/rm_flash_bwd.cu``):
+    ``(dq, dk, dv)`` in q's type from the forward's output and log-sum-exp,
+    walking the keys in ``block_k`` tiles.  In float32: ``P = exp(scale q
+    k - lse)`` where the mask allows (else 0), ``D = sum(dout * out)`` with
+    ``out`` as stored, ``dV = P^T dout``, ``dP = dout v^T``, ``dS = P (dP -
+    D)``, ``dQ = scale dS k``, ``dK = scale dS^T q`` — P and dS rounded to
+    q's type before the products that take them, as the kernel rounds them
+    (a no-op in float32).  Used by the tests and ``chip_smoke.py`` only."""
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    win = s if window is None else window
+    block_k = max(1, min(block_k, s))
+    scale = d ** -0.5
+    dt = q.dtype
+    q32 = q.float().reshape(b, s, kh, g, d)
+    qs = q32 * scale
+    do = dout.float().reshape(b, s, kh, g, d)
+    delta = (do * out.float().reshape(b, s, kh, g, d)).sum(-1)
+    row_lse = lse.permute(0, 2, 1).reshape(b, s, kh, g)
+    dq = torch.zeros((b, s, kh, g, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, s, kh, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for j0 in range(0, s, block_k):
+        kc, vc = k[:, j0:j0 + block_k].float(), v[:, j0:j0 + block_k].float()
+        mask = _mask(s, j0, kc.shape[1], causal, win, q.device)[None, :, None, None, :]
+        logits = torch.einsum("bqkgd,bckd->bqkgc", qs, kc)
+        p = torch.where(mask, torch.exp(logits - row_lse[..., None]), 0.0)
+        ds = p * (torch.einsum("bqkgd,bckd->bqkgc", do, vc) - delta[..., None])
+        p, ds = p.to(dt).float(), ds.to(dt).float()
+        dv[:, j0:j0 + block_k] = torch.einsum("bqkgc,bqkgd->bckd", p, do)
+        dk[:, j0:j0 + block_k] = torch.einsum("bqkgc,bqkgd->bckd", ds, q32) * scale
+        dq += torch.einsum("bqkgc,bckd->bqkgd", ds, kc)
+    return (dq.mul_(scale).reshape(b, s, h, d).to(dt), dk.to(dt), dv.to(dt))
 
 
 def attention_hbm_bytes(

@@ -8,14 +8,21 @@ kernel and ``wide_projection`` lines, on one NVIDIA GPU:
   splits it by kernel (``None``, and ``device_ms_estimated`` in its place,
   where the trace lost launches: ``chip_smoke.device_ms``);
 * ``host_ms``: the host time to enqueue one call (planning, allocation,
-  launch), mean over ``--reps`` calls issued back to back.
+  launch), mean over ``--reps`` calls issued back to back;
+* ``out_sha256``: the first 16 hex digits of the SHA-256 of the bytes of a
+  call's output (a tensor, or a tuple of them, in order; else null), so
+  that two checkouts' outputs can be compared bit for bit.
 
 The cases: at the path's 2 GiB table, the fused scan, the hash-join probe
 in both forms, and the single projection, the filter, the multi-view
 projection and the selection (50% kept); at a record store of 4,096
 training samples of S 2,048 and 4,096 (``wide_projection``), the
 ``(tokens, labels)`` view and its first 16 tokens through the projection
-(``"mlp"``), and ``index_select`` of the same words.
+(``"mlp"``), and ``index_select`` of the same words; the flash forward at
+the serving shapes (``chip_smoke.FLASH_SHAPES``, no lse stored) and, where
+the port has it, the flash backward at ``FLASH_BACKWARD_SHAPES`` (a
+qwen3-8b training layer, then the CUDA-core form's shapes: the backward
+kernel's one launch from a stored output and lse).
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--rows N] [--reps R]
         [--cases NAME,...]
@@ -122,6 +129,48 @@ def wide_cases(torch, CS, K, keep):
         torch.cuda.empty_cache()
 
 
+def digest(out) -> str | None:
+    """The first 16 hex digits of the SHA-256 of ``out``'s bytes (a tensor or
+    a tuple of tensors), else None."""
+    import hashlib
+
+    import torch
+
+    parts = out if isinstance(out, tuple) else (out,)
+    if not all(isinstance(t, torch.Tensor) for t in parts):
+        return None
+    h = hashlib.sha256()
+    for t in parts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def flash_cases(torch, CS, keep):
+    """The flash forward at the serving shapes and the backward at the train
+    layer's and the CUDA-core form's (where the port under ``--src`` has
+    one), inputs of each shape's type (bf16 for the forward) from a fixed
+    seed; one shape's tensors at a time are kept."""
+    from repro_torch.kernels import _cuda
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    backward = hasattr(_cuda, "run_flash_backward")
+    shapes = [(False, *x, "bfloat16") for x in CS.FLASH_SHAPES]
+    shapes += [(True, *x) for x in CS.FLASH_BACKWARD_SHAPES] if backward else []
+    for grad, name, b, s, h, kh, d, causal, window, dtype in shapes:
+        if not keep(name):
+            continue
+        q, k, v, dout = (torch.randn((b, s, n, d), generator=g, device="cuda",
+                                     dtype=getattr(torch, dtype)) for n in (h, kh, kh, h))
+        if grad:
+            out, lse = _cuda.run_flash(q, k, v, causal, window, lse=True)
+            yield name, lambda: _cuda.run_flash_backward(q, k, v, out, lse, dout, causal, window)
+            del out, lse
+        else:
+            yield name, lambda: _cuda.run_flash(q, k, v, causal, window)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src")
@@ -146,17 +195,19 @@ def main(argv=None) -> int:
     keep = lambda name: not wanted or any(fnmatch.fnmatch(name, c) for c in wanted)  # noqa: E731
 
     def report(name, fn, want=None):
+        got = fn()
+        torch.cuda.synchronize()
         if want is not None:  # held against the plain version before it is timed
-            got = fn()
-            torch.cuda.synchronize()
             assert torch.equal(got, want), name
-            del got
+        sha = digest(got)
+        del got
         print(json.dumps({
             "case": name, "tag": args.tag, "package": str(Path(repro_torch.__file__).parent),
             "device": torch.cuda.get_device_name(0),
             "events_ms": CS.time_ms(torch, fn, args.reps),
             **CS.device_fields(torch, fn, args.reps),
             "host_ms": host_ms(torch, fn, args.reps),
+            "out_sha256": sha,
         }), flush=True)
 
     if any(keep(name) for name in PATH_CASES):
@@ -166,6 +217,8 @@ def main(argv=None) -> int:
     for name, fn, want in wide_cases(torch, CS, K, keep):
         if keep(name):
             report(name, fn, want)
+    for name, fn in flash_cases(torch, CS, keep):
+        report(name, fn)
     return 0
 
 

@@ -10,6 +10,7 @@ float32 columns within ``1e-5 * sum(|v|)`` (summation order differs).
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -773,12 +774,15 @@ def test_flash_launch_count_and_refusals(dev):
         F.flash_attention(q, k.cpu(), v)
     assert _cuda.LAUNCHES["flash_attention"] == 3
     # a tensor that requires grad goes to the kernel too (never the plain
-    # forward), and its backward launches nothing
+    # forward), and its backward launches the backward kernel, not the
+    # forward (the sum's broadcast gradient copied for it)
     qg = q.float().requires_grad_()
     out = F.flash_attention(qg, k.float(), v.float())
     assert _cuda.LAUNCHES["flash_attention"] == 4
     out.sum().backward()
     assert _cuda.LAUNCHES["flash_attention"] == 4 and torch.isfinite(qg.grad).all()
+    assert _cuda.LAUNCHES["flash_attention_backward"] == 1
+    assert _cuda.FLASH_DOUT_COPIES["copies"] == 1
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-27b", "qwen1.5-110b", "internlm2-20b",
@@ -1847,14 +1851,32 @@ FLASH_GRAD_CASES = [
 ]
 
 
+# the backward kernel's gradients, as shares of each gradient's largest
+# magnitude (chip_smoke.py's FLASH_GRAD_* limits, with their reasons): bf16
+# at most twice as far from the float32 gradients as the plain bf16
+# recompute and within 2^-6 of it; float32 within 1e-5 of it; against the
+# kernel's plain version on the same output and lse, in bf16 two steps of
+# bf16 at the gradient's largest value (float32 sums that differ by far less
+# than a step, each rounded once to bf16, which can put an element one step
+# of its own from the other's), in float32 1e-5 of the largest value
+FLASH_GRAD_PLAIN_STEPS = 2
+
+
+def bf16_step(x: float) -> float:
+    """One step of bf16 (8 significant bits) at ``x`` > 0."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("case", FLASH_GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_flash_backward_matches_plain_autograd(dev, case, dtype):
+def test_flash_backward_matches_plain_autograd(dev, case, dtype, monkeypatch):
     """``FlashAttention``: the kernel's forward (one launch, within the
-    forward's limit of the plain version) and, from the same ``dout``, dq,
-    dk and dv equal to the plain version's own autograd on the card — the
-    backward is that recompute, so they agree to cuBLAS's run-to-run order
-    (within 1e-6 of each gradient's largest magnitude)."""
+    forward's limit of the plain version) and one launch of the backward
+    kernel, with no plain recompute; dq, dk and dv from the same ``dout``
+    within the limits above of the plain recompute, the float32 gradients
+    and the kernel's plain version; two backward calls bit-equal; the
+    forward's output bit-equal with the lse stored and without, the lse
+    within 1e-5 of the plain one."""
     from repro_torch.kernels import flash_attention as F
 
     causal, window = case[5:]
@@ -1864,19 +1886,70 @@ def test_flash_backward_matches_plain_autograd(dev, case, dtype):
     out = F.flash_attention(*leaves, causal=causal, window=window, block_k=64)
     dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
                        device=dev).to(dtype)
-    grads = torch.autograd.grad(out, leaves, dout)
+
+    def refuse(*_, **__):
+        raise AssertionError("the card's backward ran a plain version")
+
+    with monkeypatch.context() as m:
+        for name in ("flash_attention_torch", "flash_attention_backward_torch", "_online_step"):
+            m.setattr(F, name, refuse)
+        grads = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention"] == 1
+    assert _cuda.LAUNCHES["flash_attention_backward"] == 1
     plain = [t.clone().requires_grad_() for t in base]
     want = F.flash_attention_torch(*plain, causal=causal, window=window, block_k=64)
     want_grads = torch.autograd.grad(want, plain, dout)
     rtol, atol = FLASH_TOL[dtype]
     err = (out.float() - want.float()).abs()
     assert torch.all(err <= atol + rtol * want.float().abs()), float(err.max())
-    for g, w in zip(grads, want_grads):
+    wide = [t.detach().float().requires_grad_() for t in base]
+    exact = torch.autograd.grad(F.flash_attention_torch(*wide, causal=causal, window=window,
+                                                        block_k=64), wide, dout.float())
+    o, lse = _cuda.run_flash(*base, causal, window, lse=True)
+    assert torch.equal(o, out) and torch.equal(o, _cuda.run_flash(*base, causal, window))
+    _, want_lse = F.flash_attention_torch(*base, causal=causal, window=window, block_k=64,
+                                          return_lse=True)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    args = (*base, o, lse, dout, causal, window)
+    again = _cuda.run_flash_backward(*args)
+    own = F.flash_attention_backward_torch(*args, block_k=64)
+    for g, a, w, x, pl in zip(grads, again, want_grads, exact, own):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
-        assert torch.allclose(g.float(), w.float(), rtol=0,
-                              atol=1e-6 * float(w.float().abs().max()))
+        assert torch.equal(g, a)
+        scale = float(w.float().abs().max())
+        vs_recompute = float((g.float() - w.float()).abs().max()) / scale
+        vs_plain = float((g.float() - pl.float()).abs().max())
+        if dtype == torch.bfloat16:
+            assert vs_plain <= FLASH_GRAD_PLAIN_STEPS * bf16_step(float(pl.float().abs().max()))
+            assert (g.float() - x).abs().max() <= 2 * (w.float() - x).abs().max()
+            assert vs_recompute <= 2.0 ** -6
+        else:
+            assert vs_plain <= 1e-5 * scale
+            assert vs_recompute <= 1e-5
+
+
+@pytest.mark.parametrize("layout", ["strided", "offset"])
+def test_flash_backward_takes_a_dout_tma_cannot_read(dev, layout):
+    """A ``dout`` whose head stride is not a multiple of 16 bytes, or whose
+    base is not 16-byte aligned, is copied once (counted) and gives the
+    gradients of a contiguous one, bit for bit."""
+    case = (1, 130, 8, 2, 64, True, None)
+    base = flash_inputs(case, torch.bfloat16, dev)
+    o, lse = _cuda.run_flash(*base, True, None, lse=True)
+    dout = torch.randn(o.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev).bfloat16()
+    if layout == "strided":
+        odd = torch.zeros((*o.shape[:3], 65), dtype=torch.bfloat16, device=dev)[..., :64]
+    else:
+        odd = torch.zeros(o.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(o.shape)
+    odd.copy_(dout)
+    _cuda.reset_launches()
+    got = _cuda.run_flash_backward(*base, o, lse, odd, True, None)
+    assert _cuda.FLASH_DOUT_COPIES["copies"] == 1
+    want = _cuda.run_flash_backward(*base, o, lse, dout, True, None)
+    assert _cuda.FLASH_DOUT_COPIES["copies"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("case", RGLRU_CASES[:3] + [(2, 2048, 4096)],
@@ -1906,7 +1979,8 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch):
     """One float32 train step of a smoke config from the same weights and
     batch, card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
     relative, the flash kernel launched twice per attention layer (the
-    forward and the checkpointed group's recompute), never the MoE kernel."""
+    forward and the checkpointed group's recompute), its backward kernel
+    once, never the MoE kernel."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -1940,6 +2014,10 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch):
                        if getattr(layer, "kind", "attn") in ("attn", "local", "moe"))
             runs += 2 * len(getattr(model, "enc_layers", []))
             assert _cuda.LAUNCHES["flash_attention"] == 2 * runs  # two microbatches
+            # one gradient a layer and microbatch, from the last of its forwards
+            attn = sum(getattr(layer, "kind", "attn") in ("attn", "local", "moe")
+                       for layer in model.layers) + len(getattr(model, "enc_layers", []))
+            assert _cuda.LAUNCHES["flash_attention_backward"] == 2 * attn
             assert _cuda.LAUNCHES["moe_ffn"] == 0
     assert abs(out["card"]["loss"] - out["cpu"]["loss"]) <= 1e-5
     assert abs(out["card"]["grad_norm"] - out["cpu"]["grad_norm"]) <= 1e-4 * out["cpu"]["grad_norm"]
