@@ -7,7 +7,7 @@ int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers;
 ``qwen2-vl-72b`` at full width, 32 of its 80 layers; ``seamless-m4t-medium``
 at full width and depth) and the training path (``qwen3-8b`` at full
 width, 8 of its 36 layers, from a record store on the card) on one NVIDIA
-GPU.
+GPU, also through the sharding layer (an NCCL world of one).
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -267,10 +267,22 @@ probe rows matching — all made from ``--seed``:
       the update's ms, the peak (4 GiB of the card left), one profiled
       step (device-busy ms, launches, idle share, time by kind, top
       kernels) (``train``);
-   e. the trainer at the qwen3-8b smoke on the card: 6 steps saving every
+   e. the sharded step: the same model through the sharding layer in an
+      NCCL world of one (``make_mesh((1, 1), ("data", "model"))``, the
+      state as ``DTensor``s placed by the mesh's specs,
+      ``make_sharded_train_step``) against one unsharded step from the same
+      weights and batch — loss, ``grad_norm`` and every parameter and
+      moment leaf bit-equal —, the unsharded step's peak split by what holds
+      it (the allocator's trace), 3 sharded steps with the projection,
+      flash and flash-backward launches counted as in d, their time and
+      peak beside d's; ``psum_bf16``, ``psum_int8_ef`` and the exact
+      reduction over NCCL bit-equal to gloo on the CPU, and
+      ``pipeline_apply`` at one stage against the sequential function
+      (``train_sharded``);
+   f. the trainer at the qwen3-8b smoke on the card: 6 steps saving every
       3, a fresh state restored bit-equal, the batch stream after the seek
       equal to the unbroken one, 2 more steps (``trainer``);
-   f. one float32 train step of the qwen3-8b and recurrentgemma-9b smokes
+   g. one float32 train step of the qwen3-8b and recurrentgemma-9b smokes
       card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
       relative (``train_reference``);
 11. checks that no engine the script built ever tripped its circuit breaker
@@ -294,9 +306,10 @@ phase's own path (its
 sharded engine's and server's runs and the free operators, not the single
 engine beside them) adds its launches of the fused scan, the projection,
 aggregate and group-by kernels and the probe; the train phase's main path
-(d) adds its launches of the projection and flash kernels, and is the
-only path of ``flash_attention_backward`` (its line in ``kernels`` takes
-its times from the causal ``flash_backward`` line).
+(d) adds its launches of the projection and flash kernels, and the sharded
+step's (e) its launches of those and of ``flash_attention_backward``,
+whose only paths they are (its line in ``kernels`` takes its times from
+the causal ``flash_backward`` line).
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device, or without the port
@@ -3061,6 +3074,231 @@ def train_phase(torch, seed: int) -> dict:
     return line
 
 
+def memory_kind(frames: list) -> str:
+    """What made a traced allocation, from its Python frames: the update
+    (``_update_leaf`` and the norm); in the forward of ``loss``, a
+    checkpointed group's output (``forward_groups``), the loss's chunks and
+    the ``lm_head`` cast (``forward_loss``), the rest (``forward``: the
+    embedding); the backward, which autograd runs on the card's own thread
+    where no Python frame is recorded (gradients and ``.grad``, the
+    recomputed groups' activations, the flash backward's outputs); or
+    other."""
+    names = {f["name"] for f in frames}
+    if names & {"_update_leaf", "adamw_update", "_step_scalars", "global_norm"}:
+        return "update"
+    if "loss" in names:
+        if "_run_group" in names:
+            return "forward_groups"
+        return "forward_loss" if "chunked_xent" in names else "forward"
+    if not frames or "backward" in names:
+        return "backward"
+    return "other"
+
+
+def memory_split(trace: list) -> dict:
+    """Replay a step's allocator trace (``torch.cuda.memory._snapshot()``'s
+    ``device_traces[0]``): the live bytes it added at their highest, and
+    at their highest before the update, by :func:`memory_kind`.  A
+    ``backward`` block still live from an earlier microbatch (a new one
+    starts at the first forward allocation after a backward one) is a
+    float32 gradient sum (``gradient_sums``)."""
+    kinds = [memory_kind(e.get("frames", [])) if e["action"] == "alloc" else None
+             for e in trace]
+    mb, last, micro = 0, None, []
+    for k in kinds:
+        if k is not None and k.startswith("forward") and last == "backward":
+            mb += 1
+        if k == "backward" or (k is not None and k.startswith("forward")):
+            last = k
+        micro.append(mb)
+    update = next((i for i, k in enumerate(kinds) if k == "update"), len(trace))
+
+    def live_at(stop: int) -> tuple[dict, int, int]:
+        """The blocks live after event ``stop - 1``; the highest total
+        before it and the event where it was reached."""
+        live, total, best, at = {}, 0, 0, -1
+        for i, e in enumerate(trace[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = i
+                total += e["size"]
+                if total > best:
+                    best, at = total, i
+            elif e["action"] == "free_completed" and e["addr"] in live:
+                del live[e["addr"]]
+                total -= e["size"]
+        return live, best, at
+
+    def split(stop: int) -> dict:
+        _, best, at = live_at(stop)
+        live, _, _ = live_at(at + 1)
+        out = {"bytes": best, "microbatch": micro[at] if at >= 0 else None}
+        for i in live.values():
+            k = kinds[i]
+            if k == "backward" and micro[i] < micro[at]:
+                k = "gradient_sums"
+            out[k] = out.get(k, 0) + trace[i]["size"]
+        return out
+
+    return {"at_peak": split(len(trace)), "before_update": split(update),
+            "events": len(trace), "microbatches": mb + 1}
+
+
+def train_sharded_phase(torch, seed: int, train: dict, smi: str) -> dict:
+    """This slice's main path: one ``qwen3-8b`` train step (full width,
+    ``TRAIN_LAYERS`` layers, ``reduced``) through the sharding layer in an
+    NCCL world of one — ``make_mesh((1, 1), ("data", "model"))``, the state
+    placed by the mesh's specs (``shard_train_state``), the step
+    ``make_sharded_train_step`` — against one unsharded ``make_train_step``
+    from the same weights and batch (the first of ``TrainPipeline(seed=0)``
+    over the train phase's record store): loss, ``grad_norm`` and every
+    parameter and moment leaf bit-equal (a world of one sums one buffer).
+    The unsharded step runs under the allocator's trace
+    (``memory_split``: what holds its peak).  Counts are reset just before
+    the sharded run — the batch fetched again, the compared step and
+    ``TRAIN_STEPS - 1`` more — and read just after: the projection kernel
+    twice a batch, the flash forward twice a layer and microbatch, its
+    backward once.  Then ``psum_bf16``, ``psum_int8_ef`` and the exact
+    reduction on the card over NCCL bit-equal to the CPU over gloo, and
+    ``pipeline_apply`` at one stage against the sequential function."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TrainPipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.sharded import make_sharded_train_step, shard_train_state
+    from repro_torch.train.step import init_train_state
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    opt = AdamWConfig(**TRAIN_OPT)
+    torch.cuda.set_device(0)
+    root = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        store = record_store(torch, TRAIN_SEQ, TRAIN_SAMPLES, cfg.vocab)
+        batch = next(TrainPipeline(store, batch_size=TRAIN_BATCH, seed=0).batches())
+        model = build_model(cfg, device="cuda", seed=seed, param_dtype=cfg.param_dtype)
+        weights = {k: t.detach().cpu() for k, t in model.state_dict().items()}
+        param_bytes = sum(t.numel() * t.element_size() for t in weights.values())
+
+        # the unsharded step, under the allocator's trace
+        state = init_train_state(model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(stacks="python", max_entries=4_000_000)
+        state, want_m = make_train_step(model, opt, grad_accum=cfg.grad_accum)(state, batch)
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        peak_unsharded = torch.cuda.max_memory_allocated()
+        memory = {"base": base, "parameters": param_bytes, "moments": 2 * param_bytes,
+                  "base_rest": base - 3 * param_bytes, "peak": peak_unsharded,
+                  "train_phase_peak": train["peak_memory"], **memory_split(trace)}
+        del trace
+        want = {part: {k: t.detach().cpu() for k, t in tree.items()} for part, tree in (
+            ("params", state["params"]), ("mu", state["opt"]["mu"]),
+            ("nu", state["opt"]["nu"]))}
+        want_m = {k: v.clone() for k, v in want_m.items()}
+        del state
+        with torch.no_grad():  # the same weights again, in the model's own tensors
+            for k, t in model.state_dict(keep_vars=True).items():
+                t.requires_grad_(False)
+                t.copy_(weights[k])
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mesh = make_mesh((1, 1), ("data", "model"))
+        state = shard_train_state(init_train_state(model), mesh)
+        step_fn = make_sharded_train_step(model, opt, mesh, grad_accum=cfg.grad_accum)
+        batches = TrainPipeline(store, batch_size=TRAIN_BATCH, seed=0).batches()
+        rows, leaves = [], 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        for i in range(TRAIN_STEPS):
+            b = next(batches)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            rows.append({"step": i + 1, "seconds": time.perf_counter() - t0,
+                         **{k: float(v) for k, v in m.items()}})
+            if i == 0:  # the compared step: bit-equal to the unsharded one
+                assert all(torch.equal(b[k], batch[k]) for k in batch)
+                assert set(m) == set(want_m) and all(
+                    torch.equal(m[k], want_m[k]) for k in m), (m, want_m)
+                for part, tree in (("params", state["params"]), ("mu", state["opt"]["mu"]),
+                                   ("nu", state["opt"]["nu"])):
+                    for k, t in tree.items():
+                        assert torch.equal(t.to_local(), want[part][k].cuda()), (part, k)
+                        leaves += 1
+                assert int(state["opt"]["step"].to_local()) == 1
+                del want
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        free, total = torch.cuda.mem_get_info()
+        assert launches["project"] == 2 * TRAIN_STEPS, launches
+        assert launches["flash_attention"] == 2 * cfg.n_layers * cfg.grad_accum * TRAIN_STEPS, \
+            launches
+        assert launches["flash_attention_backward"] == cfg.n_layers * cfg.grad_accum * \
+            TRAIN_STEPS, launches
+        assert total - peak >= MOE_FREE_BYTES, (peak, total)
+        assert all(math.isfinite(r[k]) for r in rows for k in ("loss", "grad_norm")), rows
+        placements = {str(p.placements) for p in state["params"].values()}
+        del state, step_fn, model, batches, store, batch, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the collectives: NCCL on the card against gloo on the CPU
+        rng = np.random.default_rng(seed + 41)
+        x = torch.from_numpy(rng.normal(0, 1, (4096, 1024)).astype(np.float32))
+        res = torch.from_numpy(rng.normal(0, 1e-2, (4096, 1024)).astype(np.float32))
+        nccl, gloo = mesh.get_group("data"), dist.new_group([0], backend="gloo")
+        collectives = {}
+        for name, fn in (("psum_bf16", lambda t, r, g: (C.psum_bf16(t, g),)),
+                         ("psum_int8_ef", lambda t, r, g: C.psum_int8_ef(t, r, g)),
+                         ("none", lambda t, r, g: (C.tree_psum_compressed(
+                             {"a": t.clone()}, None, g, "none")[0]["a"],))):
+            card_out = fn(x.cuda(), res.cuda(), nccl)
+            host_out = fn(x, res, gloo)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(card_out, host_out)), name
+            collectives[name] = "bit-equal"
+
+        # GPipe at one stage: the sequential function
+        pmesh = make_mesh((1, 1), ("pod", "data"))
+        ws = torch.from_numpy(rng.normal(0, 0.3, (1, 256, 256)).astype(np.float32)).cuda()
+        xs = torch.from_numpy(rng.normal(0, 1, (64, 256)).astype(np.float32)).cuda()
+        got = pipeline_apply(lambda w, h: torch.relu(h @ w), pmesh, n_microbatches=8)(ws, xs)
+        pipe_err = float((got - torch.relu(xs @ ws[0])).abs().max())
+        assert pipe_err <= 1e-5, pipe_err
+    finally:
+        dist.destroy_process_group()
+    timed = [r["seconds"] for r in rows[1:]]
+    line = {"phase": "train_sharded", "arch": cfg.name, "card": smi,
+            "reduced": {"n_layers": [full.n_layers, TRAIN_LAYERS]},
+            "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+            "placements": sorted(placements), "steps": rows,
+            "bit_equal_leaves": leaves, "step_seconds": statistics.median(timed),
+            "step_seconds_runs": timed, "first_step_seconds": rows[0]["seconds"],
+            "train_step_seconds": train["step_seconds"], "peak_memory": peak,
+            "train_peak_memory": train["peak_memory"], "card_bytes": total,
+            "free_after": total - peak, "unsharded_memory": memory,
+            "launches": {k: v for k, v in launches.items() if v},
+            "collectives": collectives, "pipeline_one_stage_max_err": pipe_err}
+    emit(line)
+    return line
+
+
 def trainer_phase(torch, seed: int) -> dict:
     """The trainer, its checkpoints and a restart on the card, at the
     qwen3-8b smoke config: 6 steps saving every 3, then a fresh state from
@@ -3978,7 +4216,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _cuda
 
     started = time.perf_counter()
-    card(torch)
+    device = card(torch)
     t0 = time.perf_counter()
     _cuda.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4055,6 +4293,7 @@ def main(argv=None) -> int:
         flash_backward_phase(torch, args.seed, args.reps))
     scan_backward_phase(torch, args.seed, args.reps)
     train = train_phase(torch, args.seed)
+    sharded_train = train_sharded_phase(torch, args.seed, train, device["nvidia_smi"])
     trainer_phase(torch, args.seed)
     train_reference_phase(torch, args.seed)
     # each kernel's launches on its own path; "project" is the engine phase's
@@ -4076,6 +4315,8 @@ def main(argv=None) -> int:
         launches[k] += v
     for k in ("project", "flash_attention"):  # and the train path's
         launches[k] += train["launches"][k]
+    for k in ("project", "flash_attention", "flash_attention_backward"):  # the sharded step's
+        launches[k] += sharded_train["launches"][k]
     breaker = {k: sum(b.snapshot()[k] for b in breakers)
                for k in ("breaker_trips", "breaker_fallbacks", "breaker_probes",
                          "breaker_open")}

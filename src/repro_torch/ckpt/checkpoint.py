@@ -14,8 +14,14 @@ names ``"bfloat16"``, ``"float8_e4m3fn"``, ``"float8_e5m2"`` (torch's own
 ``view``; no ``ml_dtypes``).  The same tree gives the same file names,
 ``.npy`` bytes and manifest (apart from ``time``) in both packages, so a
 checkpoint written by either restores in the other.  ``restore`` puts each
-leaf on the device of ``like``'s leaf, in its dtype — the one-device
-counterpart of the reference's ``shardings``.
+leaf on the device of ``like``'s leaf, in its dtype, or, given
+``shardings`` (a tree like ``like`` of ``distributed.partitioning
+.NamedSharding``), places it on that mesh as a ``DTensor``: the elastic
+restore, onto whatever mesh the restart got.
+
+In a process group a ``DTensor`` leaf is written as its full tensor: every
+rank gathers it (the same leaves in the same order), rank 0 writes, and all
+ranks meet at a barrier before ``save_checkpoint`` returns.
 """
 
 from __future__ import annotations
@@ -27,6 +33,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.partitioning import distribute
+from repro_torch.kernels.common import resolve_device
 
 # numpy can't hold bf16 and fp8; round-trip them as raw integer views:
 # name -> (torch dtype, the integer dtype torch and numpy both view it as,
@@ -84,21 +95,46 @@ def _unflatten(tree, leaves: dict, prefix: tuple = ()):
     return leaves["/".join(prefix)]
 
 
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    process itself outside one."""
+    return not _in_group() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) -> str:
     """Atomically write ``tree`` under ``directory/step_<n>``; returns the path."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    writer = _writer()
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     names = {}
     dtypes = {}
     for i, (key, leaf) in enumerate(sorted(_flatten(tree), key=lambda kv: kv[0])):
+        if isinstance(leaf, DTensor):  # a collective: every rank, in this order
+            leaf = leaf.full_tensor()
+        if not writer:
+            continue
         fname = f"leaf_{i:05d}.npy"
         arr, dtype_name = _savable(leaf)
         np.save(os.path.join(tmp, fname), arr)
         names[key] = fname
         dtypes[key] = dtype_name
+    if writer:
+        _publish(tmp, final, step, names, dtypes, extra)
+    if _in_group():
+        dist.barrier()
+    return final
+
+
+def _publish(tmp: str, final: str, step: int, names: dict, dtypes: dict,
+             extra: dict | None) -> None:
     manifest = {
         "step": step,
         "time": time.time(),
@@ -112,7 +148,6 @@ def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) 
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)  # atomic publish
-    return final
 
 
 def latest_step(directory: str) -> int | None:
@@ -126,9 +161,11 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, like, step: int | None = None) -> tuple[int, object]:
+def restore_checkpoint(directory: str, like, step: int | None = None,
+                       shardings=None) -> tuple[int, object]:
     """Restore into the structure of ``like`` (a tree of tensors): each leaf
-    in the dtype and on the device of ``like``'s leaf.
+    in the dtype and on the device of ``like``'s leaf, or, with
+    ``shardings``, a ``DTensor`` placed by the leaf's ``NamedSharding``.
 
     Missing checkpoints raise; structural mismatches raise with the offending
     path (a config change between runs is a hard error, not silent reuse).
@@ -144,6 +181,10 @@ def restore_checkpoint(directory: str, like, step: int | None = None) -> tuple[i
     if set(manifest["leaves"]) != set(leaves_like):
         missing = set(leaves_like) ^ set(manifest["leaves"])
         raise ValueError(f"checkpoint/model structure mismatch at {sorted(missing)[:5]}")
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
+    if shardings is not None and set(placed) != set(leaves_like):
+        raise ValueError("shardings do not match the checkpoint's tree at "
+                         f"{sorted(set(placed) ^ set(leaves_like))[:5]}")
     restored = {}
     for key, want in leaves_like.items():
         arr = np.load(os.path.join(path, manifest["leaves"][key]))
@@ -152,7 +193,12 @@ def restore_checkpoint(directory: str, like, step: int | None = None) -> tuple[i
             raise ValueError(
                 f"shape mismatch at {key}: ckpt {tuple(t.shape)} vs model {tuple(want.shape)}"
             )
-        restored[key] = t.to(device=want.device, dtype=want.dtype)
+        if shardings is None:
+            restored[key] = t.to(device=want.device, dtype=want.dtype)
+            continue
+        sharding = placed[key]
+        device = resolve_device(sharding.mesh.device_type)
+        restored[key] = distribute(t.to(device=device, dtype=want.dtype), sharding)
     return step, _unflatten(like, restored)
 
 
@@ -170,11 +216,12 @@ class CheckpointManager:
 
     def save(self, step: int, tree, extra: dict | None = None) -> str:
         path = save_checkpoint(self.directory, step, tree, extra)
-        self._gc()
+        if _writer():
+            self._gc()
         return path
 
-    def restore(self, like):
-        return restore_checkpoint(self.directory, like)
+    def restore(self, like, shardings=None):
+        return restore_checkpoint(self.directory, like, shardings=shardings)
 
     def _gc(self) -> None:
         steps = sorted(

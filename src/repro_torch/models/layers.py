@@ -699,9 +699,10 @@ def moe_combine(out: torch.Tensor, r: Routing, tokens: int) -> torch.Tensor:
 def moe_block(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     """Token-choice top-k MoE with sort-based, capacity-bounded dispatch: the
     reference's single-device branch.  Its expert-parallel ``shard_map``
-    forms (``local_gather``, ``local_stationary``) wait for the port's
-    sharding rules (ROADMAP queue 1 item 8.12, ``distributed/``); the port
-    has none, so there is no branch to take."""
+    forms (``local_gather``, ``local_stationary``), whose capacity and aux
+    statistics span the ``data`` ranks, are ROADMAP queue 1 item 8.12(b);
+    the sharded train step refuses an MoE config on more than one data
+    rank until then, so there is no branch to take."""
     b, s, d = x.shape
     dt = x.dtype
     t = b * s

@@ -1,6 +1,6 @@
-"""Training substrate: AdamW, train-step factory, trainer loop (the port of
-``repro.train``; the reference's ZeRO-1 sharding specs wait for ROADMAP
-queue 1 item 8.12)."""
+"""Training substrate: AdamW with ZeRO-1 moment specs, the train-step
+factory and its state and batch specs, the step over a ``DeviceMesh``
+(``train.sharded``), the trainer loop — the port of ``repro.train``."""
 
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 from .step import TrainState, make_train_step

@@ -4,9 +4,11 @@ Pure-function optimizer as the reference's: ``adamw_init`` builds the moment
 tree, ``adamw_update`` applies one step — here in place, on the tensors of
 the state it is given (the reference returns new arrays and donates the old
 buffers; at full width a second copy of the state would not fit the card).
-Trees are dicts (nested or flat) of tensors.  The reference's ZeRO-1
-sharding of the moments (``opt_state_specs``) waits for the port's sharding
-rules (ROADMAP queue 1 item 8.12).
+Trees are dicts (nested or flat) of tensors.  ZeRO-1 comes from placement,
+not algorithm: ``opt_state_specs`` gives each moment the parameter's TP spec
+plus the ``zero`` (data) axis on its first shardable dimension, and the
+sharded train step (``train.sharded``) updates each rank's slice of the
+moments there.
 """
 
 from __future__ import annotations
@@ -15,6 +17,13 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.distributed.partitioning import (
+    PartitionSpec,
+    current_mesh_shape,
+    current_rules,
+    params_partition_specs,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,17 +108,72 @@ def _update_leaf(p, g, mu, nu, scale, lr, c1, c2, cfg: AdamWConfig) -> None:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
-    """One AdamW step, applied in place to ``params`` and ``state``'s
-    moments. Returns (params, state, metrics), the same trees."""
-    step = state["step"] + 1
+def _step_scalars(grads, step, cfg: AdamWConfig) -> tuple:
+    """``(step + 1, grad_norm, clip scale, lr, c1, c2)`` of an update from
+    the whole gradient tree and the step count before it."""
+    step = step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     c1 = 1 - cfg.beta1 ** step.to(torch.float32)
     c2 = 1 - cfg.beta2 ** step.to(torch.float32)
+    return step, gnorm, scale, lr, c1, c2
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step, applied in place to ``params`` and ``state``'s
+    moments. Returns (params, state, metrics), the same trees."""
+    step, gnorm, scale, lr, c1, c2 = _step_scalars(grads, state["step"], cfg)
     for p, g, mu, nu in zip(_leaves(params), _leaves(grads), _leaves(state["mu"]),
                             _leaves(state["nu"])):
         _update_leaf(p, g, mu, nu, scale, lr, c1, c2, cfg)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _with_zero_axis(spec: PartitionSpec, shape: tuple[int, ...]) -> PartitionSpec:
+    """Add the ZeRO ('zero' rule) axes to the first unsharded, divisible dim.
+
+    FSDP-sharded weights already consume the data axis — those moments are
+    left as-is (they are already fully sharded); the zero axis only lands on
+    leaves (biases, norm scales, vectors) the FSDP rules skipped.
+    """
+    rules = current_rules() or {}
+    zero = rules.get("zero")
+    if not zero:
+        return spec
+    used: set[str] = set()
+    for e in spec:
+        if e is None:
+            continue
+        for a in (e if isinstance(e, (tuple, list)) else (e,)):
+            used.add(a)
+    zero = tuple(a for a in zero if a not in used)
+    if not zero:
+        return spec
+    sizes = current_mesh_shape()
+    n = 1
+    for a in zero:
+        n *= sizes.get(a, 1)
+    if n <= 1:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for d, e in enumerate(entries):
+        if e is None and shape[d] % n == 0 and shape[d] > 0:
+            entries[d] = zero if len(zero) > 1 else zero[0]
+            return PartitionSpec(*entries)
+    return spec
+
+
+def opt_state_specs(params) -> dict:
+    """Partition specs for the optimizer state (ZeRO-1 over the data axis):
+    ``{"mu": {name: spec}, "nu": ..., "step": PartitionSpec()}`` for a flat
+    parameter dict (tensors, or shapes).  The reference's stacked vectors
+    (``units/b0/ln1/scale``, ``(n_units, d)``) take the zero axis on the
+    stack dimension where the data axes divide the layer count; a port leaf
+    is one layer's and has no such dimension, so the axis falls on its own
+    first divisible one, as the reference places its unstacked tail."""
+    moments = {k: _with_zero_axis(s, tuple(getattr(params[k], "shape", params[k])))
+               for k, s in params_partition_specs(params).items()}
+    return {"mu": moments, "nu": dict(moments), "step": PartitionSpec()}

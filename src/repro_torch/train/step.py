@@ -10,9 +10,9 @@ first dimension, as the reference's reshape) and sums each parameter's
 gradient into float32 as soon as autograd has it, then divides by
 ``grad_accum``; ``grad_dtype`` casts the gradients before the update (the
 reference's compressed DP all-reduce flag).  The update is in place
-(``optimizer.adamw_update``).  The reference's ``train_state_specs`` and
-``batch_specs`` wait for the port's sharding rules (ROADMAP queue 1 item
-8.12).
+(``optimizer.adamw_update``).  ``train_state_specs`` and ``batch_specs``
+give the state's and the batch's partition specs under the active axis
+rules; ``train.sharded`` runs the step over a ``DeviceMesh`` with them.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ from typing import Any, Callable
 
 import torch
 
-from .optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.distributed.partitioning import logical_spec, params_partition_specs
+
+from .optimizer import AdamWConfig, adamw_init, adamw_update, opt_state_specs
 
 
 @dataclasses.dataclass
@@ -46,6 +48,64 @@ def _accumulate(params: dict, acc: dict) -> list:
     return [t.register_post_accumulate_grad_hook(hook_for(k)) for k, t in params.items()]
 
 
+def microbatches(batch: dict, grad_accum: int, n_data: int = 1, rank: int = 0) -> list[dict]:
+    """Data rank ``rank``'s share of each of the batch's ``grad_accum``
+    microbatches: the reference splits the batch along its first dimension
+    into ``grad_accum`` microbatches (``reshape((grad_accum, B /
+    grad_accum))``) and each of ``n_data`` ranks takes its slice of each,
+    rows ``i·B/ga + rank·B/(ga·n_data)`` on.  One rank and one microbatch:
+    the batch itself."""
+    if grad_accum == 1 and n_data == 1:
+        return [batch]
+    b = next(iter(batch.values())).shape[0]
+    if b % (grad_accum * n_data):
+        raise ValueError(f"batch of {b} rows does not split into {grad_accum} "
+                         f"microbatches over {n_data} data ranks")
+    size = b // (grad_accum * n_data)
+    starts = [i * (b // grad_accum) + rank * size for i in range(grad_accum)]
+    return [{k: v[s:s + size] for k, v in batch.items()} for s in starts]
+
+
+def loss_and_grads(model, params: dict, mbs: list[dict]) -> tuple:
+    """``(loss, metrics, grads)`` of ``model.loss`` over the microbatches
+    ``mbs`` at ``params`` (plain tensors, made the leaves that require
+    grad): the mean loss (one microbatch: its metrics too; several: none,
+    as the reference's scan), and each parameter's float32 gradient summed
+    by post-accumulate hooks as autograd produces it, then divided by the
+    number of microbatches (zeros for a weight the loss does not reach, as
+    ``jax.grad`` gives)."""
+    for t in params.values():
+        t.requires_grad_(True)
+        t.grad = None
+    acc: dict = {}
+    hooks = _accumulate(params, acc)
+    try:
+        if len(mbs) == 1:
+            loss, metrics = model.loss(params, mbs[0])
+            loss.backward()
+            loss = loss.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            loss, metrics = 0.0, {}
+            for mb in mbs:
+                micro, _ = model.loss(params, mb)
+                micro.backward()
+                loss = loss + micro.detach()
+            loss = loss / len(mbs)
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = {}
+    for k, t in params.items():
+        g = acc.pop(k, None)
+        if g is None:  # a weight the loss does not reach: jax.grad's zeros
+            g = torch.zeros_like(t, dtype=torch.float32)
+        elif len(mbs) > 1:
+            g.div_(len(mbs))
+        grads[k] = g
+    return loss, metrics, grads
+
+
 def make_train_step(
     model,
     opt_cfg: AdamWConfig,
@@ -54,37 +114,9 @@ def make_train_step(
 ) -> Callable:
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params, opt = state["params"], state["opt"]
-        for t in params.values():
-            t.requires_grad_(True)
-            t.grad = None
-        acc: dict = {}
-        hooks = _accumulate(params, acc)
-        try:
-            if grad_accum == 1:
-                loss, metrics = model.loss(params, batch)
-                loss.backward()
-                loss = loss.detach()
-                metrics = {k: v.detach() for k, v in metrics.items()}
-            else:
-                loss, metrics = 0.0, {}
-                for i in range(grad_accum):
-                    mb = {k: v[i * (v.shape[0] // grad_accum):(i + 1) * (v.shape[0] // grad_accum)]
-                          for k, v in batch.items()}
-                    micro, _ = model.loss(params, mb)
-                    micro.backward()
-                    loss = loss + micro.detach()
-                loss = loss / grad_accum
-        finally:
-            for h in hooks:
-                h.remove()
-        grads = {}
-        for k, t in params.items():
-            g = acc.pop(k, None)
-            if g is None:  # a weight the loss does not reach: jax.grad's zeros
-                g = torch.zeros_like(t, dtype=torch.float32)
-            elif grad_accum > 1:
-                g.div_(grad_accum)
-            grads[k] = g if grad_dtype is None else g.to(getattr(torch, grad_dtype))
+        loss, metrics, grads = loss_and_grads(model, params, microbatches(batch, grad_accum))
+        if grad_dtype is not None:
+            grads = {k: g.to(getattr(torch, grad_dtype)) for k, g in grads.items()}
         params, opt, opt_metrics = adamw_update(params, grads, opt, opt_cfg)
         return {"params": params, "opt": opt}, {"loss": loss, **metrics, **opt_metrics}
 
@@ -97,3 +129,18 @@ def init_train_state(model) -> dict:
     moments."""
     params = dict(model.state_dict(keep_vars=True))
     return {"params": params, "opt": adamw_init(params)}
+
+
+def train_state_specs(params) -> dict:
+    """Partition specs for the full train state (params TP + FSDP, moments
+    ZeRO-1) of a flat parameter dict (tensors, or shapes)."""
+    return {"params": params_partition_specs(params), "opt": opt_state_specs(params)}
+
+
+def batch_specs(batch) -> dict:
+    """Data batches are sharded over the batch axes on dim 0."""
+    def spec(x):
+        shape = tuple(getattr(x, "shape", x))
+        return logical_spec("batch", *([None] * (len(shape) - 1)), shape=shape)
+
+    return {k: spec(v) for k, v in batch.items()}

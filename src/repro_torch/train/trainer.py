@@ -3,8 +3,11 @@ checkpoints, restore, stragglers.
 
 * **Checkpoint/restart** — CheckpointManager cadence + a final checkpoint on
   SIGTERM/SIGINT (preemption notice).  ``try_restore`` puts the latest
-  checkpoint's leaves on the devices of the current state's, and the data
-  pipeline seeks to the restored step so the batch stream is bit-identical.
+  checkpoint's leaves on the devices of the current state's, or, given
+  ``state_shardings`` (``train.sharded.train_state_shardings``), places
+  them on the current mesh — the elastic restore, onto whatever mesh the
+  restart got — and the data pipeline seeks to the restored step so the
+  batch stream is bit-identical.
 * **Straggler mitigation** — per-step wall times feed a rolling median; steps
   slower than ``straggler_factor ×`` median are logged and counted, and the
   hook is exposed for tests.  Where there is a card, a step's time ends
@@ -45,12 +48,14 @@ class Trainer:
         state: Any,
         batches: Iterator[dict],
         cfg: TrainerConfig,
+        state_shardings=None,
         on_straggler: Callable[[int, float, float], None] | None = None,
     ):
         self.step_fn = step_fn
         self.state = state
         self.batches = batches
         self.cfg = cfg
+        self.state_shardings = state_shardings
         self.on_straggler = on_straggler
         self.manager = CheckpointManager(
             cfg.ckpt_dir, keep=cfg.ckpt_keep, every_steps=cfg.ckpt_every
@@ -63,9 +68,9 @@ class Trainer:
 
     # ------------------------------------------------------------- lifecycle
     def try_restore(self) -> bool:
-        """Resume from the latest checkpoint if one exists (restart)."""
+        """Resume from the latest checkpoint if one exists (elastic restart)."""
         try:
-            step, state = self.manager.restore(self.state)
+            step, state = self.manager.restore(self.state, self.state_shardings)
         except FileNotFoundError:
             return False
         self.state = state

@@ -44,7 +44,10 @@ def test_port_modules_load_no_jax_and_no_reference_package():
             "repro_torch.serve.engine", "repro_torch.launch.serve",
             "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
             "repro_torch.train.optimizer", "repro_torch.train.step",
-            "repro_torch.train.trainer", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.distributed", "repro_torch.distributed.partitioning",
+            "repro_torch.distributed.collectives", "repro_torch.distributed.pipeline",
+            "repro_torch.launch.mesh", "repro_torch.train.sharded"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -123,24 +126,33 @@ def test_lm_entry_points_default_to_the_card(entry):
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("entry", ["RecordStore", "train_model", "launcher"])
+@pytest.mark.parametrize("entry", ["RecordStore", "train_model", "launcher", "make_mesh",
+                                   "host_device_mesh", "make_sharded_train_step"])
 def test_train_entry_points_default_to_the_card(entry):
     """The training path's entry points resolve their device as the engine
-    does: the record store (its engine), a model built with master weights
-    and the training launcher raise without a card unless asked for the
-    CPU."""
+    does: the record store (its engine), a model built with master weights,
+    the training launcher, the mesh builders and the sharded step (its mesh,
+    by default ``host_device_mesh()``) raise without a card unless asked
+    for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import RecordStore
+    from repro_torch.launch.mesh import host_device_mesh, make_mesh
     from repro_torch.launch.train import main
     from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.sharded import make_sharded_train_step
 
     cfg = get_smoke_config("qwen3-8b")
     calls = {
         "RecordStore": lambda: RecordStore(seq_len=8),
         "train_model": lambda: build_model(cfg, param_dtype=cfg.param_dtype),
         "launcher": lambda: main(["--arch", "qwen3-8b", "--smoke", "--steps", "1"]),
+        "make_mesh": lambda: make_mesh((1, 1), ("data", "model")),
+        "host_device_mesh": lambda: host_device_mesh(),
+        "make_sharded_train_step": lambda: make_sharded_train_step(
+            build_model(cfg, device="cpu", param_dtype=cfg.param_dtype), AdamWConfig()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -17,7 +17,9 @@
   differentiated against ``jax.grad`` of the reference's
   ``blockwise_attention``, and the scan's gradient against ``jax.grad`` of
   ``lax.associative_scan`` (float32, 1e-4 of the largest gradient);
-* the training launcher on the CPU, with a restart, and its refusals.
+* the training launcher on the CPU, with a restart, and its refusals (a
+  model axis that does not divide the world of one raises in
+  ``host_device_mesh``).
 """
 
 import dataclasses
@@ -383,11 +385,12 @@ def test_train_launcher_on_the_cpu_with_a_restart(tmp_path, capsys):
     assert "resumed from step 3" in out and "done at step 5" in out
 
 
-@pytest.mark.parametrize("arch,extra,match", [
-    ("qwen2-vl-72b", [], "token-input"), ("seamless-m4t-medium", [], "token-input"),
-    ("qwen3-8b", ["--model-axis", "2"], "8.12")])
-def test_train_launcher_refusals(arch, extra, match):
+@pytest.mark.parametrize("arch,extra,error,match", [
+    ("qwen2-vl-72b", [], SystemExit, "token-input"),
+    ("seamless-m4t-medium", [], SystemExit, "token-input"),
+    ("qwen3-8b", ["--model-axis", "2"], ValueError, "does not divide the world of 1")])
+def test_train_launcher_refusals(arch, extra, error, match):
     from repro_torch.launch.train import main
 
-    with pytest.raises(SystemExit, match=match):
+    with pytest.raises(error, match=match):
         main(["--arch", arch, "--smoke", "--device", "cpu", *extra])
