@@ -285,6 +285,25 @@ probe rows matching — all made from ``--seed``:
    g. one float32 train step of the qwen3-8b and recurrentgemma-9b smokes
       card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
       relative (``train_reference``);
+   h. one more step of d under the roofline counter
+      (``roofline.analysis.count_step``): counted FLOPs and bytes, the
+      three terms at the H100's data-sheet figures, the lower bound beside
+      the measured step, ``useful_flops_ratio`` and the counter's overhead
+      (``roofline``, printed after ``train``);
+   i. decode-SP: ``qwen3-8b`` bf16 at full width and depth, one decode
+      step through the sequence-parallel form under a ``(1, 1)`` NCCL mesh
+      against the one-device step on a copy of the same prefilled cache:
+      logits within 0.1, greedy tokens equal, both steps' ms
+      (``decode_sp``);
+   j. the MoE block's expert-parallel forms at a world of one, one
+      ``qwen3-moe-235b-a22b`` layer at full width, decode- and
+      prefill-sized: ``local_gather`` bit-equal to the one-device block,
+      ``local_stationary`` bit-equal to its dense form and the MoE kernel
+      held to that form on the block's buffer, each call's ms beside its
+      ``moe_ffn`` launches (``moe_expert_parallel``);
+   k. ``python -m repro_torch.launch.dryrun --arch qwen3-8b --shape
+      train_4k --mesh single`` in a subprocess: its terms (counts at the
+      data sheet's figures), dominant term and wall seconds (``dryrun``);
 11. checks that no engine the script built ever tripped its circuit breaker
     or rerouted a dispatch to a plain version (no fault plan is installed);
 12. prints the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
@@ -340,9 +359,6 @@ import numpy as np
 ROWS = 33_554_432  # 2 GiB of 64-byte rows
 BUILD_ROWS = 1_048_576  # the dimension table: 18 MiB of hash buckets
 STREAM_CHUNK_ROWS = 4_194_304
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 SECTOR = 32
 # per request and row: the predicate and two MVCC compares, an add, a count
 OPS_PER_ROW = 5
@@ -536,10 +552,6 @@ FLASH_BACKWARD_CASES = ((2, 256, 8, 2, 64, True, None), (1, 200, 16, 1, 128, Tru
                         (2, 256, 32, 8, 128, True, 100), (1, 192, 4, 1, 256, False, None),
                         (1, 130, 64, 4, 128, False, 48))
 TRAIN_ATTN_CHUNK = 1024
-# a flash backward does at least 5 products a pair (QK recomputed, dV, dP,
-# dQ, dK) where the forward does 2: 2.5 times the forward's operations (the
-# kernel's two passes do 7: the bound is the least work, not the kernel's)
-FLASH_BACKWARD_OPS = 2.5
 # the backward kernel's dq, dk and dv (errors as shares of each gradient's
 # largest magnitude).  bf16: the kernel rounds P and dS to bf16 before their
 # products and the plain bf16 recompute (autograd of flash_attention_torch)
@@ -564,6 +576,18 @@ FLASH_GRAD_PLAIN_STEPS = 2
 # card against CPU, one float32 train step of each smoke: the loss within
 # TRAIN_LOSS_TOL, grad_norm within TRAIN_GNORM_RTOL relative
 TRAIN_REFERENCE_ARCHS = ("qwen3-8b", "recurrentgemma-9b")
+# decode-SP: qwen3-8b bf16 (36 layers), SP_BATCH prompts of SP_PROMPT
+# tokens in a cache of SP_MAX_LEN slots, one step; its logits against the
+# one-device step's within SP_LOGIT_TOL (the bf16 decode logits' tolerance
+# of tests/test_torch_lm.py).  The SP form attends over its chunk as the
+# one-device form does (layers._decode_attend) and weighs it by l / l = 1
+# at one sequence rank, where no collective is called, so the logits are
+# expected bit-equal (printed)
+SP_BATCH = 4
+SP_PROMPT = 1024
+SP_MAX_LEN = 2048
+SP_LOGIT_TOL = 1e-1
+SP_REPS = 5
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-4
 
@@ -688,11 +712,20 @@ def sector_bytes(words: set[int], rows: int, row_bytes: int) -> int:
     return (full * count(period) + count(rem)) * SECTOR
 
 
+def hw():
+    """The card's data-sheet figures (memory rate, float32 rate outside the
+    tensor cores, dense bf16 tensor-core rate): the port's
+    ``roofline.analysis.HW``, on the path once :func:`main` has found it."""
+    from repro_torch.roofline.analysis import HW
+
+    return HW
+
+
 def bound(read_words: set[int], out_bytes: int, rows: int, row_bytes: int,
           ops_per_row: int) -> tuple[float, str]:
     """The least time of the work on the card, in ms, and what bounds it."""
-    t_bytes = (sector_bytes(read_words, rows, row_bytes) + out_bytes) / HBM_BYTES_PER_S
-    t_ops = rows * ops_per_row / FP32_OPS_PER_S
+    t_bytes = (sector_bytes(read_words, rows, row_bytes) + out_bytes) / hw().hbm_bw
+    t_ops = rows * ops_per_row / hw().fp32_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -974,10 +1007,10 @@ def join_bound(torch, words, parts, key_word, val_word, ts_word,
     MVCC compares and an add."""
     n, row_words = words.shape
     read = {key_word, val_word} | ({ts_word, ts_word + 1} if ts_word >= 0 else set())
-    t_bytes = (sector_bytes(read, n, row_words * 4) + parts.nbytes + 9 * n) / HBM_BYTES_PER_S
+    t_bytes = (sector_bytes(read, n, row_words * 4) + parts.nbytes + 9 * n) / hw().hbm_bw
     ops = n * (2 + parts.capacity + (2 if ts_word >= 0 else 0))
     ops += key_matches * (3 if build_ts else 1)
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / hw().fp32_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1458,24 +1491,15 @@ def flash_check(got, want, dtype: str) -> dict:
     return out
 
 
-def flash_pairs(s: int, causal: bool, window: int | None) -> int:
-    """Unmasked (query, key) pairs of one head."""
-    w = s if window is None else window
-    i = np.arange(s, dtype=np.int64)
-    if causal:
-        return int(np.minimum(i + 1, w).sum())
-    return int((np.minimum(i + w - 1, s - 1) - np.maximum(i - w + 1, 0) + 1).sum())
-
-
 def flash_bound(b, s, h, kh, d, causal, window, elem_bytes) -> tuple[float, str]:
     """The least time of the attention forward: 4·B·H·D operations per
     unmasked pair (QK and PV, a multiply and an add each) over the rate of
     the inputs' type (bf16 on the tensor cores, float32 outside them),
     against Q, K, V and O moved once."""
-    ops = 4 * b * h * d * flash_pairs(s, causal, window)
-    t_ops = ops / (BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
-    t_bytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elem_bytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    from repro_torch.roofline import analysis as A
+
+    return A.bound_ms(*A.flash_work(b, s, h, kh, d, causal, window, elem_bytes), elem_bytes,
+                      ties="operations")
 
 
 def flash_phase(torch, seed: int, reps: int) -> dict:
@@ -1484,6 +1508,7 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.roofline import analysis as A
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -1529,7 +1554,7 @@ def flash_phase(torch, seed: int, reps: int) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by, **check,
                 "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
                           "window": window, "dtype": "bfloat16"},
-                "pairs_per_head": flash_pairs(s, causal, window)}
+                "pairs_per_head": A.flash_pairs(s, causal, window)}
         if name == "flash_attention":
             line["float32"] = f32
         emit(line)
@@ -1545,11 +1570,9 @@ def w8_bound(m: int, k: int, ns, elem_bytes: int) -> tuple[float, str]:
     (once) and the outputs moved once over the memory rate, against 2·m·k·n
     operations a record over the inputs' rate (bf16 on the tensor cores,
     float32 on the CUDA cores)."""
-    t_bytes = (sum(k * n + 2 * n + m * n * elem_bytes for n in ns)
-               + m * k * elem_bytes) / HBM_BYTES_PER_S
-    t_ops = sum(2 * m * k * n for n in ns) / (
-        BF16_OPS_PER_S if elem_bytes == 2 else FP32_OPS_PER_S)
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    from repro_torch.roofline import analysis as A
+
+    return A.bound_ms(*A.w8_work(m, k, ns, elem_bytes), elem_bytes, ties="bytes")
 
 
 def w8_check(torch, got, x, q, s, want) -> dict:
@@ -1733,9 +1756,9 @@ def moe_bound(touched: int, e: int, cap: int, d: int, f: int, elem: int) -> tupl
     the buffer and the output moved once over the memory rate, against the
     kept rows' products (at most ``cap`` a touched expert, 6·d·f operations
     a row) over the inputs' rate."""
-    t_bytes = (touched * 3 * d * f + 2 * e * cap * d) * elem / HBM_BYTES_PER_S
-    t_ops = touched * cap * 6 * d * f / (BF16_OPS_PER_S if elem == 2 else FP32_OPS_PER_S)
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    from repro_torch.roofline import analysis as A
+
+    return A.bound_ms(*A.moe_work(touched, e, cap, d, f, elem), elem, ties="bytes")
 
 
 def moe_phase(torch, seed: int, reps: int) -> dict:
@@ -1801,7 +1824,7 @@ def moe_phase(torch, seed: int, reps: int) -> dict:
         lines[name] = line
         del weights, x, buf, got
         torch.cuda.empty_cache()
-    emit(read_rate(torch, int(lines["moe_ffn_float32"]["bound_ms"] * 1e-3 * HBM_BYTES_PER_S),
+    emit(read_rate(torch, int(lines["moe_ffn_float32"]["bound_ms"] * 1e-3 * hw().hbm_bw),
                    reps))
     return {"moe_ffn": lines["moe_ffn_bfloat16"]}
 
@@ -1815,6 +1838,7 @@ def rglru_phase(torch, seed: int, reps: int) -> dict:
     one torch call computes a linear recurrence.  Returns the line as
     ``rglru_scan``."""
     from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.roofline import analysis as A
 
     b, s, w = RGLRU_SHAPE
     g = torch.Generator(device="cuda").manual_seed(seed + 21)
@@ -1826,7 +1850,7 @@ def rglru_phase(torch, seed: int, reps: int) -> dict:
     torch.cuda.synchronize()
     bit_equal = torch.equal(got, want)
     assert bit_equal and torch.equal(got, again), float((got - want).abs().max())
-    nbytes = 3 * b * s * w * 4
+    nbytes = A.rglru_scan_work(b, s, w)[1]
     line = {"phase": "kernel", "name": "rglru_scan_float32",
             "kernel_ms": time_ms(torch, run, reps),
             "kernel_graph_ms": graph_ms(torch, [run], W8_GRAPH_REPS),
@@ -1834,7 +1858,7 @@ def rglru_phase(torch, seed: int, reps: int) -> dict:
             "plain_ms": time_ms(torch, plain, max(3, reps // 3)),
             "library_ms": None,
             "library_call": "none: no one torch call computes a linear recurrence",
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": nbytes / hw().hbm_bw * 1e3, "bound_by": "bytes",
             "bound_bytes": nbytes, "max_abs_err": float((got - want).abs().max()),
             "bit_equal_to_plain": bit_equal, "rerun_equal": True,
             "shape": {"B": b, "S": s, "W": w, "dtype": "float32"}}
@@ -2225,7 +2249,7 @@ def moe_step_bound(cfg, touched: list, slots: int, max_len: int) -> tuple[float,
              "experts": sum(touched) * 3 * d * cfg.d_ff * 2,
              "kv_cache": cfg.n_layers * 2 * slots * kh * max_len * hd * 2,
              "lm_head": d * cfg.padded_vocab * 2}
-    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+    return sum(parts.values()) / hw().hbm_bw * 1e3, parts
 
 
 def lm_serve_moe_phase(torch, seed: int) -> dict:
@@ -2305,7 +2329,7 @@ def step_bound(model, cache) -> tuple[float, dict]:
              "kv_cache": cache_bytes(lambda n: n in kv),
              "cross_kv_read": cache_bytes(lambda n: n in cross),
              "state_read_written": 2 * cache_bytes(lambda n: n not in kv + cross)}
-    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+    return sum(parts.values()) / hw().hbm_bw * 1e3, parts
 
 
 def lm_serve_recurrent_phase(torch, seed: int, arch: str, phase: str,
@@ -2551,8 +2575,8 @@ def lm_serve_inputs_phase(torch, seed: int, arch: str, phase: str,
            "launches": {"flash_attention": launches},
            "replayed_step_bit_equal_to_eager": replay_equal, "kernel_check": checked,
            "prefill_product_ops": products,
-           "prefill_products_bound_ms": products / BF16_OPS_PER_S * 1e3,
-           "prefill_products_bound_share": (products / BF16_OPS_PER_S * 1e3 / busy
+           "prefill_products_bound_ms": products / hw().peak_flops * 1e3,
+           "prefill_products_bound_share": (products / hw().peak_flops * 1e3 / busy
                                             if busy else None),
            "decode_step_bound_ms": bound_ms, "decode_step_bound_bytes": parts,
            "replayed_bound_share": (bound_ms / replayed_ms) if replayed_ms else None,
@@ -2736,7 +2760,9 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
     each by dtype).  Timed at each shape: the forward alone, forward +
     backward, the backward kernel alone (events and device time), the plain
     recompute's forward + backward and the plain backward; the backward's
-    bound is ``FLASH_BACKWARD_OPS`` times the forward's operations.  Beside
+    bound is ``roofline.analysis.FLASH_BACKWARD_OPS`` (2.5: the 5 products a
+    pair of the least backward against the forward's 2) times the
+    forward's operations.  Beside
     them, a yardstick the port never calls: one
     ``scaled_dot_product_attention`` on the same inputs under autograd
     (``is_causal`` with ``enable_gqa``, a bool mask for the window, none
@@ -2746,6 +2772,7 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
 
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.roofline import analysis as A
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(seed + 23)
@@ -2771,7 +2798,7 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
                 "plain_forward_backward_ms": time_ms(torch, plain, 3),
                 "plain_backward_ms": time_ms(torch, plain_bwd, 3),
                 "forward_bound_ms": fwd_bound, "forward_bound_by": by,
-                "backward_bound_ms": FLASH_BACKWARD_OPS * fwd_bound, **check,
+                "backward_bound_ms": A.FLASH_BACKWARD_OPS * fwd_bound, **check,
                 "grad": grad, "grad_limits": flash_grad_limits(dtype),
                 "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "causal": causal,
                           "window": window, "dtype": dtype, "key_step": TRAIN_ATTN_CHUNK}}
@@ -2882,6 +2909,7 @@ def scan_backward_phase(torch, seed: int, reps: int) -> dict:
     backward's bound by bytes (a, h, dh read, da, dx written once)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.roofline import analysis as A
 
     b, s, w = RGLRU_SHAPE
     g = torch.Generator(device="cuda").manual_seed(seed + 29)
@@ -2904,11 +2932,11 @@ def scan_backward_phase(torch, seed: int, reps: int) -> dict:
         hh = RS.rglru_scan(a, x)
         return torch.autograd.grad(hh, (a, x), dh)
 
-    nbytes = 5 * b * s * w * 4
+    nbytes = A.rglru_scan_backward_work(b, s, w)[1]
     line = {"phase": "scan_backward", "name": "rglru_scan_backward",
             "forward_ms": time_ms(torch, lambda: RS.rglru_scan(a.detach(), x.detach()), reps),
             "forward_backward_ms": time_ms(torch, both, reps), "plain_backward_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": nbytes / hw().hbm_bw * 1e3, "bound_by": "bytes",
             "bit_equal_to_plain": True, "shape": {"B": b, "S": s, "W": w}}
     line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
     line["bound_share"] = line["bound_ms"] / line["backward_ms"]
@@ -2972,7 +3000,7 @@ def profiled_train_step(torch, fn) -> dict:
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
-def train_phase(torch, seed: int) -> dict:
+def train_phase(torch, seed: int, smi: str | None = None) -> dict:
     """The slice's main path: ``qwen3-8b`` at full width, ``TRAIN_LAYERS``
     of its 36 layers (``reduced``), master weights, gradients and AdamW
     moments in float32, trained from a record store on the card through
@@ -2982,7 +3010,8 @@ def train_phase(torch, seed: int) -> dict:
     projection kernel twice a batch and the flash kernel twice a layer and
     microbatch (the forward and the checkpointed group's recompute), the
     update's time, the peak (``MOE_FREE_BYTES`` of the card left), then one
-    profiled step.  Counts are reset just before the steps."""
+    profiled step.  Counts are reset just before the steps.  Then one more
+    step under the roofline counter (:func:`roofline_phase`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3061,13 +3090,14 @@ def train_phase(torch, seed: int) -> dict:
                                                                          TRAIN_LAYERS]},
             "steps": rows, "step_seconds": step_s, "step_seconds_runs": timed,
             "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
-            "model_flops": flops, "step_bound_s": flops / BF16_OPS_PER_S,
-            "train_mfu": flops / (step_s * BF16_OPS_PER_S),
+            "model_flops": flops, "step_bound_s": flops / hw().peak_flops,
+            "train_mfu": flops / (step_s * hw().peak_flops),
             "update_ms": update["ms"], "store_seconds": store_s, "init_seconds": init_s,
             "peak_memory": peak, "card_bytes": total, "free_after": total - peak,
             "launches": {k: v for k, v in launches.items() if v},
             "flash_dout_copies": dout_copies, "profile": prof}
     emit(line)
+    roofline_phase(torch, step_fn, state, batches, cfg, step_s, smi)
     del state, model, store, batches, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3295,6 +3325,229 @@ def train_sharded_phase(torch, seed: int, train: dict, smi: str) -> dict:
             "free_after": total - peak, "unsharded_memory": memory,
             "launches": {k: v for k, v in launches.items() if v},
             "collectives": collectives, "pipeline_one_stage_max_err": pipe_err}
+    emit(line)
+    return line
+
+
+def nccl_world_of_one(torch):
+    """An NCCL process group of one rank (a ``FileStore`` in a temp dir) and
+    the ``(1, 1)`` ``(data, model)`` mesh over it; destroy it after use."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    root = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def decode_sp_phase(torch, seed: int, smi: str) -> dict:
+    """Decode-SP on the card: ``qwen3-8b`` bf16 at full width and depth
+    (36 layers), ``SP_BATCH`` prompts of ``SP_PROMPT`` tokens prefilled
+    into a cache of ``SP_MAX_LEN`` slots, then one decode step through the
+    sequence-parallel form under a ``(1, 1)`` NCCL mesh
+    (``mesh_axis_rules``: the rules place the cache's sequence dim on
+    ``model``, so the SP form runs at ``n_seq = 1``, the cache cut by
+    ``launch.specs.shard_cache``) against the one-device eager step on a
+    copy of the same prefilled cache: the logits' largest difference within
+    ``SP_LOGIT_TOL``, the greedy tokens equal, layer 0's cache written alike
+    (its K/V come from the token alone), and each step's time (CUDA
+    events, ``SP_REPS`` runs at the same position: a KV write is
+    idempotent)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partitioning import mesh_axis_rules
+    from repro_torch.launch import specs as S
+    from repro_torch.models.lm import DecoderLM
+
+    cfg = get_config(LM_ARCH)
+    model = DecoderLM(cfg, seed=seed)
+    rng = np.random.default_rng(seed + 51)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (SP_BATCH, SP_PROMPT)).astype(np.int64))
+    logits, cache = model.prefill({"tokens": toks.cuda()}, SP_MAX_LEN)
+    tok = torch.argmax(logits, -1)[:, None]
+    pos = torch.tensor(SP_PROMPT, device="cuda")
+    eager = [{k: v.clone() for k, v in c.items()} for c in cache]
+    want, _ = model.decode_step(eager, tok, pos)
+    mesh = nccl_world_of_one(torch)
+    try:
+        part = S.shard_cache(mesh, cache)
+        with mesh_axis_rules(mesh):
+            got, _ = model.decode_step(part, tok, pos)
+            sp_ms = time_ms(torch, lambda: model.decode_step(part, tok, pos), SP_REPS)
+        eager_ms = time_ms(torch, lambda: model.decode_step(eager, tok, pos), SP_REPS)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    err = float((got - want).abs().max())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    # layer 0's new K/V come from the token alone: the same in both caches
+    written = all(torch.equal(part[0][n].to_local(), eager[0][n]) for n in ("k", "v"))
+    line = {"phase": "decode_sp", "card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+            "logits_bit_equal": bool(torch.equal(got, want)),
+            "dtype": cfg.compute_dtype, "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+            "batch": SP_BATCH, "prompt": SP_PROMPT, "max_len": SP_MAX_LEN,
+            "logits_max_abs_diff": err, "logits_tol": SP_LOGIT_TOL,
+            "greedy_equal": same, "layer0_cache_equal_after": written,
+            "sp_step_ms": sp_ms, "eager_step_ms": eager_ms}
+    emit(line)
+    assert err <= SP_LOGIT_TOL and same and written, line
+    del model, cache, eager, part
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def moe_expert_parallel_phase(torch, seed: int, smi: str) -> dict:
+    """The MoE block's expert-parallel forms on the card, called directly at
+    a world of one (a ``(1, 1)`` NCCL mesh; the block's dispatch takes them
+    only over more than one expert rank): one ``qwen3-moe-235b-a22b`` layer
+    at full width (``MOE_SHAPE``: E 128, d 4,096, f 1,536, top-8, bf16),
+    decode-sized (8 tokens: cap 4, so the one-device block runs the MoE
+    kernel) and prefill-sized (2 × 2,048 tokens: the dense products).
+    ``local_gather`` is the one-device block's ``_moe_dispatch_compute``
+    over ``[0, E)`` and a sum over a group of one: bit-equal to
+    ``moe_block``.  ``local_stationary`` takes the gate and up products
+    apart (their sum over the FSDP group comes before the SiLU), as the
+    dense form does: bit-equal to the one-device block's dense form (the
+    MoE kernel's plain version, ``moe_block`` under grad), and at decode
+    size the kernel is held to that plain version on the block's own
+    dispatch buffer within the MoE kernel's limits (``moe_check``); its
+    largest difference from the kernel's block is printed.  Each call
+    timed (CUDA events) beside its ``moe_ffn`` launches."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import layers as L
+
+    e, d, f, k = (MOE_SHAPE[n] for n in ("E", "d", "f", "top_k"))
+    spec = L.MoESpec(d_model=d, d_ff=f, n_experts=e, top_k=k)
+    moe = L.init_moe(torch.Generator(device="cuda").manual_seed(seed + 61),
+                     L.MoE(spec, torch.bfloat16, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed + 62)
+    mesh = nccl_world_of_one(torch)
+    lines = {}
+    try:
+        for size, shape in (("decode", (MOE_SHAPE["tokens"], 1, d)), ("prefill", (2, 2048, d))):
+            x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            forms = {"one_device": lambda: L.moe_block(moe, spec, x),
+                     "local_gather": lambda: L._moe_local_gather(moe, spec, x, mesh, ("model",)),
+                     "local_stationary": lambda: L._moe_local_stationary(
+                         moe, spec, x, mesh, ("model",), ("data",), ("data",))}
+            out, launches, ms = {}, {}, {}
+            for name, fn in forms.items():
+                _cuda.reset_launches()
+                out[name] = fn()
+                torch.cuda.synchronize()
+                launches[name] = _cuda.LAUNCHES["moe_ffn"]
+                ms[name] = time_ms(torch, fn, 5)
+            for p in moe.parameters():
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                dense = L.moe_block(moe, spec, x).detach()
+            for p in moe.parameters():
+                p.requires_grad_(False)
+            torch.cuda.synchronize()
+            line = {"phase": "moe_expert_parallel", "card": smi, "size": size,
+                    "tokens": x.shape[0] * x.shape[1], "E": e, "d": d, "f": f, "top_k": k,
+                    "cap": L.moe_capacity(spec, x.shape[0] * x.shape[1]),
+                    "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+                    "moe_ffn_launches": launches, "ms": ms,
+                    "gather_bit_equal": bool(torch.equal(out["local_gather"],
+                                                         out["one_device"])),
+                    "stationary_bit_equal_to_dense": bool(
+                        torch.equal(out["local_stationary"], dense)),
+                    "stationary_max_abs_diff_to_block": float(
+                        (out["local_stationary"].float() - out["one_device"].float())
+                        .abs().max())}
+            if size == "decode":
+                xt = x.reshape(-1, d)
+                cap = line["cap"]
+                r = L.moe_route(spec, torch.softmax((xt @ moe.router).float(), dim=-1), e, 0,
+                                cap)
+                buf = xt.new_zeros((e * cap + 1, d))
+                buf.index_copy_(0, r.dest, xt.index_select(0, r.st))
+                line["kernel_check"] = moe_check(torch, buf[:-1].view(e, cap, d), r.count,
+                                                 moe.expert_gate, moe.expert_up,
+                                                 moe.expert_down)
+                assert launches["one_device"] == launches["local_gather"] == 2, launches
+            emit(line)
+            assert line["gather_bit_equal"] and line["stationary_bit_equal_to_dense"], line
+            lines[size] = line
+    finally:
+        dist.destroy_process_group()
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+def roofline_phase(torch, step_fn, state, batches, cfg, step_s: float, smi: str) -> dict:
+    """One real train step of the train phase under the roofline counter
+    (``roofline.analysis.count_step``): its counted product FLOPs and HBM
+    bytes (counts, not times), the three terms at the H100's data-sheet
+    figures (``Hardware``), ``step_time_lower_bound_s`` beside the train
+    phase's measured step seconds, ``useful_flops_ratio`` (the model FLOPs
+    of ``train_model_flops`` over the counted ones), and the counter's
+    overhead: the counted step's wall seconds over the measured step's."""
+    from repro_torch.roofline import analysis as A
+
+    torch.cuda.synchronize()
+    batch = next(batches)
+    t0 = time.perf_counter()
+    (state, metrics), counts = A.count_step(step_fn, state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    assert math.isfinite(float(metrics["loss"])), metrics
+    terms = A.roofline_terms(counts["flops"], counts["hbm_bytes"],
+                             counts["collectives"]["total"])
+    model_flops = train_model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    line = {"phase": "roofline", "card": smi, "hardware": vars(A.HW),
+            "arch": cfg.name, "reduced": {"n_layers": [36, cfg.n_layers]},
+            "counted_flops": counts["flops"], "counted_hbm_bytes": counts["hbm_bytes"],
+            "counted_collective_bytes": counts["collectives"]["total"],
+            "aten_calls": counts["aten_calls"], "kernels": counts["kernels"],
+            "terms_s_at_data_sheet": terms, "dominant": max(terms, key=terms.get),
+            "step_time_lower_bound_s": max(terms.values()),
+            "measured_step_seconds": step_s, "model_flops": model_flops,
+            "useful_flops_ratio": model_flops / counts["flops"],
+            "counted_step_seconds": counted_s,
+            "counter_overhead": counted_s / step_s - 1.0}
+    emit(line)
+    return line
+
+
+def dryrun_phase(smi: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch qwen3-8b --shape
+    train_4k --mesh single`` as a subprocess (its fake process group must
+    not meet this process's NCCL groups): its three terms (counts at the
+    data sheet's figures), dominant term and wall seconds.  A failing
+    subprocess fails the script."""
+    import tempfile
+
+    out = tempfile.mkdtemp()
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           "qwen3-8b", "--shape", "train_4k", "--mesh", "single",
+                           "--out", out], capture_output=True, text=True, env=env,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    with open(os.path.join(out, "qwen3-8b__train_4k__pod16x16.json")) as fh:
+        cell = json.load(fh)
+    line = {"phase": "dryrun", "card": smi, "cell": "qwen3-8b × train_4k × pod16x16",
+            "terms_s_at_data_sheet": cell["terms"], "dominant": cell["dominant"],
+            "step_time_lower_bound_s": cell["step_time_lower_bound_s"],
+            "useful_flops_ratio": cell["useful_flops_ratio"],
+            "argument_bytes": cell["memory"]["argument_bytes"],
+            "count_seconds": cell["count_seconds"], "wall_seconds": wall}
     emit(line)
     return line
 
@@ -4292,10 +4545,15 @@ def main(argv=None) -> int:
     kernels["flash_attention_backward"] = flash_backward_kernel(
         flash_backward_phase(torch, args.seed, args.reps))
     scan_backward_phase(torch, args.seed, args.reps)
-    train = train_phase(torch, args.seed)
+    train = train_phase(torch, args.seed, device["nvidia_smi"])
     sharded_train = train_sharded_phase(torch, args.seed, train, device["nvidia_smi"])
     trainer_phase(torch, args.seed)
     train_reference_phase(torch, args.seed)
+    # the last modules: decode-SP, the MoE block's expert-parallel forms and
+    # the dry run (the roofline's line comes from the train phase)
+    decode_sp_phase(torch, args.seed, device["nvidia_smi"])
+    moe_expert_parallel_phase(torch, args.seed, device["nvidia_smi"])
+    dryrun_phase(device["nvidia_smi"])
     # each kernel's launches on its own path; "project" is the engine phase's
     # (the revision phase's mlp engines launch it too, counted in its line);
     # the flash kernel's in the seven serving runs (bf16, int8, MoE, the SSM,

@@ -1,7 +1,8 @@
 """Config schema + shape registry — the port's copy of ``repro.configs.base``.
 
 ``ArchConfig`` (with ``param_count``), ``ShapeSpec``, ``SHAPES`` and
-``ARCH_NAMES`` are copied unchanged (``param_count`` as the reference
+``ARCH_NAMES``, ``cell_status`` and ``iter_cells`` (the dry run's cells)
+are copied unchanged (``param_count`` as the reference
 counts: a token embedding for every architecture, the VLM's too, and no
 ``enc_norm`` for the encoder-decoder).  The port serves all ten: the dense
 attention-only ``qwen3-8b``, ``gemma3-27b`` and the two with QKV bias,
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Iterator
 
 # ----------------------------------------------------------------- configs
 @dataclasses.dataclass(frozen=True)
@@ -206,3 +208,19 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke_config(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def cell_status(arch: str, shape: str) -> str:
+    """'run' or a 'SKIP: reason' marker per the assignment's skip rules."""
+    cfg = get_config(arch)
+    sh = SHAPES[shape]
+    if sh.name == "long_500k" and not cfg.sub_quadratic:
+        return ("SKIP: pure full-attention config — 500k-token KV has no "
+                "sub-quadratic mechanism (DESIGN.md §Shape-cell skips)")
+    return "run"
+
+
+def iter_cells() -> Iterator[tuple[str, str, str]]:
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            yield arch, shape, cell_status(arch, shape)

@@ -69,9 +69,11 @@ P = PartitionSpec
 def set_axis_rules(
     rules: Mapping[str, Sequence[str]] | None,
     mesh_shape: Mapping[str, int] | None = None,
+    mesh=None,
 ) -> None:
     _state.rules = None if rules is None else {k: tuple(v) for k, v in rules.items()}
     _state.mesh_shape = dict(mesh_shape) if mesh_shape else {}
+    _state.mesh = mesh
 
 
 def current_rules() -> dict[str, tuple[str, ...]] | None:
@@ -82,17 +84,25 @@ def current_mesh_shape() -> dict[str, int]:
     return getattr(_state, "mesh_shape", {}) or {}
 
 
+def current_mesh():
+    """The ``DeviceMesh`` of the active rules (:func:`mesh_axis_rules`), or
+    ``None`` — the counterpart of the reference's ``compat.set_mesh``: the
+    sharded forms of the model take their process groups from it."""
+    return getattr(_state, "mesh", None)
+
+
 @contextlib.contextmanager
 def axis_rules(
     rules: Mapping[str, Sequence[str]] | None,
     mesh_shape: Mapping[str, int] | None = None,
+    mesh=None,
 ):
-    prev_r, prev_m = current_rules(), current_mesh_shape()
-    set_axis_rules(rules, mesh_shape)
+    prev = current_rules(), current_mesh_shape(), current_mesh()
+    set_axis_rules(rules, mesh_shape, mesh)
     try:
         yield
     finally:
-        set_axis_rules(prev_r, prev_m)
+        set_axis_rules(*prev)
 
 
 def rules_for_mesh(mesh) -> dict[str, tuple[str, ...]]:
@@ -108,8 +118,41 @@ def mesh_shape(mesh) -> dict[str, int]:
 
 
 def mesh_axis_rules(mesh):
-    """``axis_rules`` for ``mesh``: its rule set and its axis sizes."""
-    return axis_rules(rules_for_mesh(mesh), mesh_shape(mesh))
+    """``axis_rules`` for ``mesh``: its rule set and its axis sizes, and
+    ``mesh`` itself as :func:`current_mesh`."""
+    return axis_rules(rules_for_mesh(mesh), mesh_shape(mesh), mesh)
+
+
+def _axes(axes: str | Sequence[str]) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_index(mesh, axes: str | Sequence[str]) -> int:
+    """This rank's row-major index over the mesh axes ``axes`` (the first
+    major) — the reference's ``lax.axis_index(axes)``; 0 over no axes."""
+    index = 0
+    for a in _axes(axes):
+        index = index * mesh.size(mesh.mesh_dim_names.index(a)) + mesh.get_local_rank(a)
+    return index
+
+
+def axis_group(mesh, axes: str | Sequence[str]):
+    """The process group of this rank over the mesh axes ``axes``, ranks in
+    :func:`axis_index` order: one axis's own group, or for several (the
+    multi-pod ``("pod", "data")``) the group of their flattened sub-mesh —
+    where the reference names the axes of ``lax.psum``."""
+    axes = _axes(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten("_".join(axes)).get_group()
+
+
+def axis_size(mesh, axes: str | Sequence[str]) -> int:
+    """The number of ranks over the mesh axes ``axes``."""
+    n = 1
+    for a in _axes(axes):
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
 
 
 def _axes_size(phys: Sequence[str]) -> int:

@@ -20,6 +20,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from repro_torch.roofline.analysis import record_collective
+
 
 def _stage_leaf(leaf, stage: int):
     """This stage's slice of a stacked leaf: a ``DTensor`` sharded on dim 0
@@ -70,6 +72,7 @@ def pipeline_apply(
             # stage s + 1 takes at t + 1 what stage s made at t
             ops = []
             if y is not None and stage < n_stages - 1:
+                record_collective("collective-permute", y.numel() * y.element_size(), 2)
                 ops.append(dist.P2POp(dist.isend, y.contiguous(),
                                       dist.get_global_rank(group, stage + 1), group))
             if stage > 0 and 0 <= t + 1 - stage < n_microbatches:
@@ -79,6 +82,8 @@ def pipeline_apply(
             for req in dist.batch_isend_irecv(ops) if ops else ():
                 req.wait()
         if n_stages > 1:
+            # a broadcast moves the output once over each rank's link
+            record_collective("collective-permute", out.numel() * out.element_size(), 2)
             dist.broadcast(out, src=dist.get_global_rank(group, n_stages - 1), group=group)
         return out.reshape((-1,) + tuple(out.shape[2:]))
 

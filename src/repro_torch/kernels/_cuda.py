@@ -53,6 +53,14 @@ pass (``rm_flash_bwd_dkdv_tc_kernel`` and ``rm_flash_bwd_dq_tc_kernel`` in
 bf16 at D <= 128, else both passes of ``rm_flash_bwd_simt_kernel``).
 ``FLASH_DOUT_COPIES`` counts the gradients whose ``dout`` TMA could not
 describe, copied before the launch.
+
+The LM kernels' launchers (:func:`run_flash`, :func:`run_flash_backward`,
+:func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`) also report each
+launch's operations and bytes to an active roofline count
+(``roofline.analysis.record_kernel``, by the work formulas ``chip_smoke.py``
+takes their bounds from), and take ``meta`` tensors (the dry run): they
+check what does not need memory, report the work, and return outputs of the
+right shape and type — nothing is launched or counted in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -67,6 +75,8 @@ from pathlib import Path
 from typing import Sequence
 
 import torch
+
+from repro_torch.roofline import analysis as roofline
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -1001,11 +1011,12 @@ def _flash_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
             raise ValueError(f"{name} needs a unit stride along D, got strides {t.stride()}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not one of {FLASH_HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and q.numel() and k.numel():
+    meta = q.device.type == "meta"
+    if q.dtype == torch.bfloat16 and q.numel() and k.numel() and not meta:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_flash_tma(name, t.shape, t.stride(), t.element_size(), t.data_ptr())
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not meta:
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
         if t.device != q.device:
             raise ValueError(f"q on {q.device} but {name} on {t.device}")
@@ -1042,6 +1053,11 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     row_lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
         return (out, row_lse) if lse else out
+    if roofline.counting():
+        roofline.record_kernel("flash_attention", *roofline.flash_work(
+            b, s, h, k.shape[2], d, causal, win, q.element_size()))
+    if q.device.type == "meta":
+        return (out, row_lse) if lse else out
     st = {n: _strides(t) for n, t in (("q", q), ("k", k), ("v", v), ("o", out))}
     params = _FlashParams(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(),
@@ -1077,7 +1093,7 @@ def flash_dout(dout: torch.Tensor, form: str) -> torch.Tensor:
     ``FLASH_DOUT_COPIES``: autograd may hand over a gradient of any layout,
     a broadcast one (the gradient of a sum) included."""
     readable = not dout.numel() or dout.stride(3) == 1
-    if readable and form == "tensor":
+    if readable and form == "tensor" and dout.device.type != "meta":
         try:
             check_flash_tma("dout", dout.shape, dout.stride(), dout.element_size(),
                             dout.data_ptr())
@@ -1122,6 +1138,11 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
     dk = torch.empty((b, s, kh, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
+        return dq, dk, dv
+    if roofline.counting():
+        roofline.record_kernel("flash_attention_backward", *roofline.flash_backward_work(
+            b, s, h, kh, d, causal, win, q.element_size()))
+    if q.device.type == "meta":
         return dq, dk, dv
     seq_pad = -(-s // FLASH_BWD_SEQ_PAD) * FLASH_BWD_SEQ_PAD
     scratch = torch.empty((2, b * h, seq_pad), dtype=torch.float32, device=q.device)
@@ -1224,9 +1245,14 @@ def run_w8(x: torch.Tensor, records: Sequence[tuple[torch.Tensor, torch.Tensor]]
                              f"do not chain (record {i})")
         if q.shape[1] < 1 or q.shape[1] % 8:
             raise ValueError(f"N must be a positive multiple of 8, got {q.shape[1]} (record {i})")
-        if q.data_ptr() % 8:
+        if q.device.type != "meta" and q.data_ptr() % 8:
             raise ValueError(f"q must start 8-byte aligned (record {i})")
         tensors += [(f"q[{i}]", q), (f"s[{i}]", s)]
+    if x.device.type == "meta":
+        if roofline.counting():
+            roofline.record_kernel("w8_matmul", *roofline.w8_work(
+                m, k, [q.shape[1] for q, _ in records], x.element_size()))
+        return [x.new_empty((m, q.shape[1])) for q, _ in records]
     for name, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
@@ -1245,6 +1271,9 @@ def run_w8(x: torch.Tensor, records: Sequence[tuple[torch.Tensor, torch.Tensor]]
                 else [(f, [r]) for f, r in zip(forms, records)])
     out = []
     for form, group in launches:
+        if roofline.counting():
+            roofline.record_kernel("w8_matmul", *roofline.w8_work(
+                m, k, [q.shape[1] for q, _ in group], x.element_size()))
         params, ys, _partials = w8_params(x, group, form, _SM_COUNT[dev])
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -1320,6 +1349,15 @@ def run_moe(x: torch.Tensor, count: torch.Tensor, w0: torch.Tensor,
         raise ValueError(f"K and N must be positive multiples of 8, got K {k}, N {n}")
     if count.dtype != torch.int64 or tuple(count.shape) != (e,):
         raise ValueError(f"want count ({e},) int64, got {count.dtype} {tuple(count.shape)}")
+    if roofline.counting():
+        # the whole FFN's work at its gate/up launch (the down launch adds
+        # none): the experts with a kept row — all of them on meta, where
+        # the counts are not known
+        touched = e if x.device.type == "meta" else int((count > 0).sum())
+        roofline.record_kernel("moe_ffn", *(roofline.moe_work(
+            touched, e, cap, k, n, x.element_size()) if w1 is not None else (0, 0)))
+    if x.device.type == "meta":
+        return x.new_empty((e, cap, n))
     for name, t in [("x", x), ("count", count), *weights]:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
@@ -1353,7 +1391,7 @@ def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for name, t in (("a", a), ("x", x)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not (t.device.type == "meta" == a.device.type):
             raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -1366,6 +1404,10 @@ def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if min(b, s, w) < 1 or max(b, s, w) >= 2**31:
         raise ValueError(f"B, S and W must be in [1, 2^31), got {tuple(a.shape)}")
     h = torch.empty_like(a)
+    if roofline.counting():
+        roofline.record_kernel("rglru_scan", *roofline.rglru_scan_work(b, s, w))
+    if a.device.type == "meta":
+        return h
     blocks = min(-(-b * w // RGLRU_THREADS), RGLRU_MAX_BLOCKS)
     params = _RglruParams(a=a.data_ptr(), x=x.data_ptr(), h=h.data_ptr(), batch=b, seq=s,
                           width=w, blocks=blocks)

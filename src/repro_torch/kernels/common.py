@@ -46,6 +46,15 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def resolve_model_device(device: str | torch.device | None) -> torch.device:
+    """:func:`resolve_device` for a model, which also takes ``"meta"`` (the
+    dry run: nothing is allocated or computed, and the LM kernels'
+    wrappers give their outputs' shapes)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def decode(x: torch.Tensor, dtype: str) -> torch.Tensor:
     """Reinterpret raw int32 storage words as the column's 4-byte dtype."""
     if dtype == "float32":

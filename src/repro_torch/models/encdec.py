@@ -38,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import resolve_model_device
 
 from . import layers as L
 from .lm import chunked_xent, head_logits, run_layer
@@ -133,7 +133,7 @@ class EncDecLM(nn.Module):
         if not cfg.is_encdec:
             raise ValueError("EncDecLM needs n_enc_layers > 0")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_model_device(device)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.enc_spec, self.dec_spec, self.cross_spec = attn_specs(cfg)
         v, d = cfg.padded_vocab, cfg.d_model

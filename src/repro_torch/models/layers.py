@@ -53,6 +53,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.partitioning import (
+    axis_group,
+    axis_index,
+    axis_size,
+    current_mesh,
+    current_mesh_shape,
+    current_rules,
+    logical_spec,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import MAX_ROWS as MOE_MAX_ROWS
 from repro_torch.kernels.moe_ffn import expert_ffn_dense, moe_ffn
@@ -60,6 +70,10 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.w8_matmul import MAX_ROWS, dequantize, w8_matmul, w8_matmul_group
 
 F32 = torch.float32
+# devices whose tensors take the hand-written kernels: the card, and "meta"
+# (the dry run), where a kernel's wrapper gives its output's shape and
+# reports its work, and nothing runs
+KERNEL_DEVICES = ("cuda", "meta")
 
 MASK_VALUE = -1e30
 # rows of x up to which an int8 weight's product on the card runs the W8
@@ -129,7 +143,7 @@ def linear_group(x: torch.Tensor, ws) -> list[torch.Tensor]:
     is exactly ``[linear(x, w) for w in ws]``."""
     k = x.shape[-1]
     rows = x.numel() // k
-    if (x.device.type == "cuda" and rows <= W8_DECODE_ROWS
+    if (x.device.type in KERNEL_DEVICES and rows <= W8_DECODE_ROWS
             and all(isinstance(w, QuantizedWeight) for w in ws)):
         ys = w8_matmul_group(x.reshape(rows, k).contiguous(), [(w.q, w.s) for w in ws])
         return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
@@ -417,8 +431,9 @@ def _blockwise_step(qh, kc, vc, acc, m, l, kv_start: int, spec: AttnSpec, s: int
 def _attend(q, k, v, spec: AttnSpec, chunk: int) -> torch.Tensor:
     """Attention dispatch by the tensors' device: the hand-written flash
     kernel on the card, the blockwise form on the CPU — as the reference
-    takes its Pallas kernel on the TPU and the XLA form elsewhere."""
-    if q.device.type == "cuda":
+    takes its Pallas kernel on the TPU and the XLA form elsewhere (a meta
+    tensor takes the kernel's shape form)."""
+    if q.device.type in KERNEL_DEVICES:
         return flash_attention(q, k, v, causal=spec.causal, window=spec.window,
                                block_k=min(chunk, q.shape[1]))
     return blockwise_attention(q, k, v, spec, chunk=chunk)
@@ -459,6 +474,103 @@ def attention_prefill(
     return y, cache
 
 
+def _decode_sp_axes(cache_shape: tuple[int, ...]):
+    """Physical axes carrying the decode cache's sequence dim, or None."""
+    spec = logical_spec("batch", None, "kv_seq", None, shape=cache_shape)
+    entries = list(spec) + [None] * (4 - len(spec))
+    seq_axes = entries[2]
+    if seq_axes is None:
+        return None, None
+    seq_axes = seq_axes if isinstance(seq_axes, tuple) else (seq_axes,)
+    batch_axes = entries[0]
+    if batch_axes is not None and not isinstance(batch_axes, tuple):
+        batch_axes = (batch_axes,)
+    return seq_axes, batch_axes
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s part on this rank (the same storage), or ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _decode_logits(qh, ck, valid) -> torch.Tensor:
+    """Float32 logits of one token over the slots ``ck`` (B, K, S, Dh),
+    ``MASK_VALUE`` where ``valid`` (S,) is false."""
+    logits = torch.einsum("bkgd,bksd->bkgs", qh, ck.float())
+    return torch.where(valid[None, None, None, :], logits, MASK_VALUE)
+
+
+def _decode_attend(logits, cv) -> torch.Tensor:
+    """The cached attention over the slots ``cv`` of :func:`_decode_logits`'
+    ``logits``: ``softmax``, then the float32 PV product."""
+    return torch.einsum("bkgs,bksd->bkgd", torch.softmax(logits, dim=-1), cv.float())
+
+
+def _attention_decode_sp(spec: AttnSpec, q, k, v, cache: dict, pos, seq_axes
+                         ) -> torch.Tensor:
+    """Sequence-parallel cached attention (decode-SP), the reference's
+    ``_attention_decode_sp``: the cache's sequence dim is split over
+    ``seq_axes`` (the model axis); each rank owns a contiguous chunk of
+    ``s_cache // n_seq`` ring slots, writes the new token in place only if
+    it owns the slot ``pos % s_cache``, computes partial attention over its
+    chunk, and the ranks combine with a 3-term online-softmax reduction —
+    the running max all-reduced with ``MAX``, the sums with ``SUM``.  No
+    rank gathers the cache.
+
+    The combine is the reference's function in another arithmetic, so that
+    one sequence rank gives the one-device form's bits: each rank attends
+    over its chunk as the one-device form does (:func:`_decode_attend`:
+    ``softmax``, PV), giving ``o``, beside its max ``m`` and ``l = Σ exp(
+    logits - m)``; with ``M`` the all-reduced max, a rank's weight is ``c =
+    exp(m - M) · l`` over the all-reduced sum of the ``c`` (at least 1;
+    clamped at 1e-30 as the reference's ``l``), and ``out`` is the
+    all-reduced sum of ``c · o``.  Over one rank ``c = l / l = 1`` exactly
+    and no collective is called.
+
+    A ``DTensor`` cache is the rank's chunk of its own batch rows (its local
+    part, cut by ``launch.specs.cache_partition_specs``); a plain tensor is
+    the whole cache, of which the rank reads and writes its chunk (a view).
+    ``pos`` stays on the device: the owner test and the mask read no value
+    back to the host.  Returns the combined ``(B, K, G, Dh)`` float32 output."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("decode-SP needs the mesh of the rules: enter "
+                         "partitioning.mesh_axis_rules(mesh)")
+    b = q.shape[0]
+    kh = spec.n_kv_heads
+    g = spec.n_heads // kh
+    hd = spec.head_dim
+    n_seq = axis_size(mesh, seq_axes)
+    s_cache = cache["k"].shape[2]
+    chunk = s_cache // n_seq
+    idx = axis_index(mesh, seq_axes)
+    group = axis_group(mesh, seq_axes)
+    ck, cv = cache["k"], cache["v"]
+    if hasattr(ck, "to_local"):
+        ck, cv = _local(ck), _local(cv)
+    else:
+        ck, cv = ck.narrow(2, idx * chunk, chunk), cv.narrow(2, idx * chunk, chunk)
+    if ck.shape[0] != b or ck.shape[2] != chunk:
+        raise ValueError(f"the rank's cache part {tuple(ck.shape)} does not hold {b} rows "
+                         f"and a chunk of {chunk} slots")
+    qh = (q * spec.scale).reshape(b, kh, g, hd).float()
+    local_slot = pos % s_cache - idx * chunk
+    ok = (local_slot >= 0) & (local_slot < chunk)
+    ls = local_slot.clamp(0, chunk - 1).reshape(1).long()
+    for c, new in ((ck, k), (cv, v)):
+        new = new.transpose(1, 2)
+        c.index_copy_(2, ls, torch.where(ok, new, c.index_select(2, ls)))
+    k_pos = idx * chunk + torch.arange(chunk, device=q.device)
+    logits = _decode_logits(qh, ck, k_pos <= pos)
+    o = _decode_attend(logits, cv)
+    m = logits.amax(dim=-1)  # (B, K, G)
+    l_own = torch.exp(logits - m[..., None]).sum(dim=-1)
+    # the collectives reduce in place: the rank's m and c are used first
+    c = torch.exp(m - C.all_reduce(m.clone(), group, "max")) * l_own
+    c = c / torch.clamp(C.all_reduce(c.clone(), group), min=1e-30)
+    return C.all_reduce(o * c[..., None], group)
+
+
 def attention_decode(
     params: Attention, spec: AttnSpec, x: torch.Tensor, cache: dict, pos
 ) -> tuple[torch.Tensor, dict]:
@@ -467,13 +579,18 @@ def attention_decode(
 
     For windowed layers the cache is a ring buffer of size ``window``: the
     write slot is ``pos % window`` and, once full, every slot is valid.
+    When the active sharding rules place the cache's sequence dim on a mesh
+    axis, the sequence-parallel form is used (:func:`_attention_decode_sp`:
+    writes in the owning rank's chunk, an online-softmax combine), exactly
+    where the reference takes its ``shard_map`` path; otherwise the
+    single-device form (on a ``DTensor`` cache, the rank's part).  At one
+    sequence rank the SP form gives the one-device form's bits.
     Unlike the reference (which returns new arrays) the new token is written
     into the cache tensors in place — a step would otherwise copy the whole
     cache — and the same dict is returned.  The slot, the validity mask and
     the RoPE position are computed on the device from ``pos``, so the step
     never reads ``pos`` back to the host (a CUDA graph replays it)."""
     b = x.shape[0]
-    s_cache = cache["k"].shape[2]
     pos = torch.as_tensor(pos, device=x.device)
     # the RoPE position: pos in every component of an M-RoPE layer's (B, 3, 1)
     rope_pos = pos.expand(b, 3, 1) if spec.mrope else pos.expand(b, 1)
@@ -481,20 +598,22 @@ def attention_decode(
     q, k, v = _qkv(params, spec, x, cos, sin)
     kh = spec.n_kv_heads
     g = spec.n_heads // kh
-    # windowed layers use the cache as a ring buffer; full caches never
-    # wrap (pos < s_cache), so one modular slot covers both
-    slot = (pos % s_cache).reshape(1).long()
-    ck, cv = cache["k"], cache["v"]
-    ck.index_copy_(2, slot, k.transpose(1, 2))
-    cv.index_copy_(2, slot, v.transpose(1, 2))
-    qh = (q * spec.scale).reshape(b, kh, g, spec.head_dim).float()
-    logits = torch.einsum("bkgd,bksd->bkgs", qh, ck.float())
-    # a ring slot only holds one of the last s_cache positions, so slot
-    # validity reduces to "has this slot been written yet"
-    valid = torch.arange(s_cache, device=x.device) <= pos
-    logits = torch.where(valid[None, None, None, :], logits, MASK_VALUE)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bksd->bkgd", w, cv.float())
+    seq_axes, _ = _decode_sp_axes(tuple(cache["k"].shape))
+    if seq_axes is not None:
+        out = _attention_decode_sp(spec, q, k, v, cache, pos, seq_axes)
+    else:
+        ck, cv = _local(cache["k"]), _local(cache["v"])
+        s_cache = ck.shape[2]
+        # windowed layers use the cache as a ring buffer; full caches never
+        # wrap (pos < s_cache), so one modular slot covers both
+        slot = (pos % s_cache).reshape(1).long()
+        ck.index_copy_(2, slot, k.transpose(1, 2))
+        cv.index_copy_(2, slot, v.transpose(1, 2))
+        qh = (q * spec.scale).reshape(b, kh, g, spec.head_dim).float()
+        # a ring slot only holds one of the last s_cache positions, so slot
+        # validity reduces to "has this slot been written yet"
+        out = _decode_attend(
+            _decode_logits(qh, ck, torch.arange(s_cache, device=x.device) <= pos), cv)
     out = out.reshape(b, 1, spec.n_heads * spec.head_dim).to(x.dtype)
     return linear(out, params.wo), cache
 
@@ -610,7 +729,7 @@ class Routing(NamedTuple):
 
 
 def moe_route(spec: MoESpec, probs: torch.Tensor, n_experts: int, expert_base: int,
-              cap: int) -> Routing:
+              cap: int, rank_offset: torch.Tensor | None = None) -> Routing:
     """The reference's top-k routing and capacity ranks, step for step
     (``repro/models/layers.py:560-578``), with no value read to the host:
     top-k over the full expert range as the first ``k`` of a stable
@@ -619,7 +738,13 @@ def moe_route(spec: MoESpec, probs: torch.Tensor, n_experts: int, expert_base: i
     slots by expert, segment starts by ``searchsorted`` (left), and each
     slot's rank in its expert; a slot past ``cap`` (or of an expert outside
     ``[expert_base, expert_base + n_experts)``) is dropped, its ``dest`` the
-    row ``n_experts * cap``."""
+    row ``n_experts * cap``.
+
+    ``rank_offset (n_experts,)``, where given, is each expert's slots that
+    come before these ones in the global token order (other batch ranks'
+    tokens): a slot is kept while its rank plus that offset is below
+    ``cap``, and its row is its local rank (this rank's buffer holds only
+    its own slots; a row's output depends on that row alone)."""
     t = probs.shape[0]
     k = spec.top_k
     dev = probs.device
@@ -636,15 +761,21 @@ def moe_route(spec: MoESpec, probs: torch.Tensor, n_experts: int, expert_base: i
     experts = torch.arange(n_experts, device=dev)
     seg_start = torch.searchsorted(se, experts)
     rank = torch.arange(t * k, device=dev) - seg_start[torch.clamp_max(se, n_experts - 1)]
-    keep = (rank < cap) & (se < n_experts)
+    count = torch.searchsorted(se, experts, right=True) - seg_start
+    if rank_offset is None:
+        keep = (rank < cap) & (se < n_experts)
+        count = torch.clamp_max(count, cap)
+    else:
+        before = rank_offset[torch.clamp_max(se, n_experts - 1)]
+        keep = (rank + before < cap) & (se < n_experts)
+        count = torch.clamp(torch.minimum(count, cap - rank_offset), min=0)
     dest = torch.where(keep, se * cap + rank, n_experts * cap)
-    count = torch.clamp_max(torch.searchsorted(se, experts, right=True) - seg_start, cap)
     return Routing(idx, order, st, sg, keep, dest, count)
 
 
 def _moe_dispatch_compute(
     spec: MoESpec, xt: torch.Tensor, probs: torch.Tensor, wg, wu, wd,
-    n_experts: int, expert_base: int, cap: int,
+    n_experts: int, expert_base: int, cap: int, rank_offset: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Capacity-bounded top-k dispatch + expert FFN + weighted combine over
     the expert range ``[expert_base, expert_base + n_experts)``, as the
@@ -662,7 +793,7 @@ def _moe_dispatch_compute(
     * the combine (:func:`moe_combine`) is deterministic, where
       ``index_add_`` on the card would add a token's rows by atomics."""
     t, d = xt.shape
-    r = moe_route(spec, probs, n_experts, expert_base, cap)
+    r = moe_route(spec, probs, n_experts, expert_base, cap, rank_offset)
     buf = xt.new_zeros((n_experts * cap + 1, d))
     buf.index_copy_(0, r.dest, xt.index_select(0, r.st))
     buf = buf[:-1].view(n_experts, cap, d)
@@ -696,33 +827,214 @@ def moe_combine(out: torch.Tensor, r: Routing, tokens: int) -> torch.Tensor:
     return y
 
 
+def _moe_axes() -> tuple | None:
+    """(expert_axes, fsdp_axes) when EP sharding rules are active."""
+    rules = current_rules()
+    if not rules:
+        return None
+    ea = rules.get("expert")
+    if not ea:
+        return None
+    sizes = current_mesh_shape()
+    n = 1
+    for a in ea:
+        n *= sizes.get(a, 1)
+    if n <= 1:
+        return None
+    return tuple(ea), tuple(rules.get("fsdp") or ())
+
+
+def _batch_axes() -> tuple[str, ...]:
+    """The active rules' batch axes (empty with no rules)."""
+    return tuple((current_rules() or {}).get("batch") or ())
+
+
+def _sharded_mesh():
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("the MoE block's sharded forms need the mesh of the rules: "
+                         "enter partitioning.mesh_axis_rules(mesh)")
+    return mesh
+
+
+def _router_probs(params: MoE, xt: torch.Tensor, router=None) -> torch.Tensor:
+    return torch.softmax(linear(xt, params.router if router is None else router).float(),
+                         dim=-1)
+
+
 def moe_block(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
-    """Token-choice top-k MoE with sort-based, capacity-bounded dispatch: the
-    reference's single-device branch.  Its expert-parallel ``shard_map``
-    forms (``local_gather``, ``local_stationary``), whose capacity and aux
-    statistics span the ``data`` ranks, are ROADMAP queue 1 item 8.12(b);
-    the sharded train step refuses an MoE config on more than one data
-    rank until then, so there is no branch to take."""
+    """Token-choice top-k MoE with sort-based, capacity-bounded dispatch.
+
+    With no sharding rules (or an expert axis of one rank and one batch
+    rank), the reference's single-device branch.  Under a mesh's rules
+    (``partitioning.mesh_axis_rules``), ``x`` is this rank's rows of the
+    batch and the weights are whole on every rank (the serve path holds
+    them whole; the sharded train step gathers them once a step), so the
+    reference's weight all-gathers are slices here, while the compute is
+    split the reference's way:
+
+    * an expert axis of more than one rank (``_moe_axes``): the reference's
+      expert-parallel ``shard_map`` forms, chosen as it chooses them
+      (``stationary = fsdp_axes and t·k < 3·e_local·f_ff``, ``t`` the
+      global tokens) — :func:`_moe_local_gather` (a train step's or a
+      prefill's tokens: each rank runs its experts on its own tokens) or
+      :func:`_moe_local_stationary` (a decode step's: tokens gathered over
+      the batch axes, each rank contracts its experts' d-slice);
+    * an expert axis of one rank and more than one batch rank: the
+      reference runs the single-device branch under GSPMD on the global
+      batch, so :func:`_moe_global_order` keeps its capacity and its
+      keep/drop decisions over the global token order.
+    """
     b, s, d = x.shape
     dt = x.dtype
     t = b * s
-    cap = moe_capacity(spec, t)
+    e, k = spec.n_experts, spec.top_k
+    axes = _moe_axes()
+    if axes is None:
+        batch_axes = _batch_axes()
+        mesh = current_mesh()
+        if mesh is not None and batch_axes and axis_size(mesh, batch_axes) > 1:
+            return _moe_global_order(params, spec, x, mesh, batch_axes)
+        cap = moe_capacity(spec, t)
+        xt = x.reshape(t, d)
+        probs = _router_probs(params, xt)
+        y = _moe_dispatch_compute(
+            spec, xt, probs, cast(params.expert_gate, dt), cast(params.expert_up, dt),
+            cast(params.expert_down, dt), e, 0, cap)
+        return y.reshape(b, s, d)
+
+    expert_axes, fsdp_axes = axes
+    mesh = _sharded_mesh()
+    e_local = e // axis_size(mesh, expert_axes)
+    f_ff = params.expert_down.shape[-2]
+    batch_axes = _batch_axes()
+    t_global = t * (axis_size(mesh, batch_axes) if batch_axes else 1)
+    # the reference's mode choice: gathering weights moves ~3·E_l·D·F bytes a
+    # shard, keeping them stationary ~tokens·k·(D+F)
+    stationary = bool(fsdp_axes) and t_global * k < 3 * e_local * f_ff
+    if stationary:
+        return _moe_local_stationary(params, spec, x, mesh, expert_axes, fsdp_axes,
+                                     batch_axes)
+    return _moe_local_gather(params, spec, x, mesh, expert_axes)
+
+
+def _expert_slices(params: MoE, base: int, e_local: int, dt: torch.dtype):
+    return (cast(params.expert_gate[base:base + e_local], dt),
+            cast(params.expert_up[base:base + e_local], dt),
+            cast(params.expert_down[base:base + e_local], dt))
+
+
+def _moe_local_gather(params: MoE, spec: MoESpec, x: torch.Tensor, mesh,
+                      expert_axes: tuple[str, ...]) -> torch.Tensor:
+    """The reference's ``local_gather``: this rank runs
+    ``_moe_dispatch_compute`` on its own tokens (``cap`` from them) for its
+    expert range ``[shard·e_local, (shard+1)·e_local)``, and the partial
+    outputs are summed over the expert group.  The tokens and the router
+    enter that group alike on every rank (their gradient the group's sum);
+    the sum's gradient is handed to each rank once."""
+    bl, sl, d = x.shape
+    tl = bl * sl
+    dt = x.dtype
+    e_local = spec.n_experts // axis_size(mesh, expert_axes)
+    group = axis_group(mesh, expert_axes)
+    base = axis_index(mesh, expert_axes) * e_local
+    xt = C.enter_partial(x.reshape(tl, d), group)
+    probs = _router_probs(params, xt, C.enter_partial(params.router, group))
+    wg, wu, wd = _expert_slices(params, base, e_local, dt)
+    y = _moe_dispatch_compute(spec, xt, probs, wg, wu, wd, e_local, base,
+                              moe_capacity(spec, tl))
+    return C.sum_replicated(y, group).reshape(bl, sl, d)
+
+
+def _moe_local_stationary(params: MoE, spec: MoESpec, x: torch.Tensor, mesh,
+                          expert_axes: tuple[str, ...], fsdp_axes: tuple[str, ...],
+                          batch_axes: tuple[str, ...]) -> torch.Tensor:
+    """The reference's ``local_stationary`` (decode-sized): the tokens are
+    gathered over the batch axes; this rank dispatches its ``d / n_fsdp``
+    slice of each token to its experts, the partial gate and up products
+    (separate products: the sum over the FSDP group comes before the SiLU)
+    are summed over the FSDP group, the down product gives its d-slice of
+    the output, the expert group sums those, the FSDP group gathers the
+    d-slices, and the rank takes its batch rows back."""
+    bl, sl, d = x.shape
+    dt = x.dtype
+    e_local = spec.n_experts // axis_size(mesh, expert_axes)
+    n_fsdp = axis_size(mesh, fsdp_axes)
+    egroup = axis_group(mesh, expert_axes)
+    fgroup = axis_group(mesh, fsdp_axes)
+    xe = C.enter_partial(x, egroup)
+    xg = C.gather_partial(xe, axis_group(mesh, batch_axes), 0) if batch_axes else xe
+    tg = xg.shape[0] * sl
+    cap = moe_capacity(spec, tg)
+    xt = xg.reshape(tg, d)
+    probs = _router_probs(params, xt, C.enter_partial(params.router, egroup))
+    base = axis_index(mesh, expert_axes) * e_local
+    d_slice = d // n_fsdp
+    d0 = axis_index(mesh, fsdp_axes) * d_slice
+    r = moe_route(spec, probs, e_local, base, cap)
+    xs = xt[:, d0:d0 + d_slice]
+    buf = xs.new_zeros((e_local * cap + 1, d_slice))
+    buf = buf.index_copy(0, r.dest, xs.index_select(0, r.st))[:-1].view(e_local, cap, d_slice)
+    wg, wu, wd = _expert_slices(params, base, e_local, dt)
+    h = torch.bmm(buf, wg[:, d0:d0 + d_slice])
+    hu = torch.bmm(buf, wu[:, d0:d0 + d_slice])
+    h = C.sum_partial(torch.stack([h, hu]), fgroup)
+    h = F.silu(h[0]) * h[1]
+    out = torch.bmm(h, wd[:, :, d0:d0 + d_slice]).reshape(e_local * cap, d_slice)
+    y = C.sum_replicated(moe_combine(out, r, tg), egroup)  # (tg, d_slice)
+    y = C.gather_partial(y, fgroup, 1) if n_fsdp > 1 else y  # (tg, D)
+    tl = bl * sl
+    row0 = axis_index(mesh, batch_axes) * tl if batch_axes else 0
+    return y[row0:row0 + tl].reshape(bl, sl, d)
+
+
+def _moe_global_order(params: MoE, spec: MoESpec, x: torch.Tensor, mesh,
+                      batch_axes: tuple[str, ...]) -> torch.Tensor:
+    """The single-device branch over a batch split on several ranks, as
+    the reference runs it under GSPMD on the global batch: the capacity of
+    the global token count, and each slot's rank in its expert counted over
+    the global token order (batch-rank-major) — each rank's count of slots
+    an expert all-gathered over the batch group, the lower ranks' sums the
+    offsets of this rank's slots.  Only this rank's slots are dispatched."""
+    b, s, d = x.shape
+    dt = x.dtype
+    t = b * s
+    e, k = spec.n_experts, spec.top_k
+    group = axis_group(mesh, batch_axes)
+    n = axis_size(mesh, batch_axes)
+    cap = moe_capacity(spec, t * n)
     xt = x.reshape(t, d)
-    probs = torch.softmax(linear(xt, params.router).float(), dim=-1)
+    probs = _router_probs(params, xt)
+    with torch.no_grad():
+        idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+        mine = torch.bincount(idx.reshape(-1), minlength=e)
+        counts = C.all_gather(mine[None], group, 0)  # (n, E)
+        rank_offset = counts[:axis_index(mesh, batch_axes)].sum(dim=0)
     y = _moe_dispatch_compute(
         spec, xt, probs, cast(params.expert_gate, dt), cast(params.expert_up, dt),
-        cast(params.expert_down, dt), spec.n_experts, 0, cap)
+        cast(params.expert_down, dt), e, 0, cap, rank_offset)
     return y.reshape(b, s, d)
 
 
 def moe_aux_loss(params: MoE, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
-    """Switch-style load-balancing loss (mean over tokens), float32."""
+    """Switch-style load-balancing loss (mean over tokens), float32.  Under a
+    mesh's rules with more than one batch rank, the mean is over the global
+    batch, as the reference's under GSPMD: the top-1 counts, the summed
+    probabilities (its gradient summed too) and the token count are
+    all-reduced over the batch group."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    probs = torch.softmax(linear(xt, params.router).float(), dim=-1)
+    probs = _router_probs(params, xt)
     top1 = torch.argmax(probs, dim=-1)
-    frac = F.one_hot(top1, spec.n_experts).float().mean(dim=0)
-    imp = probs.mean(dim=0)
+    mesh, batch_axes = current_mesh(), _batch_axes()
+    if mesh is None or not batch_axes or axis_size(mesh, batch_axes) == 1:
+        frac = F.one_hot(top1, spec.n_experts).float().mean(dim=0)
+        imp = probs.mean(dim=0)
+        return spec.n_experts * torch.sum(frac * imp)
+    group = axis_group(mesh, batch_axes)
+    tokens = b * s * axis_size(mesh, batch_axes)
+    frac = C.all_reduce(F.one_hot(top1, spec.n_experts).float().sum(dim=0), group) / tokens
+    imp = C.sum_partial(probs.sum(dim=0), group) / tokens
     return spec.n_experts * torch.sum(frac * imp)
 
 

@@ -27,7 +27,8 @@ recurrent layer's is its state (``conv`` and ``ssm`` or ``h``), written in
 place by a decode step as the KV caches are.  Attention takes M-RoPE
 (``cfg.mrope``).  The encoder-decoder family is ``encdec.EncDecLM``.
 The default device is the card; without one the constructor raises unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"`` (or ``"meta"``, the dry run: nothing is
+allocated or computed).
 
 Training holds master weights in ``cfg.param_dtype`` (``param_dtype=
 cfg.param_dtype`` at construction; serving keeps compute-dtype weights) and
@@ -51,7 +52,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import resolve_model_device
 
 from . import layers as L
 
@@ -127,11 +128,11 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) with float32 products, sums and result from operands
     in the compute dtype — the reference's ``preferred_element_type=
     float32``.  bf16 operands on the card go to cuBLAS with a float32
-    output (``torch.mm(..., out_dtype=float32)``); on the CPU they are
-    widened first (exact)."""
+    output (``torch.mm(..., out_dtype=float32)``, also on ``meta``); on the
+    CPU they are widened first (exact)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
-    if a.device.type == "cuda":
+    if a.device.type in L.KERNEL_DEVICES:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
@@ -294,7 +295,7 @@ class DecoderLM(nn.Module):
                              "build it with build_model, which gives an EncDecLM")
         check_config(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_model_device(device)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         weight_dtype = getattr(torch, param_dtype) if param_dtype else self.compute_dtype
         v, d = cfg.padded_vocab, cfg.d_model

@@ -108,11 +108,13 @@ def _update_leaf(p, g, mu, nu, scale, lr, c1, c2, cfg: AdamWConfig) -> None:
 
 
 @torch.no_grad()
-def _step_scalars(grads, step, cfg: AdamWConfig) -> tuple:
+def _step_scalars(grads, step, cfg: AdamWConfig, gnorm=None) -> tuple:
     """``(step + 1, grad_norm, clip scale, lr, c1, c2)`` of an update from
-    the whole gradient tree and the step count before it."""
+    the whole gradient tree (or its norm ``gnorm``, where given) and the
+    step count before it."""
     step = step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     c1 = 1 - cfg.beta1 ** step.to(torch.float32)

@@ -24,10 +24,16 @@ step
    the state's tensors.
 
 Ranks along ``model`` compute their data shard whole: tensor-parallel
-products are not part of the port.  A config with MoE layers is refused
-once there is more than one data rank: the MoE block's capacity and
-auxiliary loss are taken over the whole microbatch, which would then span
-ranks.
+products are not part of the port.  The loss runs under the mesh's axis
+rules (``partitioning.mesh_axis_rules``), so an MoE layer takes the
+reference's sharded forms (``models.layers.moe_block``): its experts split
+over ``model``, its capacity and auxiliary loss over the global
+microbatch.  The mesh is ``(data, model)`` or the multi-pod ``(pod, data,
+model)``, whose batch goes over ``(pod, data)`` as ``MULTI_POD_RULES``
+says: "the data ranks" are then both axes' ranks.  Every collective is
+reported to an active roofline count (``roofline.analysis``): the
+all-gathers of ``full_tensor()`` and of the redistribution, the data
+group's all-reduces.
 """
 
 from __future__ import annotations
@@ -35,22 +41,28 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.distributed.collectives import tree_psum_compressed
+from repro_torch.distributed.collectives import all_reduce, tree_psum_compressed
 from repro_torch.distributed.partitioning import (
     NamedSharding,
     PartitionSpec,
+    axis_group,
+    axis_index,
+    axis_size,
     distribute,
     from_local,
     local_view,
     mesh_axis_rules,
+    rules_for_mesh,
 )
+from repro_torch.roofline.analysis import record_collective
 
+from . import optimizer
 from .optimizer import AdamWConfig, _step_scalars, _update_leaf
 from .step import loss_and_grads, microbatches, train_state_specs
 
-MESH_AXES = ("data", "model")
+MESH_AXES = (("data", "model"), ("pod", "data", "model"))
 
 
 def train_state_shardings(mesh, params) -> dict:
@@ -74,6 +86,23 @@ def _place(tree, shardings):
     return distribute(tree, shardings)
 
 
+def _is_expert(name: str) -> bool:
+    """An MoE layer's expert tensor (``layers.{i}.moe.expert_*``)."""
+    return ".moe.expert_" in name
+
+
+def _gather(mesh, place, to, local_bytes: int) -> None:
+    """Report the all-gather that takes a tensor from placements ``place`` to
+    ``to`` (``Shard`` to ``Replicate`` on some mesh dimensions), whose
+    output on this rank is ``local_bytes``, over those dimensions' ranks."""
+    n = 1
+    for m, (a, b) in enumerate(zip(place, to)):
+        if isinstance(a, Shard) and isinstance(b, Replicate):
+            n *= mesh.size(m)
+    if n > 1:
+        record_collective("all-gather", local_bytes, n)
+
+
 def shard_train_state(state: dict, mesh) -> dict:
     """``state`` (``step.init_train_state``'s, whole on every rank) placed
     on ``mesh`` by :func:`train_state_shardings`; each rank keeps its slice
@@ -89,39 +118,59 @@ def make_sharded_train_step(
     grad_dtype: str | None = None,  # "bfloat16" => compressed DP all-reduce
 ) -> Callable:
     """``(state, batch) -> (state, metrics)`` over ``mesh``, a ``(data,
-    model)`` ``DeviceMesh`` (by default ``launch.mesh.host_device_mesh()``:
-    the process group's world on the card).  ``state`` is
-    :func:`shard_train_state`'s, updated in place; every rank passes the
-    same global ``batch``."""
+    model)`` or ``(pod, data, model)`` ``DeviceMesh`` (by default
+    ``launch.mesh.host_device_mesh()``: the process group's world on the
+    card).  ``state`` is :func:`shard_train_state`'s, updated in place;
+    every rank passes the same global ``batch``.  A model on ``meta`` (the
+    dry run) takes a mesh of any device type."""
     if mesh is None:
         from repro_torch.launch.mesh import host_device_mesh
 
         mesh = host_device_mesh()
-    if tuple(mesh.mesh_dim_names) != MESH_AXES:
-        raise ValueError(f"the sharded step takes a {MESH_AXES} mesh, "
+    if tuple(mesh.mesh_dim_names) not in MESH_AXES:
+        raise ValueError(f"the sharded step takes a mesh of axes {' or '.join(map(str, MESH_AXES))}, "
                          f"not {mesh.mesh_dim_names}")
-    if model.device.type != mesh.device_type:
+    if model.device.type not in (mesh.device_type, "meta"):
         raise ValueError(f"model on {model.device}, mesh on {mesh.device_type}")
-    n_data = mesh.size(0)
-    if n_data > 1 and model.cfg.n_experts:
-        raise ValueError(f"{model.cfg.name} has MoE layers, whose capacity and aux loss "
-                         "span the data ranks: their data-sharded forms are ROADMAP item "
-                         "8.12(b); use one data rank")
+    batch_axes = rules_for_mesh(mesh)["batch"]
+    n_data = axis_size(mesh, batch_axes)
     mode = "bf16" if grad_dtype == "bfloat16" else "none"
-    group = mesh.get_group("data")
-    rank = mesh.get_local_rank("data")
+    group = axis_group(mesh, batch_axes)
+    rank = axis_index(mesh, batch_axes)
+
+    expert_axes = rules_for_mesh(mesh)["expert"]
+    n_expert = axis_size(mesh, expert_axes) if model.cfg.n_experts else 1
+    e_local = model.cfg.n_experts // n_expert if n_expert > 1 else 0
+
+    def global_norm(grads: dict) -> torch.Tensor:
+        """The whole gradient's norm.  Under the MoE block's expert-parallel
+        forms (more than one expert rank) each rank holds the gradients of
+        its own experts only: their squares are summed over the expert
+        group, the rest (alike on every rank) added once."""
+        if n_expert == 1:
+            return optimizer.global_norm(grads)
+        shard = axis_index(mesh, expert_axes) * e_local
+        sq = [torch.linalg.vector_norm(g[shard:shard + e_local] if _is_expert(k) else g,
+                                       dtype=torch.float32) ** 2 for k, g in grads.items()]
+        mine = torch.stack([q for (k, _), q in zip(grads.items(), sq) if _is_expert(k)]).sum()
+        rest = torch.stack([q for (k, _), q in zip(grads.items(), sq) if not _is_expert(k)])
+        return torch.sqrt(rest.sum() + all_reduce(mine, axis_group(mesh, expert_axes)))
 
     def mean_over_data(x: torch.Tensor) -> torch.Tensor:
-        x = x.clone()
-        dist.all_reduce(x, group=group)
+        x = all_reduce(x.clone(), group)
         return x / n_data if n_data > 1 else x
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params, opt = state["params"], state["opt"]
         with torch.no_grad():
-            full = {k: p.full_tensor().detach() for k, p in params.items()}
-        loss, metrics, grads = loss_and_grads(
-            model, full, microbatches(batch, grad_accum, n_data, rank))
+            full = {}
+            for k, p in params.items():
+                full[k] = p.full_tensor().detach()
+                _gather(mesh, p.placements, (Replicate(),) * mesh.ndim,
+                        full[k].numel() * full[k].element_size())
+        with mesh_axis_rules(mesh):
+            loss, metrics, grads = loss_and_grads(
+                model, full, microbatches(batch, grad_accum, n_data, rank))
         for t in full.values():
             t.requires_grad_(False)
         grads, _ = tree_psum_compressed(grads, None, group, mode)
@@ -133,15 +182,18 @@ def make_sharded_train_step(
         metrics = {k: mean_over_data(v) for k, v in {"loss": loss, **metrics}.items()}
         with torch.no_grad():
             count = opt["step"].to_local()
-            step, gnorm, scale, lr, c1, c2 = _step_scalars(grads, count, opt_cfg)
+            step, gnorm, scale, lr, c1, c2 = _step_scalars(grads, count, opt_cfg,
+                                                           global_norm(grads))
             for k, p in params.items():
                 mu, nu = opt["mu"][k], opt["nu"][k]
                 place = mu.placements
                 part = local_view(full.pop(k), mesh, place)
                 _update_leaf(part, local_view(grads.pop(k), mesh, place), mu.to_local(),
                              nu.to_local(), scale, lr, c1, c2, opt_cfg)
-                p.to_local().copy_(from_local(part.contiguous(), mesh, place, p.shape)
-                                   .redistribute(mesh, p.placements).to_local())
+                local = p.to_local()
+                local.copy_(from_local(part.contiguous(), mesh, place, p.shape)
+                            .redistribute(mesh, p.placements).to_local())
+                _gather(mesh, place, p.placements, local.numel() * local.element_size())
             count.copy_(step)
         return state, {**metrics, "grad_norm": gnorm, "lr": lr}
 

@@ -8,6 +8,13 @@
   serving launcher) raises, and ``chip_smoke.py``
   exits non-zero without printing a result (also when it stands alone in a
   directory).  Those checks skip where a card is present.
+
+``launch.mesh.make_production_mesh`` and the dry run (``launch.dryrun``)
+run on ``meta`` tensors in a fake process group by design: they count a
+step's operations and allocate and compute nothing, as the reference's dry
+run lowers its step for placeholder host devices.  A model on ``meta``
+(``device="meta"``) is the one device besides the card and the CPU that a
+caller may name; nothing falls back to it.
 """
 
 import pkgutil
@@ -47,7 +54,10 @@ def test_port_modules_load_no_jax_and_no_reference_package():
             "repro_torch.train.trainer", "repro_torch.launch.train",
             "repro_torch.distributed", "repro_torch.distributed.partitioning",
             "repro_torch.distributed.collectives", "repro_torch.distributed.pipeline",
-            "repro_torch.launch.mesh", "repro_torch.train.sharded"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.train.sharded",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+            "repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.report"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -127,13 +137,14 @@ def test_lm_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("entry", ["RecordStore", "train_model", "launcher", "make_mesh",
-                                   "host_device_mesh", "make_sharded_train_step"])
+                                   "host_device_mesh", "make_sharded_train_step",
+                                   "make_sharded_train_step_moe"])
 def test_train_entry_points_default_to_the_card(entry):
     """The training path's entry points resolve their device as the engine
     does: the record store (its engine), a model built with master weights,
     the training launcher, the mesh builders and the sharded step (its mesh,
-    by default ``host_device_mesh()``) raise without a card unless asked
-    for the CPU."""
+    by default ``host_device_mesh()``; on a dense and on an MoE config) raise
+    without a card unless asked for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs import get_smoke_config
@@ -145,6 +156,7 @@ def test_train_entry_points_default_to_the_card(entry):
     from repro_torch.train.sharded import make_sharded_train_step
 
     cfg = get_smoke_config("qwen3-8b")
+    moe = get_smoke_config("qwen3-moe-235b-a22b")
     calls = {
         "RecordStore": lambda: RecordStore(seq_len=8),
         "train_model": lambda: build_model(cfg, param_dtype=cfg.param_dtype),
@@ -153,6 +165,8 @@ def test_train_entry_points_default_to_the_card(entry):
         "host_device_mesh": lambda: host_device_mesh(),
         "make_sharded_train_step": lambda: make_sharded_train_step(
             build_model(cfg, device="cpu", param_dtype=cfg.param_dtype), AdamWConfig()),
+        "make_sharded_train_step_moe": lambda: make_sharded_train_step(
+            build_model(moe, device="cpu", param_dtype=moe.param_dtype), AdamWConfig()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

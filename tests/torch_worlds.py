@@ -147,8 +147,9 @@ SHARDED_CASES = (("2x2", (2, 2), 1, None), ("4x1", (4, 1), 1, None), ("1x4", (1,
 def sharded_train_world(rank: int, world: int, root: str, opt_kw: dict) -> dict:
     """The sharded step on the qwen3-8b smoke (float32) at each of
     ``SHARDED_CASES`` from the state and batch the parent saved, the local
-    shapes, a checkpoint at (2, 2) restored at (4, 1), the refusals, GPipe,
-    and the launcher at ``--model-axis 2`` with a restart."""
+    shapes, a checkpoint at (2, 2) restored at (4, 1), the refusal, GPipe,
+    and the launcher at ``--model-axis 2`` with a restart, and on the MoE
+    smoke for one step."""
     import contextlib
     import dataclasses
     import io
@@ -213,14 +214,6 @@ def sharded_train_world(rank: int, world: int, root: str, opt_kw: dict) -> dict:
         host_device_mesh(3, "cpu")
     except ValueError as e:
         refusals["model_axis"] = str(e)
-    moe_cfg = get_smoke_config("qwen3-moe-235b-a22b")
-    moe = build_model(moe_cfg, device="cpu", seed=0, param_dtype="float32")
-    try:
-        make_sharded_train_step(moe, opt, make_mesh((2, 2), ("data", "model"), "cpu"))
-    except ValueError as e:
-        refusals["moe"] = str(e)
-    make_sharded_train_step(moe, opt, make_mesh((1, 4), ("data", "model"), "cpu"))
-    refusals["moe_one_data_rank"] = "accepted"
     out["refusals"] = refusals
 
     # GPipe: 4 stages, 8 microbatches, beside the sequential stack
@@ -243,11 +236,200 @@ def sharded_train_world(rank: int, world: int, root: str, opt_kw: dict) -> dict:
     with contextlib.redirect_stdout(text):
         first = launcher.main(args + ["--steps", "3"])
         second = launcher.main(args + ["--steps", "5"])
-    try:
-        launcher.main(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu",
-                       "--model-axis", "2", "--batch", "4", "--seq", "32", "--samples", "32",
-                       "--ckpt-dir", os.path.join(root, "launch_moe")])
-    except ValueError as e:
-        refusals["launcher_moe"] = str(e)
-    out["launcher"] = {"first": first, "second": second, "stdout": text.getvalue()}
+    with contextlib.redirect_stdout(io.StringIO()):
+        moe_run = launcher.main(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu",
+                                 "--model-axis", "2", "--batch", "4", "--seq", "32",
+                                 "--samples", "32", "--steps", "1",
+                                 "--ckpt-dir", os.path.join(root, "launch_moe")])
+    out["launcher"] = {"first": first, "second": second, "stdout": text.getvalue(),
+                       "moe": moe_run}
     return out
+
+
+# -------------------------------------------------------------- decode-SP
+SP_MESHES = ((2, 2), (1, 4))
+
+
+def _changed_slots(before: torch.Tensor, after: torch.Tensor) -> list[int]:
+    return (after != before).any(dim=3).any(dim=1).any(dim=0).nonzero().flatten().tolist()
+
+
+def decode_sp_world(rank: int, world: int, root: str, meshes=SP_MESHES) -> dict:
+    """Each case of ``sp_inputs.pt`` (a float32 smoke, its weights, a prompt
+    and the tokens of its decode steps) prefilled whole, then decoded
+    through decode-SP at each of ``meshes``: every rank's logits for its
+    batch rows and, a step and a layer, the slots of its cache chunk the
+    step wrote; at a mesh of one rank also the one-device decode's logits
+    (``"one_device"``), in the same process."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.partitioning import local_slices, mesh_axis_rules
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    saved = torch.load(os.path.join(root, "sp_inputs.pt"))
+    out = {}
+    for case in saved:
+        cfg = dataclasses.replace(get_smoke_config(case["arch"]), compute_dtype="float32")
+        model = build_model(cfg, device="cpu", seed=None)
+        model.load_state_dict(case["state"])
+        _, cache = model.prefill({"tokens": case["tokens"]}, case["max_len"])
+        for shape in meshes:
+            mesh = make_mesh(shape, ("data", "model"), "cpu")
+            part = S.shard_cache(mesh, [{k: v.clone() for k, v in c.items()} for c in cache])
+            plain = [{k: v.clone() for k, v in c.items()} for c in cache]
+            logits, writes, one_device = [], [], []
+            for i, tok in enumerate(case["steps"]):
+                rows = S.shard_inputs(mesh, {"tokens": tok})["tokens"]
+                before = [c["k"].to_local().clone() for c in part]
+                with mesh_axis_rules(mesh):
+                    lg, _ = model.decode_step(part, rows, torch.tensor(case["pos"] + i))
+                logits.append(lg)
+                writes.append([_changed_slots(b, c["k"].to_local()) for b, c in zip(before, part)])
+                if mesh.size() == 1:
+                    one_device.append(model.decode_step(plain, tok, case["pos"] + i)[0])
+            sl = local_slices(tuple(case["steps"][0].shape), mesh,
+                              S.batch_shardings(mesh, case["steps"][0]).placements)[0]
+            out[case["name"], shape] = {
+                "one_device": torch.stack(one_device) if one_device else None,
+                "logits": torch.stack(logits), "rows": (sl.start, sl.stop),
+                "writes": writes, "coord": tuple(mesh.get_coordinate()),
+                "chunks": [c["k"].to_local().shape[2] for c in part],
+                "slots": [c["k"].shape[2] for c in part]}
+    return out
+
+
+# ---------------------------------------------------------------- MoE EP
+MOE_BLOCK_CASES = (("gather", (2, 2)), ("stationary", (2, 2)), ("gather", (4, 1)))
+# (name, mesh, batch, capacity factor): at NO_DROP every slot is kept, so
+# the sharded forms compute the one-device block's function exactly; at
+# the config's own capacity (None) slots drop — the "_lean" batches draw
+# each data half's rows from 3 tokens of its own —, local_gather's by each
+# data rank's own tokens
+MOE_NO_DROP = 8.0
+MOE_TRAIN_CASES = (("2x2_gather", (2, 2), "big", MOE_NO_DROP),
+                   ("2x2_stationary", (2, 2), "small", MOE_NO_DROP),
+                   ("4x1", (4, 1), "big", None),
+                   ("4x1_lean", (4, 1), "big_lean", None),
+                   ("2x2_gather_cap", (2, 2), "big_lean", None),
+                   ("2x2_stationary_cap", (2, 2), "small_lean", None))
+
+
+def _forms():
+    """Wrap the MoE block's sharded forms so a run records which it took."""
+    from repro_torch.models import layers as L
+
+    taken = []
+    for name in ("_moe_local_gather", "_moe_local_stationary", "_moe_global_order"):
+        fn = getattr(L, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            taken.append(_name)
+            return _fn(*a, **kw)
+
+        setattr(L, name, wrapped)
+    return taken
+
+
+def moe_parallel_world(rank: int, world: int, root: str, opt_kw: dict) -> dict:
+    """The MoE block's sharded forms and the MoE smoke's sharded train step
+    (float32) from ``moe_inputs.pt``: for each of ``MOE_BLOCK_CASES`` the
+    block's output on this rank's rows and which form ran, the aux loss, and
+    at ``MOE_NO_DROP`` the gradients of ``sum(y · w)`` as the sharded step
+    reduces them (the data ranks' sum; the router's also summed over the
+    expert group by the form); on the "_lean" tokens, where slots drop at
+    the config's capacity, the output, the form and those gradients; for
+    each of ``MOE_TRAIN_CASES`` one sharded step's metrics, forms and full
+    state."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.partitioning import axis_group, axis_index, mesh_axis_rules
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.sharded import make_sharded_train_step, shard_train_state
+
+    saved = torch.load(os.path.join(root, "moe_inputs.pt"))
+    taken = _forms()
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"), compute_dtype="float32")
+    out: dict = {"block": {}, "train": {}}
+    for tokens, shape in MOE_BLOCK_CASES:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        n_rows = saved["x"][tokens].shape[0]
+        got = {}
+        for run, inputs, cf in (("cap", tokens, cfg.capacity_factor),
+                                ("no_drop", tokens, MOE_NO_DROP),
+                                ("lean", tokens + "_lean", cfg.capacity_factor)):
+            x = S.shard_inputs(mesh, {"x": saved["x"][inputs]})["x"]
+            w = S.shard_inputs(mesh, {"w": saved["w"][inputs]})["w"]
+            got["rows"] = axis_index(mesh, "data") if x.shape[0] < n_rows else None
+            spec = L.MoESpec(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, cf)
+            moe = L.MoE(spec, torch.float32)
+            moe.load_state_dict(saved["moe"])
+            params = dict(moe.named_parameters())
+            for p in params.values():
+                p.requires_grad_(True)
+            xg = x.clone().requires_grad_(True)
+            del taken[:]
+            with mesh_axis_rules(mesh):
+                y = L.moe_block(moe, spec, xg)
+                aux = L.moe_aux_loss(moe, spec, x)
+            (y * w).sum().backward()
+            grads = {k: p.grad.clone() for k, p in params.items()}
+            for g in grads.values():  # the data ranks' sum, as the sharded step's
+                dist.all_reduce(g, group=axis_group(mesh, "data"))
+            e_local = cfg.n_experts // mesh.size(1)
+            shard = axis_index(mesh, "model") * e_local
+            got["experts"] = (shard, shard + e_local)
+            if run == "cap":
+                got.update(y=y.detach(), form=list(taken), aux=float(aux.detach()))
+            elif run == "no_drop":
+                got.update(no_drop_form=list(taken), x_grad=xg.grad, grads=grads)
+            else:  # slots drop at the config's capacity
+                got.update(lean_y=y.detach(), lean_form=list(taken), lean_x_grad=xg.grad,
+                           lean_grads=grads)
+        out["block"][tokens, shape] = got
+
+    opt = AdamWConfig(**opt_kw)
+    for name, shape, which, cf in MOE_TRAIN_CASES:
+        mcfg = cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+        model = build_model(mcfg, device="cpu", seed=None, param_dtype="float32")
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        state = shard_train_state(_clone(saved["state"]), mesh)
+        del taken[:]
+        state, metrics = make_sharded_train_step(model, opt, mesh)(state, saved["batches"][which])
+        full = _gathered(state)  # a collective: every rank calls it
+        out["train"][name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                              "forms": sorted(set(taken)),
+                              "state": full if rank == 0 else None}
+    return out
+
+
+# ------------------------------------------------------------- roofline
+def roofline_world(rank: int, world: int) -> dict:
+    """Wire bytes the port's own collectives report in a gloo world of 4:
+    an all-reduce of 1,024 float32 (4,096 bytes), and GPipe over 4 stages
+    and 2 microbatches of 256 bf16 each (one stage's sends and the final
+    broadcast)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline.analysis import count_step
+
+    x = torch.ones(1024)
+    _, ar = count_step(C.all_reduce, x, dist.group.WORLD)
+    ws = torch.ones((4, 16, 16), dtype=torch.bfloat16)
+    xs = torch.ones((2, 16, 16), dtype=torch.bfloat16)
+    pp = pipeline_apply(lambda w, h: h @ w, make_mesh((4, 1), ("pod", "data"), "cpu"),
+                        n_microbatches=2, axis="pod")
+    _, cp = count_step(pp, ws, xs)
+    return {"all_reduce": ar, "pipeline": cp, "all_reduce_value": float(x[0])}
