@@ -6,8 +6,9 @@ int8; ``qwen3-moe-235b-a22b`` at full width, 12 of its 94 layers;
 ``mamba2-1.3b`` and ``recurrentgemma-9b`` at full width and depth;
 ``qwen2-vl-72b`` at full width, 32 of its 80 layers; ``seamless-m4t-medium``
 at full width and depth) and the training path (``qwen3-8b`` at full
-width, 8 of its 36 layers, from a record store on the card) on one NVIDIA
-GPU, also through the sharding layer (an NCCL world of one).
+width, 8 of its 36 layers, and ``recurrentgemma-9b`` at full width, 3 of
+its 38, from a record store on the card) on one NVIDIA GPU, also through
+the sharding layer (an NCCL world of one).
 
     python3 chip_smoke.py [--rows N] [--build-rows M] [--seed S] [--reps R]
 
@@ -23,8 +24,8 @@ probe rows matching — all made from ``--seed``:
 1. prints the card (``nvidia-smi`` name and power limit, torch and CUDA);
 2. times the kernel build (one ``nvcc`` a source, all at once) and prints
    the ``-Xptxas -v`` reports of ``rm_flash.cu``, ``rm_flash_bwd.cu``,
-   ``rm_join.cu``, ``rm_scan.cu``, ``rm_w8.cu``, ``rm_moe.cu`` and
-   ``rm_rglru.cu``: each
+   ``rm_project.cu``, ``rm_spans.cu``, ``rm_join.cu``, ``rm_scan.cu``,
+   ``rm_w8.cu``, ``rm_moe.cu`` and ``rm_rglru.cu``: each
    kernel's registers, shared memory and spills;
 3. at 5,000 rows, for each revision (``bsl``, ``pck``, ``mlp``), runs the
    engine batch and the tick script below on a card engine and server and a
@@ -231,11 +232,12 @@ probe rows matching — all made from ``--seed``:
       time (``wide_projection`` lines);
    b. the flash gradient (``FlashAttention``: the forward kernel with the
       row lse stored, then one launch of the backward kernel,
-      ``rm_flash_bwd.cu``) in both its forms: the tensor cores at a
+      ``rm_flash_bwd.cu``) in all its forms: the tensor cores at a
       qwen3-8b training layer (B 2, S 2,048, 32 / 8 heads, D 128, bf16),
-      causal, with a window of 1,024 and bidirectional; the CUDA cores at
-      recurrentgemma-9b's local attention (16 / 1 heads, D 256, bf16) and
-      in float32 at ``train_reference``'s two smokes: the output within
+      causal, with a window of 1,024 and bidirectional, and at D 256
+      (a warpgroup each for dK and dV) at recurrentgemma-9b's local
+      attention (16 / 1 heads, bf16); the CUDA cores in float32 at
+      ``train_reference``'s two smokes: the output within
       ``FLASH_TOL``; in bf16 dq, dk and dv no further from the float32
       gradients than ``FLASH_GRAD_BF16_FACTOR`` times the plain bf16
       recompute, within ``FLASH_GRAD_BF16_TOL`` of it and within
@@ -260,8 +262,8 @@ probe rows matching — all made from ``--seed``:
       through ``TrainPipeline(batch_size=8)`` and ``make_train_step`` (4
       microbatches of 2 × 2,048): 1 warm-up and 3 timed steps, each loss
       and ``grad_norm`` finite, the projection kernel twice a batch, the
-      flash kernel twice a layer and microbatch (the forward and the
-      checkpointed group's recompute) and the backward kernel once,
+      flash kernel twice an attending layer and microbatch (the forward and
+      the checkpointed group's recompute) and the backward kernel once,
       tokens/s,
       ``train_mfu`` (model operations over the step time at 989 TFLOP/s),
       the update's ms, the peak (4 GiB of the card left), one profiled
@@ -285,6 +287,14 @@ probe rows matching — all made from ``--seed``:
    g. one float32 train step of the qwen3-8b and recurrentgemma-9b smokes
       card against CPU: losses within 1e-5, ``grad_norm`` within 1e-4
       relative (``train_reference``);
+   g2. ``recurrentgemma-9b`` at full width, one (rglru, rglru, local) unit
+      of its 38 layers (``train_rg_config`` with ``reduced``; 2,753,646,592
+      weights, 44.06 GB of float32 state), trained as d (the same store
+      size, batch, microbatches and steps), the vocabulary its own
+      256,000: losses finite, the flash kernel twice and its backward —
+      the tensor-core form at D 256 — once a local layer and microbatch,
+      the scan kernel's launches, step seconds, tokens/s, ``train_mfu``,
+      the peak, a profiled step's flash-backward device ms (``train_rg``);
    h. one more step of d under the roofline counter
       (``roofline.analysis.count_step``): counted FLOPs and bytes, the
       three terms at the H100's data-sheet figures, the lower bound beside
@@ -522,6 +532,12 @@ TRAIN_SAMPLES = 4096
 TRAIN_BATCH = 8
 TRAIN_STEPS = 3
 TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "decay_steps": 4}
+# train_rg: recurrentgemma-9b at full width, one (rglru, rglru, local) unit
+# of its 38 layers (2,753,646,592 weights, 44.06 GB of float32 state, as
+# qwen3-8b's 8 layers hold 44.61 GB), the same store size, batch and steps:
+# its local layer's gradient is the flash backward at D 256
+TRAIN_RG_ARCH = "recurrentgemma-9b"
+TRAIN_RG_LAYERS = 3
 # the wide projections of fault 3.2: record stores of TRAIN_SAMPLES samples
 # at these lengths (4,101- and 8,197-word rows), their (tokens, labels) view
 WIDE_SEQS = (2048, 4096)
@@ -532,8 +548,9 @@ WIDE_NARROW = 16  # packed words of the narrow view: the first 16 tokens
 WIDE_REPS = 50
 # the flash backward at a qwen3-8b training layer (B 2, S 2,048, 32 / 8
 # heads, D 128, bf16: the tensor-core form): causal, a window of 1,024 and
-# bidirectional; the CUDA-core form at recurrentgemma-9b's local attention
-# at a train S (16 / 1 heads, D 256, its window of 2,048, bf16) and in
+# bidirectional; the tensor-core form's D 256 (a warpgroup each for dK and
+# dV) at recurrentgemma-9b's local attention at a train S (16 / 1 heads,
+# its window of 2,048, bf16: what train_rg launches); the CUDA-core form in
 # float32 at train_reference's microbatches of the two smokes (2 × 128
 # tokens: qwen3-8b's 6 / 2 heads, D 16; recurrentgemma's 4 / 1, D 16, its
 # window of 32); the plain versions walk the keys in steps of
@@ -546,11 +563,12 @@ FLASH_BACKWARD_SHAPES = (
     ("flash_backward_f32", 2, 128, 6, 2, 16, True, None, "float32"),
     ("flash_backward_f32_window", 2, 128, 4, 1, 16, True, 32, "float32"))
 # the card tests' FLASH_GRAD_CASES (tests/test_torch_cuda.py), each in bf16
-# and float32, (B, S, H, KH, D, causal, window): both forms, GQA groups 4
-# and 16, ragged S, windows, bidirectional; the readings only, untimed
+# and float32, (B, S, H, KH, D, causal, window): every form, GQA groups 2,
+# 4, 8 and 16, ragged S, windows, bidirectional; the readings only, untimed
 FLASH_BACKWARD_CASES = ((2, 256, 8, 2, 64, True, None), (1, 200, 16, 1, 128, True, None),
                         (2, 256, 32, 8, 128, True, 100), (1, 192, 4, 1, 256, False, None),
-                        (1, 130, 64, 4, 128, False, 48))
+                        (1, 130, 64, 4, 128, False, 48), (2, 1024, 16, 1, 256, True, 700),
+                        (1, 333, 4, 2, 256, True, None), (2, 300, 8, 1, 256, False, 100))
 TRAIN_ATTN_CHUNK = 1024
 # the backward kernel's dq, dk and dv (errors as shares of each gradient's
 # largest magnitude).  bf16: the kernel rounds P and dS to bf16 before their
@@ -2752,9 +2770,10 @@ def flash_grad_case(torch, g, b: int, s: int, h: int, kh: int, d: int, causal: b
 
 
 def flash_backward_phase(torch, seed: int, reps: int) -> dict:
-    """``FlashAttention`` at ``FLASH_BACKWARD_SHAPES`` (the train layer's in
-    the tensor-core form, the CUDA-core form's in bf16 at D 256 and in
-    float32), each checked by :func:`flash_grad_case`, then
+    """``FlashAttention`` at ``FLASH_BACKWARD_SHAPES`` (the train layer's and
+    recurrentgemma-9b's local layer's, D 256, in the tensor-core forms, the
+    smokes' in float32 on the CUDA cores), each checked by
+    :func:`flash_grad_case`, then
     ``FLASH_BACKWARD_CASES`` in bf16 and float32 checked alike, untimed
     (``flash_backward_cases``: every case's readings and the largest of
     each by dtype).  Timed at each shape: the forward alone, forward +
@@ -2946,16 +2965,23 @@ def scan_backward_phase(torch, seed: int, reps: int) -> dict:
     return line
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend (``attn``, ``local``, ``moe``)."""
+    kinds = list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
+    return sum(kind in ("attn", "local", "moe") for kind in kinds)
+
+
 def train_model_flops(cfg, tokens: int, seq: int) -> float:
     """Model operations of a train step: 6 × the matmul weights (every
-    layer's projections and FFN, and ``lm_head``; the embedding is a gather)
-    × tokens, plus attention: 3 × 4·H·D a causal (query, key) pair a layer
-    (forward, and twice that backward)."""
-    d, hd, h, k = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    per_layer = d * hd * (h + 2 * k) + h * hd * d + 3 * d * cfg.d_ff
-    matmul = cfg.n_layers * per_layer + d * cfg.padded_vocab
-    pairs = seq * (seq + 1) // 2 * (tokens // seq)
-    return 6 * matmul * tokens + 3 * 4 * h * hd * pairs * cfg.n_layers
+    layer's projections, mixers and FFN, and ``lm_head``: the weights but
+    the embedding, a gather) × tokens, plus attention: 3 × 4·H·D a causal
+    (query, key) pair in the window, an attending layer (forward, and twice
+    that backward)."""
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    matmul = cfg.param_count() - cfg.padded_vocab * cfg.d_model
+    window = min(seq, cfg.window) if "local" in cfg.block_pattern else seq
+    pairs = sum(min(i + 1, window) for i in range(seq)) * (tokens // seq)
+    return 6 * matmul * tokens + 3 * 4 * h * hd * pairs * attention_layers(cfg)
 
 
 def profiled_train_step(torch, fn) -> dict:
@@ -2997,21 +3023,27 @@ def profiled_train_step(torch, fn) -> dict:
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernel_launches": sum(e.count for e in kernels), "device_ms_by_kind": by_kind,
+            "flash_backward_device_ms": sum(dev_us(e) for e in kernels
+                                            if "rm_flash_bwd" in e.key) / 1e3,
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
-def train_phase(torch, seed: int, smi: str | None = None) -> dict:
-    """The slice's main path: ``qwen3-8b`` at full width, ``TRAIN_LAYERS``
-    of its 36 layers (``reduced``), master weights, gradients and AdamW
-    moments in float32, trained from a record store on the card through
-    ``TrainPipeline`` and ``make_train_step`` (the config's ``grad_accum``
-    microbatches, ``AdamWConfig(**TRAIN_OPT)``): 1 warm-up and
-    ``TRAIN_STEPS`` timed steps, each loss and ``grad_norm`` finite, the
-    projection kernel twice a batch and the flash kernel twice a layer and
-    microbatch (the forward and the checkpointed group's recompute), the
-    update's time, the peak (``MOE_FREE_BYTES`` of the card left), then one
-    profiled step.  Counts are reset just before the steps.  Then one more
-    step under the roofline counter (:func:`roofline_phase`)."""
+def train_phase(torch, seed: int, smi: str | None = None, arch: str = TRAIN_ARCH,
+                layers: int = TRAIN_LAYERS, phase: str = "train") -> dict:
+    """The slice's main path: ``arch`` (``qwen3-8b``) at full width,
+    ``layers`` (``TRAIN_LAYERS``) of its layers (``reduced``), master
+    weights, gradients and AdamW moments in float32, trained from a record
+    store on the card through ``TrainPipeline`` and ``make_train_step``
+    (the config's ``grad_accum`` microbatches, ``AdamWConfig(**TRAIN_OPT)``):
+    1 warm-up and ``TRAIN_STEPS`` timed steps, each loss and ``grad_norm``
+    finite, the projection kernel twice a batch, the flash kernel twice an
+    attending layer and microbatch (the forward and the checkpointed
+    group's recompute) and its backward once, the update's time, the peak
+    (``MOE_FREE_BYTES`` of the card left), then one profiled step (its
+    flash backward's device ms).  Counts are reset just before the steps.
+    The ``train`` phase then takes one more step under the roofline counter
+    (:func:`roofline_phase`); ``train_rg`` (:data:`TRAIN_RG_ARCH`) also
+    prints the scan kernel's launches and the backward's form."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3022,10 +3054,10 @@ def train_phase(torch, seed: int, smi: str | None = None) -> dict:
     from repro_torch.train import step as train_step
     from repro_torch.train.step import init_train_state
 
-    full = get_config(TRAIN_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
-    emit({"phase": "train_config", "arch": full.name, "source": full.source,
-          "reduced": {"n_layers": [full.n_layers, TRAIN_LAYERS]},
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    emit({"phase": f"{phase}_config", "arch": full.name, "source": full.source,
+          "reduced": {"n_layers": [full.n_layers, layers]},
           "weights": cfg.param_count(), "full_weights": full.param_count(),
           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
           "state_bytes": 16 * cfg.param_count(), "grad_accum": cfg.grad_accum,
@@ -3077,17 +3109,19 @@ def train_phase(torch, seed: int, smi: str | None = None) -> dict:
         train_step.adamw_update = real_update
     free, total = torch.cuda.mem_get_info()
     micro = 1 + TRAIN_STEPS
+    attending = attention_layers(cfg)
     assert launches["project"] == 2 * micro, launches  # tokens and labels, as the reference
-    assert launches["flash_attention"] == 2 * cfg.n_layers * cfg.grad_accum * micro, launches
-    # one gradient a layer and microbatch, from the group's recompute
-    assert launches["flash_attention_backward"] == cfg.n_layers * cfg.grad_accum * micro, launches
+    assert launches["flash_attention"] == 2 * attending * cfg.grad_accum * micro, launches
+    # one gradient an attending layer and microbatch, from the group's recompute
+    assert launches["flash_attention_backward"] == attending * cfg.grad_accum * micro, launches
+    assert attending == cfg.n_layers or launches["rglru_scan"] > 0, launches
     assert total - peak >= MOE_FREE_BYTES, (peak, total)
     timed = [r["seconds"] for r in rows[1:]]
     step_s = statistics.median(timed)
     flops = train_model_flops(cfg, tokens, TRAIN_SEQ)
     prof = profiled_train_step(torch, lambda: step_fn(state, next(batches)))
-    line = {"phase": "train", "arch": cfg.name, "reduced": {"n_layers": [full.n_layers,
-                                                                         TRAIN_LAYERS]},
+    compute = getattr(torch, cfg.compute_dtype)
+    line = {"phase": phase, "arch": cfg.name, "reduced": {"n_layers": [full.n_layers, layers]},
             "steps": rows, "step_seconds": step_s, "step_seconds_runs": timed,
             "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
             "model_flops": flops, "step_bound_s": flops / hw().peak_flops,
@@ -3095,9 +3129,12 @@ def train_phase(torch, seed: int, smi: str | None = None) -> dict:
             "update_ms": update["ms"], "store_seconds": store_s, "init_seconds": init_s,
             "peak_memory": peak, "card_bytes": total, "free_after": total - peak,
             "launches": {k: v for k, v in launches.items() if v},
-            "flash_dout_copies": dout_copies, "profile": prof}
+            "launches_a_step": {k: v / micro for k, v in launches.items() if v},
+            "flash_backward_form": _cuda.flash_backward_form(compute, cfg.resolved_head_dim),
+            "flash_dout_copies": dout_copies, "profile": prof, "nvidia_smi": smi}
     emit(line)
-    roofline_phase(torch, step_fn, state, batches, cfg, step_s, smi)
+    if phase == "train":
+        roofline_phase(torch, step_fn, state, batches, cfg, step_s, smi)
     del state, model, store, batches, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -4476,6 +4513,8 @@ def main(argv=None) -> int:
           "library": str(_cuda.library_path().name),
           "flash_ptxas": _cuda.ptxas_report("rm_flash.cu"),
           "flash_bwd_ptxas": _cuda.ptxas_report("rm_flash_bwd.cu"),
+          "project_ptxas": _cuda.ptxas_report("rm_project.cu"),
+          "spans_ptxas": _cuda.ptxas_report("rm_spans.cu"),
           "join_ptxas": _cuda.ptxas_report("rm_join.cu"),
           "scan_ptxas": _cuda.ptxas_report("rm_scan.cu"),
           "w8_ptxas": _cuda.ptxas_report("rm_w8.cu"),
@@ -4549,6 +4588,10 @@ def main(argv=None) -> int:
     sharded_train = train_sharded_phase(torch, args.seed, train, device["nvidia_smi"])
     trainer_phase(torch, args.seed)
     train_reference_phase(torch, args.seed)
+    # recurrentgemma-9b's train line: its local layer's gradient is the
+    # flash backward at D 256, which nothing else on a main path launches
+    train_rg = train_phase(torch, args.seed, device["nvidia_smi"], TRAIN_RG_ARCH,
+                           TRAIN_RG_LAYERS, "train_rg")
     # the last modules: decode-SP, the MoE block's expert-parallel forms and
     # the dry run (the roofline's line comes from the train phase)
     decode_sp_phase(torch, args.seed, device["nvidia_smi"])
@@ -4571,8 +4614,10 @@ def main(argv=None) -> int:
                 "flash_attention_backward": train["launches"]["flash_attention_backward"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
-    for k in ("project", "flash_attention"):  # and the train path's
-        launches[k] += train["launches"][k]
+    for k in ("project", "flash_attention"):  # and the train paths'
+        launches[k] += train["launches"][k] + train_rg["launches"][k]
+    for k in ("flash_attention_backward", "rglru_scan"):
+        launches[k] += train_rg["launches"][k]
     for k in ("project", "flash_attention", "flash_attention_backward"):  # the sharded step's
         launches[k] += sharded_train["launches"][k]
     breaker = {k: sum(b.snapshot()[k] for b in breakers)

@@ -3,7 +3,9 @@
 //   rm_flash_bwd_prep_kernel          delta and the padded lse of every row
 //   rm_flash_bwd_dkdv_tc_kernel       (bfloat16, D <= 128)  dK and dV
 //   rm_flash_bwd_dq_tc_kernel         (bfloat16, D <= 128)  dQ
-//   rm_flash_bwd_simt_kernel<kKV>     (float32 at every D, bfloat16 at D 256)
+//   rm_flash_bwd_dkdv_wide_kernel     (bfloat16, D 256)     dK and dV
+//   rm_flash_bwd_dq_wide_kernel       (bfloat16, D 256)     dQ
+//   rm_flash_bwd_simt_kernel<kKV>     (float32)
 //
 // No Pallas kernel is replaced: repro/kernels/flash_attention.py has no
 // backward, and the reference's gradient is XLA's differentiation of the
@@ -29,12 +31,13 @@
 // forward's; at a qwen3-8b training layer (B 2, S 2,048, 32 / 8 heads,
 // D 128, causal) that is 1.72e11 operations, 0.174 ms at 989 TFLOP/s.
 //
-// Design: three launches on one stream, deterministic (no atomics), so two
-// calls on the same inputs give bit-equal gradients.
+// Design: three launches on one stream, deterministic (no atomics on
+// values), so two calls on the same inputs give bit-equal gradients.
 //   1. prep: one warp a row writes D_i and lse_i (times log2 e in the
-//      tensor-core form) into (B H, seq_pad) scratch, 0 and +inf on rows
+//      tensor-core forms) into (B H, seq_pad) scratch, 0 and +inf on rows
 //      past S: a row past S then has P = exp2(x - inf) = 0 whatever its
-//      logits, besides the explicit mask.
+//      logits, besides the explicit mask.  It also zeroes the D 256 form's
+//      per-key-tile counters.
 //   2. dK / dV: one block owns 128 keys of one (b, kv head): K and V come in
 //      once by TMA, then Q, dO, lse and D tiles of 64 queries stream through
 //      a two-stage ring for every query tile in range of every head of the
@@ -57,13 +60,37 @@
 // outside the causal or window range are skipped in both passes; the mask
 // is applied (to rows and keys) only on tiles that straddle a boundary.
 //
-// float32, and bfloat16 at D 256 (two 64 x 256 float32 accumulators do not
-// fit a warpgroup's registers): the same two passes on the CUDA cores,
-// templated on the element type and the pass.  A block stages 64 stationary
-// rows (32 at D 256) of Q and dO (dQ pass) or K and V (dK / dV pass) as
-// float32, then streams 64-row tiles of the other pair; a warp owns 4
-// stationary rows, a lane the logits of streamed rows lane and lane + 32,
-// then the D / 32 output columns it owns, as rm_flash.cu's float32 kernel.
+// bfloat16 at D 256 (recurrentgemma-9b's local attention): a 64 x 256
+// float32 accumulator is 128 registers a thread of a warpgroup, so one
+// warpgroup cannot hold dK and dV at once.  The wide form gives each its
+// own warpgroup, in blocks of 64 keys:
+//   * WG-V computes S^T = K Q^T, turns it into P^T, leaves P^T (float32,
+//     16 KB) in shared memory for WG-K and runs dV += P^T dO; WG-K computes
+//     dP^T = V dO^T, waits on a named barrier for P^T, forms dS^T and runs
+//     dK += dS^T Q.  Two named barriers hand the one P^T buffer back and
+//     forth.  Shared memory: K and V 64 KB, a two-stage ring of 64-query Q
+//     and dO tiles 128 KB, P^T 16 KB: 210 KB, one block an SM.
+//   * MQA / GQA leaves few blocks of 64 keys (recurrentgemma: B 2 x 1 KV
+//     head x 32 tiles = 64 at S 2,048, the low causal ones 16 times the
+//     high ones' work), so a key tile's (head, query tile) items are cut
+//     into chunks of at most FlashBwdParams::kv_chunk (planned by
+//     _cuda.flash_bwd_kv_plan for the card's SMs).  A tile cut in more
+//     than one chunk writes float32 partials to scratch; the tile's last
+//     block (a counter a tile, the only atomic) sums them in chunk order,
+//     so the gradients stay bit-equal from call to call.
+//   * dQ: a block owns 128 query rows, 64 a warpgroup (dQ 128 registers,
+//     S and dP 32), thread 0 issues the copies; Q and dO 128 KB and a
+//     two-stage ring of 32-key K and V tiles 64 KB, so that two warpgroups
+//     share the tensor cores and each K / V tile serves 128 rows.  A
+//     warpgroup skips the products of a key tile none of its rows sees.
+//
+// float32: the same two passes on the CUDA cores (no tensor-core product
+// meets float32's tolerance), templated on the pass.  A block stages 64
+// stationary rows (32 at D 256) of Q and dO (dQ pass) or K and V (dK / dV
+// pass) as float32, then streams 64-row tiles of the other pair; a warp
+// owns 4 stationary rows, a lane the logits of streamed rows lane and
+// lane + 32, then the D / 32 output columns it owns, as rm_flash.cu's
+// float32 kernel.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -86,6 +113,8 @@ struct FlashBwdParams {
   void* dv;          // dk's strides
   float* lse_pad;    // scratch (B H, seq_pad): lse in the form's units, +inf past S
   float* delta;      // scratch (B H, seq_pad): D_i, 0 past S
+  float* kv_part;    // D 256 scratch: (B KH, kv_blocks, 2, 64, 256) dV and dK partials
+  int32_t* kv_count; // D 256 scratch: (B KH, ceil(S / 64)) blocks done a key tile
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -102,6 +131,8 @@ struct FlashBwdParams {
   int32_t window;    // >= 1; the wrapper passes S for "no window"
   int32_t dtype;     // 0 float32, 1 bfloat16
   int32_t seq_pad;   // S rounded up to a multiple of kSeqPad
+  int32_t kv_chunk;  // D 256: (head, query tile) items a dK / dV block at most
+  int32_t kv_blocks; // D 256: dK / dV blocks a (b, kv head), as kv_chunk cuts the key tiles
   float scale;
 };
 
@@ -109,10 +140,9 @@ namespace {
 
 constexpr int kSeqPad = 128;  // the scratch rows' padding: a multiple of every tile
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTcMaxD = 128;  // the widest head of the tensor-core form
+constexpr int kTcMaxD = 256;  // the widest head of the tensor-core forms
 
-// bfloat16 up to kTcMaxD takes the tensor cores (wgmma, log2 units), the
-// rest the CUDA cores
+// bfloat16 takes the tensor cores (wgmma, log2 units), float32 the CUDA cores
 __host__ __device__ __forceinline__ bool tensor_form(const FlashBwdParams& p) {
   return p.dtype == 1 && p.head_dim <= kTcMaxD;
 }
@@ -152,6 +182,12 @@ rm_flash_bwd_prep_kernel(const __grid_constant__ FlashBwdParams p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * 8 + warp;
   const int bh = blockIdx.y;
+  if (p.kv_count != nullptr) {  // the D 256 form's counters: fewer than the grid's threads
+    const long long at = (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * 256 +
+                         threadIdx.x;
+    if (at < static_cast<long long>(p.batch) * p.kv_heads * ((p.seq + 63) / 64))
+      p.kv_count[at] = 0;
+  }
   if (i >= p.seq_pad) return;
   const int b = bh / p.heads, h = bh % p.heads;
   float sum = 0.0f;
@@ -530,6 +566,367 @@ rm_flash_bwd_dq_tc_kernel(const __grid_constant__ FlashBwdParams p,
   }
 }
 
+// ------------------------------------------- bfloat16 tensor cores, D 256
+namespace wide {
+
+using namespace rm_tma;
+using namespace rm_wgmma;
+
+constexpr int kD = 256;
+constexpr int kRows = 64;                  // the rows of every tile
+constexpr int kSw = 128, kChunk = 64;      // 128-byte swizzle: 64 columns a TMA box
+constexpr int kChunks = kD / kChunk;
+constexpr int kTileBytes = kRows * kD * 2;  // a 64 x 256 bf16 tile: 32 KB
+constexpr int kVecBytes = kRows * 4;        // a stage's lse (and D)
+constexpr int kAcc = kD / 2;                // a 64 x 256 accumulator's floats a thread
+constexpr int kFrag = kRows / 2;            // a 64 x 64 product's floats a thread
+constexpr int kKvThreads = 256;             // WG-V, then WG-K
+constexpr int kDqThreads = 256;             // two warpgroups of 64 query rows
+constexpr int kDqRows = 128;                // a dQ block's query rows
+constexpr int kDqKeys = 32;                 // a dQ stage's keys
+constexpr int kDqRowBytes = kDqRows * kD * 2;
+constexpr int kDqKeyBytes = kDqKeys * kD * 2;
+// dK / dV pass: K, V, two stages of Q and of dO, of lse and of D, then P^T
+// (float32, entry e of thread t at e * 128 + t)
+constexpr int kKvV = kTileBytes;
+constexpr int kKvQ = 2 * kTileBytes;
+constexpr int kKvG = kKvQ + bwd::kStages * kTileBytes;
+constexpr int kKvLse = kKvG + bwd::kStages * kTileBytes;
+constexpr int kKvDelta = kKvLse + bwd::kStages * kVecBytes;
+constexpr int kKvP = kKvDelta + bwd::kStages * kVecBytes;
+constexpr int kKvBars = kKvP + kFrag * 128 * 4;
+constexpr int kKvSmem = kKvBars + 64 + 1024;  // barriers, then alignment slack
+// dQ pass: Q, dO (128 rows), two stages of K and of V (32 keys)
+constexpr int kDqG = kDqRowBytes;
+constexpr int kDqK = 2 * kDqRowBytes;
+constexpr int kDqV = kDqK + bwd::kStages * kDqKeyBytes;
+constexpr int kDqBars = kDqV + bwd::kStages * kDqKeyBytes;
+constexpr int kDqSmem = kDqBars + 64 + 1024;
+static_assert(kKvSmem <= 232448 && kDqSmem <= 232448, "the D 256 tiles exceed shared memory");
+
+// The 64-query tiles any key of the tile at k0 is seen by: their count, the
+// first in qt_lo (mirrored by _cuda.flash_bwd_key_items)
+__host__ __device__ __forceinline__ int key_tile_queries(const FlashBwdParams& p, int k0,
+                                                         int& qt_lo) {
+  const int k_last = (k0 + kRows < p.seq ? k0 + kRows : p.seq) - 1;
+  const int i_lo = p.causal ? k0 : (k0 - p.window + 1 > 0 ? k0 - p.window + 1 : 0);
+  const int i_hi = k_last + p.window - 1 < p.seq - 1 ? k_last + p.window - 1 : p.seq - 1;
+  qt_lo = i_lo / kRows;
+  return i_hi / kRows - qt_lo + 1;
+}
+
+// dK / dV blocks a (b, kv head): each key tile's G * queries items cut into
+// chunks of at most kv_chunk
+inline int kv_blocks(const FlashBwdParams& p) {
+  const int g = p.heads / p.kv_heads;
+  int n = 0, qt_lo = 0;
+  for (int k0 = 0; k0 < p.seq; k0 += kRows)
+    n += (g * key_tile_queries(p, k0, qt_lo) + p.kv_chunk - 1) / p.kv_chunk;
+  return n;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+}  // namespace wide
+
+__global__ void __launch_bounds__(wide::kKvThreads, 1)
+rm_flash_bwd_dkdv_wide_kernel(const __grid_constant__ FlashBwdParams p,
+                              const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_g,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v) {
+  using namespace wide;
+  using bwd::kStages, bwd::pack, bwd::product_rs, bwd::product_ss, bwd::smem_addr,
+      bwd::store_rows;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int last;  // this block sums the key tile's partials
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t k_s = base, v_s = base + kKvV;
+  auto q_st = [&](int s) { return base + kKvQ + s * kTileBytes; };
+  auto g_st = [&](int s) { return base + kKvG + s * kTileBytes; };
+  float* pt = reinterpret_cast<float*>(gbase + kKvP);
+  const uint32_t bars = base + kKvBars;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int S = p.seq, W = p.window, G = p.heads / p.kv_heads;
+  const int bkh = blockIdx.y;
+  const int b = bkh / p.kv_heads, kh = bkh % p.kv_heads;
+  const int n_kt = (S + kRows - 1) / kRows;
+  // this block's key tile (the low ones, the longest when causal, first)
+  // and its chunk of the tile's (head, query tile) items, head-major
+  int kt = 0, first = 0, splits = 1, qt_lo = 0, nq = 1;
+  for (;; ++kt) {
+    nq = key_tile_queries(p, kt * kRows, qt_lo);
+    splits = (G * nq + p.kv_chunk - 1) / p.kv_chunk;
+    if (static_cast<int>(blockIdx.x) < first + splits || kt + 1 == n_kt) break;
+    first += splits;
+  }
+  const int split = static_cast<int>(blockIdx.x) - first;
+  const int items = G * nq;
+  const int it_lo = static_cast<int>(static_cast<long long>(split) * items / splits);
+  const int n_it = static_cast<int>(static_cast<long long>(split + 1) * items / splits) - it_lo;
+  const int k0 = kt * kRows;
+
+  // Thread 128 (WG-K's first, the later of the two to free a stage) issues
+  // the copies: item l into stage l % 2 once item l - 2 is consumed.
+  auto issue = [&](int l) {
+    const int it = it_lo + l, s = l % kStages;
+    const int h = kh * G + it / nq, q0 = (qt_lo + it % nq) * kRows;
+    mbar_wait(empty(s), ((l / kStages) & 1) ^ 1);  // the first round passes at once
+    mbar_expect_tx(full(s), 2 * kTileBytes + 2 * kVecBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(q_st(s) + c * kRows * kSw, &map_q, full(s), c * kChunk, h, q0, b);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(g_st(s) + c * kRows * kSw, &map_g, full(s), c * kChunk, h, q0, b);
+    const long long row = static_cast<long long>(b * p.heads + h) * p.seq_pad + q0;
+    bulk_load(base + kKvLse + s * kVecBytes, p.lse_pad + row, kVecBytes, full(s));
+    bulk_load(base + kKvDelta + s * kVecBytes, p.delta + row, kVecBytes, full(s));
+  };
+  const bool producer = threadIdx.x == 128;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kKvThreads / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (producer) {
+    mbar_expect_tx(kv_full, 2 * kTileBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(k_s + c * kRows * kSw, &map_k, kv_full, c * kChunk, kh, k0, b);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(v_s + c * kRows * kSw, &map_v, kv_full, c * kChunk, kh, k0, b);
+    for (int l = 0; l < min(n_it, kStages); ++l) issue(l);
+  }
+
+  const int role = threadIdx.x / 128;  // 0: WG-V (P^T, dV), 1: WG-K (dS^T, dK)
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int r_a = 16 * warp + lane / 4;  // a thread's two keys: r_a and r_a + 8
+  const int j_a = k0 + r_a;
+  const float scale_log2 = p.scale * kLog2e;
+
+  float acc[kAcc];  // dV (WG-V) or dK (WG-K)
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
+  float sp[kFrag];             // S^T then P^T (WG-V); dP^T then dS^T (WG-K)
+  uint32_t fr[kRows / 16][4];  // P^T or dS^T as bf16 A fragments
+
+  mbar_wait(kv_full, 0);
+  for (int l = 0; l < n_it; ++l) {
+    const int it = it_lo + l, s = l % kStages;
+    const int q0 = (qt_lo + it % nq) * kRows;
+    mbar_wait(full(s), (l / kStages) & 1);
+    wg_fence();
+    product_ss<kD, kRows>(sp, role == 0 ? k_s : v_s, kRows, 0, role == 0 ? q_st(s) : g_st(s));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sp);
+
+    // entry e: key row j_a + 8 ((e >> 1) & 1), query column c (below)
+    const float* lse = reinterpret_cast<const float*>(gbase + kKvLse + s * kVecBytes);
+    const float* dl = reinterpret_cast<const float*>(gbase + kKvDelta + s * kVecBytes);
+    const int q_last = q0 + kRows - 1, j_last = k0 + kRows - 1;
+    const bool edge = q_last >= S || j_last >= S ||
+                      (p.causal ? (q0 < j_last || q_last - k0 >= W)
+                                : (q_last - k0 >= W || j_last - q0 >= W));
+    if (role == 0) {
+      if (l > 0) named_sync(2, kKvThreads);  // WG-K has read the previous P^T
+#pragma unroll
+      for (int e = 0; e < kFrag; ++e) {
+        const int c = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+        float pr = exp2_approx(fmaf(sp[e], scale_log2, -lse[c]));
+        if (edge && !allowed(p, q0 + c, j_a + 8 * ((e >> 1) & 1))) pr = 0.0f;
+        sp[e] = pr;
+        pt[e * 128 + t] = pr;
+      }
+      named_arrive(1, kKvThreads);  // P^T is written
+    } else {
+      named_sync(1, kKvThreads);
+#pragma unroll
+      for (int e = 0; e < kFrag; ++e) {
+        const int c = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+        sp[e] = pt[e * 128 + t] * (sp[e] - dl[c]);
+      }
+      if (l + 1 < n_it) named_arrive(2, kKvThreads);  // P^T is read
+    }
+    pack<kRows>(fr, sp);
+    wg_fence();
+    product_rs<kD, kRows>(acc, fr, role == 0 ? g_st(s) : q_st(s));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(empty(s));
+    if (producer && l + kStages < n_it) issue(l + kStages);
+  }
+
+  // dK sums dS^T against unscaled q: the scale is taken here
+  const float mul = role == 0 ? 1.0f : p.scale;
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(role == 0 ? p.dv : p.dk) + b * p.dk_sb +
+                       kh * p.dk_sh;
+  if (splits == 1) {
+    store_rows<kD>(dst, p.dk_ss, acc, mul, j_a, S, lane);
+    return;
+  }
+  // A partial of a cut tile: written where the tile's chunks lie side by
+  // side, then summed in chunk order by the tile's last block to finish.
+  constexpr long long kPart = static_cast<long long>(kRows) * kD;  // floats of one accumulator
+  float* part = p.kv_part + (static_cast<long long>(bkh) * p.kv_blocks + first) * 2 * kPart;
+  float* mine = part + (2LL * split + role) * kPart;
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) mine[e * 128 + t] = acc[e];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(p.kv_count + static_cast<long long>(bkh) * n_kt + kt, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
+  for (int c = 0; c < splits; ++c) {
+    const float* src = part + (2LL * c + role) * kPart;
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[e] += __ldcg(src + e * 128 + t);
+  }
+  store_rows<kD>(dst, p.dk_ss, acc, mul, j_a, S, lane);
+}
+
+__global__ void __launch_bounds__(wide::kDqThreads, 1)
+rm_flash_bwd_dq_wide_kernel(const __grid_constant__ FlashBwdParams p,
+                            const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_g,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v) {
+  using namespace wide;
+  using bwd::kStages, bwd::pack, bwd::product_rs, bwd::product_ss, bwd::smem_addr,
+      bwd::store_rows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, g_s = base + kDqG;
+  auto k_st = [&](int s) { return base + kDqK + s * kDqKeyBytes; };
+  auto v_st = [&](int s) { return base + kDqV + s * kDqKeyBytes; };
+  const uint32_t bars = base + kDqBars;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int S = p.seq, W = p.window;
+  const int n_q = (S + kDqRows - 1) / kDqRows;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * kDqRows;  // longest tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int kh = h / (p.heads / p.kv_heads);
+  // the key tiles any row of this query tile can see
+  const int q_last = min(q0 + kDqRows, S) - 1;
+  const int k_lo = max(0, q0 - W + 1);
+  const int k_hi = p.causal ? q_last : min(S - 1, q_last + W - 1);
+  const int t_lo = k_lo / kDqKeys, n_t = k_hi / kDqKeys - t_lo + 1;
+
+  // thread 0 issues the copies besides its share of the products: tile l
+  // into stage l % 2 once both warpgroups have consumed tile l - 2
+  auto issue = [&](int l) {
+    const int s = l % kStages, j0 = (t_lo + l) * kDqKeys;
+    mbar_wait(empty(s), ((l / kStages) & 1) ^ 1);
+    mbar_expect_tx(full(s), 2 * kDqKeyBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(k_st(s) + c * kDqKeys * kSw, &map_k, full(s), c * kChunk, kh, j0, b);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(v_st(s) + c * kDqKeys * kSw, &map_v, full(s), c * kChunk, kh, j0, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDqThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(q_full, 2 * kDqRowBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(q_s + c * kDqRows * kSw, &map_q, q_full, c * kChunk, h, q0, b);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load(g_s + c * kDqRows * kSw, &map_g, q_full, c * kChunk, h, q0, b);
+    for (int l = 0; l < min(n_t, kStages); ++l) issue(l);
+  }
+  __syncthreads();
+
+  const int wgc = threadIdx.x / 128;  // this warpgroup's 64 rows
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r_a = 16 * warp + lane / 4;
+  const int i_lo = q0 + 64 * wgc;
+  const int i_a = i_lo + r_a;
+  const float scale_log2 = p.scale * kLog2e;
+  // a thread's two rows' lse (exp2 domain) and D; rows past S read the
+  // padding (+inf, 0): their P is 0
+  float lse[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at = static_cast<long long>(bh) * p.seq_pad + i_a + 8 * r;
+    lse[r] = p.lse_pad[at];
+    dl[r] = p.delta[at];
+  }
+
+  float dq[kAcc];
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) dq[e] = 0.0f;
+  float sc[kDqKeys / 2], dp[kDqKeys / 2];  // S then dS; dP
+  uint32_t da[kDqKeys / 16][4];            // dS as bf16 A fragments
+
+  mbar_wait(q_full, 0);
+  for (int l = 0; l < n_t; ++l) {
+    const int s = l % kStages;
+    const int j0 = (t_lo + l) * kDqKeys, j_last = j0 + kDqKeys - 1;
+    // a tile no row of this warpgroup sees (past the causal diagonal or the
+    // window, or rows past S) is only released
+    const bool live = i_lo < S && i_lo - j_last < W &&
+                      (p.causal ? i_lo + 63 >= j0 : j0 - (i_lo + 63) < W);
+    mbar_wait(full(s), (l / kStages) & 1);
+    if (live) {
+      wg_fence();
+      product_ss<kD, kDqKeys>(sc, q_s, kDqRows, 64 * wgc, k_st(s));
+      product_ss<kD, kDqKeys>(dp, g_s, kDqRows, 64 * wgc, v_st(s));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      const bool edge = j_last >= S || i_lo + 63 >= S ||
+                        (p.causal ? (j_last > i_lo || i_lo + 63 - j0 >= W)
+                                  : (i_lo + 63 - j0 >= W || j_last - i_lo >= W));
+#pragma unroll
+      for (int e = 0; e < kDqKeys / 2; ++e) {
+        const int r = (e >> 1) & 1;
+        const int c = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+        float pr = exp2_approx(fmaf(sc[e], scale_log2, -lse[r]));
+        if (edge && !allowed(p, i_a + 8 * r, j0 + c)) pr = 0.0f;
+        sc[e] = pr * (dp[e] - dl[r]);
+      }
+      pack<kDqKeys>(da, sc);
+      wg_fence();
+      product_rs<kD, kDqKeys>(dq, da, k_st(s));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dq);
+    }
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && l + kStages < n_t) issue(l + kStages);
+  }
+
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows<kD>(dqp, p.dq_ss, dq, p.scale, i_a, S, lane);
+}
+
 // ------------------------------------------------------------ CUDA cores
 namespace simt {
 
@@ -807,6 +1204,47 @@ int launch_tc(const FlashBwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_wide(const FlashBwdParams& p, cudaStream_t stream) {
+  using namespace wide;
+  if (p.kv_chunk < 1 || p.kv_part == nullptr || p.kv_count == nullptr ||
+      p.kv_blocks != kv_blocks(p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using rm_wgmma::tensor_map;
+  const int s = p.seq, b = p.batch, h = p.heads, kh = p.kv_heads;
+  // boxes of 64 columns: 64 rows for the dK / dV pass, 128 query rows and
+  // 32 keys for the dQ pass
+  CUtensorMap mq, mg, mk, mv, dq_q, dq_g, dq_k, dq_v;
+  int err = tensor_map(&mq, p.q, kD, h, s, b, p.q_sb, p.q_ss, p.q_sh, kRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&mg, p.dout, kD, h, s, b, p.g_sb, p.g_ss, p.g_sh, kRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&mk, p.k, kD, kh, s, b, p.k_sb, p.k_ss, p.k_sh, kRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&mv, p.v, kD, kh, s, b, p.v_sb, p.v_ss, p.v_sh, kRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&dq_q, p.q, kD, h, s, b, p.q_sb, p.q_ss, p.q_sh, kDqRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&dq_g, p.dout, kD, h, s, b, p.g_sb, p.g_ss, p.g_sh, kDqRows, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&dq_k, p.k, kD, kh, s, b, p.k_sb, p.k_ss, p.k_sh, kDqKeys, kChunk, kSw);
+  if (err == 0)
+    err = tensor_map(&dq_v, p.v, kD, kh, s, b, p.v_sb, p.v_ss, p.v_sh, kDqKeys, kChunk, kSw);
+  if (err != 0) return err;
+  cudaError_t set = cudaFuncSetAttribute(rm_flash_bwd_dkdv_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+  if (set == cudaSuccess)
+    set = cudaFuncSetAttribute(rm_flash_bwd_dq_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  rm_flash_bwd_dkdv_wide_kernel<<<dim3(p.kv_blocks, b * kh), kKvThreads, kKvSmem, stream>>>(
+      p, mq, mg, mk, mv);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return static_cast<int>(e1);
+  rm_flash_bwd_dq_wide_kernel<<<dim3(b * h, (s + kDqRows - 1) / kDqRows), kDqThreads, kDqSmem,
+                                stream>>>(p, dq_q, dq_g, dq_k, dq_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_form(const FlashBwdParams& p, cudaStream_t s) {
   if (tensor_form(p)) {
     switch (p.head_dim) {
@@ -814,12 +1252,10 @@ int launch_form(const FlashBwdParams& p, cudaStream_t s) {
       case 32: return launch_tc<32>(p, s);
       case 64: return launch_tc<64>(p, s);
       case 128: return launch_tc<128>(p, s);
+      case 256: return launch_wide(p, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (p.dtype == 1)  // the tensor cores take bfloat16 below D 256
-    return p.head_dim == 256 ? launch_simt<__nv_bfloat16, 256>(p, s)
-                             : static_cast<int>(cudaErrorInvalidValue);
   if (p.dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (p.head_dim) {
     case 16: return launch_simt<float, 16>(p, s);

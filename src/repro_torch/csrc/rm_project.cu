@@ -26,6 +26,17 @@
 //     after the first, because the tile's blocks run together.  (Launched
 //     column-major instead, each column becomes a pass over the whole table
 //     from device memory; PERF.md has both orders' times.)
+//     Rows wider than kDirectRowWords (a training record's tokens and
+//     labels: Q 2 columns of 2,048+ words) leave that grid a few dozen
+//     blocks, each moving megabytes 4 bytes at a time.  Their wide form
+//     keeps the grid's order and the column-by-column copy (no packer, no
+//     staging, no merged columns) and changes three things: each column's
+//     range is cut into chunks (ColParams::chunk_w words, cut at 16-byte
+//     boundaries of the packed row, planned by _cuda.bsl_plan), so tiles x
+//     chunks fill the card; a warp copies a (row, chunk), kBslUnroll rows'
+//     loads in flight before their stores; and the copy is rm_copy.cuh's,
+//     16-byte stores driven by the destination, the source realigned in
+//     registers.
 //   * PCK (packer register): one block per row tile walks the Q columns,
 //     gathers each column's words into a packed tile in shared memory (the
 //     packer), then writes the whole packed tile with one coalesced store.
@@ -51,6 +62,7 @@
 // instantiation stages it into shared memory when it takes at most
 // kSelectSmemMap words.
 #include "rm_common.cuh"
+#include "rm_copy.cuh"
 
 using namespace rm;
 
@@ -58,6 +70,9 @@ namespace {
 
 constexpr int kMaxCols = 256;  // column slices one BSL / PCK launch carries
 constexpr int kBslRows = 256;  // rows per BSL block
+constexpr int kBslWarps = kThreads / 32;
+constexpr int kBslUnroll = 4;  // rows a warp of the wide form loads before it stores
+constexpr int kDirectRowWords = 2048;  // wider rows take BSL's wide form (_cuda.DIRECT_ROW_WORDS)
 constexpr int kSelectInlineMap = 512;  // map words the selection's parameter block holds
 constexpr int kSelectSmemMap = 12 * 1024;  // longer maps the selection stages (48 KB)
 
@@ -74,6 +89,8 @@ struct ColParams {
   int32_t n_cols;        // Q
   int32_t tile_rows;     // PCK: rows per packed tile (a multiple of 4)
   int32_t range_w;       // PCK: packed words a pass of the packer (out_w: one pass)
+  int32_t chunk_w;       // BSL, rows over kDirectRowWords: words a chunk (else 0)
+  int32_t chunks;        // BSL wide: chunks a row tile, the columns' summed
   int32_t pad_;
   int32_t src[kMaxCols]; // first row word of each column
   int32_t dst[kMaxCols]; // first packed word of each column
@@ -107,6 +124,57 @@ rm_project_bsl_kernel(const __grid_constant__ ColParams p) {
     const int r = i / w, k = i - r * w;
     out[static_cast<long long>(r) * p.out_w + k] =
         __ldg(in + static_cast<long long>(r) * p.row_words + k);
+  }
+}
+
+// BSL's wide form: its first chunk of column j starts at the 16-byte
+// boundary of the packed row at or before dst (where out_w is a multiple of
+// 4; else at dst), later ones chunk_w words apart (mirrored by
+// _cuda.bsl_chunk).
+__host__ __device__ __forceinline__ int bsl_lead(int dst, int out_w) {
+  return (out_w & 3) == 0 ? (dst & 3) : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rm_project_bsl_wide_kernel(const __grid_constant__ ColParams p) {
+  const long long tile = blockIdx.x / p.chunks;
+  const int c = static_cast<int>(blockIdx.x - tile * p.chunks);
+  // the column of chunk c and its first chunk: the columns' chunks side by side
+  int j = 0, first = 0;
+  for (;; ++j) {
+    const int n = (bsl_lead(p.dst[j], p.out_w) + p.width[j] + p.chunk_w - 1) / p.chunk_w;
+    if (c < first + n || j + 1 == p.n_cols) break;
+    first += n;
+  }
+  const int lead = bsl_lead(p.dst[j], p.out_w);
+  const int k = c - first;
+  const int lo = max(0, k * p.chunk_w - lead);
+  const int hi = min(p.width[j], (k + 1) * p.chunk_w - lead);
+  const long long row0 = tile * kBslRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kBslRows), p.n - row0));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the row store's word address: blocks are aligned on the address
+  const long long base = static_cast<long long>(reinterpret_cast<uintptr_t>(p.words) >> 2);
+  for (int r0 = warp; r0 < rows; r0 += kBslWarps * kBslUnroll) {
+    rm_copy::Span sp[kBslUnroll];
+    rm_copy::Item it[kBslUnroll];
+#pragma unroll
+    for (int u = 0; u < kBslUnroll; ++u) {
+      const long long row = row0 + r0 + u * kBslWarps;
+      sp[u].d0 = row * p.out_w + p.dst[j] + lo;
+      sp[u].d1 = row * p.out_w + p.dst[j] + hi;
+      sp[u].s0 = base + row * p.row_words + p.src[j] + lo;
+      sp[u].s1 = sp[u].s0 + (hi - lo);
+      if (r0 + u * kBslWarps < rows) it[u] = rm_copy::load_item(sp[u], 0, lane);
+    }
+#pragma unroll
+    for (int u = 0; u < kBslUnroll; ++u) {
+      if (r0 + u * kBslWarps >= rows) continue;  // the same for the whole warp
+      rm_copy::store_item(p.out, sp[u], it[u], lane);
+      // a chunk the plan keeps within one item; any rest, an item at a time
+      for (int i = 1; i < rm_copy::items(sp[u]); ++i)
+        rm_copy::store_item(p.out, sp[u], rm_copy::load_item(sp[u], i, lane), lane);
+    }
   }
 }
 
@@ -218,31 +286,35 @@ rm_select_compact_kernel(const __grid_constant__ SelectParams p) {
   if (threadIdx.x == 0) p.counts[blockIdx.x] = base;
 }
 
-extern "C" {
+namespace {
 
-int rm_col_params_size() { return static_cast<int>(sizeof(ColParams)); }
-int rm_select_params_size() { return static_cast<int>(sizeof(SelectParams)); }
-
-// BSL: ceil(n / kBslRows) * Q blocks, block b on tile b / Q, column b % Q.
-// Launch on `stream`, do not synchronise, return the launch's
-// cudaGetLastError() (0 on success).
-int rm_project_bsl(const ColParams* params, void* stream) {
-  if (params->n_cols <= 0 || params->n_cols > kMaxCols)
+int launch_bsl(const ColParams& p, cudaStream_t s) {
+  if (p.n_cols <= 0 || p.n_cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = p.row_words > kDirectRowWords;
+  long long per_tile = p.n_cols;
+  if (wide) {
+    if (p.chunk_w <= 0 || p.chunk_w % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    per_tile = 0;
+    for (int j = 0; j < p.n_cols; ++j)
+      per_tile += (bsl_lead(p.dst[j], p.out_w) + p.width[j] + p.chunk_w - 1) / p.chunk_w;
+    if (per_tile != p.chunks) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (p.chunk_w != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (params->n + kBslRows - 1) / kBslRows * params->n_cols;
+  }
+  const long long blocks = (p.n + kBslRows - 1) / kBslRows * per_tile;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rm_project_bsl_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(*params);
+  if (wide) {
+    rm_project_bsl_wide_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p);
+  } else {
+    rm_project_bsl_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each
-// (tile_rows * range_w words; the ranged instantiation when range_w < out_w).
-int rm_project_pck(const ColParams* params, int n_blocks, long long smem, void* stream) {
-  if (n_blocks <= 0 || params->n_cols <= 0 || params->n_cols > kMaxCols ||
-      params->range_w <= 0)
+int launch_pck(const ColParams& p, int n_blocks, long long smem, cudaStream_t s) {
+  if (n_blocks <= 0 || p.n_cols <= 0 || p.n_cols > kMaxCols || p.range_w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool ranged = params->range_w < params->out_w;
+  const bool ranged = p.range_w < p.out_w;
   if (smem > 48 * 1024) {
     const void* fn = ranged ? reinterpret_cast<const void*>(rm_project_pck_kernel<true>)
                             : reinterpret_cast<const void*>(rm_project_pck_kernel<false>);
@@ -250,13 +322,52 @@ int rm_project_pck(const ColParams* params, int n_blocks, long long smem, void* 
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
   if (ranged) {
-    rm_project_pck_kernel<true><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params);
+    rm_project_pck_kernel<true><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(p);
   } else {
-    rm_project_pck_kernel<false><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(*params);
+    rm_project_pck_kernel<false><<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Run `launch` with card `device` current (made so for the launch if it
+// is not), returning its error or the device switch's.
+template <typename F>
+int on_device(int device, F launch) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int err = launch();
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rm_col_params_size() { return static_cast<int>(sizeof(ColParams)); }
+int rm_select_params_size() { return static_cast<int>(sizeof(SelectParams)); }
+
+// BSL: ceil(n / kBslRows) * Q blocks, block b on tile b / Q, column b % Q;
+// rows over kDirectRowWords: ceil(n / kBslRows) * chunks blocks, block b on
+// tile b / chunks, chunk b % chunks (the plan checked here: chunk_w a
+// positive multiple of 4, chunks the columns' chunks summed).  Launch on
+// `stream` of card `device`, do not synchronise, return the launch's
+// cudaGetLastError() (0 on success).
+int rm_project_bsl(const ColParams* params, int device, void* stream) {
+  return on_device(device, [&] { return launch_bsl(*params, static_cast<cudaStream_t>(stream)); });
+}
+
+// PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each
+// (tile_rows * range_w words; the ranged instantiation when range_w < out_w),
+// on `stream` of card `device`.
+int rm_project_pck(const ColParams* params, int n_blocks, long long smem, int device,
+                   void* stream) {
+  return on_device(device, [&] {
+    return launch_pck(*params, n_blocks, smem, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Selection: one block per contract block.

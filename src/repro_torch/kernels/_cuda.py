@@ -50,7 +50,9 @@ launch of ``rm_rglru_scan_kernel``; ``flash_attention_backward`` one for
 each gradient, which is three kernels on the card: the row sums and padded
 log-sum-exp (``rm_flash_bwd_prep_kernel``), then the dK / dV pass and the dQ
 pass (``rm_flash_bwd_dkdv_tc_kernel`` and ``rm_flash_bwd_dq_tc_kernel`` in
-bf16 at D <= 128, else both passes of ``rm_flash_bwd_simt_kernel``).
+bf16 at D <= 128, ``rm_flash_bwd_dkdv_wide_kernel`` and
+``rm_flash_bwd_dq_wide_kernel`` in bf16 at D 256, both passes of
+``rm_flash_bwd_simt_kernel`` in float32).
 ``FLASH_DOUT_COPIES`` counts the gradients whose ``dout`` TMA could not
 describe, copied before the launch.
 
@@ -67,7 +69,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import heapq
 import os
 import shutil
 import subprocess
@@ -100,13 +104,21 @@ JOIN_THREADS = 256  # must match kJoinThreads in rm_join.cu
 JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
+BSL_ROWS = 256  # rows a BSL block (kBslRows, rm_project.cu)
 MAX_SPANS = 16  # word ranges of one span launch (kMaxSpans, rm_spans.cu)
 SPAN_VECS = 2  # 16-byte vectors a lane copies an item of the span kernel (kVecs, rm_spans.cu)
 SPAN_WARPS = 8  # warps (items in flight) a block of the span kernel (kSpanWarps)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instantiates
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
-FLASH_BWD_TC_MAX_D = 128  # the widest head the tensor-core backward takes (kTcMaxD)
+FLASH_BWD_TC_MAX_D = 256  # the widest head the tensor-core backward takes (kTcMaxD)
 FLASH_BWD_SEQ_PAD = 128  # its scratch rows' padding (kSeqPad, which the launch checks)
+FLASH_BWD_WIDE_D = 256  # the head width of its two-warpgroup form (namespace wide)
+FLASH_BWD_WIDE_ROWS = 64  # that form's tile rows: a dK / dV block's keys (wide::kRows)
+# the chunk plan's costs, in items (one (head, query tile) item: 4 products
+# of 64 x 64 x 256): a block's K and V and ring fill, and a cut tile's
+# partial (2 x 64 KB of float32 written, then read back by the last block)
+FLASH_BWD_BLOCK_COST = 1
+FLASH_BWD_PARTIAL_COST = 3
 W8_MAX_ROWS = 64  # rows of x the int8-weight matmul takes (a decode step's B)
 W8_MAX_RECORDS = 4  # products one launch takes (kW8MaxRecords)
 W8_STRIP = 256  # output columns a block of rm_w8_matmul_kernel (kW8Strip)
@@ -192,7 +204,8 @@ class _ColParams(ctypes.Structure):
     _fields_ = [("words", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("n", ctypes.c_longlong)] + [
         (name, ctypes.c_int32) for name in (
-            "row_words", "out_w", "n_cols", "tile_rows", "range_w", "pad_")] + [
+            "row_words", "out_w", "n_cols", "tile_rows", "range_w", "chunk_w", "chunks",
+            "pad_")] + [
         (name, ctypes.c_int32 * MAX_COLS) for name in ("src", "dst", "width")]
 
 
@@ -240,12 +253,13 @@ class _FlashParams(ctypes.Structure):
 
 class _FlashBwdParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "lse_pad", "delta")] + [
+        "q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "lse_pad", "delta",
+        "kv_part", "kv_count")] + [
         (f"{t}_{s}", ctypes.c_longlong) for t in ("q", "k", "v", "o", "g", "dq", "dk")
         for s in ("sb", "ss", "sh")] + [
         (name, ctypes.c_int32) for name in (
             "batch", "seq", "heads", "kv_heads", "head_dim", "causal", "window",
-            "dtype", "seq_pad")] + [("scale", ctypes.c_float)]
+            "dtype", "seq_pad", "kv_chunk", "kv_blocks")] + [("scale", ctypes.c_float)]
 
 
 # ---------------------------------------------------------------- requests
@@ -513,9 +527,9 @@ def load() -> ctypes.CDLL:
     if lib.rm_scan_ring() != SCAN_RING:
         raise RuntimeError(f"rm_scan_multi_kernel stages {lib.rm_scan_ring()} tiles, "
                            f"the plan lays out SCAN_RING = {SCAN_RING}")
-    lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_void_p]
+    lib.rm_project_bsl.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_int, ctypes.c_void_p]
     lib.rm_project_pck.argtypes = [ctypes.POINTER(_ColParams), ctypes.c_int,
-                                   ctypes.c_longlong, ctypes.c_void_p]
+                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.rm_project_spans.argtypes = [ctypes.POINTER(_SpanParams), ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
     lib.rm_select_compact.argtypes = [ctypes.POINTER(_SelectParams),
@@ -600,7 +614,7 @@ def _max_blocks(lib: ctypes.CDLL, kernel: str, smem: int,
 # ---------------------------------------------------------------- launching
 def check_words(words: torch.Tensor) -> None:
     """What the kernels take: a contiguous 2-D int32 tensor on the card."""
-    if words.device.type != "cuda":
+    if not words.is_cuda:
         raise ValueError(f"the CUDA kernels need a CUDA tensor, got {words.device}")
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"want (N, row_words) int32 words, got {words.dtype} "
@@ -792,14 +806,54 @@ def pck_packer(out_w: int) -> tuple[int, int]:
     return rows, SMEM_MAX // (4 * rows) // 4 * 4
 
 
-def run_columns(kernel: str, words: torch.Tensor,
-                slices: Sequence[tuple[int, int, int]], out_w: int) -> torch.Tensor:
-    """Launch a column-walking projection revision (``"project_bsl"`` or
-    ``"project_pck"``) over ``words``; ``slices`` holds ``(src_word,
-    dst_word, width_words)`` per enabled column.  Returns the packed
-    ``(N, out_w)`` int32 block; a zero-row input launches nothing."""
-    check_words(words)
-    n, row_words = words.shape
+def bsl_plan(slices: Sequence[tuple[int, int, int]], row_words: int,
+             out_w: int) -> tuple[int, tuple[int, ...]]:
+    """BSL's chunks: ``(chunk_words, counts)`` — the words a chunk and each
+    column's chunks in a row tile, side by side in launch order — for
+    ``slices`` (``(src_word, dst_word, width_words)`` per column).  Rows of
+    at most ``DIRECT_ROW_WORDS`` keep one block a column and tile
+    (``(0, (1, ..., 1))``: today's grid).  Wider rows take the wide form:
+    a column's range is cut at ``chunk_words`` apart from the 16-byte
+    boundary of the packed row at or before its first word
+    (:func:`bsl_chunk`), so a warp copies a (row, chunk) as one item of
+    ``SPAN_VECS`` 16-byte vectors a lane — 256 words; 252 where ``out_w`` is
+    not a multiple of 4 and a boundary of the packed row is none in memory.
+    The kernel counts a column's chunks as here (``rm_project_bsl`` checks
+    their sum, ``ColParams::chunks``)."""
+    if row_words <= DIRECT_ROW_WORDS:
+        return 0, (1,) * len(slices)
+    item = 32 * SPAN_VECS * 4
+    chunk = item if out_w % 4 == 0 else item - 4
+    return chunk, tuple(-(-(bsl_lead(dst, out_w) + w) // chunk) for _, dst, w in slices)
+
+
+def bsl_lead(dst: int, out_w: int) -> int:
+    """Words of the packed row between BSL's first cut of a column at
+    ``dst`` and ``dst``: to the 16-byte boundary at or before it where
+    ``out_w`` is a multiple of 4 (every row's boundary then), else 0."""
+    return dst % 4 if out_w % 4 == 0 else 0
+
+
+def bsl_chunk(dst: int, width: int, out_w: int, chunk_words: int, k: int) -> tuple[int, int]:
+    """The column words ``[lo, hi)`` (offsets in the column) of chunk ``k``
+    of a ``width``-word column at packed word ``dst`` (as
+    ``rm_project_bsl_wide_kernel`` cuts it)."""
+    lead = bsl_lead(dst, out_w)
+    return max(0, k * chunk_words - lead), min(width, (k + 1) * chunk_words - lead)
+
+
+@functools.lru_cache(maxsize=SPAN_PLANS)
+def column_params(kernel: str, slices: tuple[tuple[int, int, int], ...], row_words: int,
+                  out_w: int) -> _ColParams:
+    """The parameter block of a BSL or PCK launch (``"project_bsl"`` or
+    ``"project_pck"``) of ``slices`` — ``(src_word, dst_word,
+    width_words)`` per enabled column — over ``row_words``-word rows packed
+    into ``out_w`` words, every field set but the pointers and the row
+    count: the slices checked, PCK's packer (:func:`pck_packer`), BSL's
+    chunks (:func:`bsl_plan`).  Planned once per layout and kept for the
+    last ``SPAN_PLANS``; a launch copies it."""
+    if kernel not in ("project_bsl", "project_pck"):
+        raise ValueError(kernel)
     if not 0 < len(slices) <= MAX_COLS:
         raise ValueError(f"a launch carries 1..{MAX_COLS} columns, got {len(slices)}")
     for src, dst, w in slices:
@@ -807,27 +861,45 @@ def run_columns(kernel: str, words: torch.Tensor,
                 and dst + w <= out_w):
             raise ValueError(f"column slice {(src, dst, w)} outside the "
                              f"{row_words}-word row or the {out_w}-word output")
-    out = torch.empty((n, out_w), dtype=torch.int32, device=words.device)
-    if n == 0:
-        return out
     rows, range_w = pck_packer(out_w)
-    smem = rows * range_w * 4
-    params = _ColParams(words=words.data_ptr(), out=out.data_ptr(), n=n,
-                        row_words=row_words, out_w=out_w, n_cols=len(slices),
-                        tile_rows=rows, range_w=range_w)
+    params = _ColParams(row_words=row_words, out_w=out_w, n_cols=len(slices), tile_rows=rows,
+                        range_w=range_w)
+    if kernel == "project_bsl":
+        params.chunk_w, counts = bsl_plan(slices, row_words, out_w)
+        params.chunks = sum(counts)
     for j, (src, dst, w) in enumerate(slices):
         params.src[j], params.dst[j], params.width[j] = src, dst, w
+    return params
+
+
+def run_columns(kernel: str, words: torch.Tensor,
+                slices: Sequence[tuple[int, int, int]], out_w: int) -> torch.Tensor:
+    """Launch a column-walking projection revision (``"project_bsl"`` or
+    ``"project_pck"``) over ``words``; ``slices`` holds ``(src_word,
+    dst_word, width_words)`` per enabled column.  Returns the packed
+    ``(N, out_w)`` int32 block; a zero-row input launches nothing.  The
+    host work of a call is the planned block's copy (:func:`column_params`),
+    the allocation and the launch."""
+    check_words(words)
+    n, row_words = words.shape
+    block = column_params(kernel, tuple(map(tuple, slices)), row_words, out_w)
+    out = words.new_empty((n, out_w))  # int32 on words' card
+    if n == 0:
+        return out
+    params = _ColParams.from_buffer_copy(block)
+    params.words, params.out, params.n = words.data_ptr(), out.data_ptr(), n
     lib = load()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        if kernel == "project_bsl":
-            err = lib.rm_project_bsl(ctypes.byref(params), stream)
-        elif kernel == "project_pck":
-            n_blocks = min(-(-n // rows), MAX_GRID_BLOCKS)
-            err = lib.rm_project_pck(ctypes.byref(params), n_blocks, smem, stream)
-        else:
-            raise ValueError(kernel)
-        _check(lib, err, f"{kernel} launch")
+    dev = words.get_device()
+    # the current stream's raw handle, as run_spans takes it; the launchers
+    # make card `dev` current for the launch where it is not
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if kernel == "project_bsl":
+        err = lib.rm_project_bsl(ctypes.byref(params), dev, stream)
+    else:
+        n_blocks = min(-(-n // params.tile_rows), MAX_GRID_BLOCKS)
+        err = lib.rm_project_pck(ctypes.byref(params), n_blocks,
+                                 params.tile_rows * params.range_w * 4, dev, stream)
+    _check(lib, err, f"{kernel} launch")
     _launched(kernel)
     return out
 
@@ -1078,12 +1150,75 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def flash_backward_form(dtype: torch.dtype, d: int) -> str:
     """Which form of the backward takes a gradient: ``"tensor"`` (bf16 up to
-    ``FLASH_BWD_TC_MAX_D``: wgmma + TMA) or ``"cuda_cores"`` (float32 at
-    every width, bf16 at D 256, where two 64 × 256 float32 accumulators do
-    not fit a warpgroup's registers).  The launcher chooses the same by
-    itself (``tensor_form`` in ``csrc/rm_flash_bwd.cu``); the wrapper asks
-    only to know which ``dout`` the kernel can read."""
+    ``FLASH_BWD_TC_MAX_D``: wgmma + TMA; at ``FLASH_BWD_WIDE_D`` dK and dV
+    in a warpgroup each) or ``"cuda_cores"`` (float32 at every width).  The
+    launcher chooses the same by itself (``tensor_form`` in
+    ``csrc/rm_flash_bwd.cu``); the wrapper asks only to know which ``dout``
+    the kernel can read."""
     return "tensor" if dtype == torch.bfloat16 and d <= FLASH_BWD_TC_MAX_D else "cuda_cores"
+
+
+def flash_bwd_key_items(s: int, g: int, causal: bool, window: int) -> list[int]:
+    """The D 256 form's (head, query tile) items of each 64-key tile: ``g``
+    heads times the 64-query tiles any of its keys is seen by (the mask's
+    range; ``key_tile_queries`` in ``csrc/rm_flash_bwd.cu``)."""
+    rows = FLASH_BWD_WIDE_ROWS
+    items = []
+    for k0 in range(0, s, rows):
+        k_last = min(k0 + rows, s) - 1
+        i_lo = k0 if causal else max(0, k0 - window + 1)
+        i_hi = min(s - 1, k_last + window - 1)
+        items.append(g * (i_hi // rows - i_lo // rows + 1))
+    return items
+
+
+def flash_bwd_chunks(items: Sequence[int], chunk: int) -> list[tuple[int, int, int]]:
+    """The dK / dV blocks of one (b, kv head) in launch order: ``(key tile,
+    first item, items)``, each tile's items cut into ``ceil(n / chunk)``
+    near-equal chunks (as the kernel cuts them)."""
+    blocks = []
+    for kt, n in enumerate(items):
+        splits = -(-n // chunk)
+        blocks += [(kt, j * n // splits, (j + 1) * n // splits - j * n // splits)
+                   for j in range(splits)]
+    return blocks
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_kv_plan(s: int, g: int, causal: bool, window: int, groups: int,
+                      sms: int) -> tuple[int, int]:
+    """The D 256 form's dK / dV launch for ``groups`` (b, kv head) pairs on
+    a card of ``sms`` SMs, one block an SM, kept per shape: ``(chunk,
+    blocks)``, the items a block at most and the blocks a pair.  The chunk
+    is the one whose blocks, dealt in launch order to the SM that frees
+    first, finish soonest, each costing its items plus
+    ``FLASH_BWD_BLOCK_COST`` and, in a tile cut in more than one chunk,
+    ``FLASH_BWD_PARTIAL_COST``; the larger chunk where two tie."""
+    items = flash_bwd_key_items(s, g, causal, window)
+    top = max(items)
+    candidates = sorted({c for c in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192,
+                                     256, 384, 512) if c < top} | {top}, reverse=True)
+    best = (float("inf"), top, 0)
+    for chunk in candidates:
+        blocks = flash_bwd_chunks(items, chunk)
+        costs = [n + FLASH_BWD_BLOCK_COST + (FLASH_BWD_PARTIAL_COST if n < items[kt] else 0)
+                 for kt, _, n in blocks]
+        free = [0.0] * min(sms, len(costs) * groups)
+        for _ in range(groups):
+            for cost in costs:
+                heapq.heapreplace(free, free[0] + cost)
+        if max(free) < best[0]:
+            best = (max(free), chunk, len(blocks))
+    return best[1], best[2]
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sms(dev: int) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def flash_dout(dout: torch.Tensor, form: str) -> torch.Tensor:
@@ -1146,6 +1281,17 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
         return dq, dk, dv
     seq_pad = -(-s // FLASH_BWD_SEQ_PAD) * FLASH_BWD_SEQ_PAD
     scratch = torch.empty((2, b * h, seq_pad), dtype=torch.float32, device=q.device)
+    dev = q.get_device()
+    wide = {}
+    if flash_backward_form(q.dtype, d) == "tensor" and d == FLASH_BWD_WIDE_D:
+        g = h // kh
+        chunk, blocks = flash_bwd_kv_plan(s, g, bool(causal), win, b * kh, _sms(dev))
+        part = torch.empty((b * kh, blocks, 2, FLASH_BWD_WIDE_ROWS, d), dtype=torch.float32,
+                           device=q.device)
+        count = torch.empty((b * kh, -(-s // FLASH_BWD_WIDE_ROWS)), dtype=torch.int32,
+                            device=q.device)
+        wide = dict(kv_part=part.data_ptr(), kv_count=count.data_ptr(), kv_chunk=chunk,
+                    kv_blocks=blocks)
     st = {n: _strides(t) for n, t in (("q", q), ("k", k), ("v", v), ("o", out), ("g", dout),
                                       ("dq", dq), ("dk", dk))}
     params = _FlashBwdParams(
@@ -1155,10 +1301,9 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
         delta=scratch.data_ptr() + scratch.nbytes // 2,
         **{f"{t}_{n}": st[t][i] for t in st for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},
         batch=b, seq=s, heads=h, kv_heads=kh, head_dim=d, causal=int(bool(causal)),
-        window=win, dtype=FLASH_DTYPES[q.dtype], seq_pad=seq_pad, scale=d ** -0.5,
+        window=win, dtype=FLASH_DTYPES[q.dtype], seq_pad=seq_pad, scale=d ** -0.5, **wide,
     )
     lib = load()
-    dev = q.get_device()
     # the raw handle of the current stream (a tenth of the host time of
     # current_stream(dev).cuda_stream); the launcher makes card `dev`
     # current for the launches where it is not

@@ -25,8 +25,9 @@ The gradient on the card is :class:`FlashAttention`, a
 each row's log-sum-exp, and it saves q, k, v, the output and that lse; its
 backward is the hand-written kernel of ``csrc/rm_flash_bwd.cu``
 (:func:`repro_torch.kernels._cuda.run_flash_backward`): P rebuilt from the
-lse, dK and dV in one pass over the keys, dQ in another — bf16 up to D 128
-on the tensor cores, float32 and D 256 on the CUDA cores.  The reference
+lse, dK and dV in one pass over the keys, dQ in another — bf16 on the
+tensor cores (at D 256 dK and dV in a warpgroup each), float32 on the CUDA
+cores.  The reference
 has no backward kernel: XLA differentiates ``blockwise_attention``'s
 checkpointed step (``repro/models/layers.py:292-298``).
 :func:`flash_attention_backward_torch` is the backward kernel's plain

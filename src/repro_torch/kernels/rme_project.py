@@ -69,6 +69,15 @@ def _layout_plan(layout: tuple, row_words: int) -> _cuda.SpanPlan:
     return _cuda.span_plan(column_slices(geom), row_words, geom.out_words_per_row)
 
 
+@functools.lru_cache(maxsize=_cuda.SPAN_PLANS)
+def _layout_slices(layout: tuple) -> tuple[tuple[int, int, int], ...]:
+    """``column_slices`` of a layout (BSL's and PCK's launches), kept as
+    the span plans are."""
+    row_bytes, widths, offsets, frame = layout
+    geom = TableGeometry(row_bytes, 0, widths, offsets, frame, max_columns=len(widths))
+    return tuple(map(tuple, column_slices(geom)))
+
+
 def project(words: torch.Tensor, geom: TableGeometry,
             revision: str = "mlp") -> torch.Tensor:
     """Packed projection ``(N, row_words) -> (N, out_words)`` via the RME's
@@ -78,7 +87,7 @@ def project(words: torch.Tensor, geom: TableGeometry,
     ride along in storage but are never shipped unless enabled."""
     if revision not in REVISIONS:
         raise ValueError(f"unknown RME revision {revision!r}; want one of {REVISIONS}")
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return project_torch(words, geom)
     _check_geometry(words, geom)
     if revision == "mlp":
@@ -87,7 +96,7 @@ def project(words: torch.Tensor, geom: TableGeometry,
             return _cuda.run_spans(words, span_plan(geom, row_words))
         req = _cuda.KernelReq(_cuda.PROJECT, tuple(geometry_words(geom)))
         return _cuda.run("project", words, [req])[0]
-    return _cuda.run_columns(f"project_{revision}", words, column_slices(geom),
+    return _cuda.run_columns(f"project_{revision}", words, _layout_slices(geom.layout_key()),
                              geom.out_words_per_row)
 
 

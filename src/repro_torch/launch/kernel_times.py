@@ -15,10 +15,12 @@ kernel and ``wide_projection`` lines, on one NVIDIA GPU:
 
 The cases: at the path's 2 GiB table, the fused scan, the hash-join probe
 in both forms, and the single projection, the filter, the multi-view
-projection and the selection (50% kept); at a record store of 4,096
-training samples of S 2,048 and 4,096 (``wide_projection``), the
-``(tokens, labels)`` view and its first 16 tokens through the projection
-(``"mlp"``), and ``index_select`` of the same words; the flash forward at
+projection and the selection (50% kept), and BSL at the revision study's
+``A1,A5,A9,A13`` (``project_bsl``); at a record store of 4,096 training
+samples of S 2,048 and 4,096 (``wide_projection``), the ``(tokens,
+labels)`` view and its first 16 tokens through the projection
+(``"mlp"``), the view through BSL (``project_bsl_s*``, its wide form), and
+``index_select`` of the same words; the flash forward at
 the serving shapes (``chip_smoke.FLASH_SHAPES``, no lse stored) and, where
 the port has it, the flash backward at ``FLASH_BACKWARD_SHAPES`` (a
 qwen3-8b training layer, then the CUDA-core form's shapes: the backward
@@ -47,7 +49,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 PATH_CASES = ("scan_multi", "hash_join", "hash_join_packed", "project", "filter_project",
-              "project_multi", "select_compact")
+              "project_multi", "select_compact", "project_bsl")
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -83,6 +85,7 @@ def path_cases(torch, CS, K, rows):
                pred_k=f.pred_k, ts=f.ts, ts_word=f.ts_word)
     geoms = [TableGeometry.from_schema(table.schema, v, n) for v in CS.MULTI_VIEWS]
     sel = TableGeometry.from_schema(table.schema, ["A1", "A9"], n)
+    bsl = TableGeometry.from_schema(table.schema, CS.REVISION_VIEWS[4], n)
     skw = dict(pred_word=table.schema.word_offset("A3"), pred_op="gt",
                pred_k=dict(CS.SELECTIVITIES)[50], block_rows=CS.SELECT_BLOCK_ROWS)
     return [
@@ -93,12 +96,14 @@ def path_cases(torch, CS, K, rows):
         ("filter_project", lambda: K.filter_project(words, f.geom, **fkw)),
         ("project_multi", lambda: K.project_multi(words, geoms)),
         ("select_compact", lambda: K.select_compact(words, sel, **skw)),
+        ("project_bsl", lambda: K.project(words, bsl, "bsl")),
     ]
 
 
 def wide_names(CS, seq: int) -> list[str]:
     narrow = f"_w{CS.WIDE_NARROW}"
-    return [f"{c}_s{seq}{x}" for x in ("", narrow) for c in ("project", "index_select")]
+    return [f"{c}_s{seq}{x}" for x in ("", narrow) for c in ("project", "index_select")] + [
+        f"project_bsl_s{seq}"]
 
 
 def wide_cases(torch, CS, K, keep):
@@ -124,6 +129,8 @@ def wide_cases(torch, CS, K, keep):
             want = K.project_torch(words, geom)
             yield f"project_s{seq}{suffix}", lambda g=geom: K.project(words, g), want
             yield f"index_select_s{seq}{suffix}", lambda i=idx: words.index_select(1, i), want
+            if not suffix:
+                yield f"project_bsl_s{seq}", lambda g=geom: K.project(words, g, "bsl"), want
         del store, words
         gc.collect()
         torch.cuda.empty_cache()

@@ -1754,7 +1754,8 @@ def test_wide_projection_layouts(dev, extra, cols):
     value mod 4, one, two and five columns with gaps, bit-equal to the plain
     version in one launch: from an aligned row and from rows 1 and 3 (a row
     store starting at each word of a 16-byte block), at 1, 3, 5 and 4,096
-    rows; BSL and PCK the same at 4,096 rows."""
+    rows; BSL and PCK the same at 4,096 rows, and BSL also at 1, 257, 300
+    and 4,095 rows from rows 0 to 3."""
     row_words = _cuda.DIRECT_ROW_WORDS + 1 + extra
     rng = np.random.default_rng(extra)
     words = torch.from_numpy(rng.integers(I32.min, I32.max, (4099, row_words),
@@ -1765,6 +1766,10 @@ def test_wide_projection_layouts(dev, extra, cols):
             assert_wide_projection(words[start:start + n], g, "mlp")
     for revision in ("pck", "bsl"):
         assert_wide_projection(words[:4096], g, revision)
+    # BSL's wide form: row counts that are not a multiple of its 256-row
+    # tile, from rows that start at every word of a 16-byte block
+    for start, n in ((1, 300), (2, 257), (3, 4095), (0, 1)):
+        assert_wide_projection(words[start:start + n], g, "bsl")
 
 
 @pytest.mark.parametrize("seq", WIDE_SEQ)
@@ -1848,6 +1853,9 @@ FLASH_GRAD_CASES = [
     (2, 256, 32, 8, 128, True, 100),  # qwen3-8b's heads, windowed
     (1, 192, 4, 1, 256, False, None),  # D 256, bidirectional
     (1, 130, 64, 4, 128, False, 48),  # group 16, bidirectional window
+    (2, 1024, 16, 1, 256, True, 700),  # D 256, MQA group 16, a window inside S
+    (1, 333, 4, 2, 256, True, None),  # D 256, S not a multiple of 64
+    (2, 300, 8, 1, 256, False, 100),  # D 256, bidirectional window, ragged S
 ]
 
 
@@ -1927,6 +1935,36 @@ def test_flash_backward_matches_plain_autograd(dev, case, dtype, monkeypatch):
         else:
             assert vs_plain <= 1e-5 * scale
             assert vs_recompute <= 1e-5
+
+
+def test_flash_backward_d256_two_calls_bit_equal(dev):
+    """The D 256 form at recurrentgemma-9b's training shape (B 2, S 2,048,
+    16 / 1 heads, causal, window 2,048): its key tiles cut into chunks
+    whose float32 partials the last block of a tile sums, and a tile the
+    plan leaves whole, each written straight — two calls bit-equal, and
+    both within two steps of bf16 of the plain version."""
+    from repro_torch.kernels import flash_attention as F
+
+    case = (2, 2048, 16, 1, 256, True, 2048)
+    b, s, h, kh = case[:4]
+    items = _cuda.flash_bwd_key_items(s, h // kh, True, s)
+    chunk = _cuda.flash_bwd_kv_plan(s, h // kh, True, s, b * kh, _cuda._sms(dev.index or 0))[0]
+    assert chunk < max(items) and chunk >= min(items)  # cut tiles and whole ones
+    base = flash_inputs(case, torch.bfloat16, dev)
+    o, lse = _cuda.run_flash(*base, True, s, lse=True)
+    dout = torch.randn(o.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev).bfloat16()
+    _cuda.reset_launches()
+    one = _cuda.run_flash_backward(*base, o, lse, dout, True, s)
+    two = _cuda.run_flash_backward(*base, o, lse, dout, True, s)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_backward"] == 2
+    plain = F.flash_attention_backward_torch(*base, o, lse, dout, True, s, block_k=1024)
+    for a, c, pl in zip(one, two, plain):
+        assert torch.equal(a, c)
+        assert torch.isfinite(a.float()).all()
+        err = float((a.float() - pl.float()).abs().max())
+        assert err <= FLASH_GRAD_PLAIN_STEPS * bf16_step(float(pl.float().abs().max()))
 
 
 @pytest.mark.parametrize("layout", ["strided", "offset"])

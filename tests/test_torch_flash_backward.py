@@ -226,10 +226,81 @@ def test_dout_the_kernel_cannot_read_is_copied_and_counted(layout, copied, form)
 
 @pytest.mark.parametrize("dtype,d,form", [
     (torch.bfloat16, 16, "tensor"), (torch.bfloat16, 64, "tensor"),
-    (torch.bfloat16, 128, "tensor"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.bfloat16, 128, "tensor"), (torch.bfloat16, 256, "tensor"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 256, "cuda_cores")])
 def test_backward_form_follows_dtype_and_width(dtype, d, form):
     assert _cuda.flash_backward_form(dtype, d) == form
+
+
+KEY_TILE_CASES = [
+    # (S, causal, window)
+    (64, True, 64), (100, True, 100), (1000, True, 700), (2048, True, 2048),
+    (333, True, 65), (300, False, 100), (448, False, 448), (130, False, 48), (65, False, 1),
+]
+
+
+@pytest.mark.parametrize("case", KEY_TILE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_d256_key_items_are_the_query_tiles_the_mask_reaches(case):
+    """The D 256 form's items of a 64-key tile (``flash_bwd_key_items``,
+    mirrored by ``key_tile_queries`` in ``rm_flash_bwd.cu``): G times the
+    64-query tiles holding an allowed (query, key) pair with a key of the
+    tile — counted here from the mask itself."""
+    s, causal, window = case
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    dist = i - j
+    allowed = (dist >= 0) & (dist < window) if causal else np.abs(dist) < window
+    rows = _cuda.FLASH_BWD_WIDE_ROWS
+    want = [len({int(q) // rows for q in np.nonzero(allowed[:, k0:k0 + rows].any(axis=1))[0]})
+            for k0 in range(0, s, rows)]
+    for g in (1, 16):
+        assert _cuda.flash_bwd_key_items(s, g, causal, window) == [g * n for n in want]
+
+
+@pytest.mark.parametrize("case", [(2048, 16, True, 2048, 2), (1000, 16, True, 700, 2),
+                                  (333, 2, True, 333, 1), (300, 8, False, 100, 2),
+                                  (64, 1, True, 64, 1)], ids=lambda c: "-".join(map(str, c)))
+def test_d256_chunk_plan_covers_each_item_once(case):
+    """The dK / dV blocks the chunk plan gives (``flash_bwd_kv_plan``,
+    ``flash_bwd_chunks``, as the kernel cuts them): each key tile's items
+    dealt once, in order, in near-equal chunks of at most the plan's size,
+    a tile's blocks side by side and the low tiles first."""
+    s, g, causal, window, groups = case
+    items = _cuda.flash_bwd_key_items(s, g, causal, window)
+    chunk, n_blocks = _cuda.flash_bwd_kv_plan(s, g, causal, window, groups, 132)
+    assert 1 <= chunk <= max(items)
+    blocks = _cuda.flash_bwd_chunks(items, chunk)
+    assert len(blocks) == n_blocks
+    assert [kt for kt, _, _ in blocks] == sorted(kt for kt, _, _ in blocks)
+    for kt, n in enumerate(items):
+        mine = [(lo, m) for t, lo, m in blocks if t == kt]
+        assert len(mine) == -(-n // chunk)
+        at = 0
+        for lo, m in mine:
+            assert lo == at and 1 <= m <= chunk
+            at += m
+        assert at == n
+        assert max(m for _, m in mine) - min(m for _, m in mine) <= 1
+
+
+def test_d256_chunk_plan_fills_the_card_at_recurrentgemma():
+    """recurrentgemma-9b's local layer in training (B 2, S 2,048, 16 / 1
+    heads, causal, window 2,048): 64 key tiles of 16-512 items would leave
+    most of 132 SMs idle; the plan cuts the long tiles so that the blocks
+    outnumber the SMs and no block holds more than a tenth of the tile 0's
+    items, and its estimate stays within 1.5 times an even share."""
+    s, g, groups, sms = 2048, 16, 2, 132
+    items = _cuda.flash_bwd_key_items(s, g, True, 2048)
+    assert max(items) == 512 and len(items) == 32
+    chunk = _cuda.flash_bwd_kv_plan(s, g, True, 2048, groups, sms)[0]
+    blocks = _cuda.flash_bwd_chunks(items, chunk)
+    assert len(blocks) * groups > sms and chunk <= max(items) // 10
+    costs = [m + _cuda.FLASH_BWD_BLOCK_COST + _cuda.FLASH_BWD_PARTIAL_COST * (m < items[kt])
+             for kt, _, m in blocks] * groups
+    free = [0] * sms
+    for cost in costs:
+        free[free.index(min(free))] += cost
+    assert max(free) <= 1.5 * sum(items) * groups / sms
 
 
 def test_cpu_gradient_is_the_plain_autograd():
