@@ -568,7 +568,8 @@ FLASH_BACKWARD_SHAPES = (
 FLASH_BACKWARD_CASES = ((2, 256, 8, 2, 64, True, None), (1, 200, 16, 1, 128, True, None),
                         (2, 256, 32, 8, 128, True, 100), (1, 192, 4, 1, 256, False, None),
                         (1, 130, 64, 4, 128, False, 48), (2, 1024, 16, 1, 256, True, 700),
-                        (1, 333, 4, 2, 256, True, None), (2, 300, 8, 1, 256, False, 100))
+                        (1, 333, 4, 2, 256, True, None), (2, 300, 8, 1, 256, False, 100),
+                        (2, 256, 8, 2, 32, True, None), (1, 150, 4, 4, 16, False, 40))
 TRAIN_ATTN_CHUNK = 1024
 # the backward kernel's dq, dk and dv (errors as shares of each gradient's
 # largest magnitude).  bf16: the kernel rounds P and dS to bf16 before their
@@ -644,27 +645,35 @@ def device_ms(torch, fn, reps: int) -> tuple[float | None, list, float | None]:
     """Device time per call of ``fn`` without its host work: the kernels it
     launches (one stream, so they do not overlap), from ``torch.profiler``
     over ``reps`` calls after a warm-up; ``[kernel, ms per call, launches
-    per call]`` for each; and an estimate.  A trace that holds no device
-    time, or lost launches (a kernel counted other than a multiple of
-    ``reps`` times), is taken once more; if the second loses launches too,
-    the time is ``None`` and the estimate is each kernel's mean time a
-    launch times its traced launches a call, rounded (at least one) — which
-    misses a kernel whose launches were all lost.  The estimate is ``None``
-    where the time was measured."""
+    per call]`` for each; and an estimate.  Each trace first runs ``reps``
+    calls in the profiler's warm-up step, whose events it drops: late in
+    this script, traces without one kept only some calls' kernels of SDPA's
+    backward (run by autograd), where a fresh process kept all.  A trace
+    that holds no device time, or lost launches (a kernel counted other
+    than a multiple of ``reps`` times), is taken again, three traces in
+    all; if the last loses launches too, the time is ``None`` and the
+    estimate is each kernel's mean time a launch times its traced launches
+    a call, rounded (at least one) — which misses a kernel whose launches
+    were all lost.  The estimate is ``None`` where the time was measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
+    for _ in range(3):
+        traced: list = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+            for _ in range(2):  # the warm-up step, then the traced one
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in (traced[0] if traced else [])
                    if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
         split = [[e.key[:60], dev_us(e) / 1e3 / reps, e.count / reps] for e in kernels]
         if kernels and not any(e.count % reps for e in kernels):
@@ -2785,8 +2794,10 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
     them, a yardstick the port never calls: one
     ``scaled_dot_product_attention`` on the same inputs under autograd
     (``is_causal`` with ``enable_gqa``, a bool mask for the window, none
-    bidirectional), forward and forward + backward, and the backend that
-    runs it (``sdpa_backend``)."""
+    bidirectional), forward and forward + backward (events), the device
+    time of its backward's kernels alone (``library_backward_device_ms``,
+    ``backward_over_library_device`` beside the events' ratio), and the
+    backend that runs it (``sdpa_backend``)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import _cuda
@@ -2851,6 +2862,17 @@ def flash_backward_phase(torch, seed: int, reps: int) -> dict:
         line["library_backward_ms"] = (line["library_forward_backward_ms"]
                                        - line["library_forward_ms"])
         line["backward_over_library"] = line["backward_ms"] / line["library_backward_ms"]
+        # the device time of the kernels SDPA's backward alone launches: one
+        # forward, then its graph walked again and again
+        lib_leaves = [t.detach().requires_grad_() for t in base]
+        lib_out = sdpa(*lib_leaves)
+        lib_dout = dout.to(lib_out.dtype)
+        line.update(device_fields(torch, lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib_leaves, lib_dout, retain_graph=True), reps, "library_backward_"))
+        line["backward_over_library_device"] = (
+            line["backward_device_ms"] / line["library_backward_device_ms"]
+            if line["backward_device_ms"] and line["library_backward_device_ms"] else None)
+        del lib_leaves, lib_out, lib_dout
         emit(line)
         out[name] = line
         del base, dout, leaves, args

@@ -1,6 +1,6 @@
 // The destination-driven word-range copy of the wide-row projections: the
-// span kernel (rm_spans.cu, MLP's wide form) and BSL's wide form
-// (rm_project.cu).
+// span kernel (rm_spans.cu, MLP's wide form), BSL's wide form and PCK's
+// wide form (rm_project.cu), the last into its packer in shared memory.
 //
 // A span is output words [d0, d1) of a packed row, copied from row-store
 // word addresses [s0, s1) (s1 - s0 = d1 - d0); its source and destination
@@ -25,7 +25,8 @@
 // the row store's last 16-byte block is read, nor before its first.  The
 // loads of an item (load_item) and its stores (store_item) are apart, so a
 // warp can have several items' loads in flight.  The output must start
-// 16-byte aligned.
+// 16-byte aligned.  Its stores go to device memory (streaming) or, with
+// kShared, to a packer in shared memory (PCK's wide form).
 #pragma once
 
 #include <cstdint>
@@ -82,10 +83,15 @@ __device__ __forceinline__ int4 from_next_lane(int4 v, int lane) {
 
 // Output words [vd, vd + 4) of `out` that lie in [d0, d1): one 16-byte store
 // when all four do, else word by word.
+template <bool kShared = false>
 __device__ __forceinline__ void store_vec(int32_t* out, long long vd, int4 v, long long d0,
                                           long long d1) {
   if (vd >= d0 && vd + 4 <= d1) {
-    __stcs(reinterpret_cast<int4*>(out + vd), v);
+    if constexpr (kShared) {
+      *reinterpret_cast<int4*>(out + vd) = v;
+    } else {
+      __stcs(reinterpret_cast<int4*>(out + vd), v);
+    }
     return;
   }
   const int32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -115,7 +121,9 @@ __device__ __forceinline__ Item load_item(const Span& sp, long long c, int lane)
   return it;
 }
 
-// Realign and store an item that load_item(sp, ..) brought in.
+// Realign and store an item that load_item(sp, ..) brought in (kShared:
+// `out` is shared memory).
+template <bool kShared = false>
 __device__ __forceinline__ void store_item(int32_t* out, const Span& sp, const Item& it,
                                            int lane) {
   const int shift = static_cast<int>((sp.s0 - sp.d0) & 3);
@@ -129,7 +137,7 @@ __device__ __forceinline__ void store_item(int32_t* out, const Span& sp, const I
       if (lane == 31 && j + 1 == kVecs) hi = it.tail;
       v = realign(it.lo[j], hi, shift);
     }
-    store_vec(out, it.vd0 + 128 * j, v, sp.d0, sp.d1);
+    store_vec<kShared>(out, it.vd0 + 128 * j, v, sp.d0, sp.d1);
   }
 }
 

@@ -1,8 +1,7 @@
 // GQA flash-attention backward for Hopper (sm_90a).
 //
 //   rm_flash_bwd_prep_kernel          delta and the padded lse of every row
-//   rm_flash_bwd_dkdv_tc_kernel       (bfloat16, D <= 128)  dK and dV
-//   rm_flash_bwd_dq_tc_kernel         (bfloat16, D <= 128)  dQ
+//   rm_flash_bwd_one_kernel           (bfloat16, D 64, 128)  dQ, dK and dV in one pass
 //   rm_flash_bwd_dkdv_wide_kernel     (bfloat16, D 256)     dK and dV
 //   rm_flash_bwd_dq_wide_kernel       (bfloat16, D 256)     dQ
 //   rm_flash_bwd_simt_kernel<kKV>     (float32)
@@ -31,35 +30,72 @@
 // forward's; at a qwen3-8b training layer (B 2, S 2,048, 32 / 8 heads,
 // D 128, causal) that is 1.72e11 operations, 0.174 ms at 989 TFLOP/s.
 //
-// Design: three launches on one stream, deterministic (no atomics on
-// values), so two calls on the same inputs give bit-equal gradients.
-//   1. prep: one warp a row writes D_i and lse_i (times log2 e in the
+// Design: a prep launch, then one pass (bf16 D 64, 128) or two on one stream,
+// deterministic (no value summed by an atomic in an order that varies), so
+// two calls on the same inputs give bit-equal gradients.
+//   prep: one warp a row writes D_i and lse_i (times log2 e in the
 //      tensor-core forms) into (B H, seq_pad) scratch, 0 and +inf on rows
 //      past S: a row past S then has P = exp2(x - inf) = 0 whatever its
 //      logits, besides the explicit mask.  It also zeroes the D 256 form's
-//      per-key-tile counters.
-//   2. dK / dV: one block owns 128 keys of one (b, kv head): K and V come in
-//      once by TMA, then Q, dO, lse and D tiles of 64 queries stream through
-//      a two-stage ring for every query tile in range of every head of the
-//      group.  S^T = K Q^T and dP^T = V dO^T are wgmma products whose
-//      accumulators hold P^T and dS^T in the layout of the A fragment of
-//      the next products, dV += P^T dO and dK += dS^T Q (B read MN-major from
-//      the same tiles, no transposed copy).  dK and dV sum in registers over
-//      the whole group: no atomics, no float32 scratch.
-//   3. dQ: one block owns 128 query rows of one (b, head), as the forward:
-//      Q, dO once, then 64-key K and V tiles through the ring; S = Q K^T,
-//      dP = dO V^T, then dQ += dS K.
-// Seven products a pair where a single pass needs five: the price of
-// bit-equal gradients without a float32 dQ buffer summed by atomics.
-// The dK / dV pass holds two 64 x D float32 accumulators and the 64 x 64
-// S^T and dP^T at once: its blocks are two warpgroups, 256 threads of 255
-// registers, and thread 0 issues the copies besides its share of the
-// products (ptxas gave the 288 threads of a block with a producer warp 168
-// registers each, as for 384, and spilled).  The dQ pass fits 168: two
-// consumer warpgroups and a producer warp.  Key tiles wholly
-// outside the causal or window range are skipped in both passes; the mask
-// is applied (to rows and keys) only on tiles that straddle a boundary.
+//      per-key-tile counters and the one-pass form's ticket and counts.
 //
+// bfloat16 at D 64 and 128 (the LM layers' heads): one pass, the five
+// products a pair, warp-specialized (rm_flash_bwd_one_kernel).  bfloat16 at
+// D 16 and 32 takes it too: the wrapper (_cuda.run_flash_backward) pads
+// the heads with zero columns to D 64, which add nothing to S, dP or D_i,
+// and keeps the gradients' first D columns.
+//   * Work: a key block of 128 keys of one (b, kv head).  Three warpgroups:
+//     a producer (setmaxnreg down to 24 registers) and two consumers of 64
+//     keys each (up to 240; they hold dK, dV, S^T, dP^T and both fragments
+//     at once).  The producer's thread 0 loads K and V once, then Q, dO,
+//     lse and D tiles of 64 queries of every head of the group through a
+//     two-stage ring, the query tiles from the top down, the heads within
+//     a tile.  Per item a consumer runs S^T = K Q^T and dP^T = V dO^T
+//     (committed apart: P^T is formed in registers while dP^T runs), dV +=
+//     P^T dO (running while dS^T is formed), dK += dS^T Q, and its half of
+//     the 64 x D dQ partial dS K: dS^T goes to shared memory in bf16 as a
+//     TMA tile of 128 key rows would lie (two buffers, one named barrier an
+//     item), read MN-major as the A operand, K's columns of the
+//     warpgroup's half as B.  dK and dV sum in registers over the group.
+//   * dQ: a query tile's partials are summed in float32 scratch (B H,
+//     seq_pad, D) in increasing key-block order behind a count a tile
+//     (tile_contributors gives a tile's key blocks).  At an item's end the
+//     consumers stage their halves in shared memory (two buffers, in the
+//     scratch's TMA boxes of 64 x 32, 128-byte swizzled) and hand them to
+//     the producer's hand-on thread (an mbarrier) after the next item's
+//     fence and barrier.  That thread copies the tile out with a TMA tensor
+//     store (the tile's first contributor) or, once the count has reached
+//     its rank (acquire), a TMA reduce-add (cp.reduce.async.bulk.tensor
+//     .add: each element added once, in L2), waits for the copy to
+//     complete, releases the count (red.release) and hands the buffer back
+//     (an mbarrier).  A tile's last contributor adds its partial the same
+//     way, and the hand-on thread then loads the tile's sum back into the
+//     buffer (TMA, on the same mbarrier); the consumers convert it to bf16
+//     times the scale when they next need the buffer.  (Converted from L2
+//     by the consumers, the sums of a bidirectional mask, whose tiles all
+//     end at the last key block, held its blocks back.)  A tile with one
+//     contributor is written straight.  No memset and no extra launch: the prep kernel
+//     zeroes the counts.
+//   * Forward progress: a persistent grid (the blocks that fit the SMs)
+//     takes key blocks by an atomic ticket, ascending key blocks with the
+//     (b, kv head) pairs side by side, so a key block's predecessor — the
+//     only work it can wait on — was handed out earlier; the ticket fixes
+//     who works, the counts the order of the sums.  Walking the tiles from
+//     the top down, every key block of a pair reaches a tile at the same
+//     item as the block before it or later, so a successor runs about an
+//     item behind its predecessor and the waits stay short under causal,
+//     windowed and bidirectional masks (tests/test_torch_flash_backward.py
+//     models the items and simulates the grid).
+//   * Why a producer warpgroup: the hand-on's fence, turn wait and copy
+//     cost about 2,000 cycles an item when a consumer's thread made them
+//     (PERF.md §6).  setmaxnreg needs the roles' code apart (a loop each),
+//     or ptxas holds every thread to the launch's 168 registers and
+//     spills; and the producer must give back all the consumers take, or
+//     the increase waits forever.
+//   Not done: the consumers meet once an item (the dQ product needs both
+//   halves of dS), so one's softmax does not hide behind the other's
+//   products as FA3's ping-pong does.
+
 // bfloat16 at D 256 (recurrentgemma-9b's local attention): a 64 x 256
 // float32 accumulator is 128 registers a thread of a warpgroup, so one
 // warpgroup cannot hold dK and dV at once.  The wide form gives each its
@@ -84,8 +120,8 @@
 //     share the tensor cores and each K / V tile serves 128 rows.  A
 //     warpgroup skips the products of a key tile none of its rows sees.
 //
-// float32: the same two passes on the CUDA cores (no tensor-core product
-// meets float32's tolerance), templated on the pass.  A block stages 64
+// float32: two passes, dK / dV and then dQ, on the CUDA cores (no
+// tensor-core product meets float32's tolerance), templated on the pass.  A block stages 64
 // stationary rows (32 at D 256) of Q and dO (dQ pass) or K and V (dK / dV
 // pass) as float32, then streams 64-row tiles of the other pair; a warp
 // owns 4 stationary rows, a lane the logits of streamed rows lane and
@@ -115,6 +151,9 @@ struct FlashBwdParams {
   float* delta;      // scratch (B H, seq_pad): D_i, 0 past S
   float* kv_part;    // D 256 scratch: (B KH, kv_blocks, 2, 64, 256) dV and dK partials
   int32_t* kv_count; // D 256 scratch: (B KH, ceil(S / 64)) blocks done a key tile
+  float* dq_acc;     // one pass: (B H, seq_pad, D) float32 dQ partials summed so far
+  int32_t* dq_count; // one pass: [0] the work ticket, then (B H, seq_pad / 64) partials
+                     // added a query tile
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -182,12 +221,14 @@ rm_flash_bwd_prep_kernel(const __grid_constant__ FlashBwdParams p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * 8 + warp;
   const int bh = blockIdx.y;
-  if (p.kv_count != nullptr) {  // the D 256 form's counters: fewer than the grid's threads
-    const long long at = (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * 256 +
-                         threadIdx.x;
-    if (at < static_cast<long long>(p.batch) * p.kv_heads * ((p.seq + 63) / 64))
-      p.kv_count[at] = 0;
-  }
+  // the counters of the D 256 form and of the one-pass form: fewer than the grid's threads
+  const long long at = (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * 256 +
+                       threadIdx.x;
+  if (p.kv_count != nullptr &&
+      at < static_cast<long long>(p.batch) * p.kv_heads * ((p.seq + 63) / 64))
+    p.kv_count[at] = 0;
+  if (p.dq_count != nullptr && at < 1 + static_cast<long long>(p.batch) * p.heads * (p.seq_pad / 64))
+    p.dq_count[at] = 0;
   if (i >= p.seq_pad) return;
   const int b = bh / p.heads, h = bh % p.heads;
   float sum = 0.0f;
@@ -205,46 +246,22 @@ rm_flash_bwd_prep_kernel(const __grid_constant__ FlashBwdParams p) {
   }
 }
 
-// ------------------------------------------------- bfloat16 tensor cores
+// ------------------------- bfloat16 tensor cores: what the forms share
 namespace bwd {
 
 using namespace rm_tma;
 using namespace rm_wgmma;
 
-constexpr int kConsumers = 2;                      // warpgroups of 64 rows
-constexpr int kThreads = 128 * kConsumers + 32;    // dQ: and one producer warp
-constexpr int kKvThreads = 128 * kConsumers;       // dK / dV: thread 0 issues the copies
-constexpr int kStages = 2;                         // ring depth
+constexpr int kStages = 2;  // ring depth
 
+// the swizzled layout of a bf16 tile of D columns, as the products read it
 template <int D>
 struct Tile {
   static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes of a swizzled row
   static constexpr int kChunk = kSwizzle / 2;                 // columns a TMA box carries
-  static constexpr int kChunks = D / kChunk;
   // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   static constexpr int kPvN = D < 128 ? D : 128;  // width of one register-A wgmma
-  // dK / dV pass: 128 keys a block (64 a warpgroup), 64-query tiles streamed
-  static constexpr int kKeys = 128;
-  static constexpr int kQ = 64;
-  static constexpr int kKeyBytes = kKeys * D * 2;  // the block's K (and V)
-  static constexpr int kQBytes = kQ * D * 2;       // a stage's Q (and dO)
-  static constexpr int kVecBytes = kQ * 4;         // a stage's lse (and D)
-  static constexpr int kKvQ = 2 * kKeyBytes;
-  static constexpr int kKvG = kKvQ + kStages * kQBytes;
-  static constexpr int kKvLse = kKvG + kStages * kQBytes;
-  static constexpr int kKvDelta = kKvLse + kStages * kVecBytes;
-  static constexpr int kKvBars = kKvDelta + kStages * kVecBytes;
-  static constexpr int kKvSmem = kKvBars + 64 + 1024;  // barriers, then alignment slack
-  // dQ pass: 128 query rows a block (64 a warpgroup), 64-key tiles streamed
-  static constexpr int kRows = 128;
-  static constexpr int kN = 64;
-  static constexpr int kRowBytes = kRows * D * 2;  // the block's Q (and dO)
-  static constexpr int kNBytes = kN * D * 2;       // a stage's K (and V)
-  static constexpr int kDqK = 2 * kRowBytes;
-  static constexpr int kDqV = kDqK + kStages * kNBytes;
-  static constexpr int kDqBars = kDqV + kStages * kNBytes;
-  static constexpr int kDqSmem = kDqBars + 64 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -313,256 +330,498 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_str
 
 }  // namespace bwd
 
+// ---------------------------------- bfloat16 tensor cores, one pass, D 64 / 128
+namespace one {
+
+using namespace rm_tma;
+using namespace rm_wgmma;
+
+constexpr int kThreads = 384;          // a producer warpgroup, two consumer warpgroups of 64 keys
+constexpr int kConsumerWarps = 8;
+// setmaxnreg: a block of 384 threads starts at 168 registers a thread; the
+// producer's four warps give back 144 each, which the eight consumer warps
+// take, 72 each (what inc asks for must be given back, or it waits forever)
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(4 * (168 - kProducerRegs) >= 8 * (kConsumerRegs - 168), "setmaxnreg budget");
+constexpr int kStages = 2;             // the ring of Q / dO tiles
+constexpr int kKeys = 128;             // a block's keys
+constexpr int kQ = 64;                 // a streamed query tile's rows
+constexpr int kSw = 128, kChunk = 64;  // 128-byte swizzle: 64 columns a TMA box
+constexpr int kDsBytes = kKeys * kQ * 2;  // dS^T in bf16: 128 key rows of 128 bytes
+constexpr int kDqBoxCols = 32;  // float32 columns of a scratch box: 128 bytes, swizzled
+
+// Byte offset of partial element (row, col) in a half's buffer: box col / 32
+// of 64 rows of 128 bytes, 16-byte chunk j of a row at j ^ (row % 8)
+__device__ __forceinline__ int dq_at(int row, int col) {
+  const int cc = col % kDqBoxCols;
+  return (col / kDqBoxCols) * kQ * 128 + row * 128 +
+         ((((cc >> 2) ^ (row & 7)) << 4) | ((cc & 3) << 2));
+}
+
 template <int D>
-__global__ void __launch_bounds__(bwd::kKvThreads, 1)
-rm_flash_bwd_dkdv_tc_kernel(const __grid_constant__ FlashBwdParams p,
-                            const __grid_constant__ CUtensorMap map_q,
-                            const __grid_constant__ CUtensorMap map_g,
-                            const __grid_constant__ CUtensorMap map_k,
-                            const __grid_constant__ CUtensorMap map_v) {
-  using namespace bwd;
+struct Tile {
+  static_assert(D == 64 || D == 128, "the one-pass form takes D 64 and 128");
+  static constexpr int kHalf = D / 2;  // the dQ columns of a warpgroup
+  static constexpr int kKeyBytes = kKeys * D * 2;
+  static constexpr int kQBytes = kQ * D * 2;
+  static constexpr int kVecBytes = kQ * 4;
+  // K, V, the ring's Q and dO, two dS^T buffers (1,024-byte aligned: the
+  // swizzle repeats every 1,024 bytes), two buffers of the dQ partials
+  // waiting for their copy (a half a warpgroup, as the scratch's TMA boxes
+  // of 64 rows x 32 columns lie, 128-byte swizzled), the ring's lse and D,
+  // the barriers
+  static constexpr int kDqHalfBytes = kQ * kHalf * 4;  // a warpgroup's float32 partial
+  static constexpr int kDqBoxes = kHalf / kDqBoxCols;   // its TMA boxes
+  static constexpr int kV = kKeyBytes;
+  static constexpr int kQs = 2 * kKeyBytes;
+  static constexpr int kGs = kQs + kStages * kQBytes;
+  static constexpr int kDs = kGs + kStages * kQBytes;
+  static constexpr int kDq = kDs + 2 * kDsBytes;  // two buffers of the two halves' partials
+  static constexpr int kLse = kDq + 2 * 2 * kDqHalfBytes;
+  static constexpr int kDelta = kLse + kStages * kVecBytes;
+  static constexpr int kBars = kDelta + kStages * kVecBytes;
+  static constexpr int kSmem = kBars + 128 + 1024;  // barriers, then alignment slack
+};
+static_assert(Tile<128>::kSmem <= 232448, "the one-pass tiles exceed shared memory");
+
+// The key blocks whose partials make query tile qt's dQ: [lo, hi], summed
+// in that order (modelled in tests/test_torch_flash_backward.py)
+__host__ __device__ __forceinline__ void tile_contributors(const FlashBwdParams& p, int qt,
+                                                           int& lo, int& hi) {
+  const int i0 = qt * kQ;
+  const int i_last = (i0 + kQ < p.seq ? i0 + kQ : p.seq) - 1;
+  const int j_lo = i0 - p.window + 1 > 0 ? i0 - p.window + 1 : 0;
+  const int j_hi = p.causal ? i_last
+                            : (i_last + p.window - 1 < p.seq - 1 ? i_last + p.window - 1
+                                                                 : p.seq - 1);
+  lo = j_lo / kKeys;
+  hi = j_hi / kKeys;
+}
+
+// Wait until *count is `want` (acquire); a wait past kWaitLimitNs traps
+__device__ __forceinline__ void wait_count(const int32_t* count, int want) {
+  uint64_t start = 0;
+  for (unsigned spins = 1;; ++spins) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(reinterpret_cast<uint64_t>(count)) : "memory");
+    if (v == want) return;
+    if (spins % 256 == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (start == 0) start = now;
+      else if (now - start > kWaitLimitNs) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// the round's barrier: all kThreads threads, from the producer's and the
+// consumers' own code
+__device__ __forceinline__ void round_sync() {
+  asm volatile("bar.sync 2, %0;" :: "n"(kThreads) : "memory");
+}
+
+// The tile of the float32 scratch at (column c0, row c1) from shared memory
+// `src`: stored (kAdd false) or added element by element in L2 (kAdd), by
+// the async proxy, in the issuing thread's open bulk group
+template <bool kAdd>
+__device__ __forceinline__ void tma_tile_out(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  if (kAdd) {
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1) : "memory");
+  } else {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+                 : "memory");
+  }
+}
+
+// The tile of the float32 scratch at (column c0, row c1) into shared memory
+// `dst`, completing on mbarrier `bar`
+__device__ __forceinline__ void tma_tile_in(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// hand a tile's count on: the copies before are complete and fenced
+__device__ __forceinline__ void release_count(int32_t* count) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;"
+               :: "l"(reinterpret_cast<uint64_t>(count)) : "memory");
+}
+
+// the issuing thread's bulk groups are complete: their writes are performed
+// (and ordered before the generic proxy's later accesses)
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// the tile's count has reached `want`: the sums it stands for, written by
+// other blocks' copies, are visible to this thread's copies too
+__device__ __forceinline__ void wait_turn(const int32_t* count, int want) {
+  wait_count(count, want);
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// acc (64 queries x D / 2) = dS (64 x 128 keys: dS^T in `ds`, MN-major) .
+// K (128 keys x D / 2: the key block's K from column `col0`, MN-major)
+template <int D>
+__device__ __forceinline__ void product_dq(float (&acc)[D / 4], uint32_t ds, uint32_t k_s,
+                                           int col0) {
+  const uint32_t kb = k_s + (col0 / kChunk) * kKeys * kSw + (col0 % kChunk) * 2;
+#pragma unroll
+  for (int u = 0; u < kKeys / 16; ++u) {
+    const uint64_t da = desc(ds + 16 * u * kSw, kKeys * kSw, 8 * kSw, 1);
+    const uint64_t db = desc(kb + 16 * u * kSw, kKeys * kSw, 8 * kSw, 1);
+    wgmma_tt<D / 2>(acc, da, db, u > 0);
+  }
+}
+
+}  // namespace one
+
+template <int D>
+__global__ void __launch_bounds__(one::kThreads, 1)
+rm_flash_bwd_one_kernel(const __grid_constant__ FlashBwdParams p,
+                        const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_g,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_acc) {
+  using namespace one;
   using T = Tile<D>;
-  constexpr int kSw = T::kSwizzle, kQ = T::kQ, kKeys = T::kKeys;
+  using bwd::pack, bwd::product_rs, bwd::product_ss, bwd::smem_addr, bwd::store_rows;
   extern __shared__ uint8_t smem_raw[];
-  // tiles at a 1,024-byte boundary: the swizzle pattern repeats every 1,024 bytes
+  __shared__ int ticket;
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic
-  const uint32_t k_s = base, v_s = base + T::kKeyBytes;
-  auto q_st = [&](int s) { return base + T::kKvQ + s * T::kQBytes; };
-  auto g_st = [&](int s) { return base + T::kKvG + s * T::kQBytes; };
-  const uint32_t bars = base + T::kKvBars;
+  uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t k_s = base, v_s = base + T::kV;
+  auto q_st = [&](int s) { return base + T::kQs + s * T::kQBytes; };
+  auto g_st = [&](int s) { return base + T::kGs + s * T::kQBytes; };
+  const uint32_t bars = base + T::kBars;
   const uint32_t kv_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  // a dQ buffer's partials are staged (the consumers' 8 warps), then copied
+  // out and complete (the hand-on thread)
+  auto staged = [&](int buf) { return bars + 8 * (1 + 2 * kStages + buf); };
+  auto done_bar = [&](int buf) { return bars + 8 * (3 + 2 * kStages + buf); };
+  auto dq_buf = [&](int buf, int half) { return T::kDq + (2 * buf + half) * T::kDqHalfBytes; };
 
   const int S = p.seq, W = p.window, G = p.heads / p.kv_heads;
-  const int bkh = blockIdx.x;
-  const int b = bkh / p.kv_heads, kh = bkh % p.kv_heads;
-  const int k0 = blockIdx.y * kKeys;  // causal: the low keys, the longest blocks, first
-  // the query tiles any key of this block is seen by, the same for every head
-  const int k_last = min(k0 + kKeys, S) - 1;
-  const int i_lo = p.causal ? k0 : max(0, k0 - W + 1);
-  const int i_hi = min(S - 1, k_last + W - 1);
-  const int qt_lo = i_lo / kQ, nq = i_hi / kQ - qt_lo + 1;
-  const int items = G * nq;  // (head, query tile), head-major
-
-  // Thread 0 is the producer as well as a consumer: a producer warp would
-  // cost the registers the two 64 x D accumulators need (ptxas sizes every
-  // thread of a 288-thread block as one of 384).  It fills item `it` into
-  // stage it % 2 once the item two before is consumed: two items are in
-  // flight before the loop, and each later one is issued as its stage frees.
-  auto issue = [&](int it) {
-    const int s = it % kStages;
-    const int h = kh * G + it / nq, q0 = (qt_lo + it % nq) * kQ;
-    mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);  // the first round passes at once
-    mbar_expect_tx(full(s), 2 * T::kQBytes + 2 * T::kVecBytes);
-    for (int c = 0; c < T::kChunks; ++c)
-      tma_load(q_st(s) + c * kQ * kSw, &map_q, full(s), c * T::kChunk, h, q0, b);
-    for (int c = 0; c < T::kChunks; ++c)
-      tma_load(g_st(s) + c * kQ * kSw, &map_g, full(s), c * T::kChunk, h, q0, b);
-    const long long row = static_cast<long long>(b * p.heads + h) * p.seq_pad + q0;
-    bulk_load(base + T::kKvLse + s * T::kVecBytes, p.lse_pad + row, T::kVecBytes, full(s));
-    bulk_load(base + T::kKvDelta + s * T::kVecBytes, p.delta + row, T::kVecBytes, full(s));
-  };
+  const int groups = p.batch * p.kv_heads;
+  const int tickets = (S + kKeys - 1) / kKeys * groups;
+  const int n_qt = p.seq_pad / kQ;
+  int32_t* counts = p.dq_count + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 4 * kConsumers);  // one arrival per warp
+      mbar_init(empty(s), kConsumerWarps);  // one arrival per consumer warp
+    }
+    for (int buf = 0; buf < 2; ++buf) {
+      mbar_init(staged(buf), kConsumerWarps);
+      mbar_init(done_bar(buf), 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(kv_full, 2 * T::kKeyBytes);
-    for (int c = 0; c < T::kChunks; ++c)
-      tma_load(k_s + c * kKeys * kSw, &map_k, kv_full, c * T::kChunk, kh, k0, b);
-    for (int c = 0; c < T::kChunks; ++c)
-      tma_load(v_s + c * kKeys * kSw, &map_v, kv_full, c * T::kChunk, kh, k0, b);
-    for (int it = 0; it < min(items, kStages); ++it) issue(it);
   }
   __syncthreads();
 
-  const int wgc = threadIdx.x / 128;        // this warpgroup's 64 keys
-  const int warp = (threadIdx.x / 32) % 4;  // 16 rows each
-  const int lane = threadIdx.x % 32;
-  const int r_a = 16 * warp + lane / 4;     // a thread's two rows: r_a and r_a + 8
-  const int jw = k0 + 64 * wgc;
-  const int j_a = jw + r_a;
+  const int role = threadIdx.x / 128;  // 0: the producer, 1 and 2: consumer warpgroups
+  const int wgc = role - 1;  // a consumer warpgroup's 64 keys and half of dQ's columns
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int r_a = 16 * warp + lane / 4;  // a thread's two rows of a fragment: r_a and r_a + 8
+  const int col0 = wgc * T::kHalf;
   const float scale_log2 = p.scale * kLog2e;
 
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.0f;
-  float st[kQ / 2], dpt[kQ / 2];            // S^T then P^T; dP^T then dS^T
-  uint32_t pa[kQ / 16][4], da[kQ / 16][4];  // P^T and dS^T as bf16 A fragments
+  // The next key block by ticket, for every thread (the round's two
+  // barriers take all 384): key blocks in ascending order (the longest,
+  // when causal, first), the (b, kv head) pairs side by side, so a key
+  // block's predecessor holds a lower ticket and was handed out earlier.
+  // Item it of a key block: query tile qt_hi - it / G (from the top: every
+  // key block of a (b, kv head) reaches a tile at the same item or later
+  // than the block before it), head kh G + it % G.
+  int kb = 0, b = 0, kh = 0, k0 = 0, qt_hi = 0, items = 0;
+  auto next_block = [&]() {
+    round_sync();  // the last key block's K, V, ring and hand-on are through
+    if (threadIdx.x == 0) ticket = atomicAdd(p.dq_count, 1);
+    round_sync();
+    const int tk = ticket;
+    if (tk >= tickets) return false;
+    kb = tk / groups;
+    const int bkh = tk % groups;
+    b = bkh / p.kv_heads;
+    kh = bkh % p.kv_heads;
+    k0 = kb * kKeys;
+    const int k_last = min(k0 + kKeys, S) - 1;
+    const int qt_lo = (p.causal ? k0 : max(0, k0 - W + 1)) / kQ;
+    qt_hi = min(S - 1, k_last + W - 1) / kQ;
+    items = G * (qt_hi - qt_lo + 1);
+    return true;
+  };
 
-  mbar_wait(kv_full, 0);
-  for (int it = 0; it < items; ++it) {
-    const int s = it % kStages;
-    const int q0 = (qt_lo + it % nq) * kQ;
-    mbar_wait(full(s), (it / kStages) & 1);
-    wg_fence();
-    product_ss<D, kQ>(st, k_s, kKeys, 64 * wgc, q_st(s));
-    product_ss<D, kQ>(dpt, v_s, kKeys, 64 * wgc, g_st(s));
-    wg_commit();
-    wg_wait_all();
-    reg_fence(st);
-    reg_fence(dpt);
-
-    // entry e: key row j_a + 8 ((e >> 1) & 1), query column c (below)
-    const float* lse = reinterpret_cast<const float*>(gbase + T::kKvLse + s * T::kVecBytes);
-    const float* dl = reinterpret_cast<const float*>(gbase + T::kKvDelta + s * T::kVecBytes);
-    const int q_last = q0 + kQ - 1, j_last = jw + 63;
-    const bool edge = q_last >= S || j_last >= S ||
-                      (p.causal ? (q0 < j_last || q_last - jw >= W)
-                                : (q_last - jw >= W || j_last - q0 >= W));
-#pragma unroll
-    for (int e = 0; e < kQ / 2; ++e) {
-      const int c = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
-      float pr = exp2_approx(fmaf(st[e], scale_log2, -lse[c]));
-      if (edge && !allowed(p, q0 + c, j_a + 8 * ((e >> 1) & 1))) pr = 0.0f;
-      st[e] = pr;
-      dpt[e] = pr * (dpt[e] - dl[c]);
-    }
-    pack<kQ>(pa, st);
-    pack<kQ>(da, dpt);
-    wg_fence();
-    product_rs<D, kQ>(dv, pa, g_st(s));
-    product_rs<D, kQ>(dk, da, q_st(s));
-    wg_commit();
-    wg_wait_all();
-    reg_fence(dv);
-    reg_fence(dk);
-    if (lane == 0) mbar_arrive(empty(s));
-    if (threadIdx.x == 0 && it + kStages < items) issue(it + kStages);
-  }
-
-  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kh * p.dk_sh;
-  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + b * p.dk_sb + kh * p.dk_sh;
-  store_rows<D>(dkp, p.dk_ss, dk, p.scale, j_a, S, lane);
-  store_rows<D>(dvp, p.dk_ss, dv, 1.0f, j_a, S, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(bwd::kThreads, 1)
-rm_flash_bwd_dq_tc_kernel(const __grid_constant__ FlashBwdParams p,
-                          const __grid_constant__ CUtensorMap map_q,
-                          const __grid_constant__ CUtensorMap map_g,
-                          const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v) {
-  using namespace bwd;
-  using T = Tile<D>;
-  constexpr int kSw = T::kSwizzle, kN = T::kN, kRows = T::kRows;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base, g_s = base + T::kRowBytes;
-  auto k_st = [&](int s) { return base + T::kDqK + s * T::kNBytes; };
-  auto v_st = [&](int s) { return base + T::kDqV + s * T::kNBytes; };
-  const uint32_t bars = base + T::kDqBars;
-  const uint32_t q_full = bars;
-  auto full = [&](int s) { return bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
-
-  const int S = p.seq, W = p.window;
-  const int n_q = (S + kRows - 1) / kRows;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * kRows;  // longest tiles first
-  const int bh = blockIdx.x;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int kh = h / (p.heads / p.kv_heads);
-  // the key tiles any row of this query tile can see
-  const int q_last = min(q0 + kRows, S) - 1;
-  const int k_lo = max(0, q0 - W + 1);
-  const int k_hi = p.causal ? q_last : min(S - 1, q_last + W - 1);
-  const int t_lo = k_lo / kN, t_hi = k_hi / kN;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 4 * kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 128 * kConsumers) {
+  int done = 0;              // items of this block's earlier key blocks: the ring's position
+  int uses0 = 0, uses1 = 0;  // the dQ buffers' uses so far: their barriers' phases
+  if (role == 0) {
     // ------------------------------------------------------------ producer
-    if (threadIdx.x == 128 * kConsumers) {
-      mbar_expect_tx(q_full, 2 * T::kRowBytes);
-      for (int c = 0; c < T::kChunks; ++c)
-        tma_load(q_s + c * kRows * kSw, &map_q, q_full, c * T::kChunk, h, q0, b);
-      for (int c = 0; c < T::kChunks; ++c)
-        tma_load(g_s + c * kRows * kSw, &map_g, q_full, c * T::kChunk, h, q0, b);
-      for (int t = t_lo, it = 0; t <= t_hi; ++t, ++it) {
-        const int s = it % kStages;
-        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * T::kNBytes);
-        for (int c = 0; c < T::kChunks; ++c)
-          tma_load(k_st(s) + c * kN * kSw, &map_k, full(s), c * T::kChunk, kh, t * kN, b);
-        for (int c = 0; c < T::kChunks; ++c)
-          tma_load(v_st(s) + c * kN * kSw, &map_v, full(s), c * T::kChunk, kh, t * kN, b);
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+    while (next_block()) {
+      if (t == 0) {
+        // the ring: K and V once, then item it into stage (done + it) % 2
+        // once the item two before is consumed
+        mbar_expect_tx(kv_full, 2 * T::kKeyBytes);
+        for (int c = 0; c < D / kChunk; ++c)
+          tma_load(k_s + c * kKeys * kSw, &map_k, kv_full, c * kChunk, kh, k0, b);
+        for (int c = 0; c < D / kChunk; ++c)
+          tma_load(v_s + c * kKeys * kSw, &map_v, kv_full, c * kChunk, kh, k0, b);
+        for (int it = 0; it < items; ++it) {
+          const int l = done + it, s = l % kStages;
+          const int h = kh * G + it % G, q0 = (qt_hi - it / G) * kQ;
+          mbar_wait(empty(s), ((l / kStages) & 1) ^ 1);  // the first round passes at once
+          mbar_expect_tx(full(s), 2 * T::kQBytes + 2 * T::kVecBytes);
+          for (int c = 0; c < D / kChunk; ++c)
+            tma_load(q_st(s) + c * kQ * kSw, &map_q, full(s), c * kChunk, h, q0, b);
+          for (int c = 0; c < D / kChunk; ++c)
+            tma_load(g_st(s) + c * kQ * kSw, &map_g, full(s), c * kChunk, h, q0, b);
+          const long long row = static_cast<long long>(b * p.heads + h) * p.seq_pad + q0;
+          bulk_load(base + T::kLse + s * T::kVecBytes, p.lse_pad + row, T::kVecBytes, full(s));
+          bulk_load(base + T::kDelta + s * T::kVecBytes, p.delta + row, T::kVecBytes, full(s));
+        }
+      } else if (t == 32) {
+        // the hand-on: each staged item's partials go out in item order, the
+        // tile's first contributor's stored, a later one's added once the
+        // tile's count has reached its rank; once the copy is complete its
+        // count is released (but for a tile's last) and its buffer handed back
+        for (int it = 0; it < items; ++it) {
+          const int l = done + it, buf = l & 1;
+          const int qt = qt_hi - it / G, h = kh * G + it % G;
+          int lo, hi;
+          tile_contributors(p, qt, lo, hi);
+          if (lo == hi) continue;  // written straight by the consumers
+          const int use = buf ? uses1++ : uses0++;
+          const long long bh = static_cast<long long>(b) * p.heads + h;
+          int32_t* count = counts + bh * n_qt + qt;
+          mbar_wait(staged(buf), use & 1);
+          if (kb > lo) wait_turn(count, kb - lo);
+          const int row = static_cast<int>(bh * p.seq_pad + qt * kQ);
+          for (int half = 0; half < 2; ++half)
+            for (int bx = 0; bx < T::kDqBoxes; ++bx) {
+              const uint32_t src = base + dq_buf(buf, half) + bx * kQ * 128;
+              const int c = half * T::kHalf + bx * kDqBoxCols;
+              if (kb == lo) tma_tile_out<false>(&map_acc, src, c, row);
+              else tma_tile_out<true>(&map_acc, src, c, row);
+            }
+          bulk_commit();
+          bulk_wait_all();
+          if (kb != hi) {
+            release_count(count);
+            mbar_arrive(done_bar(buf));
+          } else {
+            // the tile's sum is complete: back into the buffer for the
+            // consumers to convert
+            mbar_expect_tx(done_bar(buf), 2 * T::kDqHalfBytes);
+            for (int half = 0; half < 2; ++half)
+              for (int bx = 0; bx < T::kDqBoxes; ++bx)
+                tma_tile_in(base + dq_buf(buf, half) + bx * kQ * 128, &map_acc,
+                            half * T::kHalf + bx * kDqBoxCols, row, done_bar(buf));
+          }
+        }
       }
+      done += items;
     }
-  } else {
-    // ------------------------------------------------------------ consumers
-    const int wgc = threadIdx.x / 128;
-    const int warp = (threadIdx.x / 32) % 4;
-    const int lane = threadIdx.x % 32;
-    const int r_a = 16 * warp + lane / 4;
-    const int i_lo = q0 + 64 * wgc;
-    const int i_a = i_lo + r_a;
-    const float scale_log2 = p.scale * kLog2e;
-    // a thread's two rows' lse (exp2 domain) and D; rows past S read the
-    // padding (+inf, 0): their P is 0
-    float lse[2], dl[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long at = static_cast<long long>(bh) * p.seq_pad + i_a + 8 * r;
-      lse[r] = p.lse_pad[at];
-      dl[r] = p.delta[at];
-    }
+    return;
+  }
 
-    float dq[D / 2];
+  // ------------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+  for (int round = 0; next_block(); ++round) {
+    const int jw = k0 + 64 * wgc;
+    const int j_a = jw + r_a;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) dq[e] = 0.0f;
-    float sc[kN / 2], dp[kN / 2];  // S then dS; dP
-    uint32_t da[kN / 16][4];       // dS as bf16 A fragments
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.0f;
+    float st[kQ / 2], dpt[kQ / 2];            // S^T then P^T; dP^T then dS^T
+    float dq[D / 4];                          // this warpgroup's half of dS K
+    uint32_t pa[kQ / 16][4], da[kQ / 16][4];  // P^T and dS^T as bf16 A fragments
+    // a buffer whose last partial finished a tile: its (query tile, head) + 1,
+    // converted once its copy is complete, when the buffer is next needed
+    int conv0 = 0, conv1 = 0;
+    int staged_buf = -1;  // the buffer staged last item, not yet handed on
 
-    mbar_wait(q_full, 0);
-    for (int t = t_lo, it = 0; t <= t_hi; ++t, ++it) {
-      const int s = it % kStages;
-      mbar_wait(full(s), (it / kStages) & 1);
-      wg_fence();
-      product_ss<D, kN>(sc, q_s, kRows, 64 * wgc, k_st(s));
-      product_ss<D, kN>(dp, g_s, kRows, 64 * wgc, v_st(s));
-      wg_commit();
-      wg_wait_all();
-      reg_fence(sc);
-      reg_fence(dp);
-
-      const int j0 = t * kN, j_last = j0 + kN - 1;
-      const bool edge = j_last >= S || i_lo + 63 >= S ||
-                        (p.causal ? (j_last > i_lo || i_lo + 63 - j0 >= W)
-                                  : (i_lo + 63 - j0 >= W || j_last - i_lo >= W));
+    // tile `tile`'s sum, loaded back into buffer `buf`, in bf16 times the scale
+    auto convert = [&](int buf, int tile) {
+      const int qt = (tile - 1) / G, h = kh * G + (tile - 1) % G, r0 = qt * kQ;
+      __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + col0;
+      const uint8_t* sum = gbase + dq_buf(buf, wgc);
 #pragma unroll
-      for (int e = 0; e < kN / 2; ++e) {
-        const int r = (e >> 1) & 1;
-        const int c = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
-        float pr = exp2_approx(fmaf(sc[e], scale_log2, -lse[r]));
-        if (edge && !allowed(p, i_a + 8 * r, j0 + c)) pr = 0.0f;
-        sc[e] = pr * (dp[e] - dl[r]);
+      for (int e = 0; e < D / 4; e += 2) {
+        const int row = r_a + ((e & 2) ? 8 : 0);
+        const int col = 8 * (e / 4) + 2 * (lane % 4);
+        const float2 v = *reinterpret_cast<const float2*>(sum + dq_at(row, col));
+        if (r0 + row < S)
+          *reinterpret_cast<__nv_bfloat162*>(dqp + (r0 + row) * p.dq_ss + col) =
+              __floats2bfloat162_rn(v.x * p.scale, v.y * p.scale);
       }
-      pack<kN>(da, sc);
+    };
+    // buffer `buf`'s copy is complete (its previous use, if any): it may be
+    // staged again, and a tile it finished is converted
+    auto reclaim = [&](int buf) {
+      const int use = buf ? uses1 : uses0;
+      if (use == 0) return;
+      mbar_wait(done_bar(buf), (use - 1) & 1);
+      const int conv = buf ? conv1 : conv0;
+      if (conv != 0) convert(buf, conv);
+      if (buf) conv1 = 0; else conv0 = 0;
+    };
+
+    mbar_wait(kv_full, round & 1);
+    for (int it = 0; it < items; ++it) {
+      const int l = done + it, s = l % kStages;
+      const int qt = qt_hi - it / G, h = kh * G + it % G, q0 = qt * kQ;
+      mbar_wait(full(s), (l / kStages) & 1);
+      // S^T and dP^T, committed apart: P^T is formed while dP^T runs
       wg_fence();
-      product_rs<D, kN>(dq, da, k_st(s));
+      product_ss<D, kQ>(st, k_s, kKeys, 64 * wgc, q_st(s));
       wg_commit();
-      wg_wait_all();
+      product_ss<D, kQ>(dpt, v_s, kKeys, 64 * wgc, g_st(s));
+      wg_commit();
+      wg_wait<1>();
+      reg_fence(st);
+
+      // entry e: key row j_a + 8 ((e >> 1) & 1), query column c (below)
+      const float* lse = reinterpret_cast<const float*>(gbase + T::kLse + s * T::kVecBytes);
+      const float* dl = reinterpret_cast<const float*>(gbase + T::kDelta + s * T::kVecBytes);
+      const int q_last = q0 + kQ - 1, j_last = jw + 63;
+      const bool edge = q_last >= S || j_last >= S ||
+                        (p.causal ? (q0 < j_last || q_last - jw >= W)
+                                  : (q_last - jw >= W || j_last - q0 >= W));
+#pragma unroll
+      for (int e = 0; e < kQ / 2; e += 2) {
+        const int c = 8 * (e / 4) + 2 * (lane % 4);  // entries e, e + 1: queries c, c + 1
+        const float2 lv = *reinterpret_cast<const float2*>(lse + c);
+        float p0 = exp2_approx(fmaf(st[e], scale_log2, -lv.x));
+        float p1 = exp2_approx(fmaf(st[e + 1], scale_log2, -lv.y));
+        if (edge) {
+          const int j = j_a + 8 * ((e >> 1) & 1);
+          if (!allowed(p, q0 + c, j)) p0 = 0.0f;
+          if (!allowed(p, q0 + c + 1, j)) p1 = 0.0f;
+        }
+        st[e] = p0;
+        st[e + 1] = p1;
+      }
+      pack<kQ>(pa, st);
+      // dV += P^T dO runs while dS^T is formed
+      wg_fence();
+      product_rs<D, kQ>(dv, pa, g_st(s));
+      wg_commit();
+      wg_wait<1>();
+      reg_fence(dpt);
+#pragma unroll
+      for (int e = 0; e < kQ / 2; e += 2) {
+        const float2 dv2 = *reinterpret_cast<const float2*>(dl + 8 * (e / 4) + 2 * (lane % 4));
+        dpt[e] = st[e] * (dpt[e] - dv2.x);
+        dpt[e + 1] = st[e + 1] * (dpt[e + 1] - dv2.y);
+      }
+      pack<kQ>(da, dpt);
+      // dS^T (bf16) into buffer l % 2 as a TMA tile of 128 key rows of 64
+      // queries would lie: 128 bytes a row, 16-byte chunk c at c ^ (row % 8)
+      uint8_t* ds = gbase + T::kDs + (l & 1) * kDsBytes;
+#pragma unroll
+      for (int u = 0; u < kQ / 16; ++u) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int kr = 64 * wgc + r_a + 8 * (r & 1);
+          const int c = 16 * u + 8 * (r >> 1) + 2 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(ds + kr * kSw + ((((c >> 3) ^ (kr & 7)) << 4) |
+                                                        ((c & 7) << 1))) = da[u][r];
+        }
+      }
+      wg_fence();
+      product_rs<D, kQ>(dk, da, q_st(s));
+      wg_commit();
+      fence_proxy_async();
+      named_sync(1, 256);  // both consumer warpgroups' dS^T (and last item's partials) are in place
+      if (staged_buf >= 0) {
+        if (lane == 0) mbar_arrive(staged(staged_buf));
+        staged_buf = -1;
+      }
+      wg_fence();
+      product_dq<D>(dq, base + T::kDs + (l & 1) * kDsBytes, k_s, col0);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dv);
+      reg_fence(dk);
       reg_fence(dq);
       if (lane == 0) mbar_arrive(empty(s));
+
+      // this item's partial: written out now if no other key block adds to
+      // its tile, else staged in buffer l % 2 for the hand-on
+      int lo, hi;
+      tile_contributors(p, qt, lo, hi);
+      if (lo == hi) {
+        __nv_bfloat16* dqp =
+            static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh + col0;
+#pragma unroll
+        for (int e = 0; e < D / 4; e += 2) {
+          const int row = r_a + ((e & 2) ? 8 : 0);
+          const int col = 8 * (e / 4) + 2 * (lane % 4);
+          if (q0 + row < S)
+            *reinterpret_cast<__nv_bfloat162*>(dqp + (q0 + row) * p.dq_ss + col) =
+                __floats2bfloat162_rn(dq[e] * p.scale, dq[e + 1] * p.scale);
+        }
+        continue;
+      }
+      const int buf = l & 1;
+      reclaim(buf);
+      uint8_t* stage_at = gbase + dq_buf(buf, wgc);
+#pragma unroll
+      for (int e = 0; e < D / 4; e += 2) {
+        const int row = r_a + ((e & 2) ? 8 : 0);
+        const int col = 8 * (e / 4) + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(stage_at + dq_at(row, col)) = make_float2(dq[e], dq[e + 1]);
+      }
+      staged_buf = buf;  // handed on after the next item's fence and barrier
+      if (buf) ++uses1; else ++uses0;
+      if (kb == hi) {
+        if (buf) conv1 = qt * G + it % G + 1; else conv0 = qt * G + it % G + 1;
+      }
     }
 
-    __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-    store_rows<D>(dqp, p.dq_ss, dq, p.scale, i_a, S, lane);
+    // the last item's partials, then the tiles this key block finished once
+    // their copies are complete
+    if (staged_buf >= 0) {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(staged(staged_buf));
+    }
+    if (conv0 != 0) reclaim(0);
+    if (conv1 != 0) reclaim(1);
+
+    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kh * p.dk_sh;
+    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + b * p.dk_sb + kh * p.dk_sh;
+    store_rows<D>(dkp, p.dk_ss, dk, p.scale, j_a, S, lane);
+    store_rows<D>(dvp, p.dk_ss, dv, 1.0f, j_a, S, lane);
+    done += items;
   }
 }
 
@@ -1158,49 +1417,59 @@ int launch_simt(const FlashBwdParams& p, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_tc(const FlashBwdParams& p, cudaStream_t stream) {
-  using T = bwd::Tile<D>;
+int launch_one(const FlashBwdParams& p, cudaStream_t stream) {
+  using T = one::Tile<D>;
   using rm_wgmma::tensor_map;
-  const int d = p.head_dim, s = p.seq, b = p.batch, h = p.heads, kh = p.kv_heads;
-  CUtensorMap kv_q, kv_g, kv_k, kv_v, dq_q, dq_g, dq_k, dq_v;
-  int err = tensor_map(&kv_q, p.q, d, h, s, b, p.q_sb, p.q_ss, p.q_sh, T::kQ, T::kChunk,
-                       T::kSwizzle);
+  if (p.dq_acc == nullptr || p.dq_count == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int s = p.seq, b = p.batch, h = p.heads, kh = p.kv_heads;
+  CUtensorMap mq, mg, mk, mv;
+  int err = tensor_map(&mq, p.q, D, h, s, b, p.q_sb, p.q_ss, p.q_sh, one::kQ, one::kChunk,
+                       one::kSw);
   if (err == 0)
-    err = tensor_map(&kv_g, p.dout, d, h, s, b, p.g_sb, p.g_ss, p.g_sh, T::kQ, T::kChunk,
-                     T::kSwizzle);
+    err = tensor_map(&mg, p.dout, D, h, s, b, p.g_sb, p.g_ss, p.g_sh, one::kQ, one::kChunk,
+                     one::kSw);
   if (err == 0)
-    err = tensor_map(&kv_k, p.k, d, kh, s, b, p.k_sb, p.k_ss, p.k_sh, T::kKeys, T::kChunk,
-                     T::kSwizzle);
+    err = tensor_map(&mk, p.k, D, kh, s, b, p.k_sb, p.k_ss, p.k_sh, one::kKeys, one::kChunk,
+                     one::kSw);
   if (err == 0)
-    err = tensor_map(&kv_v, p.v, d, kh, s, b, p.v_sb, p.v_ss, p.v_sh, T::kKeys, T::kChunk,
-                     T::kSwizzle);
-  if (err == 0)
-    err = tensor_map(&dq_q, p.q, d, h, s, b, p.q_sb, p.q_ss, p.q_sh, T::kRows, T::kChunk,
-                     T::kSwizzle);
-  if (err == 0)
-    err = tensor_map(&dq_g, p.dout, d, h, s, b, p.g_sb, p.g_ss, p.g_sh, T::kRows, T::kChunk,
-                     T::kSwizzle);
-  if (err == 0)
-    err = tensor_map(&dq_k, p.k, d, kh, s, b, p.k_sb, p.k_ss, p.k_sh, T::kN, T::kChunk,
-                     T::kSwizzle);
-  if (err == 0)
-    err = tensor_map(&dq_v, p.v, d, kh, s, b, p.v_sb, p.v_ss, p.v_sh, T::kN, T::kChunk,
-                     T::kSwizzle);
+    err = tensor_map(&mv, p.v, D, kh, s, b, p.v_sb, p.v_ss, p.v_sh, one::kKeys, one::kChunk,
+                     one::kSw);
   if (err != 0) return err;
-  cudaError_t set = cudaFuncSetAttribute(rm_flash_bwd_dkdv_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kKvSmem);
-  if (set == cudaSuccess)
-    set = cudaFuncSetAttribute(rm_flash_bwd_dq_tc_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::kDqSmem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  rm_flash_bwd_dkdv_tc_kernel<D>
-      <<<dim3(b * kh, (s + T::kKeys - 1) / T::kKeys), bwd::kKvThreads, T::kKvSmem, stream>>>(
-          p, kv_q, kv_g, kv_k, kv_v);
-  const cudaError_t e1 = cudaGetLastError();
-  if (e1 != cudaSuccess) return static_cast<int>(e1);
-  rm_flash_bwd_dq_tc_kernel<D>
-      <<<dim3(b * h, (s + T::kRows - 1) / T::kRows), bwd::kThreads, T::kDqSmem, stream>>>(
-          p, dq_q, dq_g, dq_k, dq_v);
+  // the float32 scratch (B H seq_pad rows of D) in boxes of 64 rows of 32
+  // columns, 128-byte swizzled in shared memory (a warpgroup's half: D / 64)
+  if (static_cast<long long>(b) * h * p.seq_pad > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap macc;
+  {
+    const rm_tma::EncodeTiled encode = rm_tma::encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(b) * h * p.seq_pad};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(one::kDqBoxCols), one::kQ};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult r = encode(&macc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.dq_acc, dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(rm_flash_bwd_one_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rm_flash_bwd_one_kernel<D>,
+                                                      one::kThreads, T::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // a persistent grid: every block takes key blocks by ticket until none is left
+  const long long tickets = static_cast<long long>((s + one::kKeys - 1) / one::kKeys) * b * kh;
+  const long long grid = tickets < static_cast<long long>(sms) * per_sm
+                             ? tickets : static_cast<long long>(sms) * per_sm;
+  rm_flash_bwd_one_kernel<D><<<static_cast<unsigned>(grid), one::kThreads, T::kSmem, stream>>>(
+      p, mq, mg, mk, mv, macc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1248,10 +1517,8 @@ int launch_wide(const FlashBwdParams& p, cudaStream_t stream) {
 int launch_form(const FlashBwdParams& p, cudaStream_t s) {
   if (tensor_form(p)) {
     switch (p.head_dim) {
-      case 16: return launch_tc<16>(p, s);
-      case 32: return launch_tc<32>(p, s);
-      case 64: return launch_tc<64>(p, s);
-      case 128: return launch_tc<128>(p, s);
+      case 64: return launch_one<64>(p, s);
+      case 128: return launch_one<128>(p, s);
       case 256: return launch_wide(p, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

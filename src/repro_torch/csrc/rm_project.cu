@@ -46,6 +46,26 @@
 //     than 14,528 words at 4 rows a tile) is packed in word ranges by the
 //     kernel's ranged instantiation, each range gathered from the columns
 //     that cross it and then stored; every enabled word is still read once.
+//     Rows wider than kDirectRowWords take PCK's wide form, which keeps the
+//     packer, the column-by-column gather and one contiguous store a packed
+//     range, and is built so that several blocks share an SM, loads are 16
+//     bytes wide and a block's stores overlap its next gather:
+//       - the work is (row tile x packed range) items, planned per layout by
+//         _cuda.pck_plan: ranges of ColParams::range_w words (a multiple of
+//         4) of tile_rows rows, a 16 KB packer, ColParams::chunks ranges a
+//         tile; a grid of the blocks that fit the card walks the items;
+//       - the gather is rm_copy.cuh's: 16-byte loads of the source blocks
+//         under each 16-byte vector of the packer, realigned in registers
+//         and stored into the packer, a warp an item of a (column, row),
+//         kPckUnroll items' loads in flight;
+//       - each block has two packers: once one is gathered, one thread
+//         stores each of its packed rows with a bulk copy
+//         (cp.async.bulk.global.shared::cta, one a row range), and the
+//         block gathers the next item into the other packer while the copies
+//         read; a packer is gathered again only after its copies have read
+//         it (cp.async.bulk.wait_group.read).  Where out_w is not a
+//         multiple of 4 (a packed row is then not 16-byte aligned) the
+//         block stores the range word by word instead.
 //   * MLP (rm_scan.cu): the whole row tile is staged with coalesced 16-byte
 //     loads and every column is packed out of shared memory.
 //
@@ -61,6 +81,8 @@
 // (SelectParams::map_inline); a longer one lives in device memory and its
 // instantiation stages it into shared memory when it takes at most
 // kSelectSmemMap words.
+#include <atomic>
+
 #include "rm_common.cuh"
 #include "rm_copy.cuh"
 
@@ -72,9 +94,12 @@ constexpr int kMaxCols = 256;  // column slices one BSL / PCK launch carries
 constexpr int kBslRows = 256;  // rows per BSL block
 constexpr int kBslWarps = kThreads / 32;
 constexpr int kBslUnroll = 4;  // rows a warp of the wide form loads before it stores
+constexpr int kPckUnroll = 2;  // items a warp of PCK's wide form loads before it stores
+constexpr int kPckPackers = 2;  // packers a block of PCK's wide form (_cuda.PCK_PACKERS)
 constexpr int kDirectRowWords = 2048;  // wider rows take BSL's wide form (_cuda.DIRECT_ROW_WORDS)
 constexpr int kSelectInlineMap = 512;  // map words the selection's parameter block holds
 constexpr int kSelectSmemMap = 12 * 1024;  // longer maps the selection stages (48 KB)
+constexpr int kMaxDevices = 64;  // cards whose PCK occupancy the launcher keeps
 
 }  // namespace
 
@@ -87,10 +112,10 @@ struct ColParams {
   int32_t row_words;
   int32_t out_w;
   int32_t n_cols;        // Q
-  int32_t tile_rows;     // PCK: rows per packed tile (a multiple of 4)
+  int32_t tile_rows;     // PCK: rows per packed tile (a multiple of 4; wide form: any)
   int32_t range_w;       // PCK: packed words a pass of the packer (out_w: one pass)
   int32_t chunk_w;       // BSL, rows over kDirectRowWords: words a chunk (else 0)
-  int32_t chunks;        // BSL wide: chunks a row tile, the columns' summed
+  int32_t chunks;        // BSL wide: chunks a row tile, the columns' summed; PCK wide: ranges
   int32_t pad_;
   int32_t src[kMaxCols]; // first row word of each column
   int32_t dst[kMaxCols]; // first packed word of each column
@@ -239,6 +264,110 @@ rm_project_pck_kernel(const __grid_constant__ ColParams p) {
   }
 }
 
+namespace {
+
+// cp.async.bulk: a row range of a packer to device memory, by the async
+// proxy; the generic proxy's writes to the packer are made visible to it
+// first (fence_proxy_async by every writer, then a barrier)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(int32_t* dst, const int32_t* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(reinterpret_cast<uint64_t>(dst)),
+                  "r"(static_cast<uint32_t>(__cvta_generic_to_shared(src))),
+                  "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// all but the newest `kLeft` groups of copies have read their packers
+template <int kLeft>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(kLeft) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+}  // namespace
+
+// PCK's wide form (rows over kDirectRowWords): items (row tile, packed
+// range), item i of the tile t at (t * chunks + i); block b walks items b,
+// b + gridDim.x, ..., its l-th into packer l % 2 (see the header).
+__global__ void __launch_bounds__(kThreads)
+rm_project_pck_wide_kernel(const __grid_constant__ ColParams p) {
+  constexpr int kWarps = kThreads / 32;
+  int32_t* packers = smem_words();
+  const int R = p.tile_rows, rw = p.range_w;
+  const long long n_items = (p.n + R - 1) / R * p.chunks;
+  // a packed row range is one bulk copy where it starts and ends 16-byte aligned
+  const bool bulk = (p.out_w & 3) == 0 && (reinterpret_cast<uintptr_t>(p.out) & 15) == 0;
+  const long long base = static_cast<long long>(reinterpret_cast<uintptr_t>(p.words) >> 2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int l = 0;
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x, ++l) {
+    const long long tile = item / p.chunks;
+    const int w0 = static_cast<int>(item - tile * p.chunks) * rw;
+    const int width = min(rw, p.out_w - w0);
+    const long long row0 = tile * R;
+    const int rows = static_cast<int>(min(static_cast<long long>(R), p.n - row0));
+    int32_t* packer = packers + (l % kPckPackers) * R * rw;
+    // the copies of item l - 2 have read this packer (those of l - 1 may not)
+    if (bulk && l >= kPckPackers && threadIdx.x == 0) bulk_wait_read<kPckPackers - 1>();
+    __syncthreads();
+    // the gather, column by column: a column's piece of the range in packer
+    // row r is words [lo - w0, hi - w0) + r * rw, its items the same in every
+    // row (rw is a multiple of 4); units (item c, row r) are dealt to the
+    // warps in turn across the columns
+    int dealt = 0;
+    for (int j = 0; j < p.n_cols; ++j) {
+      const int lo = max(p.dst[j], w0), hi = min(p.dst[j] + p.width[j], w0 + width);
+      if (lo >= hi) continue;
+      const long long s0 = base + row0 * p.row_words + p.src[j] + (lo - p.dst[j]);
+      const rm_copy::Span sp0{lo - w0, hi - w0, s0, s0 + (hi - lo)};
+      const int units = rm_copy::items(sp0) * rows;
+      const int first = (warp - dealt % kWarps + kWarps) % kWarps;
+      for (int u0 = first; u0 < units; u0 += kWarps * kPckUnroll) {
+        rm_copy::Span sp[kPckUnroll];
+        rm_copy::Item it[kPckUnroll];
+#pragma unroll
+        for (int v = 0; v < kPckUnroll; ++v) {
+          const int u = u0 + v * kWarps;
+          if (u >= units) continue;  // the same for the whole warp
+          const int r = u % rows;
+          sp[v] = sp0;
+          sp[v].d0 += static_cast<long long>(r) * rw;
+          sp[v].d1 += static_cast<long long>(r) * rw;
+          sp[v].s0 += static_cast<long long>(r) * p.row_words;
+          sp[v].s1 += static_cast<long long>(r) * p.row_words;
+          it[v] = rm_copy::load_item(sp[v], u / rows, lane);
+        }
+#pragma unroll
+        for (int v = 0; v < kPckUnroll; ++v)
+          if (u0 + v * kWarps < units) rm_copy::store_item<true>(packer, sp[v], it[v], lane);
+      }
+      dealt += units;
+    }
+    if (bulk) {
+      fence_proxy_async();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int r = 0; r < rows; ++r)
+          bulk_store(p.out + (row0 + r) * p.out_w + w0, packer + r * rw, 4u * width);
+        bulk_commit();
+      }
+    } else {
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+        const int r = i / width, k = i - r * width;
+        p.out[(row0 + r) * p.out_w + w0 + k] = packer[r * rw + k];
+      }
+    }
+  }
+  if (bulk && threadIdx.x == 0) bulk_wait_all();
+}
+
 template <bool kDeviceMap>
 __global__ void __launch_bounds__(kThreads)
 rm_select_compact_kernel(const __grid_constant__ SelectParams p) {
@@ -311,9 +440,57 @@ int launch_bsl(const ColParams& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_pck(const ColParams& p, int n_blocks, long long smem, cudaStream_t s) {
+// PCK's wide form: the plan checked (ranges of a multiple of 4 words
+// covering out_w, two packers of tile_rows x range_w words in `smem`)
+bool pck_wide_plan_ok(const ColParams& p, long long smem) {
+  return p.tile_rows > 0 && p.range_w > 0 && p.range_w % 4 == 0 && p.chunks > 0 &&
+         p.chunks == (p.out_w + p.range_w - 1) / p.range_w &&
+         smem == 4LL * kPckPackers * p.tile_rows * p.range_w;
+}
+
+// Blocks of PCK's wide form with `smem` bytes of packers that card
+// `device` holds at once (its SMs times the blocks an SM holds), asked of
+// the runtime once a card and size: kept as smem * 2^20 + blocks
+int pck_wide_resident(int device, long long smem, int* blocks) {
+  static std::atomic<long long> asked[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long got = asked[device].load(std::memory_order_relaxed);
+  if (got >> 20 == smem) {
+    *blocks = static_cast<int>(got & 0xfffff);
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rm_project_pck_wide_kernel,
+                                                      kThreads, static_cast<size_t>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = sms * per_sm;
+  asked[device].store(smem << 20 | *blocks, std::memory_order_relaxed);
+  return 0;
+}
+
+int launch_pck(const ColParams& p, int n_blocks, long long smem, int device, cudaStream_t s) {
   if (n_blocks <= 0 || p.n_cols <= 0 || p.n_cols > kMaxCols || p.range_w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (p.row_words > kDirectRowWords) {
+    if (!pck_wide_plan_ok(p, smem)) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          rm_project_pck_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    // a grid of the blocks that fit the card walks the items
+    int resident = 0;
+    const int err = pck_wide_resident(device, smem, &resident);
+    if (err != 0) return err;
+    if (n_blocks > resident) n_blocks = resident;
+    rm_project_pck_wide_kernel<<<n_blocks, kThreads, static_cast<size_t>(smem), s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (p.chunks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool ranged = p.range_w < p.out_w;
   if (smem > 48 * 1024) {
     const void* fn = ranged ? reinterpret_cast<const void*>(rm_project_pck_kernel<true>)
@@ -362,11 +539,15 @@ int rm_project_bsl(const ColParams* params, int device, void* stream) {
 
 // PCK: `n_blocks` blocks walk the packed tiles, `smem` bytes of packer each
 // (tile_rows * range_w words; the ranged instantiation when range_w < out_w),
-// on `stream` of card `device`.
+// on `stream` of card `device`.  Rows over kDirectRowWords: the wide form,
+// at most `n_blocks` blocks (no more than the card holds at once) walking
+// the (tile, range) items, `smem` its two packers (the plan checked:
+// range_w a positive multiple of 4, chunks the ranges covering out_w; else
+// an error, never another form).
 int rm_project_pck(const ColParams* params, int n_blocks, long long smem, int device,
                    void* stream) {
   return on_device(device, [&] {
-    return launch_pck(*params, n_blocks, smem, static_cast<cudaStream_t>(stream));
+    return launch_pck(*params, n_blocks, smem, device, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -1,7 +1,7 @@
 // Shared pieces of the warpgroup (wgmma) kernels, rm_flash.cu and
 // rm_flash_bwd.cu: TMA loads into shared memory, shared-memory matrix
-// descriptors, the wgmma fences and the m64nNk16 bf16 products (A from
-// shared memory or from registers), and the tensor map of a
+// descriptors, the wgmma fences and waits and the m64nNk16 bf16 products (A
+// from shared memory, K- or MN-major, or from registers), and the tensor map of a
 // (B, S, heads, D) bf16 tensor.
 #pragma once
 
@@ -50,6 +50,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the newest `kLeft` committed groups of products are done
+template <int kLeft>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(kLeft) : "memory");
+}
 // keep the compiler from moving reads or writes of accumulators across the
 // asynchronous products
 template <int N>
@@ -75,6 +80,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 // d (64 x N, float32) += A (64 x 16, bf16 registers) . B (16 x N, shared, MN-major)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+// d (64 x N, float32) (+)= A (64 x 16, shared, MN-major) . B (16 x N, shared, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_tt(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_tt<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tt<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {

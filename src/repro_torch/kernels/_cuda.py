@@ -47,11 +47,11 @@ when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
 ``moe_ffn`` one for each launch of ``rm_moe_ffn_kernel``, two an expert FFN
 (the gate/up stage, then the down stage); ``rglru_scan`` one for each
 launch of ``rm_rglru_scan_kernel``; ``flash_attention_backward`` one for
-each gradient, which is three kernels on the card: the row sums and padded
-log-sum-exp (``rm_flash_bwd_prep_kernel``), then the dK / dV pass and the dQ
-pass (``rm_flash_bwd_dkdv_tc_kernel`` and ``rm_flash_bwd_dq_tc_kernel`` in
-bf16 at D <= 128, ``rm_flash_bwd_dkdv_wide_kernel`` and
-``rm_flash_bwd_dq_wide_kernel`` in bf16 at D 256, both passes of
+each gradient, which is two or three kernels on the card: the row sums
+and padded log-sum-exp (``rm_flash_bwd_prep_kernel``), then one pass
+(``rm_flash_bwd_one_kernel``, bf16 at D <= 128, narrower heads padded to
+64) or a dK / dV pass and a dQ pass (``rm_flash_bwd_dkdv_wide_kernel``
+and ``rm_flash_bwd_dq_wide_kernel`` in bf16 at D 256, both passes of
 ``rm_flash_bwd_simt_kernel`` in float32).
 ``FLASH_DOUT_COPIES`` counts the gradients whose ``dout`` TMA could not
 describe, copied before the launch.
@@ -105,6 +105,9 @@ JOIN_SECTOR = 32  # bytes: wider probe rows take the probe's streaming form
 MAX_GRID_BLOCKS = 1 << 20  # grid-stride kernels: their loops cover any rest
 MAX_COLS = 256  # column slices of one BSL / PCK launch (kMaxCols, rm_project.cu)
 BSL_ROWS = 256  # rows a BSL block (kBslRows, rm_project.cu)
+PCK_PACKERS = 2  # packers a block of PCK's wide form (kPckPackers, rm_project.cu)
+PCK_RANGE_WORDS = 1024  # packed words a range of PCK's wide form at most
+PCK_PACKER_BYTES = 16 * 1024  # one packer of PCK's wide form at most
 MAX_SPANS = 16  # word ranges of one span launch (kMaxSpans, rm_spans.cu)
 SPAN_VECS = 2  # 16-byte vectors a lane copies an item of the span kernel (kVecs, rm_spans.cu)
 SPAN_WARPS = 8  # warps (items in flight) a block of the span kernel (kSpanWarps)
@@ -112,7 +115,8 @@ FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths rm_flash.cu instanti
 FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # FlashParams::dtype
 FLASH_BWD_TC_MAX_D = 256  # the widest head the tensor-core backward takes (kTcMaxD)
 FLASH_BWD_SEQ_PAD = 128  # its scratch rows' padding (kSeqPad, which the launch checks)
-FLASH_BWD_WIDE_D = 256  # the head width of its two-warpgroup form (namespace wide)
+FLASH_BWD_ONE_PASS_D = (64, 128)  # the head widths of its one-pass form (namespace one)
+FLASH_BWD_ONE_Q = 64  # a one-pass item's query rows (one::kQ): its counts are a tile's
 FLASH_BWD_WIDE_ROWS = 64  # that form's tile rows: a dK / dV block's keys (wide::kRows)
 # the chunk plan's costs, in items (one (head, query tile) item: 4 products
 # of 64 x 64 x 256): a block's K and V and ring fill, and a cut tile's
@@ -254,7 +258,7 @@ class _FlashParams(ctypes.Structure):
 class _FlashBwdParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "k", "v", "out", "dout", "lse", "dq", "dk", "dv", "lse_pad", "delta",
-        "kv_part", "kv_count")] + [
+        "kv_part", "kv_count", "dq_acc", "dq_count")] + [
         (f"{t}_{s}", ctypes.c_longlong) for t in ("q", "k", "v", "o", "g", "dq", "dk")
         for s in ("sb", "ss", "sh")] + [
         (name, ctypes.c_int32) for name in (
@@ -806,6 +810,20 @@ def pck_packer(out_w: int) -> tuple[int, int]:
     return rows, SMEM_MAX // (4 * rows) // 4 * 4
 
 
+def pck_plan(out_w: int) -> tuple[int, int, int]:
+    """PCK's wide form (rows wider than ``DIRECT_ROW_WORDS``): ``(rows a
+    tile, packed words a range, ranges a tile)``.  A range is at most
+    ``PCK_RANGE_WORDS`` words, a multiple of 4 (so that a packer row and,
+    where ``out_w`` is a multiple of 4, every packed row range start 16-byte
+    aligned), and the rows fill a packer of ``PCK_PACKER_BYTES``, at most
+    ``THREADS``: each block keeps ``PCK_PACKERS`` of them, small enough that
+    several blocks share an SM, and the grid's items are the (row tile,
+    range) pairs (``rm_project_pck_wide_kernel``)."""
+    range_w = min(PCK_RANGE_WORDS, _round4(out_w))
+    rows = max(1, min(THREADS, PCK_PACKER_BYTES // (4 * range_w)))
+    return rows, range_w, -(-out_w // range_w)
+
+
 def bsl_plan(slices: Sequence[tuple[int, int, int]], row_words: int,
              out_w: int) -> tuple[int, tuple[int, ...]]:
     """BSL's chunks: ``(chunk_words, counts)`` — the words a chunk and each
@@ -849,9 +867,11 @@ def column_params(kernel: str, slices: tuple[tuple[int, int, int], ...], row_wor
     ``"project_pck"``) of ``slices`` — ``(src_word, dst_word,
     width_words)`` per enabled column — over ``row_words``-word rows packed
     into ``out_w`` words, every field set but the pointers and the row
-    count: the slices checked, PCK's packer (:func:`pck_packer`), BSL's
-    chunks (:func:`bsl_plan`).  Planned once per layout and kept for the
-    last ``SPAN_PLANS``; a launch copies it."""
+    count: the slices checked, PCK's packer (:func:`pck_packer`; rows
+    wider than ``DIRECT_ROW_WORDS``: its wide form's ranges, :func:`pck_plan`,
+    ``chunks`` the ranges a tile), BSL's chunks (:func:`bsl_plan`).  Planned
+    once per layout and kept for the last ``SPAN_PLANS``; a launch copies
+    it."""
     if kernel not in ("project_bsl", "project_pck"):
         raise ValueError(kernel)
     if not 0 < len(slices) <= MAX_COLS:
@@ -864,6 +884,8 @@ def column_params(kernel: str, slices: tuple[tuple[int, int, int], ...], row_wor
     rows, range_w = pck_packer(out_w)
     params = _ColParams(row_words=row_words, out_w=out_w, n_cols=len(slices), tile_rows=rows,
                         range_w=range_w)
+    if kernel == "project_pck" and row_words > DIRECT_ROW_WORDS:
+        params.tile_rows, params.range_w, params.chunks = pck_plan(out_w)
     if kernel == "project_bsl":
         params.chunk_w, counts = bsl_plan(slices, row_words, out_w)
         params.chunks = sum(counts)
@@ -895,10 +917,11 @@ def run_columns(kernel: str, words: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(dev)
     if kernel == "project_bsl":
         err = lib.rm_project_bsl(ctypes.byref(params), dev, stream)
-    else:
-        n_blocks = min(-(-n // params.tile_rows), MAX_GRID_BLOCKS)
-        err = lib.rm_project_pck(ctypes.byref(params), n_blocks,
-                                 params.tile_rows * params.range_w * 4, dev, stream)
+    else:  # PCK: a block a tile (the wide form: at most a block a (tile, range)
+        # item, the launcher keeping no more than the card holds at once)
+        n_blocks = min(-(-n // params.tile_rows) * max(1, params.chunks), MAX_GRID_BLOCKS)
+        smem = (PCK_PACKERS if params.chunks else 1) * params.tile_rows * params.range_w * 4
+        err = lib.rm_project_pck(ctypes.byref(params), n_blocks, smem, dev, stream)
     _check(lib, err, f"{kernel} launch")
     _launched(kernel)
     return out
@@ -1149,13 +1172,19 @@ def run_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 def flash_backward_form(dtype: torch.dtype, d: int) -> str:
-    """Which form of the backward takes a gradient: ``"tensor"`` (bf16 up to
-    ``FLASH_BWD_TC_MAX_D``: wgmma + TMA; at ``FLASH_BWD_WIDE_D`` dK and dV
-    in a warpgroup each) or ``"cuda_cores"`` (float32 at every width).  The
-    launcher chooses the same by itself (``tensor_form`` in
-    ``csrc/rm_flash_bwd.cu``); the wrapper asks only to know which ``dout``
-    the kernel can read."""
-    return "tensor" if dtype == torch.bfloat16 and d <= FLASH_BWD_TC_MAX_D else "cuda_cores"
+    """Which form of the backward takes a gradient: ``"one_pass"`` (bf16 up
+    to D 128: one wgmma + TMA kernel of five products a pair, dQ's partials
+    summed in key order in float32 scratch; its widths are
+    ``FLASH_BWD_ONE_PASS_D``, and narrower heads are padded to the first),
+    ``"tensor"`` (bf16 at ``FLASH_BWD_TC_MAX_D``, 256: a dK / dV pass, dK
+    and dV in a warpgroup each, and a dQ pass on wgmma + TMA) or
+    ``"cuda_cores"`` (float32 at every width).  The launcher chooses the same by itself
+    (``tensor_form`` and ``launch_form`` in ``csrc/rm_flash_bwd.cu``); the
+    wrapper asks to know which ``dout`` the kernel can read and which
+    scratch it takes."""
+    if dtype != torch.bfloat16 or d > FLASH_BWD_TC_MAX_D:
+        return "cuda_cores"
+    return "one_pass" if d <= FLASH_BWD_ONE_PASS_D[-1] else "tensor"
 
 
 def flash_bwd_key_items(s: int, g: int, causal: bool, window: int) -> list[int]:
@@ -1228,7 +1257,7 @@ def flash_dout(dout: torch.Tensor, form: str) -> torch.Tensor:
     ``FLASH_DOUT_COPIES``: autograd may hand over a gradient of any layout,
     a broadcast one (the gradient of a sum) included."""
     readable = not dout.numel() or dout.stride(3) == 1
-    if readable and form == "tensor" and dout.device.type != "meta":
+    if readable and form != "cuda_cores" and dout.device.type != "meta":
         try:
             check_flash_tma("dout", dout.shape, dout.stride(), dout.element_size(),
                             dout.data_ptr())
@@ -1279,11 +1308,30 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
             b, s, h, kh, d, causal, win, q.element_size()))
     if q.device.type == "meta":
         return dq, dk, dv
+    dq_d, dk_d, dv_d = dq, dk, dv
+    scale = d ** -0.5
+    form = flash_backward_form(q.dtype, d)
+    if form == "one_pass" and d < FLASH_BWD_ONE_PASS_D[0]:
+        # D 16 / 32: the one-pass kernel at its narrowest width, on heads
+        # padded with zero columns (they add nothing to S, dP or D_i)
+        full = FLASH_BWD_ONE_PASS_D[0]
+        q, k, v, out, dout = (torch.nn.functional.pad(t, (0, full - d))
+                              for t in (q, k, v, out, dout))
+        dq, dk, dv = (torch.empty(t.shape[:3] + (full,), dtype=q.dtype, device=q.device)
+                      for t in (dq_d, dk_d, dv_d))
+        d = full
     seq_pad = -(-s // FLASH_BWD_SEQ_PAD) * FLASH_BWD_SEQ_PAD
     scratch = torch.empty((2, b * h, seq_pad), dtype=torch.float32, device=q.device)
     dev = q.get_device()
     wide = {}
-    if flash_backward_form(q.dtype, d) == "tensor" and d == FLASH_BWD_WIDE_D:
+    if form == "one_pass":
+        # dQ's float32 partials, and the work ticket with a count a query tile
+        # (zeroed by the prep kernel)
+        acc = torch.empty((b * h, seq_pad, d), dtype=torch.float32, device=q.device)
+        count = torch.empty(1 + b * h * (seq_pad // FLASH_BWD_ONE_Q), dtype=torch.int32,
+                            device=q.device)
+        wide = dict(dq_acc=acc.data_ptr(), dq_count=count.data_ptr())
+    elif form == "tensor":
         g = h // kh
         chunk, blocks = flash_bwd_kv_plan(s, g, bool(causal), win, b * kh, _sms(dev))
         part = torch.empty((b * kh, blocks, 2, FLASH_BWD_WIDE_ROWS, d), dtype=torch.float32,
@@ -1301,7 +1349,7 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
         delta=scratch.data_ptr() + scratch.nbytes // 2,
         **{f"{t}_{n}": st[t][i] for t in st for i, n in ((0, "sb"), (1, "ss"), (2, "sh"))},
         batch=b, seq=s, heads=h, kv_heads=kh, head_dim=d, causal=int(bool(causal)),
-        window=win, dtype=FLASH_DTYPES[q.dtype], seq_pad=seq_pad, scale=d ** -0.5, **wide,
+        window=win, dtype=FLASH_DTYPES[q.dtype], seq_pad=seq_pad, scale=scale, **wide,
     )
     lib = load()
     # the raw handle of the current stream (a tenth of the host time of
@@ -1311,7 +1359,10 @@ def run_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
                                       torch._C._cuda_getCurrentRawStream(dev)),
            "flash_attention_backward launch")
     _launched("flash_attention_backward")
-    return dq, dk, dv
+    if dq is not dq_d:
+        for padded, kept in ((dq, dq_d), (dk, dk_d), (dv, dv_d)):
+            kept.copy_(padded[..., :kept.shape[3]])
+    return dq_d, dk_d, dv_d
 
 
 def w8_form(dtype: torch.dtype, k: int, n: int, q_ptr: int, s_ptr: int) -> str:

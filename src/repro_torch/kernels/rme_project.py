@@ -12,9 +12,15 @@ revision's kernel:
   (:func:`span_plan`) with aligned 16-byte transfers;
 * ``"pck"`` — ``rm_project_pck_kernel`` (``csrc/rm_project.cu``, from
   ``_pck_kernel``): column chunks gathered into a shared-memory packer, one
-  store of the packed tile;
+  store of the packed tile; rows wider than ``_cuda.DIRECT_ROW_WORDS`` take
+  ``rm_project_pck_wide_kernel``, whose blocks walk (row tile, packed range)
+  items (``_cuda.pck_plan``), gather each range column by column with
+  aligned 16-byte loads into one of two packers, and store it by bulk
+  copies while the next range is gathered into the other;
 * ``"bsl"`` — ``rm_project_bsl_kernel`` (``csrc/rm_project.cu``, from
-  ``_bsl_kernel``): one column per block, stored straight into the output.
+  ``_bsl_kernel``): one column per block, stored straight into the output;
+  rows wider than ``_cuda.DIRECT_ROW_WORDS`` take
+  ``rm_project_bsl_wide_kernel`` (chunks of a column, ``_cuda.bsl_plan``).
 
 On a CPU tensor every revision runs :func:`project_torch`, the one plain
 version (the revisions compute the same function).  There is no fallback

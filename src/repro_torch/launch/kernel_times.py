@@ -15,16 +15,18 @@ kernel and ``wide_projection`` lines, on one NVIDIA GPU:
 
 The cases: at the path's 2 GiB table, the fused scan, the hash-join probe
 in both forms, and the single projection, the filter, the multi-view
-projection and the selection (50% kept), and BSL at the revision study's
-``A1,A5,A9,A13`` (``project_bsl``); at a record store of 4,096 training
+projection and the selection (50% kept), and BSL and PCK at the revision
+study's ``A1,A5,A9,A13`` (``project_bsl``, ``project_pck``); at a record store of 4,096 training
 samples of S 2,048 and 4,096 (``wide_projection``), the ``(tokens,
 labels)`` view and its first 16 tokens through the projection
-(``"mlp"``), the view through BSL (``project_bsl_s*``, its wide form), and
-``index_select`` of the same words; the flash forward at
+(``"mlp"``), the view through BSL and PCK (``project_bsl_s*`` and
+``project_pck_s*``, their wide forms), and ``index_select`` of the same
+words; the flash forward at
 the serving shapes (``chip_smoke.FLASH_SHAPES``, no lse stored) and, where
 the port has it, the flash backward at ``FLASH_BACKWARD_SHAPES`` (a
-qwen3-8b training layer, then the CUDA-core form's shapes: the backward
-kernel's one launch from a stored output and lse).
+qwen3-8b training layer, then the CUDA-core form's shapes) and
+``NARROW_BACKWARD_SHAPES`` (bf16 at D 64 and 32): the backward kernel's
+one launch from a stored output and lse.
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--rows N] [--reps R]
         [--cases NAME,...]
@@ -49,7 +51,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 PATH_CASES = ("scan_multi", "hash_join", "hash_join_packed", "project", "filter_project",
-              "project_multi", "select_compact", "project_bsl")
+              "project_multi", "select_compact", "project_bsl", "project_pck")
+# the backward at narrower bf16 heads than the train layer's, beside
+# FLASH_BACKWARD_SHAPES: seamless-m4t-medium's 16 / 16 heads of D 64 at
+# S 2,048, causal (its decoder) and bidirectional (its encoder), and the
+# train layer's heads at D 32
+NARROW_BACKWARD_SHAPES = (
+    ("flash_backward_d64", 2, 2048, 16, 16, 64, True, None, "bfloat16"),
+    ("flash_backward_d64_bidirectional", 2, 2048, 16, 16, 64, False, None, "bfloat16"),
+    ("flash_backward_d32", 2, 2048, 32, 8, 32, True, None, "bfloat16"))
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -97,13 +107,14 @@ def path_cases(torch, CS, K, rows):
         ("project_multi", lambda: K.project_multi(words, geoms)),
         ("select_compact", lambda: K.select_compact(words, sel, **skw)),
         ("project_bsl", lambda: K.project(words, bsl, "bsl")),
+        ("project_pck", lambda: K.project(words, bsl, "pck")),
     ]
 
 
 def wide_names(CS, seq: int) -> list[str]:
     narrow = f"_w{CS.WIDE_NARROW}"
     return [f"{c}_s{seq}{x}" for x in ("", narrow) for c in ("project", "index_select")] + [
-        f"project_bsl_s{seq}"]
+        f"project_bsl_s{seq}", f"project_pck_s{seq}"]
 
 
 def wide_cases(torch, CS, K, keep):
@@ -131,6 +142,7 @@ def wide_cases(torch, CS, K, keep):
             yield f"index_select_s{seq}{suffix}", lambda i=idx: words.index_select(1, i), want
             if not suffix:
                 yield f"project_bsl_s{seq}", lambda g=geom: K.project(words, g, "bsl"), want
+                yield f"project_pck_s{seq}", lambda g=geom: K.project(words, g, "pck"), want
         del store, words
         gc.collect()
         torch.cuda.empty_cache()
@@ -154,15 +166,16 @@ def digest(out) -> str | None:
 
 def flash_cases(torch, CS, keep):
     """The flash forward at the serving shapes and the backward at the train
-    layer's and the CUDA-core form's (where the port under ``--src`` has
-    one), inputs of each shape's type (bf16 for the forward) from a fixed
-    seed; one shape's tensors at a time are kept."""
+    layer's, the CUDA-core form's and the narrow heads' (where the port
+    under ``--src`` has one), inputs of each shape's type (bf16 for the
+    forward) from a fixed seed; one shape's tensors at a time are kept."""
     from repro_torch.kernels import _cuda
 
     g = torch.Generator(device="cuda").manual_seed(9)
     backward = hasattr(_cuda, "run_flash_backward")
     shapes = [(False, *x, "bfloat16") for x in CS.FLASH_SHAPES]
-    shapes += [(True, *x) for x in CS.FLASH_BACKWARD_SHAPES] if backward else []
+    shapes += ([(True, *x) for x in CS.FLASH_BACKWARD_SHAPES + NARROW_BACKWARD_SHAPES]
+               if backward else [])
     for grad, name, b, s, h, kh, d, causal, window, dtype in shapes:
         if not keep(name):
             continue

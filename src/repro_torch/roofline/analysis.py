@@ -153,7 +153,7 @@ def flash_work(b: int, s: int, h: int, kh: int, d: int, causal: bool,
 
 # a flash backward does at least 5 products a pair (QK recomputed, dV, dP,
 # dQ, dK) where the forward does 2: 2.5 times the forward's operations (the
-# kernel's two passes do 7: the bound is the least work, not the kernel's)
+# two-pass forms do 7: the bound is the least work, not the kernel's)
 FLASH_BACKWARD_OPS = 2.5
 
 

@@ -1772,6 +1772,23 @@ def test_wide_projection_layouts(dev, extra, cols):
         assert_wide_projection(words[start:start + n], g, "bsl")
 
 
+@pytest.mark.parametrize("extra,cols", WIDE_LAYOUTS)
+def test_pck_wide_form_layouts(dev, extra, cols):
+    """PCK's wide form (packed ranges gathered into a packer with 16-byte
+    loads, stored by bulk copies, or word by word where the packed width is
+    not a multiple of 4) at the layouts above, bit-equal to the plain
+    version in one launch: from rows 0 to 3 (a row store starting at each
+    word of a 16-byte block), at row counts that are not a multiple of its
+    tile, and at a grid smaller than its items (4,095 rows)."""
+    row_words = _cuda.DIRECT_ROW_WORDS + 1 + extra
+    rng = np.random.default_rng(100 + extra)
+    words = torch.from_numpy(rng.integers(I32.min, I32.max, (4099, row_words),
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+    g = geom([o for o, _ in cols], [w for _, w in cols], row_words)
+    for start, n in ((0, 1), (1, 5), (2, 257), (3, 4095), (0, 4096)):
+        assert_wide_projection(words[start:start + n], g, "pck")
+
+
 @pytest.mark.parametrize("seq", WIDE_SEQ)
 def test_wide_rows_through_every_scan_kernel(dev, seq):
     """Wide rows through the filter, aggregate and group-by kernels, the
@@ -1856,6 +1873,8 @@ FLASH_GRAD_CASES = [
     (2, 1024, 16, 1, 256, True, 700),  # D 256, MQA group 16, a window inside S
     (1, 333, 4, 2, 256, True, None),  # D 256, S not a multiple of 64
     (2, 300, 8, 1, 256, False, 100),  # D 256, bidirectional window, ragged S
+    (2, 256, 8, 2, 32, True, None),  # D 32: bf16 heads padded to 64 for the one-pass form
+    (1, 150, 4, 4, 16, False, 40),  # D 16, bidirectional window, ragged S
 ]
 
 
@@ -1960,6 +1979,41 @@ def test_flash_backward_d256_two_calls_bit_equal(dev):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention_backward"] == 2
     plain = F.flash_attention_backward_torch(*base, o, lse, dout, True, s, block_k=1024)
+    for a, c, pl in zip(one, two, plain):
+        assert torch.equal(a, c)
+        assert torch.isfinite(a.float()).all()
+        err = float((a.float() - pl.float()).abs().max())
+        assert err <= FLASH_GRAD_PLAIN_STEPS * bf16_step(float(pl.float().abs().max()))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, H, KH, D, causal, window)
+    (2, 2048, 32, 8, 128, True, None),  # the qwen3-8b training layer
+    (2, 2048, 32, 8, 128, True, 1024),  # its windowed line
+    (2, 2048, 32, 8, 128, False, None),  # bidirectional
+    (1, 333, 16, 1, 128, True, None),  # MQA group 16, ragged S
+    (2, 300, 8, 2, 64, False, 100),  # D 64, GQA group 4, bidirectional window, ragged S
+    (1, 1000, 16, 4, 64, True, 700),  # D 64, a window inside S
+], ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_one_pass_two_calls_bit_equal(dev, case):
+    """The one-pass form (bf16, D 64 and 128): dQ's partials are summed in
+    float32 scratch in key-block order behind a count a query tile, so two
+    calls give bit-equal dq, dk and dv, each within two steps of bf16 of the
+    plain version."""
+    from repro_torch.kernels import flash_attention as F
+
+    b, s, h, kh, d, causal, window = case
+    assert _cuda.flash_backward_form(torch.bfloat16, d) == "one_pass"
+    base = flash_inputs(case, torch.bfloat16, dev)
+    o, lse = _cuda.run_flash(*base, causal, window, lse=True)
+    dout = torch.randn(o.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                       device=dev).bfloat16()
+    _cuda.reset_launches()
+    one = _cuda.run_flash_backward(*base, o, lse, dout, causal, window)
+    two = _cuda.run_flash_backward(*base, o, lse, dout, causal, window)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_backward"] == 2
+    plain = F.flash_attention_backward_torch(*base, o, lse, dout, causal, window, block_k=1024)
     for a, c, pl in zip(one, two, plain):
         assert torch.equal(a, c)
         assert torch.isfinite(a.float()).all()

@@ -18,6 +18,8 @@ and the ``lse`` that ``flash_attention_torch`` returns against
 refusals show without a card: it checks before it builds or launches.
 """
 
+import heapq
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -225,11 +227,154 @@ def test_dout_the_kernel_cannot_read_is_copied_and_counted(layout, copied, form)
 
 
 @pytest.mark.parametrize("dtype,d,form", [
-    (torch.bfloat16, 16, "tensor"), (torch.bfloat16, 64, "tensor"),
-    (torch.bfloat16, 128, "tensor"), (torch.bfloat16, 256, "tensor"),
+    (torch.bfloat16, 16, "one_pass"), (torch.bfloat16, 32, "one_pass"),
+    (torch.bfloat16, 64, "one_pass"),
+    (torch.bfloat16, 128, "one_pass"), (torch.bfloat16, 256, "tensor"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 256, "cuda_cores")])
 def test_backward_form_follows_dtype_and_width(dtype, d, form):
     assert _cuda.flash_backward_form(dtype, d) == form
+
+
+ONE_KEYS, ONE_Q = 128, 64  # the one-pass form's key block and query tile (one::kKeys, kQ)
+
+
+def one_pass_contributors(s: int, causal: bool, window: int, qt: int) -> tuple[int, int]:
+    """The one-pass form's key blocks whose partials make query tile ``qt``'s
+    dQ, ``(lo, hi)``: summed in that order, the first stored, the last
+    converted to bf16 (``one::tile_contributors`` in ``csrc/rm_flash_bwd.cu``)."""
+    i0 = qt * ONE_Q
+    i_last = min(i0 + ONE_Q, s) - 1
+    j_lo = max(0, i0 - window + 1)
+    j_hi = i_last if causal else min(s - 1, i_last + window - 1)
+    return j_lo // ONE_KEYS, j_hi // ONE_KEYS
+
+
+def one_pass_items(s: int, g: int, causal: bool, window: int, kb: int) -> list[tuple[int, int]]:
+    """Key block ``kb``'s items in the order the kernel takes them: ``(query
+    tile, head of the group)``, the query tiles any of its keys is seen by
+    from the top down, the group's heads within a tile."""
+    k0 = kb * ONE_KEYS
+    k_last = min(k0 + ONE_KEYS, s) - 1
+    qt_lo = (k0 if causal else max(0, k0 - window + 1)) // ONE_Q
+    qt_hi = min(s - 1, k_last + window - 1) // ONE_Q
+    return [(qt, hg) for qt in range(qt_hi, qt_lo - 1, -1) for hg in range(g)]
+
+
+def one_pass_tickets(s: int, groups: int) -> list[tuple[int, int]]:
+    """The work in ticket order: ``(key block, (b, kv head) pair)``, key
+    blocks ascending, the pairs side by side (a block of the persistent grid
+    takes the next ticket when it is free)."""
+    return [(kb, grp) for kb in range(-(-s // ONE_KEYS)) for grp in range(groups)]
+
+
+ONE_PASS_CASES = [
+    # (S, causal, window): causal, a window inside S, bidirectional, its
+    # window, ragged S
+    (2048, True, 2048), (2048, True, 1024), (2048, False, 2048), (130, False, 48),
+    (200, True, 200), (256, True, 100), (333, False, 333), (64, True, 1), (1000, True, 700),
+]
+
+
+def mask_pairs(s, causal, window):
+    """The (key block, query tile) pairs holding an allowed pair, from the
+    mask itself."""
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    dist = i - j
+    allowed = (dist >= 0) & (dist < window) if causal else np.abs(dist) < window
+    qi, kj = np.nonzero(allowed)
+    return set(zip((kj // ONE_KEYS).tolist(),
+                   (qi // ONE_Q).tolist()))
+
+
+@pytest.mark.parametrize("case", ONE_PASS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_one_pass_items_are_the_pairs_the_mask_reaches(case):
+    """The one-pass form's items (as the kernel walks a key block): each (key block, head, query tile) the mask reaches
+    comes once, for every head of the group, the query tiles from the top
+    down."""
+    s, causal, window = case
+    want = mask_pairs(s, causal, window)
+    for g in (1, 4, 16):
+        got = []
+        for kb in range(-(-s // ONE_KEYS)):
+            items = one_pass_items(s, g, causal, window, kb)
+            assert [qt for qt, _ in items] == sorted((qt for qt, _ in items), reverse=True)
+            got += [(kb, qt, hg) for qt, hg in items]
+        assert len(got) == len(set(got))
+        assert set(got) == {(kb, qt, hg) for kb, qt in want for hg in range(g)}
+
+
+@pytest.mark.parametrize("case", ONE_PASS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_one_pass_contributors_are_in_key_order(case):
+    """A query tile's dQ partials come from the key blocks
+    ``one_pass_contributors`` gives, ``lo`` to ``hi`` with none
+    missing: summed in increasing key order (each waits for the count to
+    reach its rank), the first stored, and the last — the highest key
+    block the mask reaches — the one the kernel converts at."""
+    s, causal, window = case
+    pairs = mask_pairs(s, causal, window)
+    n_qt = -(-s // ONE_Q)
+    for qt in range(n_qt):
+        lo, hi = one_pass_contributors(s, causal, window, qt)
+        blocks = sorted(kb for kb, t in pairs if t == qt)
+        assert blocks == list(range(lo, hi + 1))
+        assert hi == max(blocks) and lo == min(blocks)
+
+
+def simulate_one_pass(s, g, groups, causal, window, blocks, add=0.1):
+    """The persistent grid in time units of one item: ``blocks`` blocks
+    each take the next ticket when free (a key block costs 1 for its K and
+    V, an item 1 and its add ``add``), and an item's add waits for the
+    previous key block's add of the same tile and head.  A predecessor must
+    have been handed out before (else KeyError).  Returns the makespan, the
+    items' time and the time spent waiting."""
+    done = {}
+    free = [(0.0, i) for i in range(blocks)]
+    busy = wait = 0.0
+    for kb, grp in one_pass_tickets(s, groups):
+        t, blk = heapq.heappop(free)
+        t += 1.0
+        for qt, hg in one_pass_items(s, g, causal, window, kb):
+            lo, _ = one_pass_contributors(s, causal, window, qt)
+            t += 1.0
+            busy += 1.0
+            if kb > lo:
+                pred = done[(grp, hg, qt, kb - 1)]
+                wait += max(0.0, pred - t)
+                t = max(t, pred)
+            t += add
+            done[(grp, hg, qt, kb)] = t
+        heapq.heappush(free, (t, blk))
+    return max(f for f, _ in free), busy, wait
+
+
+@pytest.mark.parametrize("case", ONE_PASS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_one_pass_order_never_waits_on_later_work(case):
+    """In ticket order (key blocks ascending, the (b, kv head) pairs side
+    by side) every item's predecessor — the previous key block of its pair —
+    was handed out earlier, whatever the grid; so a block never waits on
+    work not yet handed out, and the persistent grid cannot deadlock."""
+    s, causal, window = case
+    tickets = one_pass_tickets(s, 3)
+    at = {t: n for n, t in enumerate(tickets)}
+    for kb, grp in tickets:
+        for qt, _ in one_pass_items(s, 2, causal, window, kb):
+            if kb > one_pass_contributors(s, causal, window, qt)[0]:
+                assert at[(kb - 1, grp)] < at[(kb, grp)]
+    for blocks in (1, 2, 5, 132):
+        simulate_one_pass(s, 2, 3, causal, window, blocks)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 2048), (True, 1024), (False, 2048)])
+def test_one_pass_waits_are_short_at_the_train_layer(causal, window):
+    """qwen3-8b's training layer (S 2,048, 32 / 8 heads, B 2) on 132 SMs:
+    key blocks of a pair walk their tiles from the top down in step, so
+    their adds wait on one another for under 1% of the items' time (no
+    wavefront stall), and the makespan stays within 1.5 times an even
+    share of the items and adds."""
+    makespan, busy, wait = simulate_one_pass(2048, 4, 16, causal, window, 132)
+    assert wait <= 0.01 * busy
+    assert makespan <= 1.5 * 1.1 * busy / 132
 
 
 KEY_TILE_CASES = [
