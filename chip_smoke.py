@@ -253,8 +253,13 @@ probe rows matching — all made from ``--seed``:
       calls; ``flash_backward`` lines); then the card tests' gradient cases
       in bf16 and float32, checked alike, untimed, with the largest reading
       of each limit (``flash_backward_cases``);
-   c. the scan's gradient at the hybrid's prefill shape, bit-equal to the
-      plain reverse loop, two launches (``scan_backward``);
+   c. the scan's gradient (``rm_rglru_scan_backward_kernel``) at the
+      hybrid's prefill shape (B 8) and at ``train_rg``'s microbatch (B 2):
+      one launch of the forward kernel and one of the gradient's under
+      autograd, da and dx bit-equal to the plain reverse loop; the
+      gradient kernel's time (events and device) beside its bound by bytes
+      (a, h and dh read and da and dx written once: 0.4007 / 0.1002 ms),
+      and the forward's at B 2 beside its bound (``scan_backward`` lines);
    d. the main path: ``qwen3-8b`` at full width, its depth cut to 8 of 36
       layers (``train_config`` with ``reduced``; 2,788,235,264 weights,
       44.6 GB of float32 masters, gradients and AdamW moments), trained
@@ -293,8 +298,10 @@ probe rows matching — all made from ``--seed``:
       size, batch, microbatches and steps), the vocabulary its own
       256,000: losses finite, the flash kernel twice and its backward —
       the tensor-core form at D 256 — once a local layer and microbatch,
-      the scan kernel's launches, step seconds, tokens/s, ``train_mfu``,
-      the peak, a profiled step's flash-backward device ms (``train_rg``);
+      the scan kernel twice and its gradient's kernel once an RG-LRU layer
+      and microbatch, step seconds, tokens/s, ``train_mfu``, the peak, a
+      profiled step's flash-backward and scan-backward device ms
+      (``train_rg``);
    h. one more step of d under the roofline counter
       (``roofline.analysis.count_step``): counted FLOPs and bytes, the
       three terms at the H100's data-sheet figures, the lower bound beside
@@ -338,7 +345,10 @@ aggregate and group-by kernels and the probe; the train phase's main path
 (d) adds its launches of the projection and flash kernels, and the sharded
 step's (e) its launches of those and of ``flash_attention_backward``,
 whose only paths they are (its line in ``kernels`` takes its times from
-the causal ``flash_backward`` line).
+the causal ``flash_backward`` line); ``train_rg`` (g2) adds its launches
+of the projection, flash, flash-backward and scan kernels, and is the only
+path of ``rglru_scan_backward`` (its line in ``kernels`` takes its times
+from the B 8 ``scan_backward`` line).
 
 Every phase prints one JSON line.  Any failure ends the run with a
 traceback and a non-zero exit; without a CUDA device, or without the port
@@ -391,6 +401,7 @@ REPLACES = {
 FUSIONS = {"w8_matmul": "src/repro/models/layers.py:51",
            "moe_ffn": "src/repro/models/layers.py:583",
            "rglru_scan": "src/repro/models/layers.py:1031",
+           "rglru_scan_backward": "src/repro/models/layers.py:1031",
            "flash_attention_backward": "src/repro/models/layers.py:292"}
 SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "flash_attention": "src/repro_torch/csrc/rm_flash.cu",
@@ -398,6 +409,7 @@ SOURCES = {"hash_join": "src/repro_torch/csrc/rm_join.cu",
            "w8_matmul": "src/repro_torch/csrc/rm_w8.cu",
            "moe_ffn": "src/repro_torch/csrc/rm_moe.cu",
            "rglru_scan": "src/repro_torch/csrc/rm_rglru.cu",
+           "rglru_scan_backward": "src/repro_torch/csrc/rm_rglru.cu",
            "project_pck": "src/repro_torch/csrc/rm_project.cu",
            "project_bsl": "src/repro_torch/csrc/rm_project.cu",
            "select_compact": "src/repro_torch/csrc/rm_project.cu"}  # else rm_scan.cu
@@ -473,8 +485,10 @@ VLM_GRID = 32
 ENCDEC_ARCH = "seamless-m4t-medium"
 ENCDEC_FRAMES = LM_MAX_LEN // 8
 # the scan kernel phase: recurrentgemma-9b's prefill of the serving cells,
-# B 8 slots, S 2,048, W 4,096 lanes
+# B 8 slots, S 2,048, W 4,096 lanes; the gradient's also at train_rg's
+# microbatch of B 2
 RGLRU_SHAPE = (8, 2048, 4096)
+RGLRU_TRAIN_SHAPE = (2, 2048, 4096)
 # a qwen3-8b layer's decode products at M = 8 rows, as the layer launches
 # them: (name, K, N of each record of the launch) — wq, wk, wv one group;
 # wo; w_gate, w_up one group; w_down
@@ -2944,53 +2958,80 @@ def sdpa_backend(torch, fn, q, k, v, mask, causal: bool) -> tuple[str, list[str]
 
 
 def scan_backward_phase(torch, seed: int, reps: int) -> dict:
-    """The scan's gradient at the hybrid's prefill shape (``RGLRU_SHAPE``):
-    the forward and the reverse recurrence one launch each, da and dx
-    bit-equal to the plain reverse loop on the card; timed beside the
-    backward's bound by bytes (a, h, dh read, da, dx written once)."""
+    """The scan's gradient at the hybrid's prefill shape (``RGLRU_SHAPE``,
+    B 8) and at ``train_rg``'s microbatch (``RGLRU_TRAIN_SHAPE``, B 2): under
+    autograd the forward kernel and the gradient's kernel one launch each,
+    da and dx bit-equal to the plain reverse loop on the card.  The gradient
+    kernel alone (``run_rglru_scan_backward``) timed by events and by device
+    beside its bound by bytes (a, h, dh read, da, dx written once); at B 2
+    the forward kernel too, beside its own bound.  Returns the ``kernels``
+    entry of ``rglru_scan_backward``, from the B 8 line (no one torch call
+    computes a reverse linear recurrence: ``library_ms`` null)."""
+    import dataclasses
+
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.roofline import analysis as A
 
-    b, s, w = RGLRU_SHAPE
-    g = torch.Generator(device="cuda").manual_seed(seed + 29)
-    a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6).requires_grad_()
-    x = torch.randn((b, s, w), generator=g, device="cuda").requires_grad_()
-    dh = torch.randn((b, s, w), generator=g, device="cuda")
-    _cuda.reset_launches()
-    h = RS.rglru_scan(a, x)
-    da, dx = torch.autograd.grad(h, (a, x), dh)
-    torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["rglru_scan"] == 2, dict(_cuda.LAUNCHES)
-    t0 = time.perf_counter()
-    want_da, want_dx = RS.rglru_scan_backward_torch(a.detach(), h.detach(), dh)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    bit_equal = torch.equal(da, want_da) and torch.equal(dx, want_dx)
-    assert bit_equal, (float((da - want_da).abs().max()), float((dx - want_dx).abs().max()))
+    lines = {}
+    for name, (b, s, w) in (("rglru_scan_backward", RGLRU_SHAPE),
+                            ("rglru_scan_backward_b2", RGLRU_TRAIN_SHAPE)):
+        g = torch.Generator(device="cuda").manual_seed(seed + 29 + b)
+        a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6).requires_grad_()
+        x = torch.randn((b, s, w), generator=g, device="cuda").requires_grad_()
+        dh = torch.randn((b, s, w), generator=g, device="cuda")
+        _cuda.reset_launches()
+        h = RS.rglru_scan(a, x)
+        da, dx = torch.autograd.grad(h, (a, x), dh)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        assert launched == {"rglru_scan": 1, "rglru_scan_backward": 1}, launched
+        a0, h0 = a.detach(), h.detach()
+        t0 = time.perf_counter()
+        want_da, want_dx = RS.rglru_scan_backward_torch(a0, h0, dh)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(float((da - want_da).abs().max()), float((dx - want_dx).abs().max()))
+        bit_equal = torch.equal(da, want_da) and torch.equal(dx, want_dx)
+        assert bit_equal, err
+        kernel = lambda: _cuda.run_rglru_scan_backward(a0, h0, dh)  # noqa: E731
+        nbytes = A.rglru_scan_backward_work(b, s, w)[1]
+        line = {"phase": "scan_backward", "name": name, "launches": launched,
+                "kernel_ms": time_ms(torch, kernel, reps), **device_fields(torch, kernel, reps),
+                "plain_ms": plain_ms, "library_ms": None,
+                "library_call": "none: no one torch call computes a linear recurrence",
+                "bound_ms": nbytes / hw().hbm_bw * 1e3, "bound_by": "bytes",
+                "bound_bytes": nbytes, "max_abs_err": err, "bit_equal_to_plain": bit_equal,
+                "plan": dataclasses.asdict(_cuda.rglru_backward_plan(b, s, w)),
+                "shape": {"B": b, "S": s, "W": w, "dtype": "float32"}}
+        line["bound_share"] = line["bound_ms"] / line["kernel_ms"]
+        if line["device_ms"]:
+            line["device_bound_share"] = line["bound_ms"] / line["device_ms"]
+        if b == RGLRU_TRAIN_SHAPE[0]:  # the forward kernel at the microbatch
+            forward = lambda: _cuda.run_rglru_scan(a0, x.detach())  # noqa: E731
+            fwd_bytes = A.rglru_scan_work(b, s, w)[1]
+            line.update({"forward_kernel_ms": time_ms(torch, forward, reps),
+                         **device_fields(torch, forward, reps, "forward_"),
+                         "forward_bound_ms": fwd_bytes / hw().hbm_bw * 1e3})
+            line["forward_bound_share"] = line["forward_bound_ms"] / line["forward_kernel_ms"]
+            if line["forward_device_ms"]:
+                line["forward_device_bound_share"] = (line["forward_bound_ms"]
+                                                      / line["forward_device_ms"])
+        emit(line)
+        lines[name] = line
+        del a, x, dh, h, da, dx, a0, h0, want_da, want_dx
+        torch.cuda.empty_cache()
+    return {"rglru_scan_backward": lines["rglru_scan_backward"]}
 
-    def both():
-        hh = RS.rglru_scan(a, x)
-        return torch.autograd.grad(hh, (a, x), dh)
 
-    nbytes = A.rglru_scan_backward_work(b, s, w)[1]
-    line = {"phase": "scan_backward", "name": "rglru_scan_backward",
-            "forward_ms": time_ms(torch, lambda: RS.rglru_scan(a.detach(), x.detach()), reps),
-            "forward_backward_ms": time_ms(torch, both, reps), "plain_backward_ms": plain_ms,
-            "bound_ms": nbytes / hw().hbm_bw * 1e3, "bound_by": "bytes",
-            "bit_equal_to_plain": True, "shape": {"B": b, "S": s, "W": w}}
-    line["backward_ms"] = line["forward_backward_ms"] - line["forward_ms"]
-    line["bound_share"] = line["bound_ms"] / line["backward_ms"]
-    emit(line)
-    del a, x, dh, h, da, dx, want_da, want_dx
-    torch.cuda.empty_cache()
-    return line
+def layer_kinds(cfg) -> list[str]:
+    """The kinds of ``cfg``'s layers, in order."""
+    return list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
 
 
 def attention_layers(cfg) -> int:
     """The layers of ``cfg`` that attend (``attn``, ``local``, ``moe``)."""
-    kinds = list(cfg.block_pattern) * cfg.n_units + list(cfg.tail_pattern)
-    return sum(kind in ("attn", "local", "moe") for kind in kinds)
+    return sum(kind in ("attn", "local", "moe") for kind in layer_kinds(cfg))
 
 
 def train_model_flops(cfg, tokens: int, seq: int) -> float:
@@ -3047,6 +3088,8 @@ def profiled_train_step(torch, fn) -> dict:
             "kernel_launches": sum(e.count for e in kernels), "device_ms_by_kind": by_kind,
             "flash_backward_device_ms": sum(dev_us(e) for e in kernels
                                             if "rm_flash_bwd" in e.key) / 1e3,
+            "scan_backward_device_ms": sum(dev_us(e) for e in kernels
+                                           if "rm_rglru_scan_backward" in e.key) / 1e3,
             "top_kernels": [[e.key[:90], dev_us(e) / 1e3, e.count] for e in top]}
 
 
@@ -3136,7 +3179,12 @@ def train_phase(torch, seed: int, smi: str | None = None, arch: str = TRAIN_ARCH
     assert launches["flash_attention"] == 2 * attending * cfg.grad_accum * micro, launches
     # one gradient an attending layer and microbatch, from the group's recompute
     assert launches["flash_attention_backward"] == attending * cfg.grad_accum * micro, launches
-    assert attending == cfg.n_layers or launches["rglru_scan"] > 0, launches
+    # the scan's forward twice an RG-LRU layer and microbatch (the forward
+    # and the group's recompute), its gradient once
+    recurrent = layer_kinds(cfg).count("rglru")
+    assert launches.get("rglru_scan", 0) == 2 * recurrent * cfg.grad_accum * micro, launches
+    assert (launches.get("rglru_scan_backward", 0)
+            == recurrent * cfg.grad_accum * micro), launches
     assert total - peak >= MOE_FREE_BYTES, (peak, total)
     timed = [r["seconds"] for r in rows[1:]]
     step_s = statistics.median(timed)
@@ -4605,7 +4653,7 @@ def main(argv=None) -> int:
     wide_projection_phase(torch, args.reps)
     kernels["flash_attention_backward"] = flash_backward_kernel(
         flash_backward_phase(torch, args.seed, args.reps))
-    scan_backward_phase(torch, args.seed, args.reps)
+    kernels.update(scan_backward_phase(torch, args.seed, args.reps))
     train = train_phase(torch, args.seed, device["nvidia_smi"])
     sharded_train = train_sharded_phase(torch, args.seed, train, device["nvidia_smi"])
     trainer_phase(torch, args.seed)
@@ -4633,12 +4681,13 @@ def main(argv=None) -> int:
                 "w8_matmul": lm["int8"]["launches"]["w8_matmul"],
                 "moe_ffn": moe["launches"]["moe_ffn"],
                 "rglru_scan": hybrid["launches"]["rglru_scan"],
+                "rglru_scan_backward": 0,
                 "flash_attention_backward": train["launches"]["flash_attention_backward"]}
     for k, v in sharded["launches"].items():  # the sharded phase's path too
         launches[k] += v
     for k in ("project", "flash_attention"):  # and the train paths'
         launches[k] += train["launches"][k] + train_rg["launches"][k]
-    for k in ("flash_attention_backward", "rglru_scan"):
+    for k in ("flash_attention_backward", "rglru_scan", "rglru_scan_backward"):
         launches[k] += train_rg["launches"][k]
     for k in ("project", "flash_attention", "flash_attention_backward"):  # the sharded step's
         launches[k] += sharded_train["launches"][k]

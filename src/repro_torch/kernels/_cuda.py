@@ -29,7 +29,8 @@ decode matmul, the MoE expert FFN and the RG-LRU scan have their own
 parameter blocks and launchers
 (:func:`run_hash_join`, :func:`run_columns`, :func:`run_select`,
 :func:`run_flash`, :func:`run_flash_backward`, :func:`run_w8`,
-:func:`run_moe`, :func:`run_rglru_scan`) under the same rules.
+:func:`run_moe`, :func:`run_rglru_scan`, :func:`run_rglru_scan_backward`) under
+the same rules.
 ``LAUNCHES`` counts the launches each wrapper makes, and nothing else
 (``project`` counts both forms of the projection: the staged kernel and
 the span kernel): a
@@ -46,7 +47,8 @@ when K is split (``rm_w8_matmul_kernel``, then ``rm_w8_reduce_kernel``);
 ``W8_PRODUCTS`` counts the products those launches and captures took;
 ``moe_ffn`` one for each launch of ``rm_moe_ffn_kernel``, two an expert FFN
 (the gate/up stage, then the down stage); ``rglru_scan`` one for each
-launch of ``rm_rglru_scan_kernel``; ``flash_attention_backward`` one for
+launch of ``rm_rglru_scan_kernel``, ``rglru_scan_backward`` one for each
+launch of ``rm_rglru_scan_backward_kernel``; ``flash_attention_backward`` one for
 each gradient, which is two or three kernels on the card: the row sums
 and padded log-sum-exp (``rm_flash_bwd_prep_kernel``), then one pass
 (``rm_flash_bwd_one_kernel``, bf16 at D <= 128, narrower heads padded to
@@ -57,7 +59,8 @@ and ``rm_flash_bwd_dq_wide_kernel`` in bf16 at D 256, both passes of
 describe, copied before the launch.
 
 The LM kernels' launchers (:func:`run_flash`, :func:`run_flash_backward`,
-:func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`) also report each
+:func:`run_w8`, :func:`run_moe`, :func:`run_rglru_scan`,
+:func:`run_rglru_scan_backward`) also report each
 launch's operations and bytes to an active roofline count
 (``roofline.analysis.record_kernel``, by the work formulas ``chip_smoke.py``
 takes their bounds from), and take ``meta`` tensors (the dry run): they
@@ -94,7 +97,7 @@ SCAN_KERNELS = ("project", "filter_project", "aggregate", "groupby_sum",
                 "scan_multi", "project_multi")
 KERNELS = SCAN_KERNELS + ("hash_join", "project_bsl", "project_pck",
                           "select_compact", "flash_attention", "flash_attention_backward",
-                          "w8_matmul", "moe_ffn", "rglru_scan")
+                          "w8_matmul", "moe_ffn", "rglru_scan", "rglru_scan_backward")
 MULTI_REQUEST = ("scan_multi", "project_multi")  # kernels taking many requests
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CAPTURED = dict.fromkeys(KERNELS, 0)  # wrapper calls recorded into a graph
@@ -139,6 +142,10 @@ MOE_ROWS = (4, 8, 16)  # the rows rm_moe_ffn_kernel instantiates (MoeParams::row
 MOE_MAX_ROWS = MOE_ROWS[-1]  # rows of an expert's buffer (cap) the kernel takes
 RGLRU_THREADS = 128  # lanes a block of rm_rglru_scan_kernel (kRglruThreads)
 RGLRU_MAX_BLOCKS = MAX_GRID_BLOCKS  # its grid at most: a grid-stride loop covers the rest
+# rm_rglru_scan_backward_kernel's plan (load() checks rm_rglru_backward_plan)
+RGLRU_BWD_LANES = 32  # lanes a block: one warp (kBwdLanes)
+RGLRU_BWD_STEPS = 32  # steps a stage of its TMA ring: a box's rows (kBwdSteps)
+RGLRU_BWD_STAGES = 4  # stages of the ring (kBwdStages)
 
 # must match rm_common.cuh
 THREADS = 256
@@ -245,6 +252,11 @@ class _MoeParams(ctypes.Structure):
 class _RglruParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("a", "x", "h")] + [
         (name, ctypes.c_int32) for name in ("batch", "seq", "width", "blocks")]
+
+
+class _RglruBwdParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("a", "h", "dh", "da", "dx")] + [
+        (name, ctypes.c_int32) for name in ("batch", "seq", "width", "blocks", "smem", "pad_")]
 
 
 class _FlashParams(ctypes.Structure):
@@ -544,6 +556,9 @@ def load() -> ctypes.CDLL:
     lib.rm_w8_matmul.argtypes = [ctypes.POINTER(_W8Params), ctypes.c_void_p]
     lib.rm_moe_ffn.argtypes = [ctypes.POINTER(_MoeParams), ctypes.c_void_p]
     lib.rm_rglru_scan.argtypes = [ctypes.POINTER(_RglruParams), ctypes.c_void_p]
+    lib.rm_rglru_scan_backward.argtypes = [ctypes.POINTER(_RglruBwdParams), ctypes.c_void_p]
+    lib.rm_rglru_backward_plan.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.rm_rglru_backward_plan.restype = None
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_project_spans, lib.rm_span_params_size,
@@ -551,7 +566,8 @@ def load() -> ctypes.CDLL:
                lib.rm_flash_backward, lib.rm_flash_bwd_params_size,
                lib.rm_w8_matmul, lib.rm_w8_params_size, lib.rm_w8_init,
                lib.rm_moe_ffn, lib.rm_moe_params_size, lib.rm_rglru_scan,
-               lib.rm_rglru_params_size):
+               lib.rm_rglru_params_size, lib.rm_rglru_scan_backward,
+               lib.rm_rglru_bwd_params_size):
         fn.restype = ctypes.c_int
     for c_size, struct in ((lib.rm_params_size(), _Params),
                            (lib.rm_join_params_size(), _JoinParams),
@@ -562,12 +578,19 @@ def load() -> ctypes.CDLL:
                            (lib.rm_flash_bwd_params_size(), _FlashBwdParams),
                            (lib.rm_w8_params_size(), _W8Params),
                            (lib.rm_moe_params_size(), _MoeParams),
-                           (lib.rm_rglru_params_size(), _RglruParams)):
+                           (lib.rm_rglru_params_size(), _RglruParams),
+                           (lib.rm_rglru_bwd_params_size(), _RglruBwdParams)):
         if c_size != ctypes.sizeof(struct):
             raise RuntimeError(
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
                 f"{ctypes.sizeof(struct)} bytes"
             )
+    plan = [ctypes.c_int(0) for _ in range(3)]
+    lib.rm_rglru_backward_plan(*map(ctypes.byref, plan))
+    want = (RGLRU_BWD_LANES, RGLRU_BWD_STEPS, RGLRU_BWD_STAGES)
+    if tuple(v.value for v in plan) != want:
+        raise RuntimeError(f"rm_rglru_scan_backward_kernel's (lanes, steps, stages) are "
+                           f"{tuple(v.value for v in plan)}, the plan lays out {want}")
     _LIB = lib
     # a load inside a capture leaves it to the W8 wrapper (which raises there)
     if torch.cuda.is_available() and not torch.cuda.is_current_stream_capturing():
@@ -1613,3 +1636,82 @@ def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         _check(lib, lib.rm_rglru_scan(ctypes.byref(params), stream), "rglru_scan launch")
     _launched("rglru_scan")
     return h
+
+
+@dataclasses.dataclass(frozen=True)
+class RglruBackwardPlan:
+    """The launch of ``rm_rglru_scan_backward_kernel``: ``lanes`` a block
+    (one warp), ``steps`` a stage of its TMA ring, ``stages`` in the ring,
+    ``smem`` dynamic shared bytes a block (the ring, an mbarrier a stage and
+    128 bytes to align the ring), ``blocks`` in the grid (a block a batch
+    row and ``lanes`` lanes of it) and ``boxes`` (the stages a block walks,
+    from the last step down)."""
+
+    lanes: int
+    steps: int
+    stages: int
+    smem: int
+    blocks: int
+    boxes: int
+
+
+def rglru_backward_plan(b: int, s: int, w: int) -> RglruBackwardPlan:
+    """The scan gradient's launch at ``(B, S, W)``; the C launcher checks
+    ``blocks`` and ``smem`` against the kernel's constants."""
+    lanes, steps, stages = RGLRU_BWD_LANES, RGLRU_BWD_STEPS, RGLRU_BWD_STAGES
+    return RglruBackwardPlan(lanes=lanes, steps=steps, stages=stages,
+                             smem=stages * 3 * steps * lanes * 4 + 8 * stages + 128,
+                             blocks=b * -(-w // lanes), boxes=-(-s // steps))
+
+
+def run_rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
+                            dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the RG-LRU recurrence's gradient: from ``a``, the forward's
+    output ``h`` and its gradient ``dh (B, S, W)`` — float32, contiguous,
+    one shape, on one card, W a multiple of 4 and each base 16-byte aligned
+    (TMA's row strides and addresses) — returns new ``(da, dx)``, the reverse
+    recurrence ``g = a[:, t + 1] * g + dh[:, t]`` from ``t = S - 1`` down,
+    ``dx = g`` and ``da[:, t] = g[:, t] * h[:, t - 1]`` (``h[:, -1] = 0``),
+    each multiply and add rounded apart: bit-equal to the plain reverse
+    loop.  One launch of ``rm_rglru_scan_backward_kernel``, enqueued on the
+    current stream without synchronising (a CUDA graph can capture it)."""
+    names = (("a", a), ("h", h), ("dh", dh))
+    for name, t in names:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device.type != "cuda" and not (t.device.type == "meta" == a.device.type):
+            raise ValueError(f"the CUDA kernels need CUDA tensors, got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != a.device:
+            raise ValueError(f"a on {a.device} but {name} on {t.device}")
+    if a.dim() != 3 or a.shape != h.shape or a.shape != dh.shape:
+        raise ValueError(f"want a, h and dh of one shape (B, S, W), got {tuple(a.shape)}, "
+                         f"{tuple(h.shape)} and {tuple(dh.shape)}")
+    b, s, w = a.shape
+    if min(b, s, w) < 1 or max(b, s, w) >= 2**31:
+        raise ValueError(f"B, S and W must be in [1, 2^31), got {tuple(a.shape)}")
+    if w % 4:
+        raise ValueError(f"W must be a multiple of 4 (TMA's 16-byte row stride), got {w}")
+    plan = rglru_backward_plan(b, s, w)
+    if plan.blocks >= 2**31:
+        raise ValueError(f"B · ceil(W / {plan.lanes}) blocks must be below 2^31, got "
+                         f"{plan.blocks}")
+    if roofline.counting():
+        roofline.record_kernel("rglru_scan_backward", *roofline.rglru_scan_backward_work(b, s, w))
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    if a.device.type == "meta":
+        return da, dx
+    for name, t in names:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+    params = _RglruBwdParams(a=a.data_ptr(), h=h.data_ptr(), dh=dh.data_ptr(),
+                             da=da.data_ptr(), dx=dx.data_ptr(), batch=b, seq=s, width=w,
+                             blocks=plan.blocks, smem=plan.smem)
+    lib = load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _check(lib, lib.rm_rglru_scan_backward(ctypes.byref(params), stream),
+               "rglru_scan_backward launch")
+    _launched("rglru_scan_backward")
+    return da, dx

@@ -21,10 +21,12 @@ packages agree to float32 rounding, not bit for bit.
 The gradient (:class:`RGLRUScan`, a ``torch.autograd.Function``; XLA
 differentiates the reference's ``associative_scan``) is the same linear
 recurrence run backwards, ``g_t = dh_t + a_{t+1} g_{t+1}``, then ``dx = g``
-and ``da_t = g_t h_{t-1}``: :func:`rglru_scan` on the time-reversed
-``dh`` and shifted ``a`` — on the card the same ``rm_rglru_scan_kernel``,
-on the CPU the plain loop — so the card's backward is bit-equal to
-:func:`rglru_scan_backward_torch`, the plain reverse loop.
+and ``da_t = g_t h_{t-1}``: on CUDA tensors one launch of
+``rm_rglru_scan_backward_kernel`` through
+:func:`repro_torch.kernels._cuda.run_rglru_scan_backward` (a, h and dh
+read once through a TMA ring from the last step down, da and dx written
+once); on CPU tensors :func:`rglru_scan_backward_torch`, the plain reverse
+loop, to which the kernel is bit-equal.
 """
 
 from __future__ import annotations
@@ -63,25 +65,25 @@ def _scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``h (B, S, W)`` with ``h[:, t] = a[:, t] * h[:, t - 1] + x[:, t]`` from
     ``h[:, -1] = 0``: one kernel launch on the card, the plain version on the
-    CPU; differentiable (:class:`RGLRUScan`: one more launch backwards)."""
+    CPU; differentiable (:class:`RGLRUScan`: one launch of the gradient's
+    kernel backwards)."""
     if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
         return RGLRUScan.apply(a, x)
     return _scan(a, x)
 
 
-def _reverse_inputs(a: torch.Tensor, dh: torch.Tensor):
-    """The backward recurrence as a forward one: time-reversed ``a``
-    shifted by one step (``a_{t+1}``; the last step's factor multiplies the
-    zero start) and time-reversed ``dh``."""
-    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
-    return a_next.flip(1).contiguous(), dh.flip(1).contiguous()
+def _scan_backward(a: torch.Tensor, h: torch.Tensor,
+                   dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if a.device.type == "cpu":
+        return rglru_scan_backward_torch(a, h, dh)
+    return _cuda.run_rglru_scan_backward(a, h, dh)
 
 
 class RGLRUScan(torch.autograd.Function):
     """The scan with its gradient: the forward saves ``a`` and ``h``; the
-    backward runs the recurrence ``g_t = dh_t + a_{t+1} g_{t+1}`` as a
-    forward scan of the reversed inputs (the kernel again on the card),
-    then ``dx = g`` and ``da_t = g_t h_{t-1}`` (``h_{-1} = 0``)."""
+    backward runs the recurrence ``g_t = dh_t + a_{t+1} g_{t+1}`` from the
+    last step down, ``dx = g`` and ``da_t = g_t h_{t-1}`` (``h_{-1} = 0``):
+    one kernel launch on the card, the plain reverse loop on the CPU."""
 
     @staticmethod
     def forward(ctx, a, x):
@@ -92,9 +94,7 @@ class RGLRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
-        g = _scan(*_reverse_inputs(a, dh.contiguous())).flip(1)
-        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-        return g * h_prev, g
+        return _scan_backward(a, h, dh.contiguous())
 
 
 def rglru_scan_backward_torch(a: torch.Tensor, h: torch.Tensor,

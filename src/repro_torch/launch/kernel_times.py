@@ -11,7 +11,9 @@ kernel and ``wide_projection`` lines, on one NVIDIA GPU:
   launch), mean over ``--reps`` calls issued back to back;
 * ``out_sha256``: the first 16 hex digits of the SHA-256 of the bytes of a
   call's output (a tensor, or a tuple of them, in order; else null), so
-  that two checkouts' outputs can be compared bit for bit.
+  that two checkouts' outputs can be compared bit for bit;
+* ``bound_ms`` (the least time of the work on the card, from
+  ``roofline.analysis``) and ``device_bound_share`` where the case has one.
 
 The cases: at the path's 2 GiB table, the fused scan, the hash-join probe
 in both forms, and the single projection, the filter, the multi-view
@@ -26,7 +28,15 @@ the serving shapes (``chip_smoke.FLASH_SHAPES``, no lse stored) and, where
 the port has it, the flash backward at ``FLASH_BACKWARD_SHAPES`` (a
 qwen3-8b training layer, then the CUDA-core form's shapes) and
 ``NARROW_BACKWARD_SHAPES`` (bf16 at D 64 and 32): the backward kernel's
-one launch from a stored output and lse.
+one launch from a stored output and lse; beside each narrow shape
+(``sdpa_backward_*``) the backward of one ``scaled_dot_product_attention``
+call on the same inputs alone, its graph walked again and again (a
+yardstick the port never calls); the RG-LRU scan's gradient at
+``chip_smoke.RGLRU_SHAPE`` (``scan_backward_b8``) and at ``train_rg``'s
+microbatch of B 2 (``scan_backward_b2``) through ``RGLRUScan.backward``
+with the forward's saved ``a`` and ``h`` (so a parent checkout's backward
+is timed the same way), and the scan's forward at B 2
+(``scan_forward_b2``).
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--rows N] [--reps R]
         [--cases NAME,...]
@@ -60,6 +70,8 @@ NARROW_BACKWARD_SHAPES = (
     ("flash_backward_d64", 2, 2048, 16, 16, 64, True, None, "bfloat16"),
     ("flash_backward_d64_bidirectional", 2, 2048, 16, 16, 64, False, None, "bfloat16"),
     ("flash_backward_d32", 2, 2048, 32, 8, 32, True, None, "bfloat16"))
+# the RG-LRU scan: (name, B) at chip_smoke.RGLRU_SHAPE's S and W
+SCAN_CASES = (("scan_backward_b8", 8), ("scan_backward_b2", 2), ("scan_forward_b2", 2))
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -168,26 +180,75 @@ def flash_cases(torch, CS, keep):
     """The flash forward at the serving shapes and the backward at the train
     layer's, the CUDA-core form's and the narrow heads' (where the port
     under ``--src`` has one), inputs of each shape's type (bf16 for the
-    forward) from a fixed seed; one shape's tensors at a time are kept."""
+    forward) from a fixed seed, each with its bound; beside each narrow
+    shape, SDPA's backward alone.  One shape's tensors at a time are kept."""
+    import torch.nn.functional as Fn
+
     from repro_torch.kernels import _cuda
+    from repro_torch.roofline import analysis as A
 
     g = torch.Generator(device="cuda").manual_seed(9)
     backward = hasattr(_cuda, "run_flash_backward")
     shapes = [(False, *x, "bfloat16") for x in CS.FLASH_SHAPES]
     shapes += ([(True, *x) for x in CS.FLASH_BACKWARD_SHAPES + NARROW_BACKWARD_SHAPES]
                if backward else [])
+    narrow = {x[0] for x in NARROW_BACKWARD_SHAPES}
     for grad, name, b, s, h, kh, d, causal, window, dtype in shapes:
-        if not keep(name):
+        library = f"sdpa_backward{name[len('flash_backward'):]}" if name in narrow else None
+        if not (keep(name) or (library and keep(library))):
             continue
         q, k, v, dout = (torch.randn((b, s, n, d), generator=g, device="cuda",
                                      dtype=getattr(torch, dtype)) for n in (h, kh, kh, h))
+        bound = CS.flash_bound(b, s, h, kh, d, causal, window, q.element_size())[0]
         if grad:
             out, lse = _cuda.run_flash(q, k, v, causal, window, lse=True)
-            yield name, lambda: _cuda.run_flash_backward(q, k, v, out, lse, dout, causal, window)
+            if keep(name):
+                yield (name, lambda: _cuda.run_flash_backward(q, k, v, out, lse, dout, causal,
+                                                              window),
+                       A.FLASH_BACKWARD_OPS * bound)
             del out, lse
+            if library and keep(library):
+                assert window is None, name
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                lib_out = Fn.scaled_dot_product_attention(
+                    *(t.transpose(1, 2) for t in leaves), is_causal=causal,
+                    enable_gqa=True).transpose(1, 2)
+                yield (library, lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                            retain_graph=True),
+                       A.FLASH_BACKWARD_OPS * bound)
+                del leaves, lib_out
         else:
-            yield name, lambda: _cuda.run_flash(q, k, v, causal, window)
+            yield name, lambda: _cuda.run_flash(q, k, v, causal, window), bound
         del q, k, v, dout
+        torch.cuda.empty_cache()
+
+
+def scan_cases(torch, CS, keep):
+    """The RG-LRU scan's gradient and forward (``SCAN_CASES``), ``a`` in
+    (0, 1), ``x`` and ``dh`` normal from a fixed seed, each with its bound
+    by bytes; the gradient through ``RGLRUScan.backward`` on a context
+    holding the forward's saved ``a`` and ``h``."""
+    import types
+
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.roofline import analysis as A
+
+    _, s, w = CS.RGLRU_SHAPE
+    for name, b in SCAN_CASES:
+        if not keep(name):
+            continue
+        g = torch.Generator(device="cuda").manual_seed(29)
+        a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6)
+        x, dh = (torch.randn((b, s, w), generator=g, device="cuda") for _ in range(2))
+        if name.startswith("scan_forward"):
+            yield (name, lambda: RS.rglru_scan(a, x),
+                   A.rglru_scan_work(b, s, w)[1] / CS.hw().hbm_bw * 1e3)
+        else:
+            ctx = types.SimpleNamespace(saved_tensors=(a, RS.rglru_scan(a, x)))
+            yield (name, lambda: RS.RGLRUScan.backward(ctx, dh),
+                   A.rglru_scan_backward_work(b, s, w)[1] / CS.hw().hbm_bw * 1e3)
+            del ctx
+        del a, x, dh
         torch.cuda.empty_cache()
 
 
@@ -214,21 +275,26 @@ def main(argv=None) -> int:
     wanted = tuple(c for c in args.cases.split(",") if c)
     keep = lambda name: not wanted or any(fnmatch.fnmatch(name, c) for c in wanted)  # noqa: E731
 
-    def report(name, fn, want=None):
+    def report(name, fn, want=None, bound_ms=None):
         got = fn()
         torch.cuda.synchronize()
         if want is not None:  # held against the plain version before it is timed
             assert torch.equal(got, want), name
         sha = digest(got)
         del got
-        print(json.dumps({
+        line = {
             "case": name, "tag": args.tag, "package": str(Path(repro_torch.__file__).parent),
             "device": torch.cuda.get_device_name(0),
             "events_ms": CS.time_ms(torch, fn, args.reps),
             **CS.device_fields(torch, fn, args.reps),
             "host_ms": host_ms(torch, fn, args.reps),
             "out_sha256": sha,
-        }), flush=True)
+        }
+        if bound_ms is not None:
+            line["bound_ms"] = bound_ms
+            if line["device_ms"]:
+                line["device_bound_share"] = bound_ms / line["device_ms"]
+        print(json.dumps(line), flush=True)
 
     if any(keep(name) for name in PATH_CASES):
         for name, fn in path_cases(torch, CS, K, args.rows):
@@ -237,8 +303,10 @@ def main(argv=None) -> int:
     for name, fn, want in wide_cases(torch, CS, K, keep):
         if keep(name):
             report(name, fn, want)
-    for name, fn in flash_cases(torch, CS, keep):
-        report(name, fn)
+    for name, fn, bound_ms in flash_cases(torch, CS, keep):
+        report(name, fn, bound_ms=bound_ms)
+    for name, fn, bound_ms in scan_cases(torch, CS, keep):
+        report(name, fn, bound_ms=bound_ms)
     return 0
 
 

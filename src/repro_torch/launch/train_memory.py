@@ -1,7 +1,8 @@
 """What holds a train step's peak on the card, on one NVIDIA GPU.
 
 The step is ``chip_smoke.py``'s train phase's: ``qwen3-8b`` at full width,
-its first ``TRAIN_LAYERS`` layers, from ``--seed``, trained through
+its first ``TRAIN_LAYERS`` layers (``--arch recurrentgemma-9b``: the
+``train_rg`` line's, its first ``TRAIN_RG_LAYERS``), from ``--seed``, trained through
 ``make_train_step`` on the batches of ``TrainPipeline(seed=0)`` over the
 same record store.  One warm-up step and ``--steps`` timed ones (their
 peak as the train phase reads it), then one step under the CUDA caching
@@ -12,7 +13,8 @@ what allocated them.  Prints one JSON line: the card, the step seconds,
 both peaks, the memory held before the traced step (parameters, AdamW
 moments, the rest: the record store, the batch) and the split.
 
-    python3 src/repro_torch/launch/train_memory.py [--src DIR] [--steps N] [--seed S]
+    python3 src/repro_torch/launch/train_memory.py [--src DIR] [--arch A] [--steps N]
+        [--seed S]
 
 ``--src`` puts another checkout's ``src`` directory first on the path, so
 one run of this script measures two commits' train steps the same way
@@ -34,6 +36,7 @@ ROOT = Path(__file__).resolve().parents[3]
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--arch", default="qwen3-8b", choices=("qwen3-8b", "recurrentgemma-9b"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -55,7 +58,8 @@ def main(argv=None) -> int:
     smi = CS.card(torch)["nvidia_smi"]
     _cuda.load()
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.py's LM and train phases
-    cfg = dataclasses.replace(get_config(CS.TRAIN_ARCH), n_layers=CS.TRAIN_LAYERS)
+    layers = {CS.TRAIN_ARCH: CS.TRAIN_LAYERS, CS.TRAIN_RG_ARCH: CS.TRAIN_RG_LAYERS}[args.arch]
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=layers)
     store = CS.record_store(torch, CS.TRAIN_SEQ, CS.TRAIN_SAMPLES, cfg.vocab)
     batches = TrainPipeline(store, batch_size=CS.TRAIN_BATCH, seed=0).batches()
     model = build_model(cfg, device="cuda", seed=args.seed, param_dtype=cfg.param_dtype)
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
         torch.cuda.memory._record_memory_history(enabled=None)
     print(json.dumps({
         "card": smi, "src": str(args.src), "arch": cfg.name,
-        "reduced": {"n_layers": [get_config(CS.TRAIN_ARCH).n_layers, CS.TRAIN_LAYERS]},
+        "reduced": {"n_layers": [get_config(args.arch).n_layers, layers]},
         "warm_up_seconds": seconds[0], "step_seconds": seconds[1:], "peak": peak,
         "traced_peak": torch.cuda.max_memory_allocated(), "base": base,
         "parameters": params, "moments": 2 * params, "base_rest": base - 3 * params,

@@ -2044,12 +2044,17 @@ def test_flash_backward_takes_a_dout_tma_cannot_read(dev, layout):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("case", RGLRU_CASES[:3] + [(2, 2048, 4096)],
-                         ids=lambda c: "x".join(map(str, c)))
+# the gradient's cases beside RGLRU_CASES' first three: W not a multiple of
+# a block's 32 lanes, with S one past a stage (33) and S ragged over
+# several stages; W below a block's lanes; train_rg's microbatch
+RGLRU_BACKWARD_CASES = RGLRU_CASES[:3] + [(1, 33, 4100), (3, 65, 36), (2, 2048, 4096)]
+
+
+@pytest.mark.parametrize("case", RGLRU_BACKWARD_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_rglru_scan_backward_matches_plain(dev, case):
-    """The scan's gradient: the forward and the reverse recurrence each one
-    launch of the scan kernel, da and dx bit-equal to the plain reverse
-    loop on the card."""
+    """The scan's gradient: one launch of the forward kernel and one of the
+    gradient's kernel, da and dx bit-equal to the plain reverse loop on the
+    card."""
     from repro_torch.kernels import rglru_scan as RS
 
     a, x = rglru_inputs(*case, dev)
@@ -2060,9 +2065,55 @@ def test_rglru_scan_backward_matches_plain(dev, case):
     dh = torch.randn(h.shape, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
     da, dx = torch.autograd.grad(h, (a, x), dh)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["rglru_scan"] == 2
+    assert _cuda.LAUNCHES["rglru_scan"] == 1 and _cuda.LAUNCHES["rglru_scan_backward"] == 1
     want_da, want_dx = RS.rglru_scan_backward_torch(a.detach(), h.detach(), dh)
     assert torch.equal(dx, want_dx) and torch.equal(da, want_da)
+
+
+def test_rglru_scan_backward_graph_replay_equals_eager(dev):
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(2, 100, 300, dev)
+    h = RS.rglru_scan(a, x)
+    dh = torch.randn(h.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    eager = _cuda.run_rglru_scan_backward(a, h, dh)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _cuda.run_rglru_scan_backward(a, h, dh)
+    assert (_cuda.LAUNCHES["rglru_scan_backward"] == 0
+            and _cuda.CAPTURED["rglru_scan_backward"] == 1)
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, e) for o, e in zip(out, eager))
+
+
+def test_rglru_scan_backward_refusals(dev):
+    """What the gradient's kernel does not take raises before a launch: bf16,
+    a non-contiguous input, tensors on two devices, shapes that differ, W
+    not a multiple of 4 (TMA's 16-byte row stride) and a base not 16-byte
+    aligned."""
+    a, x = rglru_inputs(2, 16, 64, dev)
+    h = x.clone()
+    _cuda.reset_launches()
+    with pytest.raises(ValueError, match="float32"):
+        _cuda.run_rglru_scan_backward(a.bfloat16(), h.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.run_rglru_scan_backward(a, h, x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _cuda.run_rglru_scan_backward(a, h, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        _cuda.run_rglru_scan_backward(a, h, x[:, :8].contiguous())
+    odd = rglru_inputs(2, 16, 66, dev)[0]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _cuda.run_rglru_scan_backward(odd, odd, odd)
+    shifted = torch.zeros(a.numel() + 1, device=dev)[1:].view(a.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _cuda.run_rglru_scan_backward(a, h, shifted)
+    assert _cuda.LAUNCHES["rglru_scan_backward"] == 0
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b",

@@ -45,6 +45,7 @@ from repro.train.optimizer import schedule as jschedule  # noqa: E402
 from repro.train.step import init_train_state as jinit_state  # noqa: E402
 from repro_torch.configs import get_smoke_config as tget_smoke  # noqa: E402
 from repro_torch.data import RecordStore, TrainPipeline, synthetic_corpus  # noqa: E402
+from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import flash_attention as TF  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 from repro_torch.models import build_model as tbuild  # noqa: E402
@@ -345,10 +346,12 @@ def test_attention_backwards_match_jax_grad(case):
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max())
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 3), (2, 37, 16), (1, 300, 8)])
+@pytest.mark.parametrize("shape", [(2, 1, 3), (2, 37, 16), (1, 300, 8),
+                                   (2, _cuda.RGLRU_BWD_STEPS + 1, 12)])
 def test_scan_backward_matches_jax_grad(shape):
     """The scan's gradient (the reverse recurrence through the plain loop)
-    against ``jax.grad`` of ``lax.associative_scan``."""
+    against ``jax.grad`` of ``lax.associative_scan``; the last case's S is
+    one step past a stage of the card's gradient kernel."""
     rng = np.random.default_rng(shape[1])
     a = rng.uniform(0.5, 1.0, shape).astype(np.float32)
     x = rng.standard_normal(shape).astype(np.float32)
