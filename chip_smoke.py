@@ -149,8 +149,9 @@ probe rows matching — all made from ``--seed``:
       ``recurrentgemma-9b``'s prefill (B 8, S 2,048, W 4,096, float32, ``a``
       in (0, 1)): bit-equal to its plain version (the sequential float32
       loop) and on a rerun, timed beside its bound by bytes (3 · B · S · W ·
-      4 B over the memory rate: 0.2404 ms) and its plain version; no library
-      call computes it (``library_ms`` null);
+      4 B over the memory rate: 0.2404 ms) and its plain version, with its
+      launch plan (a warp a block, the ring's stages and fill form); no
+      library call computes it (``library_ms`` null);
    d. ``qwen3-8b`` at full width and depth (36 layers, d_model 4,096,
       8,190,735,360 weights in bf16) initialised on the card from
       ``--seed``, a ``ServeSession`` of 8 slots and ``max_len`` 2,112
@@ -221,7 +222,7 @@ probe rows matching — all made from ``--seed``:
       ``lm_head``, the KV cache and the cross K/V read); each run's peak
       must leave 4 GiB of the card;
 10. the train phase:
-   a. the wide projections of ROADMAP fault 3.2: record stores on the card
+   a. the wide projections (rows over 2,048 words): record stores on the card
       of 4,096 samples at S 2,048 and 4,096 (4,101- and 8,197-word rows,
       67 and 134 MB), their ``(tokens, labels)`` view (4,096 and 8,192
       packed words) through ``mlp`` (the span kernel), ``pck`` and
@@ -259,7 +260,8 @@ probe rows matching — all made from ``--seed``:
       autograd, da and dx bit-equal to the plain reverse loop; the
       gradient kernel's time (events and device) beside its bound by bytes
       (a, h and dh read and da and dx written once: 0.4007 / 0.1002 ms),
-      and the forward's at B 2 beside its bound (``scan_backward`` lines);
+      and the forward's at B 2 beside its bound (0.0601 ms), bit-equal to
+      the plain loop, with its plan (``scan_backward`` lines);
    d. the main path: ``qwen3-8b`` at full width, its depth cut to 8 of 36
       layers (``train_config`` with ``reduced``; 2,788,235,264 weights,
       44.6 GB of float32 masters, gradients and AdamW moments), trained
@@ -1877,7 +1879,10 @@ def rglru_phase(torch, seed: int, reps: int) -> dict:
     ``--seed``: bit-equal, and equal on a rerun.  Timed beside its bound (by
     bytes: a and x read once, h written once); ``library_ms`` is null: no
     one torch call computes a linear recurrence.  Returns the line as
-    ``rglru_scan``."""
+    ``rglru_scan``, with the kernel's launch plan."""
+    import dataclasses
+
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.roofline import analysis as A
 
@@ -1902,8 +1907,11 @@ def rglru_phase(torch, seed: int, reps: int) -> dict:
             "bound_ms": nbytes / hw().hbm_bw * 1e3, "bound_by": "bytes",
             "bound_bytes": nbytes, "max_abs_err": float((got - want).abs().max()),
             "bit_equal_to_plain": bit_equal, "rerun_equal": True,
+            "plan": dataclasses.asdict(_cuda.rglru_scan_plan(a, x)),
             "shape": {"B": b, "S": s, "W": w, "dtype": "float32"}}
     line["bound_share"] = line["bound_ms"] / line["kernel_ms"]
+    if line["device_ms"]:
+        line["device_bound_share"] = line["bound_ms"] / line["device_ms"]
     emit(line)
     del a, x, got, again, want
     torch.cuda.empty_cache()
@@ -3010,9 +3018,13 @@ def scan_backward_phase(torch, seed: int, reps: int) -> dict:
         if b == RGLRU_TRAIN_SHAPE[0]:  # the forward kernel at the microbatch
             forward = lambda: _cuda.run_rglru_scan(a0, x.detach())  # noqa: E731
             fwd_bytes = A.rglru_scan_work(b, s, w)[1]
+            fwd_equal = torch.equal(h0, RS.rglru_scan_torch(a0, x.detach()))
+            assert fwd_equal, name
             line.update({"forward_kernel_ms": time_ms(torch, forward, reps),
                          **device_fields(torch, forward, reps, "forward_"),
-                         "forward_bound_ms": fwd_bytes / hw().hbm_bw * 1e3})
+                         "forward_bound_ms": fwd_bytes / hw().hbm_bw * 1e3,
+                         "forward_bit_equal_to_plain": fwd_equal,
+                         "forward_plan": dataclasses.asdict(_cuda.rglru_scan_plan(a0, x.detach()))})
             line["forward_bound_share"] = line["forward_bound_ms"] / line["forward_kernel_ms"]
             if line["forward_device_ms"]:
                 line["forward_device_bound_share"] = (line["forward_bound_ms"]

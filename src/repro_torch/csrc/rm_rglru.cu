@@ -18,23 +18,44 @@
 //
 // Bound: bytes.  a and x are read once and h written once: 3 · B · S · W · 4
 // bytes over the 3.35 TB/s of the H100 SXM data sheet (0.2404 ms at
-// recurrentgemma-9b's prefill of B 8, S 2,048, W 4,096).  The chain costs two
-// float32 operations an element.
+// recurrentgemma-9b's prefill of B 8, S 2,048, W 4,096; 0.0601 ms at a
+// training microbatch's B 2).  The chain costs two float32 operations an
+// element.  As in the gradient, B 2 has only 8,192 lanes, each one
+// sequential chain, so the bytes in flight decide how near the bound it
+// runs (about 2 MB keep 3.35 TB/s busy).
 //
-// Design (a simple kernel):
-//   * one thread a lane, lanes consecutive in w, so a warp's loads and stores
-//     of one step are 128 contiguous bytes; a grid-stride loop over lanes, so
-//     any B · W fits any grid;
-//   * the chain's operands are loaded kRglruAhead steps ahead of the
-//     multiply-add that needs them, in two register groups: the loads of the
-//     next group are issued before the current group's chain runs, so each
-//     thread has 2 · kRglruAhead steps of a and x in flight (streaming loads
-//     and stores: nothing is read twice);
-//   * each step is __fmul_rn then __fadd_rn, never a contracted FMA, so h is
-//     bit-equal to the plain version's sequential float32 loop
-//     (h = a[:, t] * h + x[:, t], two roundings a step);
-//   * steps past S load a = 1 and x = 0, which leave h unchanged, and store
-//     nothing.
+// Design (the gradient's, walked the other way):
+//   * a block is one warp of kFwdLanes lanes (b, w0 .. w0 + 31): B 2 × W 4,096
+//     is 256 blocks on 132 SMs, B 8 is 1,024;
+//   * a and x come through a ring of kFwdStages stages in shared memory
+//     (24 KB a block, so 8 blocks an SM hold B 8's 1,024 blocks in one wave;
+//     a deeper ring moved B 2 by under 1% and split B 8 into two waves),
+//     each stage kFwdSteps steps × kFwdLanes lanes of both operands, taken
+//     from step 0 up.  The ring fits 48 KB, so the launch sets no attribute.
+//     Two fill forms, the plan's choice by width, alignment and grid size:
+//       - kFillTma: one TMA box an operand a stage, issued by lane 0 against
+//         the stage's mbarrier.  The tensor maps are 3-D over (W, S, B), so a
+//         box never reads into the next batch row; past S and past the
+//         ragged W edge it reads TMA's zero fill.  TMA needs W a multiple of
+//         4 and a, x 16-byte aligned.  The plan takes it for a grid of at
+//         most four blocks an SM, where it reads faster (train_rg's B 2: 16%
+//         by device time on an H100 80GB HBM3 at 700 W);
+//       - kFillAsync: any other width or base, and fuller grids (B 8's 1,024
+//         blocks: 3% faster on that card).  Each lane copies its own column
+//         of the stage with 4-byte cp.async copies (zeros past S and W) and
+//         arrives on the stage's mbarrier when they land (.noinc: the
+//         barrier counts the warp's 32 arrivals);
+//     a slot is refilled with the stage kFwdStages on once the warp has read
+//     it, so kFwdStages - 1 stages (16 KB a block, 4 MB over B 2's 256 blocks)
+//     are in flight while one is consumed;
+//   * one thread a lane reads its column of a stage (32 consecutive floats a
+//     warp: no bank conflict) and runs the chain, each step __fmul_rn then
+//     __fadd_rn, never a contracted FMA, so h is bit-equal to the plain
+//     version's sequential float32 loop (h = a[:, t] * h + x[:, t], two
+//     roundings a step).  The zero fill past S (a = 0, x = 0) only touches
+//     steps that are never stored;
+//   * h is written by streaming stores, a warp's 128 contiguous bytes a
+//     step; steps past S and lanes past W store nothing.
 //
 // ---- rm_rglru_scan_backward_kernel (the gradient)
 //
@@ -77,8 +98,9 @@
 // allocation), so a CUDA graph can capture it, and returns
 // cudaGetLastError().  The layouts of RglruParams and RglruBwdParams are
 // mirrored by ctypes in repro_torch/kernels/_cuda.py (_RglruParams,
-// _RglruBwdParams), checked at load time, and so are the backward's plan
-// constants (rm_rglru_backward_plan against RGLRU_BWD_*).
+// _RglruBwdParams), checked at load time, and so are the plans' constants
+// (rm_rglru_forward_plan against RGLRU_FWD_*, rm_rglru_backward_plan against
+// RGLRU_BWD_*).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -91,7 +113,9 @@ struct RglruParams {
   const float* x;    // (B, S, W) input term
   float* h;          // (B, S, W) output
   int32_t batch, seq, width;
-  int32_t blocks;    // grid size (the lanes' grid-stride loop covers the rest)
+  int32_t blocks;    // grid size: batch · ceil(width / kFwdLanes)
+  int32_t smem;      // dynamic shared bytes: kFwdSmem
+  int32_t form;      // how the ring is filled: kFillTma or kFillAsync
 };
 
 struct RglruBwdParams {
@@ -108,54 +132,140 @@ struct RglruBwdParams {
 
 namespace {
 
-constexpr int kRglruThreads = 128;  // must match RGLRU_THREADS in _cuda.py
-constexpr int kRglruAhead = 8;      // steps a register group holds
-
-__device__ __forceinline__ void load_group(const float* a, const float* x, long long w,
-                                           int t0, int seq, float (&av)[kRglruAhead],
-                                           float (&xv)[kRglruAhead]) {
-#pragma unroll
-  for (int u = 0; u < kRglruAhead; ++u) {
-    const int t = t0 + u;
-    const bool in = t < seq;
-    av[u] = in ? __ldcs(a + static_cast<long long>(t) * w) : 1.0f;
-    xv[u] = in ? __ldcs(x + static_cast<long long>(t) * w) : 0.0f;
-  }
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
-__global__ void __launch_bounds__(kRglruThreads) rm_rglru_scan_kernel(RglruParams p) {
-  const long long width = p.width;
-  const long long lanes = static_cast<long long>(p.batch) * width;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       lane < lanes; lane += stride) {
-    const long long b = lane / width;
-    const long long base = b * p.seq * width + (lane - b * width);
-    const float* a = p.a + base;
-    const float* x = p.x + base;
-    float* h = p.h + base;
-    float av[kRglruAhead], xv[kRglruAhead];
-    load_group(a, x, width, 0, p.seq, av, xv);
-    float state = 0.0f;
-    for (int t0 = 0; t0 < p.seq; t0 += kRglruAhead) {
-      float an[kRglruAhead], xn[kRglruAhead];
-      load_group(a, x, width, t0 + kRglruAhead, p.seq, an, xn);
-#pragma unroll
-      for (int u = 0; u < kRglruAhead; ++u) {
-        state = __fadd_rn(__fmul_rn(av[u], state), xv[u]);
-        if (t0 + u < p.seq) __stcs(h + static_cast<long long>(t0 + u) * width, state);
+// A (W, S, B) view of a contiguous (B, S, W) float32 tensor, boxes of `steps`
+// steps × `lanes` lanes of one batch row, zero fill outside.
+int scan_map(CUtensorMap* map, const float* base, int batch, int seq, int width, int lanes,
+             int steps) {
+  const rm_tma::EncodeTiled encode = rm_tma::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 4,
+                                 static_cast<cuuint64_t>(seq) * width * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(lanes), static_cast<cuuint32_t>(steps), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------- the forward
+constexpr int kFwdLanes = 32;      // lanes a block: one warp (RGLRU_FWD_LANES in _cuda.py)
+constexpr int kFwdSteps = 32;      // steps a stage: a TMA box's rows (RGLRU_FWD_STEPS)
+constexpr int kFwdStages = 3;      // stages in the ring (RGLRU_FWD_STAGES)
+constexpr int kFwdBox = kFwdSteps * kFwdLanes;   // floats of one operand's box
+constexpr int kFwdStageBytes = 2 * kFwdBox * 4;  // a, x: 8 KB
+constexpr int kFillTma = 0, kFillAsync = 1;      // RglruParams::form (RGLRU_FWD_FORMS)
+
+// the ring, its mbarriers, and up to 128 bytes to align the ring for TMA
+constexpr int kFwdSmem = kFwdStages * (kFwdStageBytes + 8) + 128;
+static_assert(kFwdSmem <= 48 * 1024, "the ring must need no attribute");
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+// arrive on `bar` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(bar) : "memory");
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kFwdLanes)
+rm_rglru_scan_kernel(const __grid_constant__ RglruParams p,
+                     const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_x) {
+  using namespace rm_tma;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring_s = (raw + 127) & ~127u;  // [stage][a, x][step][lane]
+  const uint32_t full_s = ring_s + kFwdStages * kFwdStageBytes;  // an mbarrier a stage
+  const float* const ring = reinterpret_cast<const float*>(smem_raw + (ring_s - raw));
+  const int lane = threadIdx.x;
+  const int groups = (p.width + kFwdLanes - 1) / kFwdLanes;
+  const int b = blockIdx.x / groups;
+  const int w0 = (blockIdx.x - b * groups) * kFwdLanes;
+  const int boxes = (p.seq + kFwdSteps - 1) / kFwdSteps;
+  const long long row = p.width;
+  const long long base = static_cast<long long>(b) * p.seq * row + w0 + lane;
+  const bool live = w0 + lane < p.width;
+  // stage k holds steps [k · kFwdSteps, + kFwdSteps) in slot k % kFwdStages; in
+  // the TMA form lane 0 alone calls this, in the cp.async form every lane
+  auto issue = [&](int k) {
+    const int slot = k % kFwdStages;
+    const uint32_t dst = ring_s + slot * kFwdStageBytes, bar = full_s + slot * 8;
+    const int t0 = k * kFwdSteps;
+    if constexpr (kForm == kFillTma) {
+      mbar_expect_tx(bar, kFwdStageBytes);
+      tma_load_3d(dst, &map_a, bar, w0, t0, b);
+      tma_load_3d(dst + kFwdBox * 4, &map_x, bar, w0, t0, b);
+    } else {
+#pragma unroll 8
+      for (int u = 0; u < kFwdSteps; ++u) {
+        const bool in = live && t0 + u < p.seq;
+        const long long off = in ? base + (t0 + u) * row : 0;
+        const uint32_t at = dst + (u * kFwdLanes + lane) * 4;
+        cp_async_4(at, p.a + off, in);
+        cp_async_4(at + kFwdBox * 4, p.x + off, in);
       }
+      cp_async_arrive(bar);
+    }
+  };
+  if (lane == 0) {
+    for (int s = 0; s < kFwdStages; ++s) mbar_init(full_s + s * 8, kForm == kFillTma ? 1 : kFwdLanes);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  if (kForm == kFillAsync || lane == 0)
+    for (int k = 0; k < kFwdStages && k < boxes; ++k) issue(k);
+
+  float* const h = p.h + base;
+  float state = 0.0f;  // h[-1]
+  for (int k = 0; k < boxes; ++k) {
+    const int slot = k % kFwdStages;
+    mbar_wait(full_s + slot * 8, (k / kFwdStages) & 1);
+    const float* const sa = ring + slot * 2 * kFwdBox + lane;
+    const float* const sx = sa + kFwdBox;
+    const int t0 = k * kFwdSteps;
 #pragma unroll
-      for (int u = 0; u < kRglruAhead; ++u) {
-        av[u] = an[u];
-        xv[u] = xn[u];
+    for (int u = 0; u < kFwdSteps; ++u) {
+      const int t = t0 + u;
+      state = __fadd_rn(__fmul_rn(sa[u * kFwdLanes], state), sx[u * kFwdLanes]);
+      if (live && t < p.seq) __stcs(h + t * row, state);
+    }
+    // every lane has read the slot: refill it with the stage kFwdStages on
+    __syncwarp();
+    if (k + kFwdStages < boxes) {
+      if constexpr (kForm == kFillTma) {
+        if (lane == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          issue(k + kFwdStages);
+        }
+      } else {
+        issue(k + kFwdStages);
       }
     }
   }
 }
 
 bool valid(const RglruParams& p) {
-  return p.a && p.x && p.h && p.batch > 0 && p.seq > 0 && p.width > 0 && p.blocks > 0;
+  const long long groups = (static_cast<long long>(p.width) + kFwdLanes - 1) / kFwdLanes;
+  const bool aligned = (reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.x)) %
+                       16 == 0;
+  const bool form = p.form == kFillAsync || (p.form == kFillTma && aligned && p.width % 4 == 0);
+  return p.a && p.x && p.h && form && p.batch > 0 && p.seq > 0 && p.width > 0 &&
+         p.blocks == p.batch * groups && p.smem == kFwdSmem;
 }
 
 // ------------------------------------------------------------ the backward
@@ -167,15 +277,6 @@ constexpr int kBwdStageBytes = 3 * kBwdBox * 4;           // a, h, dh
 constexpr int kBwdRingBytes = kBwdStages * kBwdStageBytes;  // 48 KB
 // the ring, its mbarriers, and up to 128 bytes to align the ring for TMA
 constexpr int kBwdSmem = kBwdRingBytes + kBwdStages * 8 + 128;
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
 
 __global__ void __launch_bounds__(kBwdLanes)
 rm_rglru_scan_backward_kernel(const __grid_constant__ RglruBwdParams p,
@@ -246,24 +347,6 @@ rm_rglru_scan_backward_kernel(const __grid_constant__ RglruBwdParams p,
   if (live) __stcs(da, __fmul_rn(g, 0.0f));  // da[0] = g[0] · h[-1]
 }
 
-// A (W, S, B) view of a contiguous (B, S, W) float32 tensor, boxes of
-// kBwdSteps steps × kBwdLanes lanes of one batch row, zero fill outside.
-int bwd_map(CUtensorMap* map, const float* base, const RglruBwdParams& p) {
-  const rm_tma::EncodeTiled encode = rm_tma::encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.width), static_cast<cuuint64_t>(p.seq),
-                              static_cast<cuuint64_t>(p.batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.width) * 4,
-                                 static_cast<cuuint64_t>(p.seq) * p.width * 4};
-  const cuuint32_t box[3] = {kBwdLanes, kBwdSteps, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 bool valid(const RglruBwdParams& p) {
   const long long groups = (static_cast<long long>(p.width) + kBwdLanes - 1) / kBwdLanes;
   const bool aligned = (reinterpret_cast<uintptr_t>(p.a) | reinterpret_cast<uintptr_t>(p.h) |
@@ -287,12 +370,29 @@ void rm_rglru_backward_plan(int* lanes, int* steps, int* stages) {
   *stages = kBwdStages;
 }
 
-// Launch the scan on `stream` without synchronising; returns
-// cudaGetLastError() (0 on success).
+// The forward's plan constants: lanes a block, steps a stage, stages.
+void rm_rglru_forward_plan(int* lanes, int* steps, int* stages) {
+  *lanes = kFwdLanes;
+  *steps = kFwdSteps;
+  *stages = kFwdStages;
+}
+
+// Launch the scan on `stream` without synchronising (the plan's grid, shared
+// bytes and fill form, checked against the kernel's and the inputs); returns cudaGetLastError() (0 on
+// success).  The ring fits 48 KB, so nothing but the launch is enqueued.
 int rm_rglru_scan(const RglruParams* params, void* stream) {
   const RglruParams& p = *params;
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  rm_rglru_scan_kernel<<<p.blocks, kRglruThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap ma{}, mx{};  // unread by the cp.async form
+  if (p.form == kFillTma) {
+    int err = scan_map(&ma, p.a, p.batch, p.seq, p.width, kFwdLanes, kFwdSteps);
+    if (err == 0) err = scan_map(&mx, p.x, p.batch, p.seq, p.width, kFwdLanes, kFwdSteps);
+    if (err != 0) return err;
+    rm_rglru_scan_kernel<kFillTma><<<p.blocks, kFwdLanes, p.smem, s>>>(p, ma, mx);
+  } else {
+    rm_rglru_scan_kernel<kFillAsync><<<p.blocks, kFwdLanes, p.smem, s>>>(p, ma, mx);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -303,9 +403,9 @@ int rm_rglru_scan_backward(const RglruBwdParams* params, void* stream) {
   const RglruBwdParams& p = *params;
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mh, mdh;
-  int err = bwd_map(&ma, p.a, p);
-  if (err == 0) err = bwd_map(&mh, p.h, p);
-  if (err == 0) err = bwd_map(&mdh, p.dh, p);
+  int err = scan_map(&ma, p.a, p.batch, p.seq, p.width, kBwdLanes, kBwdSteps);
+  if (err == 0) err = scan_map(&mh, p.h, p.batch, p.seq, p.width, kBwdLanes, kBwdSteps);
+  if (err == 0) err = scan_map(&mdh, p.dh, p.batch, p.seq, p.width, kBwdLanes, kBwdSteps);
   if (err != 0) return err;
   const cudaError_t set = cudaFuncSetAttribute(
       rm_rglru_scan_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);

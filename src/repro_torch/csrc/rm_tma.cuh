@@ -1,5 +1,5 @@
-// Shared pieces of the TMA-fed kernels (rm_flash.cu, rm_w8.cu): mbarrier
-// helpers and the tensor-map encoder.
+// Shared pieces of the TMA-fed kernels (rm_flash.cu, rm_w8.cu, rm_rglru.cu):
+// mbarrier helpers, the tensor-map encoder and the context it needs.
 //
 // A TMA copy lands in shared memory and completes a transaction count on an
 // mbarrier; a consumer waits on the barrier's phase.  mbar_wait traps (a
@@ -47,13 +47,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time
+// Make this host thread's device context current before a driver call (the
+// tensor-map encoder) needs one.  A thread whose CUDA work so far went through
+// another runtime without touching the device (PyTorch's autograd worker,
+// handed tensors from its caching allocator) may have none, and the encoder
+// then fails.  cudaSetDevice only binds the primary context: no stream work,
+// so a graph capture may call it.  encode_tiled() calls it, so every launcher
+// that encodes a map binds the context first.
+inline cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time; null where the
+// driver lacks it or this thread's context cannot be bound
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 inline EncodeTiled encode_tiled() {
+  if (bind_context() != cudaSuccess) return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* ptr = nullptr;

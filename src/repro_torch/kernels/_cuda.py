@@ -140,8 +140,16 @@ W8_MAX_CLUSTER = 8  # ranks of a tensor-core cluster along K (kTcMaxCluster)
 W8_TC_MAX_CHUNK = 8192  # K rows a tensor-core rank at most (kTcMaxChunk): the staged x
 MOE_ROWS = (4, 8, 16)  # the rows rm_moe_ffn_kernel instantiates (MoeParams::rows)
 MOE_MAX_ROWS = MOE_ROWS[-1]  # rows of an expert's buffer (cap) the kernel takes
-RGLRU_THREADS = 128  # lanes a block of rm_rglru_scan_kernel (kRglruThreads)
-RGLRU_MAX_BLOCKS = MAX_GRID_BLOCKS  # its grid at most: a grid-stride loop covers the rest
+# rm_rglru_scan_kernel's plan (load() checks rm_rglru_forward_plan)
+RGLRU_FWD_LANES = 32  # lanes a block: one warp (kFwdLanes)
+RGLRU_FWD_STEPS = 32  # steps a stage of its ring: a TMA box's rows (kFwdSteps)
+RGLRU_FWD_STAGES = 3  # stages in its ring (kFwdStages): 24 KB, 8 blocks an SM
+# TMA fills the ring of a grid of at most four blocks an SM of the H100's 132;
+# a fuller grid reads faster through its warps' own cp.async copies (device
+# ms, NVIDIA H100 80GB HBM3 at 700 W, kernel_times.py: B 2 TMA 16% ahead, B 4
+# even, B 6 and B 8 cp.async 3-4% ahead)
+RGLRU_FWD_TMA_BLOCKS = 4 * 132
+RGLRU_FWD_FORMS = {"tma": 0, "async": 1}  # RglruParams::form (kFillTma, kFillAsync)
 # rm_rglru_scan_backward_kernel's plan (load() checks rm_rglru_backward_plan)
 RGLRU_BWD_LANES = 32  # lanes a block: one warp (kBwdLanes)
 RGLRU_BWD_STEPS = 32  # steps a stage of its TMA ring: a box's rows (kBwdSteps)
@@ -251,7 +259,8 @@ class _MoeParams(ctypes.Structure):
 
 class _RglruParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in ("a", "x", "h")] + [
-        (name, ctypes.c_int32) for name in ("batch", "seq", "width", "blocks")]
+        (name, ctypes.c_int32) for name in (
+            "batch", "seq", "width", "blocks", "smem", "form")]
 
 
 class _RglruBwdParams(ctypes.Structure):
@@ -557,8 +566,9 @@ def load() -> ctypes.CDLL:
     lib.rm_moe_ffn.argtypes = [ctypes.POINTER(_MoeParams), ctypes.c_void_p]
     lib.rm_rglru_scan.argtypes = [ctypes.POINTER(_RglruParams), ctypes.c_void_p]
     lib.rm_rglru_scan_backward.argtypes = [ctypes.POINTER(_RglruBwdParams), ctypes.c_void_p]
-    lib.rm_rglru_backward_plan.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    lib.rm_rglru_backward_plan.restype = None
+    for fn in (lib.rm_rglru_forward_plan, lib.rm_rglru_backward_plan):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = None
     for fn in (lib.rm_project_bsl, lib.rm_project_pck, lib.rm_select_compact,
                lib.rm_col_params_size, lib.rm_select_params_size,
                lib.rm_project_spans, lib.rm_span_params_size,
@@ -585,12 +595,16 @@ def load() -> ctypes.CDLL:
                 f"{struct.__name__} layout differs: C {c_size} bytes, ctypes "
                 f"{ctypes.sizeof(struct)} bytes"
             )
-    plan = [ctypes.c_int(0) for _ in range(3)]
-    lib.rm_rglru_backward_plan(*map(ctypes.byref, plan))
-    want = (RGLRU_BWD_LANES, RGLRU_BWD_STEPS, RGLRU_BWD_STAGES)
-    if tuple(v.value for v in plan) != want:
-        raise RuntimeError(f"rm_rglru_scan_backward_kernel's (lanes, steps, stages) are "
-                           f"{tuple(v.value for v in plan)}, the plan lays out {want}")
+    for fn, kernel, want in (
+            (lib.rm_rglru_forward_plan, "rm_rglru_scan_kernel's (lanes, steps, stages)",
+             (RGLRU_FWD_LANES, RGLRU_FWD_STEPS, RGLRU_FWD_STAGES)),
+            (lib.rm_rglru_backward_plan, "rm_rglru_scan_backward_kernel's (lanes, steps, stages)",
+             (RGLRU_BWD_LANES, RGLRU_BWD_STEPS, RGLRU_BWD_STAGES))):
+        plan = [ctypes.c_int(0) for _ in range(3)]
+        fn(*map(ctypes.byref, plan))
+        if tuple(v.value for v in plan) != want:
+            raise RuntimeError(f"{kernel} are {tuple(v.value for v in plan)}, the plan lays "
+                               f"out {want}")
     _LIB = lib
     # a load inside a capture leaves it to the W8 wrapper (which raises there)
     if torch.cuda.is_available() and not torch.cuda.is_current_stream_capturing():
@@ -1600,13 +1614,57 @@ def run_moe(x: torch.Tensor, count: torch.Tensor, w0: torch.Tensor,
     return y
 
 
+@dataclasses.dataclass(frozen=True)
+class RglruForwardPlan:
+    """The launch of ``rm_rglru_scan_kernel``: ``lanes`` a block (one warp),
+    ``steps`` a stage of its ring, ``stages`` in the ring, ``smem`` dynamic
+    shared bytes a block (the ring, an mbarrier a stage and 128 bytes to
+    align the ring), ``blocks`` in the grid (a block a batch row and
+    ``lanes`` lanes of it), ``boxes`` (the stages a block walks, from step 0
+    up) and ``form`` (how the ring is filled: ``"tma"``, a TMA box an
+    operand a stage, or ``"async"``, a 4-byte ``cp.async`` copy a lane a
+    step)."""
+
+    lanes: int
+    steps: int
+    stages: int
+    smem: int
+    blocks: int
+    boxes: int
+    form: str
+
+
+def rglru_forward_plan(b: int, s: int, w: int, aligned: bool) -> RglruForwardPlan:
+    """The scan's launch at ``(B, S, W)``: the TMA form where W is a multiple
+    of 4, ``aligned`` (a and x both start 16-byte aligned) and the grid at
+    most ``RGLRU_FWD_TMA_BLOCKS``, else the ``cp.async`` form.  The C
+    launcher checks ``blocks``, ``smem`` and the form against the kernel's
+    constants and the inputs."""
+    lanes, steps, stages = RGLRU_FWD_LANES, RGLRU_FWD_STEPS, RGLRU_FWD_STAGES
+    blocks = b * -(-w // lanes)
+    tma = aligned and w % 4 == 0 and blocks <= RGLRU_FWD_TMA_BLOCKS
+    return RglruForwardPlan(lanes=lanes, steps=steps, stages=stages,
+                            smem=stages * (2 * steps * lanes * 4 + 8) + 128, blocks=blocks,
+                            boxes=-(-s // steps), form="tma" if tma else "async")
+
+
+def rglru_scan_plan(a: torch.Tensor, x: torch.Tensor) -> RglruForwardPlan:
+    """The plan :func:`run_rglru_scan` launches for ``a`` and ``x``: their
+    shape and whether both start 16-byte aligned."""
+    return rglru_forward_plan(*a.shape, aligned=(a.data_ptr() | x.data_ptr()) % 16 == 0)
+
+
 def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Launch the RG-LRU recurrence ``h[:, t] = a[:, t] * h[:, t - 1] + x[:, t]``
     from ``h[:, -1] = 0`` over ``a`` and ``x (B, S, W)``: float32, contiguous,
     one shape, on one card.  Returns a new ``(B, S, W)`` float32 tensor, each
     step's multiply and add rounded apart (bit-equal to the sequential
-    float32 loop); enqueues on the current stream without synchronising (a
-    CUDA graph can capture it)."""
+    float32 loop).  One launch of ``rm_rglru_scan_kernel``: a warp a block,
+    a and x through a ring of stages in shared memory, by TMA where W is a
+    multiple of 4, both bases are 16-byte aligned and the grid is at most
+    four blocks an SM, else by ``cp.async`` (:func:`rglru_scan_plan`).
+    Enqueues on the current stream without synchronising or setting
+    anything (a CUDA graph can capture it)."""
     for name, t in (("a", a), ("x", x)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
@@ -1622,14 +1680,18 @@ def run_rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     b, s, w = a.shape
     if min(b, s, w) < 1 or max(b, s, w) >= 2**31:
         raise ValueError(f"B, S and W must be in [1, 2^31), got {tuple(a.shape)}")
+    if -(-w // RGLRU_FWD_LANES) * b >= 2**31:
+        raise ValueError(f"B · ceil(W / {RGLRU_FWD_LANES}) blocks must be below 2^31, got "
+                         f"{tuple(a.shape)}")
     h = torch.empty_like(a)
     if roofline.counting():
         roofline.record_kernel("rglru_scan", *roofline.rglru_scan_work(b, s, w))
     if a.device.type == "meta":
         return h
-    blocks = min(-(-b * w // RGLRU_THREADS), RGLRU_MAX_BLOCKS)
+    plan = rglru_scan_plan(a, x)
     params = _RglruParams(a=a.data_ptr(), x=x.data_ptr(), h=h.data_ptr(), batch=b, seq=s,
-                          width=w, blocks=blocks)
+                          width=w, blocks=plan.blocks, smem=plan.smem,
+                          form=RGLRU_FWD_FORMS[plan.form])
     lib = load()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -9,9 +9,12 @@ hand-written kernel instead:
 * :func:`rglru_scan` — ``h (B, S, W)`` from ``a`` and ``x (B, S, W)``
   float32, ``h_{-1} = 0``: on CUDA tensors ``csrc/rm_rglru.cu`` through
   :func:`repro_torch.kernels._cuda.run_rglru_scan`, one launch of
-  ``rm_rglru_scan_kernel`` (a thread a ``(b, w)`` lane, the operands loaded
-  ahead of the chain); on CPU tensors :func:`rglru_scan_torch`, the plain
-  version.
+  ``rm_rglru_scan_kernel`` (a warp a block of 32 lanes of one batch row,
+  ``a`` and ``x`` fed to it through a ring of stages in shared memory by
+  TMA, or by ``cp.async`` where W is not a multiple of 4, a base not
+  16-byte aligned or the grid over four blocks an SM;
+  :func:`repro_torch.kernels._cuda.rglru_scan_plan`);
+  on CPU tensors :func:`rglru_scan_torch`, the plain version.
 
 Both take the steps in order, each a float32 multiply then a float32 add
 (no fused multiply-add), so the kernel is bit-equal to its plain version.

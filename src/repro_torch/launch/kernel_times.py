@@ -35,8 +35,11 @@ yardstick the port never calls); the RG-LRU scan's gradient at
 ``chip_smoke.RGLRU_SHAPE`` (``scan_backward_b8``) and at ``train_rg``'s
 microbatch of B 2 (``scan_backward_b2``) through ``RGLRUScan.backward``
 with the forward's saved ``a`` and ``h`` (so a parent checkout's backward
-is timed the same way), and the scan's forward at B 2
-(``scan_forward_b2``).
+is timed the same way), and the scan's forward at B 2 and B 8
+(``scan_forward_b2``, ``scan_forward_b8``; B 4 and 6 between them), also on inputs whose base is one
+float past a 16-byte boundary (``scan_forward_b2_async``,
+``scan_forward_b8_async``: the ``cp.async`` form, where the forward has
+one).
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--rows N] [--reps R]
         [--cases NAME,...]
@@ -70,8 +73,11 @@ NARROW_BACKWARD_SHAPES = (
     ("flash_backward_d64", 2, 2048, 16, 16, 64, True, None, "bfloat16"),
     ("flash_backward_d64_bidirectional", 2, 2048, 16, 16, 64, False, None, "bfloat16"),
     ("flash_backward_d32", 2, 2048, 32, 8, 32, True, None, "bfloat16"))
-# the RG-LRU scan: (name, B) at chip_smoke.RGLRU_SHAPE's S and W
-SCAN_CASES = (("scan_backward_b8", 8), ("scan_backward_b2", 2), ("scan_forward_b2", 2))
+# the RG-LRU scan: (name, B) at chip_smoke.RGLRU_SHAPE's S and W; an
+# ``_async`` forward's a and x start one float past a 16-byte boundary
+SCAN_CASES = (("scan_backward_b8", 8), ("scan_backward_b2", 2), ("scan_forward_b2", 2),
+              ("scan_forward_b4", 4), ("scan_forward_b6", 6), ("scan_forward_b8", 8),
+              ("scan_forward_b2_async", 2), ("scan_forward_b8_async", 8))
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -227,7 +233,9 @@ def scan_cases(torch, CS, keep):
     """The RG-LRU scan's gradient and forward (``SCAN_CASES``), ``a`` in
     (0, 1), ``x`` and ``dh`` normal from a fixed seed, each with its bound
     by bytes; the gradient through ``RGLRUScan.backward`` on a context
-    holding the forward's saved ``a`` and ``h``."""
+    holding the forward's saved ``a`` and ``h``; an ``_async`` forward's
+    inputs copied one float past a 16-byte boundary, its output held against
+    the plain loop before it is timed."""
     import types
 
     from repro_torch.kernels import rglru_scan as RS
@@ -240,6 +248,12 @@ def scan_cases(torch, CS, keep):
         g = torch.Generator(device="cuda").manual_seed(29)
         a = torch.rand((b, s, w), generator=g, device="cuda").clamp_(min=1e-6)
         x, dh = (torch.randn((b, s, w), generator=g, device="cuda") for _ in range(2))
+        if name.endswith("_async"):
+            want = RS.rglru_scan_torch(a, x)
+            a, x = (torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape).copy_(t)
+                    for t in (a, x))
+            assert torch.equal(RS.rglru_scan(a, x), want), name
+            del want
         if name.startswith("scan_forward"):
             yield (name, lambda: RS.rglru_scan(a, x),
                    A.rglru_scan_work(b, s, w)[1] / CS.hw().hbm_bw * 1e3)

@@ -11,6 +11,10 @@ float32 columns within ``1e-5 * sum(|v|)`` (summation order differs).
 
 import ctypes
 import math
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1320,9 +1324,12 @@ def test_moe_decode_step_raises_after_an_expert_weight_changes(dev):
 
 
 # --------------------------------------------------- the RG-LRU scan
-# (B, S, W): one step; W not a multiple of a warp; S not a multiple of the
-# kernel's 8-step groups; recurrentgemma-9b's prefill
-RGLRU_CASES = [(2, 1, 64), (2, 37, 100), (3, 300, 4096), (8, 2048, 4096)]
+# (B, S, W): one step; W not a multiple of a block's 32 lanes; S not a
+# multiple of the ring's 32-step stages; recurrentgemma-9b's prefill; S one
+# past a stage with a ragged last block; train_rg's microbatch; W not a
+# multiple of 4 (the cp.async form)
+RGLRU_CASES = [(2, 1, 64), (2, 37, 100), (3, 300, 4096), (8, 2048, 4096), (1, 33, 4100),
+               (2, 2048, 4096), (2, 70, 66)]
 
 
 def rglru_inputs(b, s, w, dev, seed=0):
@@ -1346,14 +1353,68 @@ def test_rglru_scan_matches_plain(dev, case):
     assert torch.equal(got, RS.rglru_scan_torch(a, x))
 
 
-def test_rglru_scan_lanes_above_the_grid(dev, monkeypatch):
-    """More lanes than the grid has threads: the grid-stride loop covers
-    them, bit-equal as before."""
+def test_rglru_scan_blocks_a_row_and_a_ragged_group(dev):
+    """Several blocks a batch row and a last block whose lanes straddle the
+    ragged W edge, beside a width of one warp and one below it: bit-equal
+    as before, in one launch each."""
     from repro_torch.kernels import rglru_scan as RS
 
-    monkeypatch.setattr(_cuda, "RGLRU_MAX_BLOCKS", 3)
-    a, x = rglru_inputs(4, 50, 1000, dev)  # 4,000 lanes on 3 × 128 threads
-    assert torch.equal(RS.rglru_scan(a, x), RS.rglru_scan_torch(a, x))
+    for shape in ((4, 50, 1000), (3, 40, 32), (2, 65, 12)):
+        a, x = rglru_inputs(*shape, dev)
+        plan = _cuda.rglru_scan_plan(a, x)
+        assert plan.blocks == shape[0] * -(-shape[2] // 32) and plan.form == "tma"
+        _cuda.reset_launches()
+        assert torch.equal(RS.rglru_scan(a, x), RS.rglru_scan_torch(a, x))
+        assert _cuda.LAUNCHES["rglru_scan"] == 1
+
+
+def off_by_a_float(t):
+    """A contiguous copy of ``t`` whose base is 4 bytes past a 16-byte
+    boundary: the TMA form cannot read it."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("shape,shifted", [
+    ((2, 2048, 4096), "a"), ((2, 2048, 4096), "x"), ((2, 2048, 4096), "both"),
+    ((8, 2048, 4096), "both"), ((2, 100, 300), "x")], ids=lambda c: "x".join(map(str, c))
+    if isinstance(c, tuple) else c)
+def test_rglru_scan_cp_async_form_matches_plain(dev, shape, shifted):
+    """Inputs whose base is off 16 bytes (W a multiple of 4), at train_rg's
+    microbatch, the hybrid prefill and a small shape: the plan takes the
+    cp.async form, one launch, bit-equal to the plain loop."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    a, x = rglru_inputs(*shape, dev)
+    want = RS.rglru_scan_torch(a, x)
+    if shifted in ("a", "both"):
+        a = off_by_a_float(a)
+    if shifted in ("x", "both"):
+        x = off_by_a_float(x)
+    assert _cuda.rglru_scan_plan(a, x).form == "async"
+    _cuda.reset_launches()
+    assert torch.equal(RS.rglru_scan(a, x), want)
+    assert _cuda.LAUNCHES["rglru_scan"] == 1
+
+
+def test_rglru_scan_launcher_refuses_the_tma_form_for_an_unaligned_base(dev):
+    """The C launcher checks the plan's form against the inputs: the TMA
+    form with a base off 16 bytes is refused (nothing launched), the
+    cp.async form of the same inputs runs."""
+    a, x = rglru_inputs(2, 100, 300, dev)
+    x = off_by_a_float(x)
+    h = torch.empty_like(a)
+    lib = _cuda.load()
+    plan = _cuda.rglru_forward_plan(2, 100, 300, aligned=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for form, want in (("tma", False), ("async", True)):
+        params = _cuda._RglruParams(a=a.data_ptr(), x=x.data_ptr(), h=h.data_ptr(), batch=2,
+                                    seq=100, width=300, blocks=plan.blocks, smem=plan.smem,
+                                    form=_cuda.RGLRU_FWD_FORMS[form])
+        assert (lib.rm_rglru_scan(ctypes.byref(params), stream) == 0) == want, form
+    torch.cuda.synchronize()
 
 
 def test_rglru_scan_launch_count_and_refusals(dev):
@@ -1954,6 +2015,70 @@ def test_flash_backward_matches_plain_autograd(dev, case, dtype, monkeypatch):
         else:
             assert vs_plain <= 1e-5 * scale
             assert vs_recompute <= 1e-5
+
+
+# A fresh process: the flash forward and the int8-weight matmul each on a new
+# host thread, then the flash backward in autograd's worker thread for the card,
+# whose first CUDA work it is.  Tensors come from the caching allocator, so no
+# call of the thread's own has bound a context before a launcher encodes its
+# tensor maps (the encoder binds it).
+FRESH_THREADS = """
+import sys, threading
+import torch
+from repro_torch.kernels import _cuda, flash_attention as F, w8_matmul as W8
+from repro_torch.models.layers import quantize_weight
+
+d = int(sys.argv[1])
+_cuda.load()
+g = torch.Generator().manual_seed(d)
+q, k, v = (torch.randn((1, 160, n, d), generator=g).to(torch.bfloat16).cuda().requires_grad_()
+           for n in (4, 2, 2))
+rec = quantize_weight(torch.randn((256, 192), generator=g) * 0.05)
+wq, ws = rec.q.cuda(), rec.s.cuda()
+x = torch.randn((8, 256), generator=g).to(torch.bfloat16).cuda()
+assert _cuda.w8_form(x.dtype, 256, 192, wq.data_ptr(), ws.data_ptr()) == "tensor"
+done = {}
+
+def on_a_new_thread(name, fn):
+    def run():
+        try:
+            done[name] = fn()
+        except Exception as e:
+            done[name] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if isinstance(done[name], Exception):
+        raise done[name]
+    return done[name]
+
+_cuda.reset_launches()
+o = on_a_new_thread("flash", lambda: F.flash_attention(q, k, v, causal=True, window=None,
+                                                       block_k=64))
+y = on_a_new_thread("w8", lambda: W8.w8_matmul(x, wq, ws))
+grads = torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+torch.cuda.synchronize()
+assert all(bool(t.isfinite().all()) for t in (o, y, *grads))
+launches = {n: _cuda.LAUNCHES[n] for n in ("flash_attention", "flash_attention_backward",
+                                            "w8_matmul")}
+assert launches == dict.fromkeys(launches, 1), launches
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_tma_launchers_run_on_a_thread_without_a_context(dev, head_dim):
+    """The flash forward, the int8-weight matmul and the flash backward
+    (the one-pass form at D 64, the D 256 form) each encode tensor maps on a
+    thread whose CUDA work so far touched only cached tensors, the first
+    backward of a process in autograd's worker thread among them: every
+    launch runs."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(src), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    r = subprocess.run([sys.executable, "-c", FRESH_THREADS, str(head_dim)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-4000:]
 
 
 def test_flash_backward_d256_two_calls_bit_equal(dev):
