@@ -59,6 +59,7 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import rme_scan_multi as KR
+from repro_torch.tracing import WAIT, span
 
 from . import faults
 from .descriptor import bytes_moved
@@ -162,8 +163,9 @@ class PassHandle:
             for t in (r if isinstance(r, tuple) else (r,)):
                 if isinstance(t, torch.Tensor) and t.device.type == "cuda":
                     devices.add(t.device)
-        for dev in devices:
-            torch.cuda.synchronize(dev)
+        with span(WAIT):
+            for dev in devices:
+                torch.cuda.synchronize(dev)
         return self
 
 
@@ -282,9 +284,11 @@ class DeviceRowStore:
             self.stats.bytes_uploaded_delta += nbytes
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        # a copy even on the CPU: the table mutates its buffer in place
-        return torch.from_numpy(np.ascontiguousarray(host)).to(
-            self.device, copy=True)
+        # a copy even on the CPU: the table mutates its buffer in place.  A
+        # copy from pageable memory to the card waits for the stream
+        src = torch.from_numpy(np.ascontiguousarray(host))
+        with span(WAIT):
+            return src.to(self.device, copy=True)
 
     def _full_upload(self, table: RelationalTable) -> _StoreEntry:
         faults.maybe_fault("upload", table=table.uid, delta=False)
@@ -321,9 +325,11 @@ class DeviceRowStore:
             end = start + chunk.shape[0]
             sel = (idx >= start) & (idx < end)
             if sel.any():
-                rows = torch.from_numpy(idx[sel] - start).to(self.device)
-                chunk[rows, ts_word] = torch.from_numpy(
-                    np.ascontiguousarray(vals[sel])).to(self.device)
+                rows = torch.from_numpy(idx[sel] - start)
+                ends = torch.from_numpy(np.ascontiguousarray(vals[sel]))
+                with span(WAIT):  # two copies from pageable memory
+                    rows, ends = rows.to(self.device), ends.to(self.device)
+                chunk[rows, ts_word] = ends
             start = end
         return idx.size * WORD  # one rewritten timestamp word per row
 
@@ -764,7 +770,8 @@ class RelationalMemoryEngine:
     def execute_many_async(self, ops: Sequence[ScanOp]) -> PassHandle:
         """:meth:`execute_many` wrapped in a :class:`PassHandle`: identical
         serving and accounting, nothing synced with the host."""
-        return PassHandle(self.execute_many(ops))
+        with span("rm::engine.pass"):
+            return PassHandle(self.execute_many(ops))
 
     def materialize_many(self, views: Sequence[EphemeralView]) -> list[torch.Tensor]:
         """Materialize a batch of views with one shared scan per table
@@ -892,16 +899,21 @@ class RelationalMemoryEngine:
         packed, mask = (out if isinstance(covering, KR.FilterRequest)
                         else (out, None))
         idx = torch.tensor([word_out[w] for w in _geom_words(covered.geom)],
-                           dtype=torch.long, device=packed.device)
+                           dtype=torch.long)
+        with span(WAIT):  # a copy from pageable memory waits for the stream
+            idx = idx.to(packed.device)
         sliced = packed.index_select(1, idx)
         if isinstance(covered, KR.ProjectRequest):
             return sliced
         if covered.pred_op != "none":
             vals = common.decode(packed[:, word_out[covered.pred_word]],
                                  covered.pred_dtype)
-            k = common.decode(torch.tensor(
+            k_bits = torch.tensor(
                 common.pred_k_bits(covered.pred_k, covered.pred_dtype),
-                dtype=torch.int32, device=packed.device), covered.pred_dtype)
+                dtype=torch.int32)
+            with span(WAIT):
+                k_bits = k_bits.to(packed.device)
+            k = common.decode(k_bits, covered.pred_dtype)
             m = vals > k if covered.pred_op == "gt" else vals < k
         else:
             m = torch.ones(sliced.shape[0], dtype=torch.bool, device=packed.device)
@@ -1124,7 +1136,8 @@ class RelationalMemoryEngine:
             snapshot_ts=snapshot_ts,
         )
         self.stats.bytes_to_cpu += 8  # the [sum, count] pair crosses on sync
-        host = out.cpu()
+        with span(WAIT):
+            host = out.cpu()
         return float(host[0]), float(host[1])
 
     def vmem_budget_bytes(self, geom: TableGeometry) -> int:

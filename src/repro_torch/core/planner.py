@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels.common import group_ids
 from repro_torch.kernels.rme_join import estimated_partition_bytes
+from repro_torch.tracing import WAIT, span
 
 from .descriptor import bytes_moved
 from .engine import RelationalMemoryEngine
@@ -507,6 +508,13 @@ class PhysicalQuery:
         return self._finalize(self._launch(results))
 
 
+def _pair_to_host(t) -> tuple[float, float]:
+    """A ``(sum, count)`` pair of 0-d tensors as floats (waits for the card
+    where they live there)."""
+    with span(WAIT):
+        return float(t[0]), float(t[1])
+
+
 def _pred_args(pred: Predicate | None) -> tuple[str | None, str, Any]:
     if pred is None:
         return None, "none", 0
@@ -570,7 +578,7 @@ def _compile_aggregate(
         return PhysicalQuery(
             engine, shape, path, route=f"host-{path}", cost=None, ops=(),
             _launch=launch,
-            _finalize=lambda t: _combine(float(t[0]), float(t[1])),
+            _finalize=lambda t: _combine(*_pair_to_host(t)),
         )
 
     cost = plan_query(engine, shape.table, list(shape.columns), aggregate_only=True)
@@ -588,7 +596,8 @@ def _compile_aggregate(
 
         def finalize(out):
             engine.stats.bytes_to_cpu += 8  # the scalar pair crosses on sync
-            host = out.cpu()
+            with span(WAIT):
+                host = out.cpu()
             return _combine(float(host[0]), float(host[1]))
 
         return PhysicalQuery(
@@ -613,7 +622,7 @@ def _compile_aggregate(
     return PhysicalQuery(
         engine, shape, path, route=cost.path, cost=cost, ops=(ProjectOp(view),),
         _launch=launch,
-        _finalize=lambda t: _combine(float(t[0]), float(t[1])),
+        _finalize=lambda t: _combine(*_pair_to_host(t)),
     )
 
 
@@ -1094,8 +1103,10 @@ def _compile_flipped_join(
         pos, hit = _lookup_sorted(lk_sorted, rk)
         # only hits scatter: the reference's out-of-range slot (dropped by
         # its scatter) is masked out before the index_put
-        slot = slot_sorted[pos][hit].long()
-        r_proj[slot] = rv[hit]
+        with span(WAIT):  # a boolean index counts its hits on the host
+            slot = slot_sorted[pos][hit].long()
+            hits = rv[hit]
+        r_proj[slot] = hits
         matched[slot] = True
         return JoinResult(s_proj=s_vals, r_proj=r_proj, matched=matched)
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import Column, RelationalMemoryEngine, RelationalTable, TableSchema
+from repro_torch.tracing import span
 
 
 def record_schema(seq_len: int) -> TableSchema:
@@ -139,20 +140,27 @@ class TrainPipeline:
         per_epoch = n // self.batch_size
         step = start_step
         while True:
-            epoch = step // max(per_epoch, 1)
-            rng = np.random.default_rng((self.seed, epoch))
-            perm = rng.permutation(n)
-            i = step % max(per_epoch, 1)
-            pick = torch.from_numpy(perm[i * self.batch_size : (i + 1) * self.batch_size])
-            rows = live[pick.to(live.device)]
-            tok = self.store._ids_matrix(view, "tokens", rows)
-            lab = self.store._ids_matrix(view, "labels", rows)
-            batch = {"tokens": tok, "labels": lab}
-            if self.with_weights:
-                off, _ = view.column_words("weight")
-                batch["weights"] = view.packed().index_select(0, rows)[:, off].view(torch.float32)
+            with span("rm::data.batch"):
+                batch = self._batch(view, live, step, per_epoch)
             yield batch
             step += 1
+
+    def _batch(self, view, live: torch.Tensor, step: int, per_epoch: int) -> dict:
+        """Step ``step``'s batch: its rows of the epoch's permutation of the
+        ``live`` rows, gathered from the packed ``view``."""
+        epoch = step // max(per_epoch, 1)
+        rng = np.random.default_rng((self.seed, epoch))
+        perm = rng.permutation(live.shape[0])
+        i = step % max(per_epoch, 1)
+        pick = torch.from_numpy(perm[i * self.batch_size : (i + 1) * self.batch_size])
+        rows = live[pick.to(live.device)]
+        tok = self.store._ids_matrix(view, "tokens", rows)
+        lab = self.store._ids_matrix(view, "labels", rows)
+        batch = {"tokens": tok, "labels": lab}
+        if self.with_weights:
+            off, _ = view.column_words("weight")
+            batch["weights"] = view.packed().index_select(0, rows)[:, off].view(torch.float32)
+        return batch
 
 
 def synthetic_corpus(

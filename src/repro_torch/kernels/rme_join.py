@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.tracing import WAIT, span
+
 from . import _cuda
 from .common import resolve_device
 
@@ -137,7 +139,8 @@ def partitions_from_numpy(keys: np.ndarray, vals: np.ndarray,
     if p < 2 or p & (p - 1):
         raise ValueError(f"the bucket count must be a power of two >= 2, got {p}")
     dev = resolve_device(device)
-    return JoinPartitions(*(torch.from_numpy(a).to(dev) for a in arrs))
+    with span(WAIT):  # copies from pageable memory wait for the stream
+        return JoinPartitions(*(torch.from_numpy(a).to(dev) for a in arrs))
 
 
 def build_partitions(

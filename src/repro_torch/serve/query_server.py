@@ -152,6 +152,7 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.requests import ProjectOp
 from repro_torch.core.table import RelationalTable
+from repro_torch.tracing import span
 
 LANES = ("express", "bulk")
 
@@ -975,7 +976,8 @@ class QueryServer:
                 )
                 if snapshot_ts is not None:
                     base = dataclasses.replace(base, snapshot_ts=snapshot_ts)
-                pq = compile_plan(req.node, self.engine, options=base)
+                with span("rm::planner.compile_plan"):
+                    pq = compile_plan(req.node, self.engine, options=base)
                 sig = self._plan_sig(req, pq)
                 if sig is not None and sig in self._poisoned:
                     compiled.append(None)
@@ -1137,6 +1139,11 @@ class QueryServer:
         batch = self._drain_batch()
         if not batch:
             return None
+        with span("rm::serve.tick"):
+            return self._begin(batch)
+
+    def _begin(self, batch: list[_Admitted]) -> _InflightTick:
+        """:meth:`begin_tick`'s work on a drained batch that is not empty."""
         self.stats.ticks += 1
         if self._open_ticks > 0:
             self.stats.ticks_overlapped += 1
@@ -1158,12 +1165,15 @@ class QueryServer:
         # here, bulk's (typically much larger) host transfers wait for
         # finish_tick.
         reads = express + bulk
-        compiled = self._compile_reads(reads)
-        tokens = self._launch_reads(reads, compiled)
+        with span("rm::serve.compile"):
+            compiled = self._compile_reads(reads)
+        with span("rm::serve.launch"):
+            tokens = self._launch_reads(reads, compiled)
         tick = _InflightTick(processed=len(batch))
         if tokens is not None:
             n = len(express)
-            self._finalize_reads(reads[:n], compiled[:n], tokens[:n])
+            with span("rm::serve.finalize"):
+                self._finalize_reads(reads[:n], compiled[:n], tokens[:n])
             if bulk:
                 tick.reads = reads[n:]
                 tick.compiled = compiled[n:]
@@ -1182,15 +1192,17 @@ class QueryServer:
         tick.finished = True
         self._open_ticks -= 1
         if tick.reads:
-            # sweep deadlines BEFORE any O(rows) bulk transfer: a ticket
-            # that expired while its pass was in flight is resolved typed
-            # here and its finalize/transfer work is skipped entirely —
-            # the result is dropped, not pulled then discarded
-            for i, req in enumerate(tick.reads):
-                if (tick.compiled[i] is not None
-                        and self._expire(req, "finish_tick")):
-                    tick.compiled[i] = None
-            self._finalize_reads(tick.reads, tick.compiled, tick.tokens)
+            with span("rm::serve.finish"):
+                # sweep deadlines BEFORE any O(rows) bulk transfer: a ticket
+                # that expired while its pass was in flight is resolved typed
+                # here and its finalize/transfer work is skipped entirely —
+                # the result is dropped, not pulled then discarded
+                for i, req in enumerate(tick.reads):
+                    if (tick.compiled[i] is not None
+                            and self._expire(req, "finish_tick")):
+                        tick.compiled[i] = None
+                with span("rm::serve.finalize"):
+                    self._finalize_reads(tick.reads, tick.compiled, tick.tokens)
         return tick.processed
 
     def run_tick(self) -> int:

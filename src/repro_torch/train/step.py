@@ -23,6 +23,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.distributed.partitioning import logical_spec, params_partition_specs
+from repro_torch.tracing import span
 
 from .optimizer import AdamWConfig, adamw_init, adamw_update, opt_state_specs
 
@@ -81,15 +82,19 @@ def loss_and_grads(model, params: dict, mbs: list[dict]) -> tuple:
     hooks = _accumulate(params, acc)
     try:
         if len(mbs) == 1:
-            loss, metrics = model.loss(params, mbs[0])
-            loss.backward()
+            with span("rm::train.forward"):
+                loss, metrics = model.loss(params, mbs[0])
+            with span("rm::train.backward"):
+                loss.backward()
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
             loss, metrics = 0.0, {}
             for mb in mbs:
-                micro, _ = model.loss(params, mb)
-                micro.backward()
+                with span("rm::train.forward"):
+                    micro, _ = model.loss(params, mb)
+                with span("rm::train.backward"):
+                    micro.backward()
                 loss = loss + micro.detach()
             loss = loss / len(mbs)
     finally:
@@ -117,7 +122,8 @@ def make_train_step(
         loss, metrics, grads = loss_and_grads(model, params, microbatches(batch, grad_accum))
         if grad_dtype is not None:
             grads = {k: g.to(getattr(torch, grad_dtype)) for k, g in grads.items()}
-        params, opt, opt_metrics = adamw_update(params, grads, opt, opt_cfg)
+        with span("rm::train.update"):
+            params, opt, opt_metrics = adamw_update(params, grads, opt, opt_cfg)
         return {"params": params, "opt": opt}, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
