@@ -59,6 +59,7 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import rme_scan_multi as KR
+from repro_torch.kernels._cuda import device_map
 from repro_torch.tracing import WAIT, span
 
 from . import faults
@@ -898,21 +899,19 @@ class RelationalMemoryEngine:
                 word_out[off // WORD + j] = len(word_out)
         packed, mask = (out if isinstance(covering, KR.FilterRequest)
                         else (out, None))
-        idx = torch.tensor([word_out[w] for w in _geom_words(covered.geom)],
-                           dtype=torch.long)
-        with span(WAIT):  # a copy from pageable memory waits for the stream
-            idx = idx.to(packed.device)
+        # the index and the constant are kept on the device (device_map): a
+        # first upload does not wait for the stream, a repeated one is none
+        idx = device_map([word_out[w] for w in _geom_words(covered.geom)],
+                         packed.device)
         sliced = packed.index_select(1, idx)
         if isinstance(covered, KR.ProjectRequest):
             return sliced
         if covered.pred_op != "none":
             vals = common.decode(packed[:, word_out[covered.pred_word]],
                                  covered.pred_dtype)
-            k_bits = torch.tensor(
-                common.pred_k_bits(covered.pred_k, covered.pred_dtype),
-                dtype=torch.int32)
-            with span(WAIT):
-                k_bits = k_bits.to(packed.device)
+            k_bits = device_map(
+                [common.pred_k_bits(covered.pred_k, covered.pred_dtype)],
+                packed.device)
             k = common.decode(k_bits, covered.pred_dtype)
             m = vals > k if covered.pred_op == "gt" else vals < k
         else:

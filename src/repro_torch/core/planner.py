@@ -428,6 +428,8 @@ class PhysicalQuery:
       blocks on the host.
     * ``finalize(token)`` — produce the user-facing result; the only step
       allowed to pull scalars to the host.
+    * ``ready(token)`` — whether ``finalize(token)`` would return without
+      waiting for the card.
 
     A query compiled with ``stream=True`` carries ``stream``, a
     zero-argument callable returning the chunk iterator of
@@ -493,6 +495,12 @@ class PhysicalQuery:
     def finalize(self, token: Any) -> Any:
         return self._finalize(token)
 
+    def ready(self, token: Any) -> bool:
+        """False only while a fused aggregate's pair is still on its way to
+        the host; every other token finalizes without waiting for the card
+        (or waits as it always has)."""
+        return not isinstance(token, _PendingPair) or token.done.query()
+
     def run(self) -> Any:
         if self.stream is not None:
             parts = list(self.stream())
@@ -506,6 +514,15 @@ class PhysicalQuery:
             return torch.cat(parts, 0)
         results = self.engine.execute_many(list(self.ops)) if self.ops else []
         return self._finalize(self._launch(results))
+
+
+@dataclasses.dataclass(frozen=True)
+class _PendingPair:
+    """A fused aggregate's ``(sum, count)`` pair being copied to page-locked
+    host memory behind its pass; ``done`` is recorded after the copy."""
+
+    host: torch.Tensor
+    done: Any  # torch.cuda.Event
 
 
 def _pair_to_host(t) -> tuple[float, float]:
@@ -594,15 +611,32 @@ def _compile_aggregate(
                          pred_op=pred_op, pred_k=pred_k,
                          snapshot_ts=snapshot_ts)
 
+        def launch(results):
+            out = results[0]
+            if not (isinstance(out, torch.Tensor) and out.is_cuda
+                    and engine.backend == "single"):
+                return out
+            # the pair's copy is enqueued behind its pass, so finalize waits
+            # for that pass alone and not for whatever is enqueued after it
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(out.device))
+            return _PendingPair(host, done)
+
         def finalize(out):
             engine.stats.bytes_to_cpu += 8  # the scalar pair crosses on sync
             with span(WAIT):
-                host = out.cpu()
+                if isinstance(out, _PendingPair):
+                    out.done.synchronize()
+                    host = out.host
+                else:
+                    host = out.cpu()
             return _combine(float(host[0]), float(host[1]))
 
         return PhysicalQuery(
             engine, shape, path, route="fused-aggregate", cost=cost, ops=(op,),
-            _launch=lambda results: results[0], _finalize=finalize,
+            _launch=launch, _finalize=finalize,
         )
 
     # hot / rme / row routes reduce a materialized (or sliced) column group

@@ -379,6 +379,7 @@ class ServerStats:
     failed: int = 0
     ticks: int = 0
     ticks_overlapped: int = 0  # begin_tick entered with a pass still in flight
+    express_deferred: int = 0  # express reads begin_tick left to finish_tick
     max_queue_depth: int = 0
     table_groups: int = 0  # cold same-table view groups across all ticks
     table_groups_shared: int = 0  # of those, served by a multi-view shared scan
@@ -448,16 +449,19 @@ class _Admitted:
 
 @dataclasses.dataclass
 class _InflightTick:
-    """begin_tick's handle on a tick whose bulk pass is still on the device.
+    """begin_tick's handle on a tick whose pass may still be on the device.
 
-    ``processed`` counts everything the tick already settled (writes, express
-    tickets, expired/failed admissions); ``reads``/``compiled``/``tokens``
-    are the launched bulk queries awaiting ``finish_tick``."""
+    ``processed`` counts every request of the tick's batch (writes, reads,
+    expired/failed admissions); ``reads``/``compiled``/``tokens`` are the
+    launched queries awaiting ``finish_tick``: first the ``deferred`` express
+    reads whose answer was still on its way to the host, then the bulk
+    reads."""
 
     processed: int
     reads: list[_Admitted] = dataclasses.field(default_factory=list)
     compiled: list[PhysicalQuery | None] = dataclasses.field(default_factory=list)
     tokens: list[Any] = dataclasses.field(default_factory=list)
+    deferred: int = 0
     finished: bool = False
 
 
@@ -1126,15 +1130,17 @@ class QueryServer:
     def begin_tick(self) -> _InflightTick | None:
         """The non-blocking half of a tick: drain one batch, apply its
         writes, *enqueue* the tick's shared pass (compile +
-        ``execute_many_async`` + per-query launch — no host syncs for the
-        bulk lane), and serve the express lane to completion.  Returns the
-        in-flight handle for :meth:`finish_tick`, or ``None`` if nothing
-        was queued.
+        ``execute_many_async`` + per-query launch), and serve every express
+        read whose answer is ready (``PhysicalQuery.ready``) without waiting
+        for the card.  Returns the in-flight handle for :meth:`finish_tick`,
+        or ``None`` if nothing was queued.
 
-        Express reads are finalized here: their results are scalar-sized,
-        so pulling them is O(1) host work, and serving them ahead of the
-        bulk lane's O(rows) transfers is what keeps a point read's latency
-        independent of how much analytics traffic shares the tick.
+        An express read's result is scalar-sized, so pulling it is O(1) host
+        work.  Where it lives on the host or the engine's CPU it is served
+        here; a sum still on its way from the card settles in
+        :meth:`finish_tick` of its own tick, ahead of every bulk read, so
+        this half never blocks on the pass it just enqueued (or on the one
+        before it): host work done while a pass is in flight overlaps it.
         """
         batch = self._drain_batch()
         if not batch:
@@ -1162,7 +1168,8 @@ class QueryServer:
         # into a single shared pass per table regardless of lane (the
         # one-pass invariant the engine tests pin down).  Lanes differ in
         # *finalize order*, not in scan count — express results are pulled
-        # here, bulk's (typically much larger) host transfers wait for
+        # here (or first in finish_tick, where still on their way from the
+        # card), bulk's (typically much larger) host transfers wait for
         # finish_tick.
         reads = express + bulk
         with span("rm::serve.compile"):
@@ -1171,20 +1178,26 @@ class QueryServer:
             tokens = self._launch_reads(reads, compiled)
         tick = _InflightTick(processed=len(batch))
         if tokens is not None:
-            n = len(express)
+            now = [i for i in range(len(express))
+                   if compiled[i] is None or compiled[i].ready(tokens[i])]
             with span("rm::serve.finalize"):
-                self._finalize_reads(reads[:n], compiled[:n], tokens[:n])
-            if bulk:
-                tick.reads = reads[n:]
-                tick.compiled = compiled[n:]
-                tick.tokens = tokens[n:]
+                self._finalize_reads([reads[i] for i in now],
+                                     [compiled[i] for i in now],
+                                     [tokens[i] for i in now])
+            later = sorted(set(range(len(reads))) - set(now))
+            tick.reads = [reads[i] for i in later]
+            tick.compiled = [compiled[i] for i in later]
+            tick.tokens = [tokens[i] for i in later]
+            tick.deferred = len(later) - len(bulk)
+            self.stats.express_deferred += tick.deferred
         self._open_ticks += 1
         return tick
 
     def finish_tick(self, tick: _InflightTick | None) -> int:
-        """The blocking half: finalize the tick's bulk pass and resolve its
-        tickets (streamed queries push their chunks here).  Returns the
-        number of requests the tick processed; idempotent per tick."""
+        """The blocking half: settle the tick's deferred express reads, then
+        finalize its bulk pass and resolve its tickets (streamed queries
+        push their chunks here).  Returns the number of requests the tick
+        processed; idempotent per tick."""
         if tick is None:
             return 0
         if tick.finished:
@@ -1193,17 +1206,26 @@ class QueryServer:
         self._open_ticks -= 1
         if tick.reads:
             with span("rm::serve.finish"):
-                # sweep deadlines BEFORE any O(rows) bulk transfer: a ticket
-                # that expired while its pass was in flight is resolved typed
-                # here and its finalize/transfer work is skipped entirely —
-                # the result is dropped, not pulled then discarded
-                for i, req in enumerate(tick.reads):
-                    if (tick.compiled[i] is not None
-                            and self._expire(req, "finish_tick")):
-                        tick.compiled[i] = None
-                with span("rm::serve.finalize"):
-                    self._finalize_reads(tick.reads, tick.compiled, tick.tokens)
+                d = tick.deferred
+                for i in range(d):  # each waits for this tick's pass alone
+                    with span("rm::serve.settle"):
+                        self._settle(tick, slice(i, i + 1))
+                if d < len(tick.reads):
+                    with span("rm::serve.finalize"):
+                        self._settle(tick, slice(d, None))
         return tick.processed
+
+    def _settle(self, tick: _InflightTick, part: slice) -> None:
+        """Resolve ``tick.reads[part]``.  Deadlines are swept BEFORE any
+        O(rows) bulk transfer: a ticket that expired while its pass was in
+        flight is resolved typed here and its finalize/transfer work is
+        skipped entirely — the result is dropped, not pulled then
+        discarded."""
+        reads, compiled = tick.reads[part], tick.compiled[part]
+        for i, req in enumerate(reads):
+            if compiled[i] is not None and self._expire(req, "finish_tick"):
+                compiled[i] = None
+        self._finalize_reads(reads, compiled, tick.tokens[part])
 
     def run_tick(self) -> int:
         """Serve one batch start-to-finish: drain ≤ ``max_batch`` requests,
@@ -1322,6 +1344,7 @@ class QueryServer:
             "failed": self.stats.failed,
             "ticks": self.stats.ticks,
             "ticks_overlapped": self.stats.ticks_overlapped,
+            "express_deferred": self.stats.express_deferred,
             "max_queue_depth": self.stats.max_queue_depth,
             "shared_scan_ratio": self.stats.shared_scan_ratio,
             "bytes_saved": self.stats.bytes_saved,

@@ -433,6 +433,47 @@ def test_partition_builders_default_to_the_card(dev):
         assert all(t.device == want for t in parts)
 
 
+def test_begin_tick_returns_while_its_pass_runs(dev):
+    """``begin_tick`` enqueues the tick's fused pass and leaves the express
+    sum to ``finish_tick``: on a table whose pass takes over a millisecond
+    (2^25 rows, a sum beside a projection of 11 columns) it returns while
+    the stream is still busy, and the sum ``finish_tick`` settles equals the
+    plain reference exactly (int64 on the card; values in [-100, 100],
+    drawn around 0, keep every float32 partial below 2^24 and so exact)."""
+    from repro_torch.core import benchmark_schema, plan
+    from repro_torch.core.table import TS_INF
+    from repro_torch.serve import QueryServer
+
+    n = 1 << 25
+    schema = benchmark_schema(64, 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    words = torch.empty((n, schema.row_words + 2), dtype=torch.int32, device=dev)
+    words[:, :schema.row_words] = torch.randint(-100, 101, (n, schema.row_words),
+                                                generator=gen, device=dev, dtype=torch.int32)
+    words[:, schema.row_words] = 1
+    words[:, schema.row_words + 1] = TS_INF
+    want = int(words[:, 0].long().sum())
+    assert abs(want) < 1 << 24
+    t = RelationalTable.from_state({
+        "columns": [(c.name, c.dtype, c.width, c.codec) for c in schema.columns],
+        "words": words.cpu().numpy(), "clock": 1})
+    server = QueryServer(RelationalMemoryEngine(device=dev), snapshot_reads=True)
+    names = [c.name for c in schema.columns][:11]  # a view's most columns
+    for _ in range(2):  # the first tick uploads the table and builds the kernels
+        total = server.submit(plan(t).sum(names[0]))
+        packed = server.submit(plan(t).project(*names))
+        torch.cuda.synchronize(dev)
+        tick = server.begin_tick()
+        busy = not torch.cuda.current_stream(dev).query()
+        pending = not total.done()
+        server.finish_tick(tick)
+    assert busy and pending and tick.deferred == 1
+    assert total.result(timeout=0) == float(want)
+    rows, mask = packed.result(timeout=0)
+    assert bool(mask.all()) and torch.equal(rows, words[:, :11])
+    assert server.stats.express_deferred == 2
+
+
 def test_query_server_tick_launches_the_probe(dev):
     """A solo join probes the row-store chunks, a join in a written table's
     tick probes the shared pass's packed block; both launch the kernel and

@@ -13,6 +13,7 @@ included.
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,7 +25,10 @@ import repro.serve as JS  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 import repro_torch.serve as TS  # noqa: E402
 from repro.core import planner as JP  # noqa: E402
+from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core import planner as TP  # noqa: E402
+from repro_torch.kernels import _cuda  # noqa: E402
+from repro_torch.serve import query_server as TQS  # noqa: E402
 from test_torch_planner import assert_same, assert_stats, port  # noqa: E402
 
 N_S, N_R = 400, 64
@@ -66,6 +70,9 @@ class Rig:
             self.te = T.ShardedEngine(num_shards=num_shards, device="cpu")
         self.servers = {J: JS.QueryServer(self.je, **server_kw),
                         T: TS.QueryServer(self.te, **server_kw)}
+        # express reads the port left to finish_tick (a counter the reference
+        # lacks): none on the CPU, where every answer is ready at begin_tick
+        self.deferred = 0
 
     def both(self, fn):
         """``fn(pkg, server, S, R)`` on both sides; returns (jax, port)."""
@@ -87,8 +94,9 @@ class Rig:
     def check_stats(self):
         assert_stats(self.je, self.te)
         js, ts = (server_counts(self.servers[pkg]) for pkg in (J, T))
-        assert js == ts
         jsnap, tsnap = (self.servers[pkg].snapshot() for pkg in (J, T))
+        assert ts.pop("express_deferred") == tsnap.pop("express_deferred") == self.deferred
+        assert js == ts
         assert set(tsnap) <= set(jsnap)
         assert not {k for k in set(jsnap) - set(tsnap) if not k.startswith("breaker")}
         diff = {k: (jsnap[k], tsnap[k]) for k in tsnap
@@ -391,3 +399,117 @@ def test_unported_options_raise_with_their_roadmap_item():
             TS.QueryServer()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TS.QueryServer(num_shards=2)
+
+
+# ------------------------------------- express sums settled in finish_tick
+@pytest.fixture
+def deferring(monkeypatch):
+    """The port's tokens report not ready at ``begin_tick``, as an express
+    sum's does on the card while its pass runs.  Returns the port's tickets
+    in the order they resolve."""
+    monkeypatch.setattr(TP.PhysicalQuery, "ready", lambda self, token: False)
+    resolved, real = [], TQS.QueryTicket._resolve
+
+    def _resolve(ticket, *args, **kw):
+        resolved.append(ticket)
+        return real(ticket, *args, **kw)
+
+    monkeypatch.setattr(TQS.QueryTicket, "_resolve", _resolve)
+    return resolved
+
+
+@pytest.mark.parametrize("mode", ["run_tick", "drain", "start"])
+def test_deferred_express_reads_settle_first_in_their_ticks_finish(deferring, mode):
+    """Express reads left to ``finish_tick`` settle there, before the tick's
+    bulk reads, with the reference's answers under the serial tick, the
+    pipelined ``drain()`` and the background loop; ``express_deferred``
+    counts them."""
+    rig = Rig()
+
+    def script(pkg, srv, s, r):
+        srv.submit_insert(r, cols(4, 3))
+        tks = [srv.submit(pkg.plan(s).project("A1", "A3")),
+               srv.submit(pkg.plan(s).sum("A2")),
+               srv.submit(join(pkg, s, r)),
+               srv.submit(pkg.plan(s).groupby("A2", "A1", "avg", 16)),
+               srv.submit(pkg.plan(r).filter("A4", "lt", 5).sum("A1")),
+               srv.submit(pkg.plan(s).filter("A5", "gt", 10).project("A1", "A2"))]
+        if mode == "run_tick":
+            assert srv.run_tick() == 7
+        elif mode == "drain":
+            assert srv.drain() == 7
+        else:
+            with srv:
+                for tk in tks:
+                    tk.result(timeout=60)
+        return tks
+
+    tickets = rig.both(script)
+    rig.deferred = 3  # two sums and the group-by
+    rig.check(tickets)
+    reads = [tk for tk in deferring if any(tk is t for t in tickets[1])]
+    assert [tk.lane for tk in reads] == ["express"] * 3 + ["bulk"] * 3
+
+
+@pytest.mark.parametrize("case", ["express_only", "deadline_lapses"])
+def test_an_express_only_ticks_handle_settles_its_deferred_reads(deferring, case):
+    """An express-only tick returns a handle whose ``finish_tick`` settles
+    the reads ``begin_tick`` left: with their sums, or, where a deadline
+    lapsed while the pass was in flight, with ``DeadlineExceeded``."""
+    c = cols(0, N_S)
+    s = T.RelationalTable.from_columns(T.benchmark_schema(64, 4), c)
+    srv = TS.QueryServer(T.RelationalMemoryEngine(device="cpu"))
+    deadline = 0.5 if case == "deadline_lapses" else None
+    tks = [srv.submit(T.plan(s).sum("A1"), deadline_s=deadline),
+           srv.submit(T.plan(s).filter("A3", "gt", 10).sum("A2"), deadline_s=deadline)]
+    tick = srv.begin_tick()
+    assert tick.deferred == srv.stats.express_deferred == 2
+    assert not any(tk.done() for tk in tks)
+    if case == "deadline_lapses":
+        while not tks[1].expired():
+            time.sleep(0.01)
+    assert srv.finish_tick(tick) == 2
+    assert srv.finish_tick(tick) == 0
+    if case == "express_only":
+        assert tks[0].result(timeout=0) == float(c["A1"].sum())
+        assert tks[1].result(timeout=0) == float(c["A2"][c["A3"] > 10].sum())
+        assert srv.snapshot()["express_served"] == 2
+    else:
+        for tk in tks:
+            with pytest.raises(TS.DeadlineExceeded, match="finish_tick"):
+                tk.result(timeout=0)
+        assert srv.stats.lanes["express"].deadline_misses == 2
+    assert srv.snapshot()["express_deferred"] == 2
+
+
+def test_a_repeated_covered_pair_uploads_nothing(monkeypatch):
+    """A covered request's word index and predicate constant come from
+    ``device_map``: served again, the pair finds both maps kept from the
+    first time, and the answers equal an engine's that does not subsume."""
+    monkeypatch.setattr(_cuda, "_DEVICE_MAPS", {})
+    kept, real = [], TE.device_map
+
+    def device_map(words, device):
+        kept.append((device.index, tuple(words)) in _cuda._DEVICE_MAPS)
+        return real(words, device)
+
+    monkeypatch.setattr(TE, "device_map", device_map)
+    t = T.RelationalTable.from_columns(T.benchmark_schema(64, 4), cols(0, N_S))
+
+    def pair(eng):
+        return eng.execute_many([
+            T.FilterOp(eng.register(t, ["A2", "A3", "A4"]), "A4", "gt", -10),
+            T.FilterOp(eng.register(t, ["A3"]), "A4", "gt", 50)])
+
+    eng = T.RelationalMemoryEngine(device="cpu")
+    first = pair(eng)
+    assert kept == [False, False]
+    maps = dict(_cuda._DEVICE_MAPS)
+    second = pair(eng)
+    assert kept[2:] == [True, True] and eng.stats.subsumed_requests == 2
+    assert _cuda._DEVICE_MAPS.keys() == maps.keys()
+    assert all(_cuda._DEVICE_MAPS[k] is v for k, v in maps.items())
+    want = pair(T.RelationalMemoryEngine(device="cpu", subsume=False))
+    for got in (first, second):
+        for (gp, gm), (wp, wm) in zip(got, want):
+            assert torch.equal(gp, wp) and torch.equal(gm, wm)

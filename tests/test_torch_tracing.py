@@ -127,6 +127,29 @@ def test_span_counts_equal_the_servers_counters(pipeline):
     assert names(ev).count("rm::serve.finish") == 2
 
 
+def test_a_deferred_express_read_settles_inside_finish(monkeypatch):
+    """An express sum whose answer is not ready at ``begin_tick`` (as on the
+    card while its pass runs) is settled in ``finish_tick``: one
+    ``rm::serve.settle`` a deferred read, inside ``rm::serve.finish``, holds
+    its wait, and the tick holds none."""
+    monkeypatch.setattr(T.planner.PhysicalQuery, "ready", lambda self, token: False)
+    t, srv = table(), server()
+    srv.engine.device_words(t)  # the row store's upload, a wait of its own
+    total = srv.submit(plan(t).sum("A1"))
+    packed = srv.submit(plan(t).project("A1", "A3"))
+    alone = srv.submit(plan(t).filter("A2", "gt", 0).sum("A4"))
+    ev = recorded(lambda: (srv.drain(), srv.submit(plan(t).sum("A5")), srv.drain()))
+    assert total.lane == alone.lane == "express" and packed.done()
+    assert total.result(timeout=0) == pytest.approx(float(t.read_column("A1").sum()))
+    settles = [parents(e) for e in ev if e.name == "rm::serve.settle"]
+    assert settles == [["rm::serve.finish"]] * 3 and srv.stats.express_deferred == 3
+    # the express-only second tick opens finish for its deferred read
+    assert names(ev).count("rm::serve.tick") == names(ev).count("rm::serve.finish") == 2
+    waits = [parents(e) for e in ev if e.name == tracing.WAIT]
+    assert waits.count(["rm::serve.settle", "rm::serve.finish"]) == 3
+    assert not [w for w in waits if "rm::serve.tick" in w]
+
+
 def test_the_engines_blocking_members_are_waits():
     t = table()
     eng = T.RelationalMemoryEngine(device="cpu")
